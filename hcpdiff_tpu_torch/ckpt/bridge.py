@@ -1,0 +1,55 @@
+"""Weights bridge: the JAX package's param trees -> the port's state dicts.
+
+The port names its modules after the JAX tree's paths, so a param tree
+(nested dicts of numpy arrays, as ``jax.device_get(params)`` gives them)
+becomes a state dict by joining the path with dots and converting each leaf:
+
+- conv ``kernel`` HWIO -> ``weight`` OIHW;
+- dense ``kernel`` [in, out] -> ``weight`` [out, in] (the GEGLU ``proj``
+  keeps its [value | gate] halves, which become row halves);
+- norm ``scale`` -> ``weight``; ``bias`` and embedding tables as they are.
+
+One function serves the UNet, the VAE and CLIP; ``load_params`` loads the
+result strictly, so a missing or unexpected name raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _leaf(name: str, value: np.ndarray):
+    if name == 'kernel':
+        if value.ndim == 4:
+            return 'weight', value.transpose(3, 2, 0, 1)
+        if value.ndim == 2:
+            return 'weight', value.T
+        raise ValueError(f'unexpected {value.ndim}-d kernel')
+    if name == 'scale':
+        return 'weight', value
+    return name, value
+
+
+def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flatten and convert a JAX param tree into a torch state dict."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping, prefix: str):
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, f'{prefix}{key}.')
+            else:
+                name, arr = _leaf(key, np.asarray(value, dtype=np.float32))
+                out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk(params, '')
+    return out
+
+
+def load_params(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a JAX param tree into ``module`` (strict) and return it."""
+    module.load_state_dict(state_dict_from_params(params), strict=True)
+    return module

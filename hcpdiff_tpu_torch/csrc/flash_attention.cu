@@ -1,0 +1,244 @@
+// Kernel A: attention forward, O = softmax(Q K^T * scale) V, on bf16
+// [B, H, S, D] tensors given by strides, fp32 softmax state.
+//
+// Replaces hcpdiff_tpu/ops/flash_attention.py:_flash_kernel_tq (:379, via
+// _flash_forward_tq :460; the UNet's D=40/80 self-attention) and
+// _flash_kernel_stream (:226, via _flash_forward_stream :325; the VAE's
+// D=512 mid-block attention). One kernel serves both: the TPU's transposed
+// layout only fixed lane padding, and its K/V streaming is what every
+// block here does anyway.
+//
+// What bounds it on the H100: at S=4096 the [S, S] logits would be 64 MB
+// per head in fp32, so materialising them makes attention memory-bound;
+// kept on chip, QK^T and PV are 4*S*S*D FLOPs over 4*S*D*2 bytes, far
+// above the ridge, so the tensor cores and the softmax's exp bound it.
+// The design streams K/V tiles through shared memory with an online
+// softmax (running max m, running sum l, fp32 accumulator), as in
+// FlashAttention-2: each warp owns 16 query rows, S and P stay in
+// registers, and P feeds the PV product straight from the S accumulator
+// fragments. The TPU kernel's no-max softmax (clamped at NOMAX_CLAMP) is
+// not copied: the running max is exact for any logit range.
+//
+// Head dims: D is padded to DP (a multiple of 16) inside the shared tiles
+// with zeros, which leaves QK^T unchanged; output columns >= D are never
+// stored. D=512 would need a 16x512 fp32 accumulator per warp (256
+// registers a thread), so the output dims are split into chunks of DVC
+// over grid.z; each chunk recomputes QK^T (the VAE calls this once per
+// image, so the repeat costs little next to the UNet).
+//
+// Simple first version: mma.sync m16n8k16, 64 query rows x 64 keys per
+// step, K and V single-buffered, V transposed into shared memory by the
+// loading threads (no ldmatrix.trans, no wgmma/TMA).
+#include <math.h>
+
+#include "common.cuh"
+
+namespace hcp {
+namespace {
+
+constexpr int BQ = 64;           // query rows per block (4 warps x 16)
+constexpr int BKV = 64;          // keys per step
+constexpr int THREADS = 128;
+constexpr int LDV = BKV + 8;     // padded row of the transposed V tile
+
+template <int DP, int DVC>
+constexpr int smem_bytes() {
+    return ((BQ + BKV) * (DP + 8) + DVC * LDV) * 2;
+}
+
+template <int DP, int DVC>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq, int Sk,
+                 int D, long long qsb, long long qsh, long long qss, long long ksb,
+                 long long ksh, long long kss, long long vsb, long long vsh, long long vss,
+                 long long osb, long long osh, long long oss, float scale_log2) {
+    constexpr int LDQ = DP + 8;
+    constexpr int NDT = DVC / 8;     // output n-tiles per warp
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+    bf16* sK = sQ + BQ * LDQ;
+    bf16* sVt = sK + BKV * LDQ;      // [DVC][LDV]: V tile transposed, d-major
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int b = blockIdx.y / H, h = blockIdx.y % H;
+    const int q0 = blockIdx.x * BQ;
+    const int dc0 = blockIdx.z * DVC;
+    const bf16* qb = q + b * qsb + h * qsh;
+    const bf16* kb = k + b * ksb + h * ksh;
+    const bf16* vb = v + b * vsb + h * vsh;
+    bf16* ob = o + b * osb + h * osh;
+
+    for (int c = tid; c < BQ * (DP / 8); c += THREADS) {
+        int r = c / (DP / 8), d = (c % (DP / 8)) * 8;
+        bool ok = q0 + r < Sq && d < D;
+        cp_async16(sQ + r * LDQ + d, ok ? qb + (q0 + r) * qss + d : q, ok);
+    }
+    cp_async_commit();
+
+    float m_i[2] = {-1e30f, -1e30f};  // running max (log2 units) of rows g, g+8
+    float l_i[2] = {0.f, 0.f};        // this thread's share of the running sums
+    float acc[NDT][4];
+#pragma unroll
+    for (int j = 0; j < NDT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    const int nkt = (Sk + BKV - 1) / BKV;
+    for (int kt = 0; kt < nkt; ++kt) {
+        const int k0 = kt * BKV;
+        __syncthreads();             // previous tile fully consumed
+        for (int c = tid; c < BKV * (DP / 8); c += THREADS) {
+            int r = c / (DP / 8), d = (c % (DP / 8)) * 8;
+            bool ok = k0 + r < Sk && d < D;
+            cp_async16(sK + r * LDQ + d, ok ? kb + (k0 + r) * kss + d : k, ok);
+        }
+        cp_async_commit();
+        for (int c = tid; c < BKV * (DVC / 8); c += THREADS) {
+            int r = c / (DVC / 8), dd = (c % (DVC / 8)) * 8;
+            int d = dc0 + dd;
+            uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+            if (k0 + r < Sk && d < D)
+                raw = *reinterpret_cast<const uint4*>(vb + (k0 + r) * vss + d);
+            const bf16* e8 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) sVt[(dd + i) * LDV + r] = e8[i];
+        }
+        cp_async_wait<0>();
+        __syncthreads();
+
+        // S = Q K^T for this warp's 16 rows x 64 keys.
+        float s[8][4];
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DP; kk += 16) {
+            uint32_t af[4];
+            load_a(af, sQ, LDQ, warp * 16, kk, g, t);
+#pragma unroll
+            for (int ni = 0; ni < 8; ++ni) {
+                uint32_t bfr[2];
+                load_b(bfr, sK, LDQ, ni * 8, kk, g, t);
+                mma_16816(s[ni], af, bfr);
+            }
+        }
+
+        // Online softmax in base 2. Elements e=0,1 belong to row g, e=2,3
+        // to row g+8; the four threads t=0..3 of a group share each row.
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                int key = k0 + ni * 8 + 2 * t + (e & 1);
+                float val = key < Sk ? s[ni][e] * scale_log2 : -INFINITY;
+                s[ni][e] = val;
+                mx[e >> 1] = fmaxf(mx[e >> 1], val);
+            }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            float m_new = fmaxf(m_i[r], mx[r]);
+            alpha[r] = exp2f(m_i[r] - m_new);
+            m_i[r] = m_new;
+            l_i[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float p = exp2f(s[ni][e] - m_i[e >> 1]);
+                s[ni][e] = p;
+                l_i[e >> 1] += p;
+            }
+#pragma unroll
+        for (int j = 0; j < NDT; ++j) {
+            acc[j][0] *= alpha[0];
+            acc[j][1] *= alpha[0];
+            acc[j][2] *= alpha[1];
+            acc[j][3] *= alpha[1];
+        }
+
+        // O += P V: the S fragments of n-tiles 2j, 2j+1 are exactly the A
+        // fragment of keys [16j, 16j+16).
+#pragma unroll
+        for (int j = 0; j < BKV / 16; ++j) {
+            uint32_t pa[4];
+            pa[0] = pack_bf16x2(s[2 * j][0], s[2 * j][1]);
+            pa[1] = pack_bf16x2(s[2 * j][2], s[2 * j][3]);
+            pa[2] = pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]);
+            pa[3] = pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+            for (int nd = 0; nd < NDT; ++nd) {
+                uint32_t bv[2];
+                load_b(bv, sVt, LDV, nd * 8, j * 16, g, t);
+                mma_16816(acc[nd], pa, bv);
+            }
+        }
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float l = l_i[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        inv[r] = 1.f / l;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        int row = q0 + warp * 16 + g + r * 8;
+        if (row >= Sq) continue;
+#pragma unroll
+        for (int nd = 0; nd < NDT; ++nd) {
+            int d = dc0 + nd * 8 + 2 * t;
+            if (d < D)
+                store_bf16x2(ob + row * oss + d, acc[nd][2 * r] * inv[r],
+                             acc[nd][2 * r + 1] * inv[r]);
+        }
+    }
+}
+
+template <int DP, int DVC>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+           int Sk, int D, const long long* st, float scale_log2, cudaStream_t s) {
+    constexpr int smem = smem_bytes<DP, DVC>();
+    auto kern = flash_fwd_kernel<DP, DVC>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((Sq + BQ - 1) / BQ, B * H, (DP + DVC - 1) / DVC);
+    kern<<<grid, THREADS, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+        st[7], st[8], st[9], st[10], st[11], scale_log2);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace hcp
+
+// q [B,H,Sq,D], k/v [B,H,Sk,D], o [B,H,Sq,D], all bf16 with unit stride on
+// D; `strides` holds (batch, head, seq) strides in elements for q, k, v, o
+// (12 values). D % 8 == 0 and 16-byte aligned rows. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D.
+extern "C" int hcp_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   int B, int H, int Sq, int Sk, int D,
+                                   const long long* strides, float scale, void* stream) {
+    using namespace hcp;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float scale_log2 = scale * 1.4426950408889634f;
+    const int dp = (D + 15) / 16 * 16;
+    switch (dp) {
+        case 48: return launch<48, 48>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
+        case 80: return launch<80, 80>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
+        case 160: return launch<160, 80>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
+        case 512: return launch<512, 128>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}

@@ -1,0 +1,121 @@
+"""CLIP text encoder in PyTorch (counterpart of ``hcpdiff_tpu/models/clip.py``).
+
+Module and parameter names are the JAX tree's (``layers_0.self_attn.q_proj``,
+``token_embedding`` ...). The causal self-attention over 77 tokens runs the
+plain attention path, as XLA ran it for the JAX model.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..ops.attention import attention
+from .layers import ACT
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 77
+    hidden_act: str = 'quick_gelu'
+    layer_norm_eps: float = 1e-5
+    eos_token_id: int = 49407
+    bos_token_id: int = 49406
+
+    @classmethod
+    def sd15(cls) -> 'CLIPTextConfig':
+        return cls()
+
+    @classmethod
+    def tiny(cls, **kw) -> 'CLIPTextConfig':
+        base = dict(vocab_size=1000, hidden_size=32, intermediate_size=64,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    max_position_embeddings=77, eos_token_id=999, bos_token_id=998)
+        base.update(kw)
+        return cls(**base)
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.heads = cfg.num_attention_heads
+        d = cfg.hidden_size
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, S, C = x.shape
+        h = self.heads
+
+        def split(y):
+            return y.view(B, S, h, C // h).transpose(1, 2)
+
+        o = attention(split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x)),
+                      causal=True)
+        return self.out_proj(o.transpose(1, 2).reshape(B, S, C))
+
+
+class CLIPLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.act = ACT[cfg.hidden_act]
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.self_attn = CLIPAttention(cfg)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x))
+        return x + self.fc2(self.act(self.fc1(self.layer_norm2(x))))
+
+
+class CLIPTextModel(nn.Module):
+    """``forward`` returns (last_hidden, pooled, all_hidden_states tuple).
+
+    ``embedding_multiplier``: optional [B, S] per-token scale (word attention
+    weighting); the scaled rows are renormalised to keep the sequence's mean
+    absolute value, as the JAX model does.
+    """
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.cfg = c = cfg
+        self.token_embedding = nn.Parameter(torch.zeros(c.vocab_size, c.hidden_size))
+        self.position_embedding = nn.Parameter(
+            torch.zeros(c.max_position_embeddings, c.hidden_size))
+        for i in range(c.num_hidden_layers):
+            setattr(self, f'layers_{i}', CLIPLayer(c))
+        self.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor,
+                embedding_multiplier: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
+        c = self.cfg
+        B, S = input_ids.shape
+        x = self.token_embedding[input_ids.clamp(0, c.vocab_size - 1)].float()
+        if embedding_multiplier is not None:
+            mean_pre = x.abs().mean(dim=(1, 2), keepdim=True)
+            x = x * embedding_multiplier[..., None].float()
+            mean_post = x.abs().mean(dim=(1, 2), keepdim=True)
+            x = x * (mean_pre / mean_post.clamp_min(1e-9))
+        x = (x + self.position_embedding[:S].float()).to(self.token_embedding.dtype)
+
+        hidden_states = [x]
+        for i in range(c.num_hidden_layers):
+            x = getattr(self, f'layers_{i}')(x)
+            hidden_states.append(x)
+        last = self.final_layer_norm(x)
+
+        eos_pos = (input_ids == c.eos_token_id).int().argmax(dim=-1)
+        pooled = last[torch.arange(B, device=last.device), eos_pos]
+        return last, pooled, tuple(hidden_states)

@@ -1,0 +1,277 @@
+"""UNet2DCondition for SD1.5 in PyTorch (counterpart of
+``hcpdiff_tpu/models/unet.py``).
+
+Module and parameter names are the JAX tree's paths (``down_0_res_0.norm1``,
+``down_0_attn_0.transformer_blocks_0.attn1.to_q`` ...), so the weight bridge
+(``ckpt/bridge.py``) is a rename plus transposes. ``forward`` takes and
+returns NHWC, as the JAX model does; inside, activations are NCHW in
+``torch.channels_last`` memory format. Every GroupNorm runs kernel D, the
+self-attention of the two finest levels kernel A, and every feed-forward
+kernels B and C (as ``_pallas_ff`` routes it on the TPU); convolutions and
+the other projections are plain torch ops, as XLA ran them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.attention import attention
+from ..ops.matmul import fused_dense, geglu_dense
+from .layers import GroupNorm, timestep_embedding
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = ('CrossAttnDownBlock2D',) * 3 + ('DownBlock2D',)
+    up_block_types: Tuple[str, ...] = ('UpBlock2D',) + ('CrossAttnUpBlock2D',) * 3
+    layers_per_block: int = 2
+    transformer_layers_per_block: Tuple[int, ...] = (1, 1, 1, 1)
+    num_heads: Tuple[int, ...] = (8, 8, 8, 8)
+    cross_attention_dim: int = 768
+    norm_num_groups: int = 32
+
+    @classmethod
+    def sd15(cls) -> 'UNetConfig':
+        return cls()
+
+    @classmethod
+    def tiny(cls, cross_attention_dim: int = 32, **kw) -> 'UNetConfig':
+        base = dict(block_out_channels=(32, 64),
+                    down_block_types=('CrossAttnDownBlock2D', 'DownBlock2D'),
+                    up_block_types=('UpBlock2D', 'CrossAttnUpBlock2D'),
+                    layers_per_block=1,
+                    transformer_layers_per_block=(1, 1),
+                    num_heads=(2, 4),
+                    cross_attention_dim=cross_attention_dim,
+                    norm_num_groups=8)
+        base.update(kw)
+        return cls(**base)
+
+
+def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1 if stride == 1 else 0)
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, groups: int, temb_channels: int):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_channels, fused_silu=True)
+        self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+        self.conv1 = _conv3(in_channels, out_channels)
+        self.norm2 = GroupNorm(groups, out_channels, fused_silu=True)
+        self.conv2 = _conv3(out_channels, out_channels)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(self.norm1(x))
+        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class CrossAttention(nn.Module):
+    """to_q/to_k/to_v/to_out naming mirrors diffusers, as in the JAX model."""
+
+    def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None):
+        super().__init__()
+        ctx_dim = query_dim if context_dim is None else context_dim
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
+        self.to_k = nn.Linear(ctx_dim, query_dim, bias=False)
+        self.to_v = nn.Linear(ctx_dim, query_dim, bias=False)
+        self.to_out = nn.Linear(query_dim, query_dim)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                res: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        B, S, C = x.shape
+        Sk = ctx.shape[1]
+        h = self.heads
+        d = C // h
+        # head split/merge are views: kernel A takes strides
+        q = self.to_q(x).view(B, S, h, d).transpose(1, 2)
+        k = self.to_k(ctx).view(B, Sk, h, d).transpose(1, 2)
+        v = self.to_v(ctx).view(B, Sk, h, d).transpose(1, 2)
+        o = attention(q, k, v).transpose(1, 2).reshape(B, S, C)
+        out = self.to_out(o)
+        return out if res is None else out + res
+
+
+class GEGLUFeedForward(nn.Module):
+    """proj's rows are [value | gate]; kernel B applies the gate in its
+    epilogue and kernel C adds the block residual in its own."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.proj = nn.Linear(dim, inner * 2)
+        self.out = nn.Linear(inner, dim)
+
+    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = geglu_dense(x, self.proj.weight, self.proj.bias)
+        return fused_dense(h, self.out.weight, self.out.bias, res=res)
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, context_dim: int):
+        super().__init__()
+        # flax nn.LayerNorm's default epsilon
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn1 = CrossAttention(dim, heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn2 = CrossAttention(dim, heads, context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = self.attn1(self.norm1(x), res=x)
+        x = self.attn2(self.norm2(x), context, res=x)
+        return self.ff(self.norm3(x), res=x)
+
+
+class Transformer2D(nn.Module):
+    def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
+                 groups: int):
+        super().__init__()
+        self.depth = depth
+        self.norm = GroupNorm(groups, channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, channels)
+        for i in range(depth):
+            setattr(self, f'transformer_blocks_{i}',
+                    BasicTransformerBlock(channels, heads, context_dim))
+        self.proj_out = nn.Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        h = self.proj_in(h)
+        for i in range(self.depth):
+            h = getattr(self, f'transformer_blocks_{i}')(h, context)
+        h = self.proj_out(h)
+        return h.view(B, H, W, C).permute(0, 3, 1, 2) + x
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = _conv3(channels, channels, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # diffusers pads (0,1,0,1) then uses a VALID stride-2 conv
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = _conv3(channels, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2, mode='nearest'))
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = c = cfg
+        ch0 = c.block_out_channels[0]
+        tdim = ch0 * 4
+        n = len(c.block_out_channels)
+        self.time_embedding_linear_1 = nn.Linear(ch0, tdim)
+        self.time_embedding_linear_2 = nn.Linear(tdim, tdim)
+        self.conv_in = _conv3(c.in_channels, ch0)
+
+        def tfm(channels, level):
+            return Transformer2D(channels, c.num_heads[level],
+                                 c.transformer_layers_per_block[level],
+                                 c.cross_attention_dim, c.norm_num_groups)
+
+        skip_ch = [ch0]
+        cur = ch0
+        for bi, (btype, out_c) in enumerate(zip(c.down_block_types, c.block_out_channels)):
+            for li in range(c.layers_per_block):
+                setattr(self, f'down_{bi}_res_{li}',
+                        ResnetBlock2D(cur, out_c, c.norm_num_groups, tdim))
+                cur = out_c
+                if btype == 'CrossAttnDownBlock2D':
+                    setattr(self, f'down_{bi}_attn_{li}', tfm(out_c, bi))
+                skip_ch.append(cur)
+            if bi < n - 1:
+                setattr(self, f'down_{bi}_downsample', Downsample2D(out_c))
+                skip_ch.append(cur)
+
+        mid_c = c.block_out_channels[-1]
+        self.mid_res_0 = ResnetBlock2D(cur, mid_c, c.norm_num_groups, tdim)
+        self.mid_attn = tfm(mid_c, n - 1)
+        self.mid_res_1 = ResnetBlock2D(mid_c, mid_c, c.norm_num_groups, tdim)
+        cur = mid_c
+
+        rev = list(reversed(c.block_out_channels))
+        for bi, btype in enumerate(c.up_block_types):
+            out_c = rev[bi]
+            for li in range(c.layers_per_block + 1):
+                setattr(self, f'up_{bi}_res_{li}',
+                        ResnetBlock2D(cur + skip_ch.pop(), out_c, c.norm_num_groups, tdim))
+                cur = out_c
+                if btype == 'CrossAttnUpBlock2D':
+                    setattr(self, f'up_{bi}_attn_{li}', tfm(out_c, n - 1 - bi))
+            if bi < n - 1:
+                setattr(self, f'up_{bi}_upsample', Upsample2D(out_c))
+
+        self.conv_norm_out = GroupNorm(c.norm_num_groups, cur, fused_silu=True)
+        self.conv_out = _conv3(cur, c.out_channels)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+        """sample [B, H, W, C] NHWC, timesteps [B] (or a scalar),
+        encoder_hidden_states [B, S, D]; returns fp32 NHWC."""
+        c = self.cfg
+        dtype = self.conv_in.weight.dtype
+        B = sample.shape[0]
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(B)
+        # the time-embedding MLP runs in fp32 whatever the weights' dtype,
+        # as the JAX model runs it; its output is cast after the MLP
+        lin1, lin2 = self.time_embedding_linear_1, self.time_embedding_linear_2
+        temb = timestep_embedding(timesteps, c.block_out_channels[0])
+        temb = F.linear(temb, lin1.weight.float(), lin1.bias.float())
+        temb = F.linear(F.silu(temb), lin2.weight.float(), lin2.bias.float()).to(dtype)
+        ctx = encoder_hidden_states.to(dtype)
+
+        x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+        skips = [x]
+        n = len(c.block_out_channels)
+        for bi, btype in enumerate(c.down_block_types):
+            for li in range(c.layers_per_block):
+                x = getattr(self, f'down_{bi}_res_{li}')(x, temb)
+                if btype == 'CrossAttnDownBlock2D':
+                    x = getattr(self, f'down_{bi}_attn_{li}')(x, ctx)
+                skips.append(x)
+            if bi < n - 1:
+                x = getattr(self, f'down_{bi}_downsample')(x)
+                skips.append(x)
+
+        x = self.mid_res_1(self.mid_attn(self.mid_res_0(x, temb), ctx), temb)
+
+        for bi, btype in enumerate(c.up_block_types):
+            for li in range(c.layers_per_block + 1):
+                x = torch.cat([x, skips.pop()], dim=1)
+                x = getattr(self, f'up_{bi}_res_{li}')(x, temb)
+                if btype == 'CrossAttnUpBlock2D':
+                    x = getattr(self, f'up_{bi}_attn_{li}')(x, ctx)
+            if bi < n - 1:
+                x = getattr(self, f'up_{bi}_upsample')(x)
+
+        x = self.conv_out(self.conv_norm_out(x))
+        return x.permute(0, 2, 3, 1).float()

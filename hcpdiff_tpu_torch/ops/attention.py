@@ -1,0 +1,32 @@
+"""Attention dispatch: kernel A for long self-attention, plain torch
+elsewhere.
+
+Counterpart of ``hcpdiff_tpu/ops/attention.py``, with its default rule
+(:59-79): the kernel takes attention whose query length is at least 1024
+and a multiple of 128, with as many keys as queries and a head dim of at
+most 512 (UNet self-attention at the 64x64 and 32x32 levels, VAE
+mid-block attention). The JAX rule also sends attention with a bias to
+XLA; no caller of the port passes one yet, so there is no bias argument.
+Cross-attention over the 77 text tokens, CLIP's causal attention and the
+16x16 / 8x8 levels run the plain version, which the JAX package leaves to
+XLA. The kernel has no causal mask, so causal attention never takes it.
+Nothing falls back: on a CUDA tensor the kernel runs or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import attention_plain, flash_attention
+
+FLASH_MIN_SEQ = 1024
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention on [B, H, S, D] tensors."""
+    Sq, Sk, D = q.shape[-2], k.shape[-2], q.shape[-1]
+    if not causal and Sq >= FLASH_MIN_SEQ and Sq % 128 == 0 and Sk == Sq and D <= 512:
+        return flash_attention(q, k, v, scale)
+    return attention_plain(q, k, v, scale, causal)
