@@ -1,0 +1,148 @@
+"""LoRA as a parameter overlay (counterpart of ``hcpdiff_tpu/adapt/overlay.py``).
+
+An overlay is a dict ``{module path: {'down', 'up', 'alpha'}}`` kept apart
+from the frozen model. ``merge_overlays`` returns W + sum(delta W) for the
+overlaid weights, and the model runs them through
+``torch.func.functional_call``: one matmul per layer at run time, as the
+JAX package merges them into its param tree.
+
+Layouts follow ``nn.Linear``/``nn.Conv2d``: ``down`` is [r, fan_in] and
+``up`` [out, r], so delta W = up @ down, reshaped to the weight's
+[out, in] or [out, in, kh, kw]. (The JAX overlay's ``down`` [fan_in, r]
+and ``up`` [r, out] are their transposes; ``ckpt/bridge.py`` converts.)
+Module paths are the port's module names, which equal the JAX tree's
+paths, so the same layer patterns select the same layers.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+PathDict = Dict[str, Any]
+
+
+def module_paths(module: nn.Module) -> List[str]:
+    """Paths of every Linear/Conv2d submodule (the JAX package's modules
+    with a 'kernel' leaf), sorted."""
+    return sorted(name for name, m in module.named_modules()
+                  if isinstance(m, (nn.Linear, nn.Conv2d)))
+
+
+def _ancestors(path: str) -> List[str]:
+    parts = path.split('.')
+    return ['.'.join(parts[:i]) for i in range(1, len(parts) + 1)]
+
+
+def get_match_layers(patterns: Iterable[str], candidates: Sequence[str],
+                     aliases: Optional[Dict[str, str]] = None) -> List[str]:
+    """Resolve config layer patterns to ordered unique module paths, with
+    the JAX package's selector semantics: ``re:<regex>`` searches module
+    paths and their ancestors (a hit on a parent expands to every
+    candidate below it); a plain string matches a path exactly, or as a
+    prefix; ``aliases`` ({path: other name}) let patterns match through a
+    second name."""
+    if isinstance(patterns, str):
+        patterns = [patterns]
+    aliases = aliases or {}
+    name_to_kernels: Dict[str, List[str]] = {}
+    for c in candidates:
+        names = set(_ancestors(c))
+        alias = aliases.get(c)
+        if alias:
+            names.update(_ancestors(alias))
+        for n in names:
+            name_to_kernels.setdefault(n, []).append(c)
+    all_names = sorted(name_to_kernels)
+
+    out: List[str] = []
+    for pat in patterns:
+        if pat.startswith('pre_hook:'):
+            pat = pat[len('pre_hook:'):]
+        if pat.startswith('re:'):
+            rx = re.compile(pat[3:])
+            hit_names = [n for n in all_names if rx.search(n)]
+        else:
+            hit_names = [n for n in all_names if n == pat]
+            if not hit_names:
+                hit_names = [n for n in all_names if n.startswith(pat + '.')]
+        for n in hit_names:
+            for k in name_to_kernels[n]:
+                if k not in out:
+                    out.append(k)
+    return out
+
+
+def init_lora_layer(generator: torch.Generator, weight_shape: Tuple[int, ...], rank: int,
+                    alpha: float = 1.0) -> Dict[str, torch.Tensor]:
+    """LoRA factors for a Linear [out, in] or Conv2d [out, in, kh, kw]
+    weight: down [r, fan_in] uniform in +-sqrt(6 / fan_in) (kaiming, as
+    the JAX package draws it), up [out, r] zeros, so delta W starts at 0.
+    Made on ``generator``'s device, fp32."""
+    if len(weight_shape) not in (2, 4):
+        raise ValueError(f'unsupported weight shape {weight_shape}')
+    fan_out, fan_in = weight_shape[0], math.prod(weight_shape[1:])
+    bound = math.sqrt(3.0) * math.sqrt(2.0) / math.sqrt(fan_in)
+    dev = generator.device
+    down = torch.rand(rank, fan_in, generator=generator, device=dev) * (2 * bound) - bound
+    return {'down': down, 'up': torch.zeros(fan_out, rank, device=dev),
+            'alpha': torch.tensor(float(alpha), device=dev)}
+
+
+def resolve_rank(rank, fan_out: int) -> int:
+    """A float rank below 1 is a fraction of out_features; an int is used
+    as it is."""
+    if isinstance(rank, float) and rank < 1.0:
+        return max(1, round(fan_out * rank))
+    return int(rank)
+
+
+def make_lora_overlay(generator: torch.Generator, module: nn.Module, layer_specs: Sequence[dict],
+                      candidates: Optional[Sequence[str]] = None,
+                      aliases: Optional[Dict[str, str]] = None
+                      ) -> Tuple[PathDict, Dict[str, float]]:
+    """Build a LoRA overlay from config specs, each
+    ``{layers: [...], rank: int|float, alpha: float, scale: float}``.
+    Returns (overlay {path: {down, up, alpha}}, {path: scale})."""
+    candidates = candidates or module_paths(module)
+    overlay: PathDict = {}
+    scales: Dict[str, float] = {}
+    for spec in layer_specs:
+        layers = get_match_layers(spec.get('layers', []), candidates, aliases)
+        rank = spec.get('rank', 8)
+        alpha = float(spec.get('alpha', 1.0))
+        scale = float(spec.get('scale', 1.0))
+        for path in layers:
+            shape = tuple(module.get_submodule(path).weight.shape)
+            overlay[path] = init_lora_layer(generator, shape, resolve_rank(rank, shape[0]),
+                                            alpha)
+            scales[path] = scale
+    return overlay, scales
+
+
+def lora_delta(entry: Mapping[str, torch.Tensor], weight_shape: Tuple[int, ...],
+               scale: float = 1.0) -> torch.Tensor:
+    """delta W = scale * (alpha / rank) * up @ down, in the weight's layout."""
+    down, up, alpha = entry['down'], entry['up'], entry['alpha']
+    rank = down.shape[0]
+    return ((up @ down) * (alpha / rank) * scale).reshape(weight_shape)
+
+
+def merge_overlays(params: Mapping[str, torch.Tensor], overlays: Sequence[PathDict],
+                   scales: Optional[Sequence[Mapping[str, float]]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """W_eff = W + sum_i delta W_i. ``params`` maps state-dict names
+    (``'<path>.weight'``) to base weights; returns a new dict with every
+    overlaid weight replaced by its merged value (in the base weight's
+    dtype). Overlays stacked on one layer sum."""
+    merged = dict(params)
+    scales = scales or [{}] * len(overlays)
+    for ov, sc in zip(overlays, scales):
+        for path, entry in ov.items():
+            name = f'{path}.weight'
+            w = merged[name]
+            merged[name] = w + lora_delta(entry, tuple(w.shape), sc.get(path, 1.0)).to(w.dtype)
+    return merged

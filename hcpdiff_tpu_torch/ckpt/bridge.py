@@ -11,6 +11,7 @@ becomes a state dict by joining the path with dots and converting each leaf:
 
 One function serves the UNet, the VAE and CLIP; ``load_params`` loads the
 result strictly, so a missing or unexpected name raises.
+``lora_overlay_from_params`` turns a JAX LoRA overlay into the port's.
 """
 from __future__ import annotations
 
@@ -46,6 +47,28 @@ def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
                 out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
 
     walk(params, '')
+    return out
+
+
+def lora_overlay_from_params(overlay: Mapping, module: nn.Module) -> Dict[str, Dict]:
+    """A JAX LoRA overlay ``{path: {down [fan_in, r], up [r, out], alpha}}``
+    (numpy) -> the port's ``{path: {down [r, fan_in], up [out, r], alpha}}``
+    (fp32 tensors; see ``adapt/overlay.py``). ``module`` gives the target
+    weights' shapes: a conv's fan_in is (kh, kw, cin) in the JAX kernel and
+    (cin, kh, kw) in the port's."""
+    out: Dict[str, Dict] = {}
+    for path, entry in overlay.items():
+        down = np.asarray(entry['down'], dtype=np.float32)
+        up = np.asarray(entry['up'], dtype=np.float32)
+        shape = module.get_submodule(path).weight.shape
+        if len(shape) == 4:
+            cout, cin, kh, kw = shape
+            down = down.reshape(kh, kw, cin, -1).transpose(3, 2, 0, 1).reshape(-1, cin * kh * kw)
+        else:
+            down = down.T
+        out[path] = {'down': torch.from_numpy(np.ascontiguousarray(down)),
+                     'up': torch.from_numpy(np.ascontiguousarray(up.T)),
+                     'alpha': torch.tensor(float(np.asarray(entry['alpha'])))}
     return out
 
 

@@ -26,6 +26,13 @@
 // over grid.z; each chunk recomputes QK^T (the VAE calls this once per
 // image, so the repeat costs little next to the UNet).
 //
+// Training: when given an lse buffer, the kernel also writes each row's
+// natural-log logsumexp of the scaled logits (fp32 [B, H, Sq]), which the
+// backward kernels (flash_attention_bwd.cu) use to recompute P. This
+// replaces _flash_kernel_tq's emit_lse variant (:453-457). The running max
+// is in log2 units, so lse = (m + log2 l) * ln 2; with D split over grid.z
+// only the first chunk stores it. Inference passes no buffer.
+//
 // Simple first version: mma.sync m16n8k16, 64 query rows x 64 keys per
 // step, K and V single-buffered, V transposed into shared memory by the
 // loading threads (no ldmatrix.trans, no wgmma/TMA).
@@ -49,7 +56,8 @@ constexpr int smem_bytes() {
 template <int DP, int DVC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq, int Sk,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int H, int Sq, int Sk,
                  int D, long long qsb, long long qsh, long long qss, long long ksb,
                  long long ksh, long long kss, long long vsb, long long vsh, long long vss,
                  long long osb, long long osh, long long oss, float scale_log2) {
@@ -189,6 +197,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         inv[r] = 1.f / l;
+        int row = q0 + warp * 16 + g + r * 8;
+        if (lse != nullptr && blockIdx.z == 0 && t == 0 && row < Sq)
+            lse[static_cast<long long>(blockIdx.y) * Sq + row] =
+                (m_i[r] + log2f(l)) * 0.6931471805599453f;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -205,8 +217,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP, int DVC>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
-           int Sk, int D, const long long* st, float scale_log2, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int Sq, int Sk, int D, const long long* st, float scale_log2, cudaStream_t s) {
     constexpr int smem = smem_bytes<DP, DVC>();
     auto kern = flash_fwd_kernel<DP, DVC>;
     cudaError_t err =
@@ -215,7 +227,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
     dim3 grid((Sq + BQ - 1) / BQ, B * H, (DP + DVC - 1) / DVC);
     kern<<<grid, THREADS, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+        static_cast<bf16*>(o), lse, H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
         st[7], st[8], st[9], st[10], st[11], scale_log2);
     return static_cast<int>(cudaGetLastError());
 }
@@ -225,20 +237,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
 
 // q [B,H,Sq,D], k/v [B,H,Sk,D], o [B,H,Sq,D], all bf16 with unit stride on
 // D; `strides` holds (batch, head, seq) strides in elements for q, k, v, o
-// (12 values). D % 8 == 0 and 16-byte aligned rows. Returns
+// (12 values). D % 8 == 0 and 16-byte aligned rows. `lse` is null, or a
+// contiguous fp32 [B, H, Sq] buffer for the row logsumexp. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D.
 extern "C" int hcp_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                   int B, int H, int Sq, int Sk, int D,
+                                   void* lse_out, int B, int H, int Sq, int Sk, int D,
                                    const long long* strides, float scale, void* stream) {
     using namespace hcp;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float scale_log2 = scale * 1.4426950408889634f;
+    float* lse = static_cast<float*>(lse_out);
     const int dp = (D + 15) / 16 * 16;
     switch (dp) {
-        case 48: return launch<48, 48>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
-        case 80: return launch<80, 80>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
-        case 160: return launch<160, 80>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
-        case 512: return launch<512, 128>(q, k, v, o, B, H, Sq, Sk, D, strides, scale_log2, s);
+        case 48: return launch<48, 48>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
+        case 80: return launch<80, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
+        case 160:
+            return launch<160, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
+        case 512:
+            return launch<512, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -1,7 +1,8 @@
 """Noise schedules (counterpart of ``hcpdiff_tpu/diffusion/schedules.py``).
 
 The beta and alpha-cumprod tables are fp32 numpy arrays: the samplers read
-them on the host, and no device holds them.
+them on the host. The training side (``add_noise``, ``get_velocity``,
+``target``) gathers per-sample rows of them onto the latents' device.
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +42,36 @@ class NoiseSchedule:
             acp, betas = _rescale_zero_terminal_snr(acp)
         return cls(betas=betas.astype(np.float32), alphas_cumprod=acp.astype(np.float32),
                    num_train_timesteps=num_train_timesteps, prediction_type=prediction_type)
+
+    # ---- training side ----
+    def _coef(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """alphas_cumprod[t] as [B, 1, ...] on ``like``'s device."""
+        a = torch.as_tensor(self.alphas_cumprod, device=like.device)[t.to(like.device)]
+        return a.reshape((-1,) + (1,) * (like.dim() - 1))
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        a = self._coef(t, x0)
+        return a.sqrt() * x0 + (1.0 - a).sqrt() * noise
+
+    def get_velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        a = self._coef(t, x0)
+        return a.sqrt() * noise - (1.0 - a).sqrt() * x0
+
+    def target(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if self.prediction_type == 'epsilon':
+            return noise
+        if self.prediction_type == 'v_prediction':
+            return self.get_velocity(x0, noise, t)
+        if self.prediction_type == 'sample':
+            return x0
+        raise ValueError(self.prediction_type)
+
+    @property
+    def snr(self) -> np.ndarray:
+        """Signal-to-noise ratio table [T] (fp32) for Min-SNR weighting."""
+        a = self.alphas_cumprod
+        return a / (1.0 - a)
 
 
 def _rescale_zero_terminal_snr(acp: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -9,6 +9,11 @@ returns NHWC, as the JAX model does; inside, activations are NCHW in
 self-attention of the two finest levels kernel A, and every feed-forward
 kernels B and C (as ``_pallas_ff`` routes it on the TPU); convolutions and
 the other projections are plain torch ops, as XLA ran them.
+
+For training, ``remat=True`` recomputes each ResnetBlock2D and
+Transformer2D in the backward (``torch.utils.checkpoint``), the JAX
+package's whole-block ``HCP_REMAT_POLICY=full``; and ``forward`` may run
+under ``torch.func.functional_call`` with merged LoRA weights.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.matmul import fused_dense, geglu_dense
@@ -181,9 +188,10 @@ class Upsample2D(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, remat: bool = False):
         super().__init__()
         self.cfg = c = cfg
+        self.remat = remat
         ch0 = c.block_out_channels[0]
         tdim = ch0 * 4
         n = len(c.block_out_channels)
@@ -231,6 +239,28 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(c.norm_num_groups, cur, fused_silu=True)
         self.conv_out = _conv3(cur, c.out_channels)
 
+    def to_compute_dtype(self, dtype: torch.dtype) -> 'UNet2DCondition':
+        """Cast every weight to ``dtype`` except the time-embedding MLP's,
+        which the model runs in fp32 whatever the weights' dtype (as the
+        JAX model keeps it), so they stay fp32."""
+        self.to(dtype)
+        self.time_embedding_linear_1.float()
+        self.time_embedding_linear_2.float()
+        return self
+
+    def _block(self, name: str, *args) -> torch.Tensor:
+        """Run a ResnetBlock2D or Transformer2D, recomputed in the backward
+        under ``remat``. The block's current parameters (under
+        ``functional_call``, the swapped-in ones) ride into the recompute
+        explicitly: it runs after ``functional_call`` has put the module's
+        own parameters back."""
+        block = getattr(self, name)
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(*args)
+        params = dict(block.named_parameters())
+        return checkpoint(lambda *a: functional_call(block, params, a), *args,
+                          use_reentrant=False)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         """sample [B, H, W, C] NHWC, timesteps [B] (or a scalar),
@@ -254,22 +284,24 @@ class UNet2DCondition(nn.Module):
         n = len(c.block_out_channels)
         for bi, btype in enumerate(c.down_block_types):
             for li in range(c.layers_per_block):
-                x = getattr(self, f'down_{bi}_res_{li}')(x, temb)
+                x = self._block(f'down_{bi}_res_{li}', x, temb)
                 if btype == 'CrossAttnDownBlock2D':
-                    x = getattr(self, f'down_{bi}_attn_{li}')(x, ctx)
+                    x = self._block(f'down_{bi}_attn_{li}', x, ctx)
                 skips.append(x)
             if bi < n - 1:
                 x = getattr(self, f'down_{bi}_downsample')(x)
                 skips.append(x)
 
-        x = self.mid_res_1(self.mid_attn(self.mid_res_0(x, temb), ctx), temb)
+        x = self._block('mid_res_0', x, temb)
+        x = self._block('mid_attn', x, ctx)
+        x = self._block('mid_res_1', x, temb)
 
         for bi, btype in enumerate(c.up_block_types):
             for li in range(c.layers_per_block + 1):
                 x = torch.cat([x, skips.pop()], dim=1)
-                x = getattr(self, f'up_{bi}_res_{li}')(x, temb)
+                x = self._block(f'up_{bi}_res_{li}', x, temb)
                 if btype == 'CrossAttnUpBlock2D':
-                    x = getattr(self, f'up_{bi}_attn_{li}')(x, ctx)
+                    x = self._block(f'up_{bi}_attn_{li}', x, ctx)
             if bi < n - 1:
                 x = getattr(self, f'up_{bi}_upsample')(x)
 

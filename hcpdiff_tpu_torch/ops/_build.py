@@ -38,9 +38,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # mode, x, w, bias, res, out, M, N, K, stream
     'hcp_gemm': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, o, B, H, Sq, Sk, D, strides[12], scale, stream
-    'hcp_flash_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    # q, k, v, o, lse (or null), B, H, Sq, Sk, D, strides[12], scale, stream
+    'hcp_flash_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                             ctypes.c_float, _P],
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides[15], scale, stream
+    'hcp_flash_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                         ctypes.c_float, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides[18], scale, stream
+    'hcp_flash_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                          ctypes.c_float, _P],
     # x, scale, bias, y, workspace, B, S, C, G, nsplit, rows, eps, silu, stream
     'hcp_group_norm': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P],
@@ -148,3 +154,9 @@ def require_cuda_bf16(kernel: str, *tensors) -> None:
 
 def aligned16(t) -> bool:
     return t.data_ptr() % 16 == 0
+
+
+def accum_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype the plain versions and backwards compute in: fp32, or the
+    input's own dtype where it is wider (float64 for gradcheck)."""
+    return torch.promote_types(t.dtype, torch.float32)

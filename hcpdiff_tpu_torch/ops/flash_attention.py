@@ -1,25 +1,35 @@
-"""Attention forward on [B, H, S, D]: kernel A (``csrc/flash_attention.cu``)
-and its plain PyTorch version.
+"""Attention on [B, H, S, D] with its gradient: kernel A (forward, with an
+optional logsumexp output, ``csrc/flash_attention.cu``), kernels E and F
+(backward dQ and dK/dV, ``csrc/flash_attention_bwd.cu``), their plain
+PyTorch versions, and the ``torch.autograd.Function`` that joins them.
 
-Counterpart of ``hcpdiff_tpu/ops/flash_attention.py``'s forward kernels
-(the transposed ``_flash_kernel_tq`` for D=40/80 and the K/V-streaming
-``_flash_kernel_stream`` for the VAE's D=512): one kernel with an online
-softmax covers both. It differs from the TPU kernels' no-max softmax only
-where a row's scaled logits exceed ~55 nats (``NOMAX_CLAMP_NAT``), where
-the TPU kernel clamps and this one stays exact.
+Counterpart of ``hcpdiff_tpu/ops/flash_attention.py``: its forward kernels
+(the transposed ``_flash_kernel_tq`` for D=40/80, with ``emit_lse`` for
+training, and the K/V-streaming ``_flash_kernel_stream`` for the VAE's
+D=512) and its transposed backward kernels (``_flash_bwd_dq_kernel_tq``,
+``_flash_bwd_dkv_kernel_tq``) inside the ``custom_vjp`` of
+``_make_flash``. The forward's online softmax differs from the TPU
+kernels' no-max softmax only where a row's scaled logits exceed ~55 nats
+(``NOMAX_CLAMP_NAT``), where the TPU kernel clamps and this one stays
+exact; so the backward recomputes P from the exact lse and needs no clamp.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from ._build import aligned16, check, library, require, require_cuda_bf16, stream_handle
+from ._build import (accum_dtype, aligned16, check, library, require, require_cuda_bf16,
+                     stream_handle)
 
-# Head dims the kernel is instantiated for, after padding D up to a
-# multiple of 16 (D=40 -> 48): the SD1.5 UNet's 40/80/160 and the VAE's 512.
+# Head dims the kernels are instantiated for, after padding D up to a
+# multiple of 16 (D=40 -> 48): the forward for the SD1.5 UNet's 40/80/160
+# and the VAE's 512, the backward for the heads that take kernel A in
+# training at 512 px (D=40 at 64x64, D=80 at 32x32).
 PADDED_HEAD_DIMS = (48, 80, 160, 512)
+BWD_PADDED_HEAD_DIMS = (48, 80)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -28,48 +38,222 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probabilities cast back to q's dtype, as ``_xla_attention`` does it.
     ``causal`` masks keys past each query (aligned to the sequence ends)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    dt = accum_dtype(q)
+    logits = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale
     if causal:
         ql, kl = q.shape[-2], k.shape[-2]
         keep = torch.ones(ql, kl, dtype=torch.bool, device=q.device).tril(kl - ql)
-        logits = logits.masked_fill(~keep, torch.finfo(torch.float32).min)
+        logits = logits.masked_fill(~keep, torch.finfo(dt).min)
     probs = logits.softmax(dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
+
+
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """Row logsumexp of the scaled logits, [B, H, Sq], in natural log."""
+    dt = accum_dtype(q)
+    return torch.logsumexp(torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale, dim=-1)
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O), [B, H, Sq] contiguous, in fp32 (as
+    ``_flash_backward_tq`` computes it under XLA, :914-915)."""
+    dt = accum_dtype(o)
+    return (do.to(dt) * o.to(dt)).sum(dim=-1).contiguous()
+
+
+def _plain_p_ds(q, k, v, lse, do, delta, scale):
+    """Recomputed P = exp(S*scale - lse) and dS = P*(dO V^T - delta)*scale."""
+    dt = accum_dtype(q)
+    p = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)).mul_(scale)
+    p = p.sub_(lse.to(dt)[..., None]).exp_()
+    ds = torch.matmul(do.to(dt), v.to(dt).transpose(-1, -2))
+    ds = ds.sub_(delta.to(dt)[..., None]).mul_(p).mul_(scale)
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, lse, do, delta, scale: float) -> torch.Tensor:
+    """Plain version of kernel E: dQ = dS K, computed explicitly in fp32."""
+    _, ds = _plain_p_ds(q, k, v, lse, do, delta, scale)
+    return torch.matmul(ds, k.to(ds.dtype)).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel F: dK = dS^T Q, dV = P^T dO, in fp32."""
+    p, ds = _plain_p_ds(q, k, v, lse, do, delta, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(ds.dtype)).to(k.dtype)
+    dv = torch.matmul(p.transpose(-1, -2), do.to(p.dtype)).to(v.dtype)
+    return dk, dv
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, scale: float):
+    """dq, dk, dv of softmax(q k^T * scale) v from the forward's o and lse,
+    computed explicitly in fp32: the function kernels E and F are held
+    against."""
+    delta = attention_delta(o, do)
+    dq = flash_bwd_dq_plain(q, k, v, lse, do, delta, scale)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale))
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Unit stride on D and 16-byte aligned rows: the layout the kernels read."""
+    return t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3]) and aligned16(t)
+
+
+def _strides(name: str, tensors) -> ctypes.Array:
+    """(batch, head, seq) strides of [B, H, S, D] tensors."""
+    strides = []
+    for t in tensors:
+        require(_rows_aligned(t), name, 'rows must be 16-byte aligned with unit stride on D')
+        strides += list(t.stride()[:3])
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
+def _check_qkv(name: str, q, k, v, padded_dims) -> None:
+    require_cuda_bf16(name, q, k, v)
+    require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, name, 'expects [B, H, S, D] tensors')
+    B, H, _, D = q.shape
+    Sk = k.shape[2]
+    require(k.shape == (B, H, Sk, D) and v.shape == k.shape and Sk > 0, name,
+            f'shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}')
+    require(D % 8 == 0 and -(-D // 16) * 16 in padded_dims, name,
+            f'head dim {D} not supported (padded dims {padded_dims})')
+    require(B * H <= 65535, name, f'B*H={B * H} exceeds the grid limit')
+
+
+def _check_bwd(name: str, q, k, v, lse, do, delta) -> None:
+    _check_qkv(name, q, k, v, BWD_PADDED_HEAD_DIMS)
+    require_cuda_bf16(name, q, do)
+    require(do.shape == q.shape, name, f'dO must be {tuple(q.shape)}')
+    for t in (lse, delta):
+        require(t.shape == q.shape[:3] and t.dtype == torch.float32 and t.is_contiguous()
+                and t.device == q.device, name, 'lse/delta must be contiguous fp32 [B, H, Sq]')
+
+
+def _like_heads(t: torch.Tensor) -> torch.Tensor:
+    """An empty [B, H, S, D] tensor laid out as [B, S, H, D], so merging
+    heads back costs no copy."""
+    B, H, S, D = t.shape
+    return torch.empty(B, S, H, D, dtype=t.dtype, device=t.device).transpose(1, 2)
+
+
+def _launch_forward(q, k, v, scale: float, with_lse: bool):
+    name = 'flash_attention'
+    _check_qkv(name, q, k, v, PADDED_HEAD_DIMS)
+    B, H, Sq, D = q.shape
+    out = _like_heads(q)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) if with_lse
+           else None)
+    rc = library().hcp_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2], D,
+        ctypes.cast(_strides(name, (q, k, v, out)), ctypes.c_void_p), scale,
+        stream_handle(q.device))
+    check(rc, name)
+    flash_attention.launches += 1
+    if with_lse:
+        flash_attention_lse.launches += 1
+    return out, lse
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward that also returns the row logsumexp: (o [B, H, Sq, D],
+    lse [B, H, Sq] fp32, natural log). A CPU tensor takes the plain
+    versions; a CUDA tensor launches kernel A with its lse output or raises.
+    No gradient: :func:`flash_attention` is the differentiable entry."""
+    if q.device.type == 'cpu':
+        return attention_plain(q, k, v, scale), attention_lse_plain(q, k, scale)
+    return _launch_forward(q, k, v, scale, with_lse=True)
+
+
+def flash_attention_bwd_dq(q, k, v, lse, do, delta, scale: float) -> torch.Tensor:
+    """dQ from q, k, v, dO [B, H, S, D] and fp32 lse, delta [B, H, Sq]. A
+    CPU tensor takes the plain version; a CUDA tensor launches kernel E or
+    raises."""
+    if q.device.type == 'cpu':
+        return flash_bwd_dq_plain(q, k, v, lse, do, delta, scale)
+    name = 'flash_attention_bwd_dq'
+    _check_bwd(name, q, k, v, lse, do, delta)
+    B, H, Sq, D = q.shape
+    dq = _like_heads(q)
+    rc = library().hcp_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[2], D,
+        ctypes.cast(_strides(name, (q, k, v, do, dq)), ctypes.c_void_p), scale,
+        stream_handle(q.device))
+    check(rc, name)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV), as :func:`flash_attention_bwd_dq`; kernel F on the card."""
+    if q.device.type == 'cpu':
+        return flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale)
+    name = 'flash_attention_bwd_dkv'
+    _check_bwd(name, q, k, v, lse, do, delta)
+    B, H, Sq, D = q.shape
+    dk, dv = _like_heads(k), _like_heads(v)
+    rc = library().hcp_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], D,
+        ctypes.cast(_strides(name, (q, k, v, do, dk, dv)), ctypes.c_void_p), scale,
+        stream_handle(q.device))
+    check(rc, name)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: kernel A (with lse when a gradient will be taken) or the
+    plain versions on the CPU. Backward: kernels E and F, or their plain
+    versions on the CPU. Saves q, k, v, o and lse, as the JAX ``fwd``
+    (:1071-1085) does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, needs_grad: bool):
+        if needs_grad:
+            o, lse = flash_attention_lse(q, k, v, scale)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.scale = scale
+            return o
+        if q.device.type == 'cpu':
+            return attention_plain(q, k, v, scale)
+        return _launch_forward(q, k, v, scale, with_lse=False)[0]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # dO arrives with whatever strides autograd gives it: the kernels take
+        # them when they can, and a contiguous copy otherwise
+        if do.device.type != 'cpu' and not _rows_aligned(do):
+            do = do.contiguous()
+        delta = attention_delta(o, do)
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq = flash_attention_bwd_dq(q, k, v, lse, do, delta, ctx.scale) if need_q else None
+        dk = dv = None
+        if need_k or need_v:
+            dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q [B, H, Sq, D], k/v [B, H, Sk, D], any strides with a unit stride on
     D (so a head split ``x.view(B, S, H, D).transpose(1, 2)`` needs no
-    copy). A CPU tensor takes the plain version; a CUDA tensor launches
-    kernel A or raises. The kernel's output is returned as a [B, H, Sq, D]
-    view of a [B, Sq, H, D] buffer, so merging heads back costs no copy."""
+    copy). Differentiable. A CPU tensor takes the plain versions; a CUDA
+    tensor launches kernel A (and E, F in the backward) or raises. The
+    kernel's output is returned as a [B, H, Sq, D] view of a [B, Sq, H, D]
+    buffer, so merging heads back costs no copy."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    if q.device.type == 'cpu':
-        return attention_plain(q, k, v, scale)
-    name = 'flash_attention'
-    require_cuda_bf16(name, q, k, v)
-    require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, name, 'expects [B, H, S, D] tensors')
-    B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    require(k.shape == (B, H, Sk, D) and v.shape == k.shape and Sk > 0, name,
-            f'shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}')
-    require(D % 8 == 0 and -(-D // 16) * 16 in PADDED_HEAD_DIMS, name,
-            f'head dim {D} not supported (padded dims {PADDED_HEAD_DIMS})')
-    require(B * H <= 65535, name, f'B*H={B * H} exceeds the grid limit')
-    out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = []
-    for t in (q, k, v, out):
-        require(t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
-                and aligned16(t), name, 'rows must be 16-byte aligned with unit stride on D')
-        strides += list(t.stride()[:3])
-    strides_c = (ctypes.c_longlong * 12)(*strides)
-    rc = library().hcp_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq, Sk, D,
-        ctypes.cast(strides_c, ctypes.c_void_p), scale, stream_handle(q.device))
-    check(rc, name)
-    flash_attention.launches += 1
-    return out
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, scale, needs_grad)
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0            # kernel A, with or without lse
+flash_attention_lse.launches = 0        # kernel A with its lse output
+flash_attention_bwd_dq.launches = 0     # kernel E
+flash_attention_bwd_dkv.launches = 0    # kernel F

@@ -1,5 +1,6 @@
 """GroupNorm (fp32 statistics) + affine + optional SiLU on channels-last
-tensors: kernel D and its plain PyTorch version.
+tensors: kernel D, its plain PyTorch version and its
+``torch.autograd.Function``.
 
 Counterpart of ``hcpdiff_tpu/ops/groupnorm.py``. There the Pallas kernel
 ran only where C % 128 == 0 and the [S, C] block fit VMEM; here one kernel
@@ -13,8 +14,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from ._build import aligned16, check, library, require, require_cuda_bf16, stream_handle
+from ._build import (accum_dtype, aligned16, check, library, require, require_cuda_bf16,
+                     stream_handle)
 
 # Blocks per sample are chosen so that a pass has about four blocks per SM
 # of the H100 (132 SMs), whatever the batch, but no block gets fewer than
@@ -30,25 +33,18 @@ def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     """Plain version: fp32 statistics, E[x^2] - E[x]^2 clamped at 0, as
     ``_gn_silu_xla_direct`` computes them. x: [B, ..., C]."""
     B, C = x.shape[0], x.shape[-1]
-    xg = x.reshape(B, -1, groups, C // groups).float()
+    dt = accum_dtype(x)
+    xg = x.reshape(B, -1, groups, C // groups).to(dt)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = (xg.square().mean(dim=(1, 3), keepdim=True) - mean.square()).clamp_min(0.0)
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-    y = y * scale.float() + bias.float()
+    y = y * scale.to(dt) + bias.to(dt)
     if apply_silu:
         y = F.silu(y)
     return y.to(x.dtype)
 
 
-def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    groups: int = 32, eps: float = 1e-5,
-                    apply_silu: bool = True) -> torch.Tensor:
-    """x: [B, ..., C] channels-last (for an NCHW tensor in
-    ``torch.channels_last`` format, pass ``x.permute(0, 2, 3, 1)``);
-    scale/bias: [C]. A CPU tensor takes the plain version; a CUDA tensor
-    launches kernel D or raises."""
-    if x.device.type == 'cpu':
-        return group_norm_silu_plain(x, scale, bias, groups, eps, apply_silu)
+def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool) -> torch.Tensor:
     name = 'group_norm_silu'
     require_cuda_bf16(name, x)
     B, C = x.shape[0], x.shape[-1]
@@ -73,6 +69,41 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     check(rc, name)
     group_norm_silu.launches += 1
     return y
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups: int, eps: float, apply_silu: bool):
+        if x.device.type == 'cpu':
+            y = group_norm_silu_plain(x, scale, bias, groups, eps, apply_silu)
+        else:
+            y = _launch(x, scale, bias, groups, eps, apply_silu)
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (groups, eps, apply_silu)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        dt = accum_dtype(g)
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().to(dt).requires_grad_(n) for t, n in zip(saved, need)]
+            y = group_norm_silu_plain(*ins, *ctx.args)
+            grads = iter(torch.autograd.grad(y, [t for t in ins if t.requires_grad], g.to(dt)))
+        return (*(next(grads).to(t.dtype) if n else None for t, n in zip(saved, need)),
+                None, None, None)
+
+
+def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    groups: int = 32, eps: float = 1e-5,
+                    apply_silu: bool = True) -> torch.Tensor:
+    """x: [B, ..., C] channels-last (for an NCHW tensor in
+    ``torch.channels_last`` format, pass ``x.permute(0, 2, 3, 1)``);
+    scale/bias: [C]. Differentiable. A CPU tensor takes the plain version;
+    a CUDA tensor launches kernel D or raises."""
+    return _GroupNormSiLU.apply(x, scale, bias, groups, eps, apply_silu)
 
 
 group_norm_silu.launches = 0

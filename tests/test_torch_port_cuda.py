@@ -9,16 +9,25 @@ file without the suite's conftest:
 Both sides are bf16 with fp32 accumulation and each rounds its output to
 bf16 once, at a different place, so they may differ by about two bf16
 ulps of the output: |kernel - plain| <= ATOL + RTOL * |plain|.
+
+Gradients: kernels E and F round P and dS to bf16 before their second
+tensor-core product (relative 2^-9 each) and sum up to Sk or Sq such
+terms, which the fp32 plain backward does not; an element near zero can
+then miss the bound above by more than its own size, so they are held to
+|kernel - plain| <= GRAD_ATOL_REL * max|plain| + RTOL * |plain|. The lse
+is fp32 on both sides: LSE_ATOL.
 """
 import pytest
 import torch
 
+from hcpdiff_tpu_torch.ops import flash_attention as fa
 from hcpdiff_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
 from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_dense,
                                           geglu_dense_plain)
 
 ATOL, RTOL = 1e-2, 1.6e-2
+GRAD_ATOL_REL, LSE_ATOL = 1e-2, 1e-3
 pytestmark = pytest.mark.cuda
 
 
@@ -40,6 +49,15 @@ def _close(out, ref):
     assert bool((err <= ATOL + RTOL * ref.float().abs()).all()), float(err.max())
 
 
+def _close_grad(out, ref):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    torch.cuda.synchronize()
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    bound = GRAD_ATOL_REL * ref.abs().max() + RTOL * ref.abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
 @pytest.mark.parametrize('shape', [(2, 8, 1024, 40), (2, 8, 256, 80), (1, 1, 1024, 512),
                                    (1, 2, 200, 160), (1, 2, 300, 40)])
 def test_flash_attention(gen, shape):
@@ -54,6 +72,77 @@ def test_flash_attention_head_split_views(gen):
     x = _rn(gen, 2, 1024, 320)
     q = x.view(2, 1024, 8, 40).transpose(1, 2)
     _close(flash_attention(q, q, q), attention_plain(q, q, q))
+
+
+@pytest.mark.parametrize('shape', [(2, 8, 1024, 40), (2, 8, 256, 80), (1, 2, 300, 40),
+                                   (1, 1, 1024, 512)])
+def test_flash_attention_lse(gen, shape):
+    q, k, v = (_rn(gen, *shape) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    before = fa.flash_attention_lse.launches
+    o, lse = fa.flash_attention_lse(q, k, v, scale)
+    assert fa.flash_attention_lse.launches == before + 1
+    _close(o, attention_plain(q, k, v, scale))
+    ref = fa.attention_lse_plain(q, k, scale)
+    torch.cuda.synchronize()
+    assert lse.shape == ref.shape and lse.dtype == torch.float32
+    assert float((lse - ref).abs().max()) <= LSE_ATOL
+
+
+@pytest.mark.parametrize('shape', [(2, 8, 1024, 40), (2, 8, 1024, 80), (1, 2, 300, 40),
+                                   (1, 2, 200, 80)])
+def test_flash_backward_kernels(gen, shape):
+    """E and F against the plain backward, with dO a head-split view as
+    autograd hands it over (strides taken, no copy)."""
+    B, H, S, D = shape
+    q, k, v = (_rn(gen, *shape) for _ in range(3))
+    do = _rn(gen, B, S, H * D).view(B, S, H, D).transpose(1, 2)
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_lse(q, k, v, scale)
+    delta = fa.attention_delta(o, do)
+    before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale)
+    assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    for out, ref in zip((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                                         scale)):
+        _close_grad(out, ref)
+
+
+def _grads(fn, args, g):
+    """Output and input gradients of fn(*args) with cotangent g."""
+    leaves = [a.detach().requires_grad_(True) if a is not None else None for a in args]
+    out = fn(*leaves)
+    out.backward(g)
+    return out, [a.grad for a in leaves if a is not None]
+
+
+def test_kernel_outputs_carry_grad_fn(gen):
+    """The autograd fault: every kernel's output on a grad-requiring CUDA
+    input has a grad_fn, and its gradients match the plain version's
+    (differentiated by autograd in fp32 on the same bf16 inputs)."""
+    qkv = [_rn(gen, 2, 8, 1024, 40) for _ in range(3)]
+    x, w, b = _rn(gen, 512, 320), _rn(gen, 2560, 320, scale=320 ** -0.5), _rn(gen, 2560)
+    w1, b1, res = _rn(gen, 1280, 320, scale=320 ** -0.5), _rn(gen, 1280), _rn(gen, 512, 1280)
+    xg = _rn(gen, 2, 256, 320, scale=3.0) + 1.0
+    sc = (torch.rand(320, device='cuda', generator=gen) + 0.5).to(torch.bfloat16)
+    bi = torch.randn(320, device='cuda', generator=gen).to(torch.bfloat16)
+    cases = [
+        (flash_attention, lambda q, k, v: attention_plain(q, k, v), qkv),
+        (geglu_dense, geglu_dense_plain, [x, w, b]),
+        (fused_dense, fused_dense_plain, [x, w1, b1, res]),
+        (lambda *a: group_norm_silu(*a, 32, 1e-5, True),
+         lambda *a: group_norm_silu_plain(*a, 32, 1e-5, True), [xg, sc, bi]),
+    ]
+    for kernel, plain, args in cases:
+        out = kernel(*[a.detach().requires_grad_(True) for a in args])
+        assert out.grad_fn is not None
+        g = _rn(gen, *out.shape)
+        _, got = _grads(kernel, args, g)
+        _, ref = _grads(plain, [a.float() for a in args], g.float())
+        for a, r in zip(got, ref):
+            _close_grad(a, r.to(a.dtype))
 
 
 @pytest.mark.parametrize('M,K,N', [(4096, 320, 1280), (1000, 640, 2560), (2048, 5120, 1280)])
@@ -88,3 +177,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         group_norm_silu(_rn(gen, 2, 16, 30), torch.ones(30, device='cuda'),
                         torch.zeros(30, device='cuda'), 3)       # C % 8 != 0
+    q = _rn(gen, 1, 2, 256, 160)
+    lse = torch.zeros(1, 2, 256, device='cuda')
+    with pytest.raises(ValueError):                               # no backward at D=160
+        fa.flash_attention_bwd_dq(q, q, q, lse, q, lse, 1.0)
