@@ -15,8 +15,12 @@ package is missing. Phases, each fatal on failure:
    20 DPM++ 2M steps, guidance 7.5, batch 1, 2 and 4, each image finite and
    in [0, 1]; the kernels' launch counters are zeroed just before and read
    just after, and each of kernels A-D must have launched;
+3b. the fused-sublayer UNet (fused_sublayers=True, the default UNet's
+   weights) answers a batch-1 and a batch-4 request the same way; kernels
+   G, H, I, J, A, C and D must launch, and B must not;
 4. hold the card's UNet, VAE decode and CLIP (bf16, kernels) against the
-   same weights in fp32 on the CPU (plain versions) on a small input;
+   same weights in fp32 on the CPU (plain versions) on a small input, and
+   the fused UNet too;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -28,15 +32,20 @@ package is missing. Phases, each fatal on failure:
 6. hold one step's LoRA gradients on the card (bf16, kernels) against the
    same weights in fp32 on the CPU (plain versions), on [2, 32, 32, 4]
    latents (S=1024 at level 0, so E and F run), fixed noise and t, and up
-   factors set to small random values first;
+   factors set to small random values first; then again with a fused,
+   remat UNet (kernels G-J's autograd wiring);
 7. hold each kernel against its plain version on the card at the paths'
-   shapes (A with its lse, E and F at the training shapes), and time both.
+   shapes (A with its lse, E and F at the training shapes, G-J at the
+   fused path's) and time both, and the one PyTorch call that computes
+   the same function where there is one (library_ms, a yardstick the port
+   never calls); each record has its bound (bound_ms: the larger of the
+   bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
+   bf16, or 67 TFLOP/s fp32 outside the tensor cores).
 
 The line before the last is one JSON object with the kernels' records; the
 last line is {"ok": true, "device": {...}}.
 """
 import copy
-import dataclasses
 import json
 import math
 import os
@@ -48,6 +57,7 @@ import torch
 
 SEED = 0
 REQUESTS = (1, 2, 4)            # batch sizes of the three txt2img requests
+FUSED_REQUESTS = (1, 4)         # and of the fused UNet's
 STEPS, GUIDANCE, SIZE = 20, 7.5, 512
 PROMPT = 'a photo of a cat sitting on a wooden table, highly detailed'
 NEGATIVE = 'blurry, low quality'
@@ -68,6 +78,9 @@ LSE_ATOL = 1e-3
 TRAIN_BATCH, TRAIN_LATENT, TIMED_STEPS = 8, 64, 5
 LORA_PATTERNS = ['re:.*attn[12]\\.to_(q|k|v|out)$', 're:.*ff\\.(proj|out)$']
 CLIP_VOCAB = 49405              # bench_train.py draws input_ids in [0, 49405)
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, fp32
+# outside them, device memory
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
 
 def log(msg):
@@ -85,46 +98,43 @@ def gpu_name_and_power_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def clip_config():
-    """The byte-level tiny tokenizer and CLIPTextConfig.sd15() with its
-    BOS/EOS ids (the repo ships no CLIP vocabulary)."""
-    from hcpdiff_tpu.utils.clip_tokenizer import CLIPTokenizer
-    from hcpdiff_tpu_torch.models.clip import CLIPTextConfig
-    tok = CLIPTokenizer.tiny()
-    return tok, dataclasses.replace(CLIPTextConfig.sd15(), bos_token_id=tok.bos_token_id,
-                                    eos_token_id=tok.eos_token_id)
+# the kernels each path must launch
+TXT2IMG_KERNELS = ('flash_attention', 'geglu_dense', 'fused_dense', 'group_norm_silu')
+TRAIN_KERNELS = TXT2IMG_KERNELS + ('flash_attention_lse', 'flash_attention_bwd_dq',
+                                   'flash_attention_bwd_dkv')
+FUSED_KERNELS = ('ln_qkv', 'ln_geglu', 'ln_dense', 'conv3x3', 'flash_attention',
+                 'fused_dense', 'group_norm_silu')
 
 
-def build_models(device):
-    from hcpdiff_tpu_torch.models.clip import CLIPTextModel
-    from hcpdiff_tpu_torch.models.layers import init_flax_like
-    from hcpdiff_tpu_torch.models.text_frontend import TextEncoderFrontend
-    from hcpdiff_tpu_torch.models.unet import UNet2DCondition, UNetConfig
-    from hcpdiff_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-
-    tok, clip_cfg = clip_config()
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    models = []
-    for cls, cfg in ((UNet2DCondition, UNetConfig.sd15()), (AutoencoderKL, VAEConfig.sd()),
-                     (CLIPTextModel, clip_cfg)):
-        with device:
-            m = init_flax_like(cls(cfg), gen).to(torch.bfloat16)
-        models.append(m.to(memory_format=torch.channels_last).eval())
-    unet, vae, clip = models
-    return unet, vae, TextEncoderFrontend(tok, clip)
-
-
-def counters(training: bool = False):
+def counters():
+    """Every kernel wrapper by name; each counts its own launches."""
     from hcpdiff_tpu_torch.ops import flash_attention as fa
+    from hcpdiff_tpu_torch.ops import matmul as mm
+    from hcpdiff_tpu_torch.ops.conv import conv3x3
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu
-    from hcpdiff_tpu_torch.ops.matmul import fused_dense, geglu_dense
-    out = {'flash_attention': fa.flash_attention, 'geglu_dense': geglu_dense,
-           'fused_dense': fused_dense, 'group_norm_silu': group_norm_silu}
-    if training:
-        out.update({'flash_attention_lse': fa.flash_attention_lse,
-                    'flash_attention_bwd_dq': fa.flash_attention_bwd_dq,
-                    'flash_attention_bwd_dkv': fa.flash_attention_bwd_dkv})
-    return out
+    return {'flash_attention': fa.flash_attention, 'flash_attention_lse': fa.flash_attention_lse,
+            'flash_attention_bwd_dq': fa.flash_attention_bwd_dq,
+            'flash_attention_bwd_dkv': fa.flash_attention_bwd_dkv,
+            'geglu_dense': mm.geglu_dense, 'fused_dense': mm.fused_dense,
+            'group_norm_silu': group_norm_silu, 'ln_qkv': mm.ln_qkv, 'ln_geglu': mm.ln_geglu,
+            'ln_dense': mm.ln_dense, 'conv3x3': conv3x3}
+
+
+def zero_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters(what, expected, absent=()):
+    """The launch counts since zero_counters(); each kernel in `expected`
+    must have launched and none in `absent`."""
+    launches = {name: fn.launches for name, fn in counters().items()}
+    log(f'kernel launches during {what}: {launches}')
+    for name in expected:
+        check(launches[name] > 0, f'kernel {name} never launched during {what}')
+    for name in absent:
+        check(launches[name] == 0, f'kernel {name} launched during {what}: routing is wrong')
+    return launches
 
 
 def rel_err(out, ref):
@@ -132,23 +142,28 @@ def rel_err(out, ref):
     return float((out - ref).norm() / ref.norm())
 
 
+def cpu_fp32(module):
+    return copy.deepcopy(module).float().cpu().to(memory_format=torch.contiguous_format)
+
+
 @torch.inference_mode()
-def reference_phase(pipe, device):
+def reference_phase(pipe, fused_unet, device):
     """Card vs CPU fp32 on a 32x32 latent: big enough that the UNet's first
     level and the VAE's mid block take kernel A (S = 1024)."""
     from hcpdiff_tpu_torch.models.text_frontend import TextEncoderFrontend
     gen = torch.Generator().manual_seed(SEED + 1)
     lat = torch.randn(2, 32, 32, 4, generator=gen)
     t = torch.tensor([801, 301])
-    te_cpu = TextEncoderFrontend(pipe.te.tokenizer, copy.deepcopy(pipe.te.model).float().cpu())
+    te_cpu = TextEncoderFrontend(pipe.te.tokenizer, cpu_fp32(pipe.te.model))
     ctx, _ = pipe.te.encode([NEGATIVE, PROMPT])
     ctx_cpu, _ = te_cpu.encode([NEGATIVE, PROMPT])
     errs = {'clip': rel_err(ctx, ctx_cpu)}
-    unet_cpu = copy.deepcopy(pipe.unet).float().cpu().to(memory_format=torch.contiguous_format)
-    errs['unet'] = rel_err(pipe.unet(lat.to(device), t.to(device), ctx),
-                           unet_cpu(lat, t, ctx.float().cpu()))
-    del unet_cpu
-    vae_cpu = copy.deepcopy(pipe.vae).float().cpu().to(memory_format=torch.contiguous_format)
+    for name, unet in (('unet', pipe.unet), ('fused unet', fused_unet)):
+        unet_cpu = cpu_fp32(unet)
+        errs[name] = rel_err(unet(lat.to(device), t.to(device), ctx),
+                             unet_cpu(lat, t, ctx.float().cpu()))
+        del unet_cpu
+    vae_cpu = cpu_fp32(pipe.vae)
     errs['vae_decode'] = rel_err(pipe.vae.decode(lat[:1].to(device)), vae_cpu.decode(lat[:1]))
     for name, err in errs.items():
         log(f'reference {name}: card bf16 vs cpu fp32 rel L2 err {err:.3e} '
@@ -156,9 +171,10 @@ def reference_phase(pipe, device):
         check(err <= MODEL_REL_TOL, f'{name} rel err {err} > {MODEL_REL_TOL}')
 
 
-def build_training(device, clip_cfg):
-    """The frozen fp32 UNet (remat) and CLIP from the seed, the LoRA pack,
-    and a CPU fp32 copy of both models for the gradient check."""
+def build_training(device, clip_cfg, fused: bool = False):
+    """The frozen fp32 UNet (remat; fused_sublayers=fused) and CLIP from
+    the seed, the LoRA pack, and a CPU fp32 copy of both models for the
+    gradient check."""
     from hcpdiff_tpu_torch.adapt.overlay import make_lora_overlay
     from hcpdiff_tpu_torch.models.clip import CLIPTextModel
     from hcpdiff_tpu_torch.models.layers import init_flax_like
@@ -167,7 +183,8 @@ def build_training(device, clip_cfg):
 
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     with device:
-        unet = init_flax_like(UNet2DCondition(UNetConfig.sd15(), remat=True), gen)
+        unet = init_flax_like(UNet2DCondition(UNetConfig.sd15(), remat=True,
+                                              fused_sublayers=fused), gen)
         te = init_flax_like(CLIPTextModel(clip_cfg), gen)
         overlay, scales = make_lora_overlay(
             gen, unet, [{'layers': LORA_PATTERNS, 'rank': 8}])
@@ -194,6 +211,7 @@ def make_step(unet, te, scales):
 def train_phase(device):
     """5 timed LoRA steps at bench_train.py's sd15 shapes; returns the
     training path's launch counts and what the gradient check needs."""
+    from hcpdiff_tpu_torch.tools.random_sd15 import clip_config
     from hcpdiff_tpu_torch.trainer.optimizers import make_optimizer
     from hcpdiff_tpu_torch.trainer.step import init_train_state
 
@@ -224,25 +242,20 @@ def train_phase(device):
     checked_step('warm-up step')
     still_zero = [p for p, e in state.pack['lora_unet'].items() if not bool(e['up'].any())]
     check(not still_zero, f'LoRA up factors still zero after a step: {still_zero[:3]}')
-    kernels = counters(training=True)
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counters()
     torch.cuda.reset_peak_memory_stats()
     times = [checked_step(f'step {i}') for i in range(TIMED_STEPS)]
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = read_counters('the timed steps (remat runs each forward twice)', TRAIN_KERNELS)
     per_step = sum(times) / len(times)
     log(f'train timed: {TIMED_STEPS} steps, batch {TRAIN_BATCH}, '
         f'{TRAIN_LATENT * 8}px: {per_step:.4f} s/step '
         f'({TRAIN_BATCH / per_step:.3f} samples/s), steps {[round(t, 4) for t in times]}, '
         f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    log(f'kernel launches during the timed steps (remat runs each forward twice): {launches}')
-    for name, n in launches.items():
-        check(n > 0, f'kernel {name} never launched in the training steps')
     del state, batch
     return launches, (unet, te, overlay, scales, frozen, cpu_models)
 
 
-def gradient_phase(device, training):
+def gradient_phase(device, training, what='gradient check'):
     """One step's LoRA gradients, card (bf16, kernels) vs CPU fp32 (plain
     versions), on the same weights, latents, noise and t."""
     from hcpdiff_tpu_torch.trainer.assemble import lora_base_weights
@@ -269,13 +282,14 @@ def gradient_phase(device, training):
         grads[side] = {k: torch.cat([gi.float().cpu().flatten()
                                      for gi, (_, kk) in zip(g, factors) if kk == k])
                        for k in ('down', 'up')}
-        log(f'gradient check {side}: loss {float(loss.detach()):.6f}')
+        log(f'{what} {side}: loss {float(loss.detach()):.6f}')
     for factor in ('down', 'up'):
         card, cpu = grads['card'][factor], grads['cpu'][factor]
         err = float((card - cpu).norm() / cpu.norm())
-        log(f'gradient check: LoRA {factor} gradients, card bf16 vs cpu fp32 rel L2 err '
+        log(f'{what}: LoRA {factor} gradients, card bf16 vs cpu fp32 rel L2 err '
             f'{err:.3e} (limit {GRAD_REL_TOL}; |grad| {float(cpu.norm()):.4e})')
-        check(err <= GRAD_REL_TOL, f'LoRA {factor} gradient rel err {err} > {GRAD_REL_TOL}')
+        check(err <= GRAD_REL_TOL,
+              f'{what}: LoRA {factor} gradient rel err {err} > {GRAD_REL_TOL}')
 
 
 def time_ms(fn, iters=10):
@@ -290,32 +304,100 @@ def time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """(ms, what bounds it): the least time the card could take for
+    `flops` operations at `peak` and `nbytes` moved at PEAK_BYTES."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+
+
+# The work of each kernel at one shape: each input read once and each
+# output written once (bf16 2 bytes, fp32 4), and the operations its
+# function needs.
+def attention_work(B, H, S, D, lse=False):
+    return bound(4 * B * H * S * S * D, 2 * 4 * B * H * S * D + (4 * B * H * S if lse else 0))
+
+
+def attention_bwd_work(B, H, S, D, dkv):
+    """E recomputes S = QK^T and does dP = dO V^T and dQ = dS K; F
+    recomputes S and dP and does dV = P^T dO and dK = dS^T Q. Both read q,
+    k, v, dO and the fp32 lse and delta; E writes dq, F dk and dv."""
+    flops = (8 if dkv else 6) * B * H * S * S * D
+    return bound(flops, 2 * B * H * S * D * (6 if dkv else 5) + 2 * 4 * B * H * S)
+
+
+def gemm_work(M, K, rows, n_out, nw=1, bias=0, res=False, ln=False):
+    """nw weights [rows, K], each into an [M, n_out] output (GEGLU: rows =
+    2 * n_out), a bias of `bias` values, a residual [M, n_out], LayerNorm
+    scale and shift [K]."""
+    nbytes = 2 * (M * K + nw * rows * K + bias + nw * M * n_out + (M * n_out if res else 0)
+                  + (2 * K if ln else 0))
+    return bound(2 * M * K * rows * nw, nbytes)
+
+
+def conv_work(B, H, W, Cin, Cout, row_bias=False, res=False):
+    pix = B * H * W
+    nbytes = 2 * (pix * Cin + 9 * Cin * Cout + Cout + (B * Cout if row_bias else 0)
+                  + pix * Cout * (2 if res else 1))
+    return bound(2 * pix * 9 * Cin * Cout, nbytes)
+
+
+def group_norm_work(B, S, C):
+    """About 10 fp32 operations an element (statistics, normalization,
+    affine, SiLU), outside the tensor cores; fp32 scale and bias."""
+    return bound(10 * B * S * C, 2 * 2 * B * S * C + 2 * 4 * C, PEAK_FP32)
+
+
+def _time_library(fn, what):
+    """The yardstick's time; a call this PyTorch build refuses gives null
+    (the port never makes it, so it fails nothing)."""
+    try:
+        return time_ms(fn)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log(f'library call for {what} refused, library_ms null: {e}')
+        return None
+
+
 def _record(name, source, replaces, launches, per_shape, tolerance, **extra):
-    """max_abs_err is the largest over the shapes, ms and plain_ms their
-    sums; each shape's own numbers are under 'shapes'."""
+    """max_abs_err is the largest over the shapes; ms, plain_ms and bound_ms
+    their sums; library_ms the sum over the shapes that have a library call
+    (library_shapes; null if none); bound_by what bounds most of bound_ms.
+    Each shape's own numbers are under 'shapes'."""
+    lib = [s for s in per_shape if s['library_ms'] is not None]
+    bound_ms = sum(s['bound_ms'] for s in per_shape)
+    by_ops = sum(s['bound_ms'] for s in per_shape if s['bound_by'] == 'operations')
     return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces[0],
             'also_replaces': replaces[1:], 'launches': launches,
             'max_abs_err': max(s['max_abs_err'] for s in per_shape),
             'ms': sum(s['ms'] for s in per_shape),
             'plain_ms': sum(s['plain_ms'] for s in per_shape),
+            'bound_ms': bound_ms, 'bound_by': 'operations' if 2 * by_ops >= bound_ms else 'bytes',
+            'library_ms': sum(s['library_ms'] for s in lib) if lib else None,
+            'library_shapes': [s['shape'] for s in lib],
             'tolerance': tolerance, 'shapes': per_shape, **extra}
 
 
-def _measure(label, kernel, plain, args, ok_fn, what):
+def _measure(label, kernel, plain, args, ok_fn, what, work, library=None):
     """Run, compare (ok_fn(out, ref) -> (ok, max_abs_err)) and time a kernel
-    and its plain version on the same inputs."""
+    and its plain version on the same inputs, and `library` (one PyTorch
+    call that computes the same function) where there is one; `work` is
+    the shape's (bound_ms, bound_by)."""
     out, ref = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     oks, errs = zip(*(ok_fn(o, r) for o, r in zip(outs, refs)))
     max_err = max(errs)
+    del out, ref, outs, refs
     ms = time_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args))
+    library_ms = None if library is None else _time_library(library, f'{what} {label}')
+    bound_ms, bound_by = work
     log(f'kernel {what} {label}: max_abs_err {max_err:.4g} kernel {ms:.4f} ms '
-        f'plain {plain_ms:.4f} ms')
+        f'plain {plain_ms:.4f} ms library {library_ms} ms bound {bound_ms:.4f} ms ({bound_by})')
     check(all(oks), f'{what} {label} disagrees with its plain version: {max_err}')
-    return {'shape': label, 'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms}
+    return {'shape': label, 'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+            'library_ms': library_ms, 'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
 def _within(out, ref):
@@ -338,14 +420,30 @@ def _within_lse(out, ref):
 
 
 CSRC = 'hcpdiff_tpu_torch/csrc/'
-FA, MM, GN = ('hcpdiff_tpu/ops/flash_attention.py:', 'hcpdiff_tpu/ops/matmul.py:',
-              'hcpdiff_tpu/ops/groupnorm.py:')
+FA, MM, GN, CV = ('hcpdiff_tpu/ops/flash_attention.py:', 'hcpdiff_tpu/ops/matmul.py:',
+                  'hcpdiff_tpu/ops/groupnorm.py:', 'hcpdiff_tpu/ops/conv.py:')
 
 
 def _rn_on(gen):
     def rn(*shape, scale=1.0):
         return (torch.randn(*shape, device='cuda', generator=gen) * scale).to(torch.bfloat16)
     return rn
+
+
+def _run_cases(cases, launches, extra_launches):
+    """cases: name -> (source, TPU kernels replaced, kernel, plain, ok_fn,
+    tolerance, [(label, args, work, library)]); launches: the main path's
+    counts; extra_launches: {label: counts} of the other paths."""
+    records = []
+    for name, (source, replaces, kernel, plain, ok_fn, tol, shapes) in cases.items():
+        per_shape = [_measure(label, kernel, plain, args, ok_fn, name, work, library)
+                     for label, args, work, library in shapes]
+        records.append(_record(name, source, replaces, launches[name], per_shape, tol,
+                               **{f'launches_{k}': v[name] for k, v in extra_launches.items()}))
+    return records
+
+
+TOL = {'atol': ATOL, 'rtol': RTOL}
 
 
 @torch.inference_mode()
@@ -355,6 +453,7 @@ def kernel_phase(launches):
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
     from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_dense,
                                               geglu_dense_plain)
+    F = torch.nn.functional
     gen = torch.Generator(device='cuda').manual_seed(SEED + 2)
     rn = _rn_on(gen)
 
@@ -363,41 +462,48 @@ def kernel_phase(launches):
                 torch.rand(C, device='cuda', generator=gen) + 0.5,
                 torch.randn(C, device='cuda', generator=gen))
 
-    cases = {   # name -> (source, TPU kernels replaced, kernel, plain, [(label, args)])
+    def attn(s):
+        q, k, v = rn(*s), rn(*s), rn(*s)
+        return (f'q/k/v {list(s)}', [q, k, v], attention_work(*s),
+                lambda: F.scaled_dot_product_attention(q, k, v))
+
+    x_in, w_in, b_in = rn(32768, 320), rn(320, 320, scale=320 ** -0.5), rn(320)
+    cases = {
         'flash_attention': (
             CSRC + 'flash_attention.cu', [FA + '379', FA + '226'],
-            flash_attention, attention_plain,
-            [(f'q/k/v {list(s)}', [rn(*s), rn(*s), rn(*s)])
-             for s in ((4, 8, 4096, 40), (4, 8, 1024, 80), (2, 1, 4096, 512))]),
+            flash_attention, attention_plain, _within, TOL,
+            [attn(s) for s in ((4, 8, 4096, 40), (4, 8, 1024, 80), (2, 1, 4096, 512))]),
         'geglu_dense': (
-            CSRC + 'gemm.cu', [MM + '301'], geglu_dense, geglu_dense_plain,
-            [('x [16384, 320], w [2560, 320]',
-              [rn(16384, 320), rn(2560, 320, scale=320 ** -0.5), rn(2560)])]),
+            CSRC + 'gemm.cu', [MM + '301'], geglu_dense, geglu_dense_plain, _within, TOL,
+            [(f'x [{M}, 320], w [2560, 320]',
+              [rn(M, 320), rn(2560, 320, scale=320 ** -0.5), rn(2560)],
+              gemm_work(M, 320, 2560, 1280, bias=2560), None) for M in (16384, 32768)]),
         'fused_dense': (
-            CSRC + 'gemm.cu', [MM + '87', MM + '66'], fused_dense, fused_dense_plain,
+            CSRC + 'gemm.cu', [MM + '87', MM + '66'], fused_dense, fused_dense_plain, _within, TOL,
             [('x [1024, 5120], w [1280, 5120], res',
-              [rn(1024, 5120), rn(1280, 5120, scale=5120 ** -0.5), rn(1280), rn(1024, 1280)])]),
+              [rn(1024, 5120), rn(1280, 5120, scale=5120 ** -0.5), rn(1280), rn(1024, 1280)],
+              gemm_work(1024, 5120, 1280, 1280, bias=1280, res=True), None),
+             ('x [32768, 320], w [320, 320] (proj_in, no res)', [x_in, w_in, b_in],
+              gemm_work(32768, 320, 320, 320, bias=320), lambda: F.linear(x_in, w_in, b_in))]),
         'group_norm_silu': (
-            CSRC + 'groupnorm.cu', [GN + '22'],
-            group_norm_silu, group_norm_silu_plain,
-            [('x [4, 64*64, 320] silu', [*gn_args(4, 64 * 64, 320), 32, 1e-5, True]),
-             ('x [4, 16*16, 1280] silu', [*gn_args(4, 16 * 16, 1280), 32, 1e-5, True]),
-             ('x [2, 512*512, 128] silu', [*gn_args(2, 512 * 512, 128), 32, 1e-6, True])]),
+            CSRC + 'groupnorm.cu', [GN + '22', GN + '177', GN + '204'],
+            group_norm_silu, group_norm_silu_plain, _within, TOL,
+            [(f'x [{B}, {S}, {C}] silu', [*gn_args(B, S, C), 32, eps, True],
+              group_norm_work(B, S, C), None)
+             for B, S, C, eps in ((4, 64 * 64, 320, 1e-5), (4, 16 * 16, 1280, 1e-5),
+                                  (2, 512 * 512, 128, 1e-6))]),
     }
-    records = []
-    for name, (source, replaces, kernel, plain, shapes) in cases.items():
-        per_shape = [_measure(label, kernel, plain, args, _within, name)
-                     for label, args in shapes]
-        records.append(_record(name, source, replaces, launches['txt2img'][name], per_shape,
-                               {'atol': ATOL, 'rtol': RTOL},
-                               launches_train=launches['train'][name]))
-    return records
+    return _run_cases(cases, launches['txt2img'],
+                      {'train': launches['train'], 'fused': launches['fused']})
 
 
 @torch.inference_mode()
 def train_kernel_phase(launches):
-    """A with its lse, E and F at the training path's shapes."""
+    """A with its lse, E and F at the training path's shapes. The library
+    calls are PyTorch's own flash-attention forward (with its logsumexp)
+    and backward (dq, dk and dv in one call, timed for E and F each)."""
     from hcpdiff_tpu_torch.ops import flash_attention as fa
+    aten = torch.ops.aten
     gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
     rn = _rn_on(gen)
     per = {'flash_attention_lse': [], 'flash_attention_bwd_dq': [],
@@ -406,34 +512,133 @@ def train_kernel_phase(launches):
         label = f'q/k/v/dO {list(shape)}'
         q, k, v, do = (rn(*shape) for _ in range(4))
         scale = shape[-1] ** -0.5
+
+        def lib_fwd():
+            return aten._scaled_dot_product_flash_attention(q, k, v, scale=scale)
+
         per['flash_attention_lse'].append(_measure(
             label, lambda q, k, v: fa.flash_attention_lse(q, k, v, scale),
             lambda q, k, v: (fa.attention_plain(q, k, v, scale),
                              fa.attention_lse_plain(q, k, scale)),
-            [q, k, v], _within_lse, 'flash_attention_lse'))
+            [q, k, v], _within_lse, 'flash_attention_lse', attention_work(*shape, lse=True),
+            lib_fwd))
+        try:
+            r = lib_fwd()
+
+            def lib_bwd():
+                return aten._scaled_dot_product_flash_attention_backward(
+                    do, q, k, v, r[0], r[1], r[2], r[3], r[4], r[5], 0.0, False, r[6], r[7],
+                    scale=scale)
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            log(f'library flash-attention forward refused, no backward yardstick: {e}')
+            lib_bwd = None
         o, lse = fa.flash_attention_lse(q, k, v, scale)
         delta = fa.attention_delta(o, do)
         args = [q, k, v, lse, do, delta, scale]
-        per['flash_attention_bwd_dq'].append(_measure(
-            label, fa.flash_attention_bwd_dq, fa.flash_bwd_dq_plain, args, _within_grad,
-            'flash_attention_bwd_dq'))
-        per['flash_attention_bwd_dkv'].append(_measure(
-            label, fa.flash_attention_bwd_dkv, fa.flash_bwd_dkv_plain, args, _within_grad,
-            'flash_attention_bwd_dkv'))
+        for name, kernel, plain, dkv in (
+                ('flash_attention_bwd_dq', fa.flash_attention_bwd_dq, fa.flash_bwd_dq_plain,
+                 False),
+                ('flash_attention_bwd_dkv', fa.flash_attention_bwd_dkv, fa.flash_bwd_dkv_plain,
+                 True)):
+            per[name].append(_measure(label, kernel, plain, args, _within_grad, name,
+                                      attention_bwd_work(*shape, dkv), lib_bwd))
         del q, k, v, do, o, lse, delta, args
     grad_tol = {'atol': f'{GRAD_ATOL_REL} * max|plain|', 'rtol': RTOL}
+    lib_note = ('library_ms: one aten flash-attention backward call, which computes dq, dk '
+                'and dv together (the same call is timed for E and for F)')
     return [
-        _record('flash_attention_lse', CSRC + 'flash_attention.cu', [FA + '379'],
+        _record('flash_attention_lse', CSRC + 'flash_attention.cu', [FA + '379', FA + '613'],
                 launches['flash_attention_lse'], per['flash_attention_lse'],
-                {'o': {'atol': ATOL, 'rtol': RTOL}, 'lse_atol': LSE_ATOL},
+                {'o': TOL, 'lse_atol': LSE_ATOL},
                 note='kernel A writing its lse output (emit_lse variant of #1)'),
         _record('flash_attention_bwd_dq', CSRC + 'flash_attention_bwd.cu', [FA + '780'],
                 launches['flash_attention_bwd_dq'], per['flash_attention_bwd_dq'], grad_tol,
-                note='kernel E; plain is flash_bwd_dq_plain'),
+                note='kernel E; plain is flash_bwd_dq_plain; ' + lib_note),
         _record('flash_attention_bwd_dkv', CSRC + 'flash_attention_bwd.cu', [FA + '834'],
                 launches['flash_attention_bwd_dkv'], per['flash_attention_bwd_dkv'], grad_tol,
-                note='kernel F; plain is flash_bwd_dkv_plain'),
+                note='kernel F; plain is flash_bwd_dkv_plain; ' + lib_note),
     ]
+
+
+@torch.inference_mode()
+def fused_kernel_phase(launches):
+    """Kernels G-J at the fused path's shapes (SD1.5 512 px, batch 4, so
+    a UNet batch of 8): G-I at levels 0 and 2, J at level 0 with each
+    epilogue and at the 8x8, Cin = 2560 conv (up_0's first resblock)."""
+    from hcpdiff_tpu_torch.ops import matmul as mm
+    from hcpdiff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
+    F = torch.nn.functional
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 7)
+    rn = _rn_on(gen)
+    cl = torch.channels_last
+    eps = 1e-6
+
+    def ln_args(M, C):
+        return rn(M, C), 1.0 + rn(C, scale=0.1), rn(C, scale=0.1)
+
+    levels = ((8 * 64 * 64, 320), (8 * 16 * 16, 1280))       # (M, C) at levels 0 and 2
+    g_shapes, h_shapes, i_shapes = [], [], []
+    for M, C in levels:
+        x, g, b = ln_args(M, C)
+        ws = [rn(C, C, scale=C ** -0.5) for _ in range(3)]
+        w2, b2 = rn(8 * C, C, scale=C ** -0.5), rn(8 * C)
+        g_shapes.append((f'x [{M}, {C}], wq/wk/wv [{C}, {C}]', [x, g, b, *ws, eps],
+                         gemm_work(M, C, C, C, nw=3, ln=True), None))
+        h_shapes.append((f'x [{M}, {C}], w [{8 * C}, {C}]', [x, g, b, w2, b2, eps],
+                         gemm_work(M, C, 8 * C, 4 * C, bias=8 * C, ln=True), None))
+        i_shapes.append((f'x [{M}, {C}], w [{C}, {C}]', [x, g, b, ws[0], eps],
+                         gemm_work(M, C, C, C, ln=True), None))
+
+    def conv_case(B, Cin, H, W, Cout, epilogue):
+        x = rn(B, Cin, H, W).to(memory_format=cl)
+        w = rn(Cout, Cin, 3, 3, scale=(9 * Cin) ** -0.5).to(memory_format=cl)
+        b = rn(Cout)
+        rb = rn(B, Cout) if epilogue == 'row_bias' else None
+        res = rn(B, Cout, H, W).to(memory_format=cl) if epilogue == 'res' else None
+        library = (lambda: F.conv2d(x, w, b, padding=1)) if epilogue == 'bias' else None
+        return (f'x [{B}, {Cin}, {H}, {W}] -> {Cout}, {epilogue}', [x, w, b, rb, res],
+                conv_work(B, H, W, Cin, Cout, rb is not None, res is not None), library)
+
+    cases = {
+        'ln_qkv': (CSRC + 'gemm.cu', [MM + '412'], mm.ln_qkv, mm.ln_qkv_plain, _within, TOL,
+                   g_shapes),
+        'ln_geglu': (CSRC + 'gemm.cu', [MM + '497'], mm.ln_geglu, mm.ln_geglu_plain, _within,
+                     TOL, h_shapes),
+        'ln_dense': (CSRC + 'gemm.cu', [MM + '600'], mm.ln_dense, mm.ln_dense_plain, _within,
+                     TOL, i_shapes),
+        'conv3x3': (CSRC + 'conv.cu', [CV + '48'], conv3x3, conv3x3_plain, _within, TOL,
+                    [conv_case(8, 320, 64, 64, 320, 'row_bias'),
+                     conv_case(8, 320, 64, 64, 320, 'res'),
+                     conv_case(8, 320, 64, 64, 320, 'bias'),
+                     conv_case(8, 2560, 8, 8, 1280, 'bias')]),
+    }
+    return _run_cases(cases, launches, {})
+
+
+def answer_requests(pipe, batches, what):
+    """Time txt2img requests at 512 px, 20 DPM++ 2M steps; check images."""
+    for i, batch in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        images = pipe.txt2img(PROMPT, NEGATIVE, width=SIZE, height=SIZE, num_steps=STEPS,
+                              guidance_scale=GUIDANCE, sampler='dpm++_2m', seed=SEED + i,
+                              batch_size=batch)
+        seconds = time.perf_counter() - t0
+        log(f'{what} {i}: txt2img {SIZE}x{SIZE} batch {batch}, {STEPS} DPM++ 2M steps, '
+            f'guidance {GUIDANCE}: {seconds:.3f} s ({seconds / batch:.3f} s/image), '
+            f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
+            f'image mean {images.mean():.4f} std {images.std():.4f}')
+        check(images.shape == (batch, SIZE, SIZE, 3), f'image shape {images.shape}')
+        check(bool(torch.isfinite(torch.from_numpy(images)).all()), 'non-finite image')
+        check(images.min() >= 0.0 and images.max() <= 1.0, 'image outside [0, 1]')
+
+
+def warm_up(pipe, batches):
+    """A 2-step request at each batch size (cuDNN algorithm choice, lazy
+    module loading, allocator), not counted or timed."""
+    for batch in batches:
+        pipe.txt2img(PROMPT, NEGATIVE, width=SIZE, height=SIZE, num_steps=2,
+                     guidance_scale=GUIDANCE, seed=SEED, batch_size=batch)
 
 
 def main() -> int:
@@ -443,6 +648,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hcpdiff_tpu_torch.infer.pipeline import DiffusionPipeline
     from hcpdiff_tpu_torch.ops import _build
+    from hcpdiff_tpu_torch.tools.random_sd15 import build_sd15, clip_config, fused_copy
 
     device = torch.device('cuda', 0)
     gpu = gpu_name_and_power_limit()
@@ -453,39 +659,23 @@ def main() -> int:
     log(f'build seconds: {time.perf_counter() - t0:.2f} ({_build.BUILD_DIR})')
 
     t0 = time.perf_counter()
-    unet, vae, te = build_models(device)
+    unet, vae, te = build_sd15(device, SEED)
     pipe = DiffusionPipeline(unet, vae, te)
     log(f'model build seconds (SD1.5 full width, bf16, seed {SEED}): '
         f'{time.perf_counter() - t0:.2f}')
-    # a 2-step warm-up at each batch size (cuDNN algorithm choice, lazy
-    # module loading, allocator), not counted or timed
-    for batch in REQUESTS:
-        pipe.txt2img(PROMPT, NEGATIVE, width=SIZE, height=SIZE, num_steps=2,
-                     guidance_scale=GUIDANCE, seed=SEED, batch_size=batch)
+    warm_up(pipe, REQUESTS)
+    zero_counters()
+    answer_requests(pipe, REQUESTS, 'request')
+    launches = read_counters('the requests', TXT2IMG_KERNELS)
 
-    kernels = counters()
-    for fn in kernels.values():
-        fn.launches = 0
-    for i, batch in enumerate(REQUESTS):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        images = pipe.txt2img(PROMPT, NEGATIVE, width=SIZE, height=SIZE, num_steps=STEPS,
-                              guidance_scale=GUIDANCE, sampler='dpm++_2m', seed=SEED + i,
-                              batch_size=batch)
-        seconds = time.perf_counter() - t0
-        log(f'request {i}: txt2img {SIZE}x{SIZE} batch {batch}, {STEPS} DPM++ 2M steps, '
-            f'guidance {GUIDANCE}: {seconds:.3f} s ({seconds / batch:.3f} s/image), '
-            f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
-            f'image mean {images.mean():.4f} std {images.std():.4f}')
-        check(images.shape == (batch, SIZE, SIZE, 3), f'image shape {images.shape}')
-        check(bool(torch.isfinite(torch.from_numpy(images)).all()), 'non-finite image')
-        check(images.min() >= 0.0 and images.max() <= 1.0, 'image outside [0, 1]')
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    log(f'kernel launches during the requests: {launches}')
-    for name, n in launches.items():
-        check(n > 0, f'kernel {name} never launched on the main path')
+    fused_pipe = DiffusionPipeline(fused_copy(unet, device), vae, te)
+    warm_up(fused_pipe, FUSED_REQUESTS)
+    zero_counters()
+    answer_requests(fused_pipe, FUSED_REQUESTS, 'fused request')
+    fused_launches = read_counters('the fused requests', FUSED_KERNELS, absent=('geglu_dense',))
 
-    reference_phase(pipe, device)
+    reference_phase(pipe, fused_pipe.unet, device)
+    del fused_pipe
     # fp32 products on the card (the B and C backwards, the LoRA merge)
     # run in full fp32, as the JAX package computes them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -493,9 +683,13 @@ def main() -> int:
     train_launches, training = train_phase(device)
     gradient_phase(device, training)
     del training
+    gradient_phase(device, build_training(device, clip_config()[1], fused=True),
+                   'fused gradient check')
     torch.cuda.empty_cache()
-    records = kernel_phase({'txt2img': launches, 'train': train_launches})
+    records = kernel_phase({'txt2img': launches, 'train': train_launches,
+                            'fused': fused_launches})
     records += train_kernel_phase(train_launches)
+    records += fused_kernel_phase(fused_launches)
     log(gpu)
     print(json.dumps({'kernels': records}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

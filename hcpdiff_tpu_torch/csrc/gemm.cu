@@ -1,130 +1,169 @@
-// Kernels B (geglu_dense) and C (fused_dense): a bf16 GEMM with an fp32
-// epilogue, y = x @ w^T with x [M, K] and w [Nw, K] (nn.Linear layout).
+// The bf16 GEMMs with fused epilogues and prologues, y = x @ w^T with
+// x [M, K] and w [N, K] (nn.Linear layout), fp32 accumulation:
+//   B  geglu_dense  (x W^T + b) value half * gelu_erf(gate half)
+//   C  fused_dense  x W^T + b (+ res)
+//   G  ln_qkv       LayerNorm(x) Wq^T, LayerNorm(x) Wk^T, LayerNorm(x) Wv^T
+//   H  ln_geglu     GEGLU of LayerNorm(x)
+//   I  ln_dense     LayerNorm(x) W^T
 //
 // Replaces hcpdiff_tpu/ops/matmul.py:_geglu_kernel (:301, via geglu_dense
-// :387) and _dense_kernel_kres / _dense_kernel_kstream (:66 / :87, via
-// fused_dense :272).
+// :387), _dense_kernel_kres / _dense_kernel_kstream (:66 / :87, via
+// fused_dense :272), _ln_qkv_kernel (:412, via ln_qkv :489),
+// _ln_geglu_kernel (:497, via ln_geglu :591) and _ln_dense_kernel (:600,
+// via ln_dense :669).
 //
-// What bounds it on the H100: at the UNet's feed-forward shapes
-// (M = 2b*S up to 32768, K in 320..5120, N in 320..5120) the GEMMs are far
-// above the 295 FLOP/byte ridge, so the tensor cores bound them; the
-// epilogue work (bias, residual, GELU gate) is memory traffic that a
-// separate elementwise pass would add on top. The design keeps that work
-// in registers: GEGLU computes the value and the gate tile of the same
-// output columns in one block with two accumulators, so the [M, 2n]
-// intermediate never reaches device memory, and ff.out adds bias and
-// residual before its single store. The TPU kernel's K-resident /
-// K-streamed split was a VMEM-size artefact: here every K runs through the
-// same K loop over 32-wide slices, double-buffered with cp.async.
+// What bounds it on the H100: at the UNet's shapes (M = 2b*S up to 32768,
+// K in 320..5120, N in 320..5120) the GEMMs are far above the 295
+// FLOP/byte ridge, so the tensor cores bound them; the epilogue and
+// prologue work (bias, residual, GELU gate, LayerNorm) is memory traffic
+// that separate elementwise passes would add on top. The design keeps it
+// on chip: GEGLU computes the value and the gate tile of the same output
+// columns in one block with two accumulators, so the [M, 2n] intermediate
+// never reaches device memory; ff.out adds bias and residual before its
+// single store; the LayerNorm modes normalize each A stage in shared
+// memory, so the normalized activation is never written, and G reads x
+// for all three projections (a block picks wq, wk or wv by its grid
+// index). The TPU kernels' K-resident / K-streamed split was a VMEM-size
+// artefact: every K runs the same loop over 32-wide slices.
+//
+// LayerNorm (G, H, I): before the main loop a block computes its 128 rows'
+// mean and 1/sqrt(var + eps) in fp32, two passes over the row (the mean of
+// squared deviations, as _ln_rows does, matmul.py:404-409); x rows are at
+// most a few KB, so the second pass and the main loop read them from
+// cache. Each A stage is then rewritten in place as bf16((x - mean) * rstd
+// * g + b), the rounding the TPU kernels apply before their product.
 //
 // Simple first version: mma.sync m16n8k16 (not wgmma/TMA), 128x128 block
-// tile, 8 warps of 32x64, two shared-memory stages.
-#include "common.cuh"
+// tile, 8 warps of 32x64, two shared-memory stages (gemm_tile.cuh).
+#include "gemm_tile.cuh"
 
 namespace hcp {
 namespace {
 
-constexpr int BM = 128;          // rows of x per block
-constexpr int BNS = 128;         // rows of w per block (shared B tile)
-constexpr int BK = 32;           // K slice per stage
-constexpr int LDS = BK + 8;      // padded row: conflict-free fragment reads
-constexpr int THREADS = 256;
-
 enum Mode { DENSE = 0, DENSE_RES = 1, GEGLU = 2 };
 
-// Shared-tile row of this warp's n-tile `ni` (8 columns each, 8 per warp).
-// DENSE: the block owns 128 output columns, the warp 64 of them.
-// GEGLU: the block owns 64 output columns; shared rows [0, 64) hold their
-// value weights and rows [64, 128) their gate weights, so a warp's n-tiles
-// 0..3 are 32 value columns and 4..7 the gate columns that pair with them.
-template <int MODE>
-__device__ __forceinline__ int b_row(int wn, int ni) {
-    if (MODE == GEGLU) return ni < 4 ? wn * 32 + ni * 8 : 64 + wn * 32 + (ni - 4) * 8;
-    return wn * 64 + ni * 8;
+struct Params {
+    const bf16* x;
+    const bf16* w[3];           // G: wq, wk, wv; otherwise w[0]
+    const bf16* bias;           // [N] or [2N] (GEGLU) or null
+    const bf16* res;            // [M, N] (DENSE_RES)
+    bf16* out[3];               // one output per weight
+    const bf16* ln_g;           // LayerNorm scale and shift [K] (LN modes)
+    const bf16* ln_b;
+    float eps;
+    int M, N, K;
+    int ntn;                    // column tiles per weight
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-            const bf16* __restrict__ bias, const bf16* __restrict__ res,
-            bf16* __restrict__ out, int M, int N, int K) {
-    // N is the number of output columns (for GEGLU, w has 2N rows).
-    __shared__ __align__(16) bf16 sA[2][BM * LDS];
-    __shared__ __align__(16) bf16 sB[2][BNS * LDS];
+__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float* f) {
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(e[j]);
+}
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int wm = warp & 3, wn = warp >> 2;
-    const int m0 = blockIdx.y * BM;
-    const int n0 = blockIdx.x * (MODE == GEGLU ? 64 : 128);
-
-    auto load_stage = [&](int stage, int k0) {
-        for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-            int r = c >> 2, kc = (c & 3) * 8;
-            int gm = m0 + r, gk = k0 + kc;
-            bool ok = gm < M && gk < K;
-            cp_async16(&sA[stage][r * LDS + kc], ok ? x + (size_t)gm * K + gk : x, ok);
-        }
-        for (int c = tid; c < BNS * (BK / 8); c += THREADS) {
-            int r = c >> 2, kc = (c & 3) * 8;
-            int gn;
-            bool ok;
-            if (MODE == GEGLU) {
-                int col = n0 + (r & 63);
-                ok = col < N;
-                gn = r < 64 ? col : N + col;
-            } else {
-                gn = n0 + r;
-                ok = gn < N;
+// mean and 1/sqrt(var + eps) of rows m0 .. m0 + BM of x [M, K] (K % 8 == 0),
+// one warp per row; rows past M get 0 and 0.
+__device__ void row_stats(const bf16* x, int M, int K, int m0, float eps, float* s_mean,
+                          float* s_rstd) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < BM; r += THREADS / 32) {
+        const int gm = m0 + r;
+        float mean = 0.f, rstd = 0.f;
+        if (gm < M) {
+            const bf16* row = x + (size_t)gm * K;
+            float f[8], s = 0.f;
+            for (int k = lane * 8; k < K; k += 256) {
+                bf16x8_to_float(*reinterpret_cast<const uint4*>(row + k), f);
+#pragma unroll
+                for (int j = 0; j < 8; ++j) s += f[j];
             }
-            int gk = k0 + kc;
-            ok = ok && gk < K;
-            cp_async16(&sB[stage][r * LDS + kc], ok ? w + (size_t)gn * K + gk : w, ok);
+            mean = warp_sum(s) / K;
+            float q = 0.f;
+            for (int k = lane * 8; k < K; k += 256) {
+                bf16x8_to_float(*reinterpret_cast<const uint4*>(row + k), f);
+#pragma unroll
+                for (int j = 0; j < 8; ++j) q += (f[j] - mean) * (f[j] - mean);
+            }
+            rstd = rsqrtf(warp_sum(q) / K + eps);
+        }
+        if (lane == 0) {
+            s_mean[r] = mean;
+            s_rstd[r] = rstd;
+        }
+    }
+}
+
+template <int MODE, bool LN>
+__global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
+    __shared__ __align__(16) TileSmem sm;
+    __shared__ float s_mean[LN ? BM : 1], s_rstd[LN ? BM : 1];
+
+    constexpr bool PAIRED = MODE == GEGLU;
+    const int which = blockIdx.x / p.ntn;
+    const int m0 = blockIdx.y * BM;
+    const int n0 = (blockIdx.x % p.ntn) * (PAIRED ? 64 : 128);
+    // selected, not indexed: a runtime index into the parameter struct
+    // would copy it to local memory
+    const bf16* w = which == 0 ? p.w[0] : which == 1 ? p.w[1] : p.w[2];
+    bf16* out = which == 0 ? p.out[0] : which == 1 ? p.out[1] : p.out[2];
+
+    if (LN) {
+        row_stats(p.x, p.M, p.K, m0, p.eps, s_mean, s_rstd);
+        __syncthreads();
+    }
+    auto fill_a = [&](bf16* s, int k0) {
+#pragma unroll
+        for (int i = 0; i < A_CHUNKS; ++i) {
+            const int r = a_chunk_row(i), kc = a_chunk_col(i);
+            const int gm = m0 + r, gk = k0 + kc;
+            const bool ok = gm < p.M && gk < p.K;
+            cp_async16(&s[r * LDS + kc], ok ? p.x + (size_t)gm * p.K + gk : p.x, ok);
+        }
+    };
+    auto prep_a = [&](bf16* s, int k0) {
+        if (!LN) return;
+#pragma unroll
+        for (int i = 0; i < A_CHUNKS; ++i) {
+            const int r = a_chunk_row(i), kc = a_chunk_col(i);
+            const int gk = k0 + kc;
+            if (gk >= p.K) continue;         // stays zero: the padding adds nothing
+            uint4* chunk = reinterpret_cast<uint4*>(&s[r * LDS + kc]);
+            float xv[8], gv[8], bv[8];
+            bf16x8_to_float(*chunk, xv);
+            bf16x8_to_float(*reinterpret_cast<const uint4*>(p.ln_g + gk), gv);
+            bf16x8_to_float(*reinterpret_cast<const uint4*>(p.ln_b + gk), bv);
+            const float mean = s_mean[r], rstd = s_rstd[r];
+            uint4 y;
+            uint32_t* yw = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                yw[j] = pack_bf16x2((xv[2 * j] - mean) * rstd * gv[2 * j] + bv[2 * j],
+                                    (xv[2 * j + 1] - mean) * rstd * gv[2 * j + 1] + bv[2 * j + 1]);
+            *chunk = y;
         }
     };
 
     float acc[2][8][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    const int nk = (K + BK - 1) / BK;
-    load_stage(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < nk; ++kt) {
-        if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * BK);
-        cp_async_commit();
-        cp_async_wait<1>();      // stage kt has landed
-        __syncthreads();
-        const bf16* a_s = sA[kt & 1];
-        const bf16* b_s = sB[kt & 1];
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t af[2][4];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) load_a(af[mi], a_s, LDS, wm * 32 + mi * 16, kk, g, t);
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni) {
-                uint32_t bfr[2];
-                load_b(bfr, b_s, LDS, b_row<MODE>(wn, ni), kk, g, t);
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi) mma_16816(acc[mi][ni], af[mi], bfr);
-            }
-        }
-        __syncthreads();         // all reads of this stage done before it is refilled
-    }
+    mainloop<PAIRED>(acc, sm, w, p.N, p.K, n0, fill_a, prep_a);
 
     // Epilogue: fp32 bias (+ residual | GELU gate), one bf16 store.
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int wm = warp & 3, wn = warp >> 2;
+    const int N = p.N;
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             int row = m0 + wm * 32 + mi * 16 + g + h * 8;
-            if (row >= M) continue;
-            if (MODE == GEGLU) {
+            if (row >= p.M) continue;
+            if (PAIRED) {
 #pragma unroll
                 for (int ni = 0; ni < 4; ++ni) {
                     int col = n0 + wn * 32 + ni * 8 + 2 * t;
@@ -134,9 +173,9 @@ gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                     for (int e = 0; e < 2; ++e) {
                         float v = acc[mi][ni][2 * h + e];
                         float gt = acc[mi][ni + 4][2 * h + e];
-                        if (bias) {
-                            v += __bfloat162float(bias[col + e]);
-                            gt += __bfloat162float(bias[N + col + e]);
+                        if (p.bias) {
+                            v += __bfloat162float(p.bias[col + e]);
+                            gt += __bfloat162float(p.bias[N + col + e]);
                         }
                         y[e] = v * (0.5f * gt * (1.f + erff(gt * 0.70710678118654752f)));
                     }
@@ -148,13 +187,13 @@ gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                     int col = n0 + wn * 64 + ni * 8 + 2 * t;
                     if (col >= N) continue;
                     float y0 = acc[mi][ni][2 * h], y1 = acc[mi][ni][2 * h + 1];
-                    if (bias) {
-                        y0 += __bfloat162float(bias[col]);
-                        y1 += __bfloat162float(bias[col + 1]);
+                    if (p.bias) {
+                        y0 += __bfloat162float(p.bias[col]);
+                        y1 += __bfloat162float(p.bias[col + 1]);
                     }
                     if (MODE == DENSE_RES) {
                         __nv_bfloat162 r2 =
-                            *reinterpret_cast<const __nv_bfloat162*>(res + (size_t)row * N + col);
+                            *reinterpret_cast<const __nv_bfloat162*>(p.res + (size_t)row * N + col);
                         y0 += __low2float(r2);
                         y1 += __high2float(r2);
                     }
@@ -165,28 +204,75 @@ gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
 }
 
+template <int MODE, bool LN>
+int launch(const Params& p, int nw, cudaStream_t s) {
+    dim3 grid(nw * p.ntn, (p.M + BM - 1) / BM);
+    gemm_kernel<MODE, LN><<<grid, THREADS, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+Params make_params(const void* x, const void* bias, const void* res, int M, int N, int K,
+                   int mode) {
+    Params p = {};
+    p.x = static_cast<const bf16*>(x);
+    p.bias = static_cast<const bf16*>(bias);
+    p.res = static_cast<const bf16*>(res);
+    p.M = M;
+    p.N = N;
+    p.K = K;
+    int bn = mode == GEGLU ? 64 : 128;
+    p.ntn = (N + bn - 1) / bn;
+    return p;
+}
+
 }  // namespace
 }  // namespace hcp
 
-// x [M, K], w [N, K] (DENSE / DENSE_RES) or [2N, K] (GEGLU), bias [N] or
-// [2N] or null, res [M, N] or null, out [M, N]; all bf16, row-major,
-// 16-byte aligned; K % 8 == 0, N % 2 == 0. Returns cudaGetLastError().
+// Kernels B and C. x [M, K], w [N, K] (DENSE / DENSE_RES) or [2N, K]
+// (GEGLU), bias [N] or [2N] or null, res [M, N] or null, out [M, N]; all
+// bf16, row-major, 16-byte aligned; K % 8 == 0, N % 2 == 0. Returns
+// cudaGetLastError().
 extern "C" int hcp_gemm(int mode, const void* x, const void* w, const void* bias,
                         const void* res, void* out, int M, int N, int K, void* stream) {
     using namespace hcp;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    int bn = mode == GEGLU ? 64 : 128;
-    dim3 grid((N + bn - 1) / bn, (M + BM - 1) / BM);
-    const bf16* xp = static_cast<const bf16*>(x);
-    const bf16* wp = static_cast<const bf16*>(w);
-    const bf16* bp = static_cast<const bf16*>(bias);
-    const bf16* rp = static_cast<const bf16*>(res);
-    bf16* op = static_cast<bf16*>(out);
+    Params p = make_params(x, bias, res, M, N, K, mode);
+    p.w[0] = static_cast<const bf16*>(w);
+    p.out[0] = static_cast<bf16*>(out);
     switch (mode) {
-        case DENSE: gemm_kernel<DENSE><<<grid, THREADS, 0, s>>>(xp, wp, bp, rp, op, M, N, K); break;
-        case DENSE_RES: gemm_kernel<DENSE_RES><<<grid, THREADS, 0, s>>>(xp, wp, bp, rp, op, M, N, K); break;
-        case GEGLU: gemm_kernel<GEGLU><<<grid, THREADS, 0, s>>>(xp, wp, bp, rp, op, M, N, K); break;
+        case DENSE: return launch<DENSE, false>(p, 1, s);
+        case DENSE_RES: return launch<DENSE_RES, false>(p, 1, s);
+        case GEGLU: return launch<GEGLU, false>(p, 1, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(cudaGetLastError());
+}
+
+// Kernels G, H and I: LayerNorm(x; ln_g, ln_b, eps) over rows of x [M, K],
+// then mode 0 (DENSE: G with nw = 3 weights w0..w2 into out0..out2, I with
+// nw = 1; no bias) or mode 2 (GEGLU: H, w0 [2N, K], bias [2N] or null).
+// ln_g, ln_b [K]; each w [N, K], each out [M, N]; bf16, row-major, 16-byte
+// aligned; K % 8 == 0, N % 2 == 0. Returns cudaGetLastError().
+extern "C" int hcp_ln_gemm(int mode, const void* x, const void* ln_g, const void* ln_b,
+                           const void* w0, const void* w1, const void* w2, const void* bias,
+                           void* out0, void* out1, void* out2, int nw, int M, int N, int K,
+                           float eps, void* stream) {
+    using namespace hcp;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (nw < 1 || nw > 3 || (mode == GEGLU && nw != 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    Params p = make_params(x, mode == GEGLU ? bias : nullptr, nullptr, M, N, K, mode);
+    const void* ws[3] = {w0, w1, w2};
+    void* outs[3] = {out0, out1, out2};
+    for (int i = 0; i < nw; ++i) {
+        p.w[i] = static_cast<const bf16*>(ws[i]);
+        p.out[i] = static_cast<bf16*>(outs[i]);
+    }
+    p.ln_g = static_cast<const bf16*>(ln_g);
+    p.ln_b = static_cast<const bf16*>(ln_b);
+    p.eps = eps;
+    switch (mode) {
+        case DENSE: return launch<DENSE, true>(p, nw, s);
+        case GEGLU: return launch<GEGLU, true>(p, 1, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }

@@ -16,8 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hcpdiff_tpu.utils.clip_tokenizer import CLIPTokenizer
-
+from ..utils.clip_tokenizer import CLIPTokenizer
 from .clip import CLIPTextModel
 
 DEFAULT_EMPHASIS = 1.1

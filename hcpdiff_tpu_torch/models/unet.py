@@ -10,6 +10,18 @@ self-attention of the two finest levels kernel A, and every feed-forward
 kernels B and C (as ``_pallas_ff`` routes it on the TPU); convolutions and
 the other projections are plain torch ops, as XLA ran them.
 
+``fused_sublayers=True`` is the JAX package's configuration
+``HCP_PALLAS_LN=1 HCP_PALLAS_PROJ=1 HCP_PALLAS_CONV=1`` (default off, as
+there): each transformer block's three LayerNorms run in the prologues of
+kernels G (self-attention q/k/v), I (cross-attention q) and H (GEGLU);
+to_out, proj_in and proj_out run kernel C, with the residuals in its
+epilogue; each resblock's two 3x3 convs run kernel J, with the
+time-embedding add in conv1's epilogue and the skip add in conv2's. The
+parameter names are the same in both configurations, so one JAX tree
+loads into either, and the fused path reads every weight from its module
+at call time (``functional_call`` and the remat recompute see the swapped
+ones).
+
 For training, ``remat=True`` recomputes each ResnetBlock2D and
 Transformer2D in the backward (``torch.utils.checkpoint``), the JAX
 package's whole-block ``HCP_REMAT_POLICY=full``; and ``forward`` may run
@@ -27,7 +39,8 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
-from ..ops.matmul import fused_dense, geglu_dense
+from ..ops.conv import conv3x3
+from ..ops.matmul import fused_dense, geglu_dense, ln_dense, ln_geglu, ln_qkv
 from .layers import GroupNorm, timestep_embedding
 
 
@@ -67,8 +80,10 @@ def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
 
 
 class ResnetBlock2D(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, groups: int, temb_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, groups: int, temb_channels: int,
+                 fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.norm1 = GroupNorm(groups, in_channels, fused_silu=True)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels)
         self.conv1 = _conv3(in_channels, out_channels)
@@ -78,8 +93,17 @@ class ResnetBlock2D(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        t = self.time_emb_proj(F.silu(temb))
+        if self.fused:
+            # kernel J: the time-embedding add rides conv1's epilogue and
+            # the skip add conv2's (unet.py:166-179 in the JAX package)
+            h = conv3x3(self.norm1(x), self.conv1.weight, self.conv1.bias, row_bias=t)
+            h = self.norm2(h)
+            if self.conv_shortcut is not None:
+                x = self.conv_shortcut(x)
+            return conv3x3(h, self.conv2.weight, self.conv2.bias, res=x)
         h = self.conv1(self.norm1(x))
-        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = h + t[:, :, None, None]
         h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
@@ -99,24 +123,40 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Linear(query_dim, query_dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                res: Optional[torch.Tensor] = None) -> torch.Tensor:
+                res: Optional[torch.Tensor] = None,
+                norm: Optional[nn.LayerNorm] = None) -> torch.Tensor:
+        """``norm`` given (the fused configuration): x arrives un-normalized
+        and ``norm`` runs in the prologue of kernel G (self-attention) or I
+        (cross-attention q; k and v are plain products of the context), and
+        to_out is kernel C with ``res`` in its epilogue."""
         ctx = x if context is None else context
         B, S, C = x.shape
         Sk = ctx.shape[1]
         h = self.heads
         d = C // h
+        if norm is None:
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        elif context is None:
+            q, k, v = ln_qkv(x, norm.weight, norm.bias, self.to_q.weight, self.to_k.weight,
+                             self.to_v.weight, norm.eps)
+        else:
+            q = ln_dense(x, norm.weight, norm.bias, self.to_q.weight, norm.eps)
+            k, v = self.to_k(ctx), self.to_v(ctx)
         # head split/merge are views: kernel A takes strides
-        q = self.to_q(x).view(B, S, h, d).transpose(1, 2)
-        k = self.to_k(ctx).view(B, Sk, h, d).transpose(1, 2)
-        v = self.to_v(ctx).view(B, Sk, h, d).transpose(1, 2)
+        q = q.view(B, S, h, d).transpose(1, 2)
+        k = k.view(B, Sk, h, d).transpose(1, 2)
+        v = v.view(B, Sk, h, d).transpose(1, 2)
         o = attention(q, k, v).transpose(1, 2).reshape(B, S, C)
+        if norm is not None:
+            return fused_dense(o, self.to_out.weight, self.to_out.bias, res=res)
         out = self.to_out(o)
         return out if res is None else out + res
 
 
 class GEGLUFeedForward(nn.Module):
-    """proj's rows are [value | gate]; kernel B applies the gate in its
-    epilogue and kernel C adds the block residual in its own."""
+    """proj's rows are [value | gate]; kernel B (H, with ``norm`` in its
+    prologue, in the fused configuration) applies the gate in its epilogue
+    and kernel C adds the block residual in its own."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -124,14 +164,19 @@ class GEGLUFeedForward(nn.Module):
         self.proj = nn.Linear(dim, inner * 2)
         self.out = nn.Linear(inner, dim)
 
-    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = geglu_dense(x, self.proj.weight, self.proj.bias)
+    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None,
+                norm: Optional[nn.LayerNorm] = None) -> torch.Tensor:
+        if norm is None:
+            h = geglu_dense(x, self.proj.weight, self.proj.bias)
+        else:
+            h = ln_geglu(x, norm.weight, norm.bias, self.proj.weight, self.proj.bias, norm.eps)
         return fused_dense(h, self.out.weight, self.out.bias, res=res)
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, context_dim: int, fused: bool = False):
         super().__init__()
+        self.fused = fused
         # flax nn.LayerNorm's default epsilon
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn1 = CrossAttention(dim, heads)
@@ -141,6 +186,10 @@ class BasicTransformerBlock(nn.Module):
         self.ff = GEGLUFeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        if self.fused:      # the LayerNorms run in the sublayers' prologues
+            x = self.attn1(x, res=x, norm=self.norm1)
+            x = self.attn2(x, context, res=x, norm=self.norm2)
+            return self.ff(x, res=x, norm=self.norm3)
         x = self.attn1(self.norm1(x), res=x)
         x = self.attn2(self.norm2(x), context, res=x)
         return self.ff(self.norm3(x), res=x)
@@ -148,19 +197,29 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
-                 groups: int):
+                 groups: int, fused: bool = False):
         super().__init__()
         self.depth = depth
+        self.fused = fused
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         for i in range(depth):
             setattr(self, f'transformer_blocks_{i}',
-                    BasicTransformerBlock(channels, heads, context_dim))
+                    BasicTransformerBlock(channels, heads, context_dim, fused))
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        if self.fused:
+            # kernel C on the [B, HW, C] view (free for channels_last), and
+            # the block input rides proj_out's epilogue (unet.py:568-595)
+            h = fused_dense(h, self.proj_in.weight, self.proj_in.bias)
+            for i in range(self.depth):
+                h = getattr(self, f'transformer_blocks_{i}')(h, context)
+            res = x.permute(0, 2, 3, 1).reshape(B, H * W, C)
+            h = fused_dense(h, self.proj_out.weight, self.proj_out.bias, res=res)
+            return h.view(B, H, W, C).permute(0, 3, 1, 2)
         h = self.proj_in(h)
         for i in range(self.depth):
             h = getattr(self, f'transformer_blocks_{i}')(h, context)
@@ -188,10 +247,11 @@ class Upsample2D(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig, remat: bool = False):
+    def __init__(self, cfg: UNetConfig, remat: bool = False, fused_sublayers: bool = False):
         super().__init__()
         self.cfg = c = cfg
         self.remat = remat
+        self.fused_sublayers = fused = fused_sublayers
         ch0 = c.block_out_channels[0]
         tdim = ch0 * 4
         n = len(c.block_out_channels)
@@ -202,14 +262,14 @@ class UNet2DCondition(nn.Module):
         def tfm(channels, level):
             return Transformer2D(channels, c.num_heads[level],
                                  c.transformer_layers_per_block[level],
-                                 c.cross_attention_dim, c.norm_num_groups)
+                                 c.cross_attention_dim, c.norm_num_groups, fused)
 
         skip_ch = [ch0]
         cur = ch0
         for bi, (btype, out_c) in enumerate(zip(c.down_block_types, c.block_out_channels)):
             for li in range(c.layers_per_block):
                 setattr(self, f'down_{bi}_res_{li}',
-                        ResnetBlock2D(cur, out_c, c.norm_num_groups, tdim))
+                        ResnetBlock2D(cur, out_c, c.norm_num_groups, tdim, fused))
                 cur = out_c
                 if btype == 'CrossAttnDownBlock2D':
                     setattr(self, f'down_{bi}_attn_{li}', tfm(out_c, bi))
@@ -219,9 +279,9 @@ class UNet2DCondition(nn.Module):
                 skip_ch.append(cur)
 
         mid_c = c.block_out_channels[-1]
-        self.mid_res_0 = ResnetBlock2D(cur, mid_c, c.norm_num_groups, tdim)
+        self.mid_res_0 = ResnetBlock2D(cur, mid_c, c.norm_num_groups, tdim, fused)
         self.mid_attn = tfm(mid_c, n - 1)
-        self.mid_res_1 = ResnetBlock2D(mid_c, mid_c, c.norm_num_groups, tdim)
+        self.mid_res_1 = ResnetBlock2D(mid_c, mid_c, c.norm_num_groups, tdim, fused)
         cur = mid_c
 
         rev = list(reversed(c.block_out_channels))
@@ -229,7 +289,8 @@ class UNet2DCondition(nn.Module):
             out_c = rev[bi]
             for li in range(c.layers_per_block + 1):
                 setattr(self, f'up_{bi}_res_{li}',
-                        ResnetBlock2D(cur + skip_ch.pop(), out_c, c.norm_num_groups, tdim))
+                        ResnetBlock2D(cur + skip_ch.pop(), out_c, c.norm_num_groups, tdim,
+                                      fused))
                 cur = out_c
                 if btype == 'CrossAttnUpBlock2D':
                     setattr(self, f'up_{bi}_attn_{li}', tfm(out_c, n - 1 - bi))

@@ -38,6 +38,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # mode, x, w, bias, res, out, M, N, K, stream
     'hcp_gemm': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # mode, x, ln_g, ln_b, w0, w1, w2, bias, out0, out1, out2, nw, M, N, K, eps, stream
+    'hcp_ln_gemm': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    ctypes.c_float, _P],
+    # x, w, bias, row_bias, res, out, B, H, W, Cin, Cout, stream
+    'hcp_conv3x3': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, lse (or null), B, H, Sq, Sk, D, strides[12], scale, stream
     'hcp_flash_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                             ctypes.c_float, _P],

@@ -1,13 +1,16 @@
-"""Feed-forward GEMMs with fused epilogues: kernels B (``geglu_dense``) and
-C (``fused_dense``), their plain PyTorch versions, and the
+"""Projection GEMMs with fused epilogues and LayerNorm prologues: kernels B
+(``geglu_dense``), C (``fused_dense``), G (``ln_qkv``), H (``ln_geglu``)
+and I (``ln_dense``), their plain PyTorch versions, and the
 ``torch.autograd.Function`` of each.
 
 Counterpart of ``hcpdiff_tpu/ops/matmul.py``. Weights follow
 ``nn.Linear``'s [out, in] layout (the weight bridge transposes the JAX
-[in, out] kernels), so ``y = x @ w.T``. Both kernels live in
+[in, out] kernels), so ``y = x @ w.T``. All five kernels live in
 ``csrc/gemm.cu`` (see its header for the design). The backwards are the
-JAX ``custom_vjp``s' (``matmul.py:231-238``, ``:259-266``, ``:369-381``):
-plain large products in fp32, which XLA computes there and cuBLAS here.
+JAX ``custom_vjp``s' (``matmul.py:231-238``, ``:259-266``, ``:369-381``,
+and the vjps of the LayerNorm GEMMs' ``_ref``s, ``:458-467``,
+``:562-571``, ``:612-619``): plain torch in fp32, which XLA computes there
+and cuBLAS here.
 """
 from __future__ import annotations
 
@@ -21,19 +24,25 @@ from torch.autograd.function import once_differentiable
 from ._build import (accum_dtype, aligned16, check, library, require, require_cuda_bf16,
                      stream_handle)
 
-_DENSE, _DENSE_RES, _GEGLU = 0, 1, 2
+_DENSE, _DENSE_RES, _GEGLU = 0, 1, 2   # csrc/gemm.cu modes
 
 
+# The plain versions compute in the accumulation dtype and round once, as
+# the kernels' fp32 epilogues (and the JAX _refs) do: a bf16 product
+# rounded before a cancelling residual is added keeps that rounding's
+# error beside a small result.
 def fused_dense_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
                       res: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = F.linear(x, w, b)
-    return y if res is None else y + res
+    dt = accum_dtype(x)
+    y = F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
+    return (y if res is None else y + res.to(dt)).to(x.dtype)
 
 
 def geglu_dense_plain(x: torch.Tensor, w: torch.Tensor,
                       b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    h, gate = F.linear(x, w, b).chunk(2, dim=-1)
-    return h * F.gelu(gate)
+    dt = accum_dtype(x)
+    h, gate = F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt)).chunk(2, dim=-1)
+    return (h * F.gelu(gate)).to(x.dtype)
 
 
 def _launch(name: str, mode: int, x, w, b, res, n_out: int) -> torch.Tensor:
@@ -150,3 +159,146 @@ def geglu_dense(x: torch.Tensor, w: torch.Tensor,
 
 fused_dense.launches = 0
 geglu_dense.launches = 0
+
+
+# ------------------------------------------------ LayerNorm-prologue GEMMs ----
+# The transformer sublayers each do LayerNorm(x) -> projection(s); kernels
+# G, H and I run the LayerNorm in the GEMM's prologue, so the normalized
+# activation never reaches device memory and G reads x once for q, k and v.
+
+def _layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """Row LayerNorm with the TPU kernels' two-pass variance (``_ln_rows``,
+    ``matmul.py:404-409``), rounded to x's dtype as the kernels round xn
+    before their product; returned in the accumulation dtype."""
+    dt = accum_dtype(x)
+    xf = x.to(dt)
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * g.to(dt) + b.to(dt)).to(x.dtype).to(dt)
+
+
+def ln_qkv_plain(x, g, b, wq, wk, wv, eps: float = 1e-5):
+    xn = _layer_norm(x, g, b, eps)
+    return tuple(F.linear(xn, w.to(xn.dtype)).to(x.dtype) for w in (wq, wk, wv))
+
+
+def ln_dense_plain(x, g, b, w, eps: float = 1e-5):
+    xn = _layer_norm(x, g, b, eps)
+    return F.linear(xn, w.to(xn.dtype)).to(x.dtype)
+
+
+def ln_geglu_plain(x, g, b, w, bias=None, eps: float = 1e-5):
+    xn = _layer_norm(x, g, b, eps)
+    y = F.linear(xn, w.to(xn.dtype), None if bias is None else bias.to(xn.dtype))
+    h, gate = y.chunk(2, dim=-1)
+    return (h * F.gelu(gate)).to(x.dtype)
+
+
+def _ln_launch(name: str, mode: int, x, g, b, ws, bias, n_out: int, eps: float):
+    require_cuda_bf16(name, x, g, b, *ws, bias)
+    K = x.shape[-1]
+    rows = 2 * n_out if mode == _GEGLU else n_out
+    for t in (x, g, b, *ws, bias):
+        require(t is None or (t.is_contiguous() and aligned16(t)), name,
+                'inputs must be contiguous and 16-byte aligned')
+    require(g.shape == (K,) and b.shape == (K,), name, f'LayerNorm scale and shift must be [{K}]')
+    for w in ws:
+        require(w.shape == (rows, K), name, f'w must be [{rows}, {K}], got {tuple(w.shape)}')
+    require(bias is None or bias.shape == (rows,), name, f'bias must be [{rows}]')
+    require(K % 8 == 0 and n_out % 2 == 0, name,
+            f'needs K % 8 == 0 and an even N, got K={K}, N={n_out}')
+    outs = [torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=x.device) for _ in ws]
+    pad = [0] * (3 - len(ws))
+    rc = library().hcp_ln_gemm(
+        mode, x.data_ptr(), g.data_ptr(), b.data_ptr(), *[w.data_ptr() for w in ws], *pad,
+        0 if bias is None else bias.data_ptr(), *[o.data_ptr() for o in outs], *pad,
+        len(ws), x.numel() // K, n_out, K, float(eps), stream_handle(x.device))
+    check(rc, name)
+    return outs
+
+
+def _ln_qkv_launch(x, g, b, wq, wk, wv, eps):
+    return tuple(_ln_launch('ln_qkv', _DENSE, x, g, b, [wq, wk, wv], None, wq.shape[0], eps))
+
+
+def _ln_dense_launch(x, g, b, w, eps):
+    return _ln_launch('ln_dense', _DENSE, x, g, b, [w], None, w.shape[0], eps)[0]
+
+
+def _ln_geglu_launch(x, g, b, w, bias, eps):
+    require(w.shape[0] % 2 == 0, 'ln_geglu', 'w must have an even number of rows')
+    return _ln_launch('ln_geglu', _GEGLU, x, g, b, [w], bias, w.shape[0] // 2, eps)[0]
+
+
+class _LNProjection(torch.autograd.Function):
+    """Kernels G, H and I: ``route`` names the function in ``_LN_ROUTES``,
+    ``params`` are its weights (and H's bias). The backward is the vjp of
+    the plain version recomputed in fp32, as the JAX ``custom_vjp``s take
+    ``jax.vjp`` of their ``_ref``s; only the inputs that need a gradient
+    get one (frozen weights get no dW)."""
+
+    @staticmethod
+    def forward(ctx, route, eps, x, g, b, *params):
+        plain, launch, public = _LN_ROUTES[route]
+        if x.device.type == 'cpu':
+            out = plain(x, g, b, *params, eps=eps)
+        else:
+            out = launch(x, g, b, *params, eps)
+            public.launches += 1
+        ctx.save_for_backward(x, g, b, *params)
+        ctx.route, ctx.eps = route, eps
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        dt = accum_dtype(grads[0])
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().to(dt).requires_grad_(n)
+                   for t, n in zip(saved, need)]
+            outs = _LN_ROUTES[ctx.route][0](*ins, eps=ctx.eps)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            used = [(o, gr.to(dt)) for o, gr in zip(outs, grads) if o.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in used], [t for t in ins if t is not None
+                                                                   and t.requires_grad],
+                                           [gr for _, gr in used]))
+        return (None, None, *(next(got).to(t.dtype) if t is not None and n else None
+                              for t, n in zip(saved, need)))
+
+
+def ln_qkv(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, wq: torch.Tensor,
+           wk: torch.Tensor, wv: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm(x; g, b, eps) then three bias-free projections of the same
+    normalized rows (self-attention q, k, v): x [..., K], g/b [K], each w
+    [N, K]; returns (q, k, v), each [..., N]. Differentiable. A CPU tensor
+    takes the plain version; a CUDA tensor launches kernel G or raises."""
+    return _LNProjection.apply('ln_qkv', float(eps), x, g, b, wq, wk, wv)
+
+
+def ln_dense(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm then one bias-free projection (cross-attention q): x
+    [..., K], w [N, K]; returns [..., N]. Differentiable. A CPU tensor takes
+    the plain version; a CUDA tensor launches kernel I or raises."""
+    return _LNProjection.apply('ln_dense', float(eps), x, g, b, w)
+
+
+def ln_geglu(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+             bias: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm then the GEGLU front half, ``(xn @ w[:n].T + bias[:n]) *
+    gelu(xn @ w[n:].T + bias[n:])`` with exact (erf) GELU: x [..., K], w
+    [2n, K] with the value rows first, bias [2n]; returns [..., n].
+    Differentiable. A CPU tensor takes the plain version; a CUDA tensor
+    launches kernel H or raises."""
+    return _LNProjection.apply('ln_geglu', float(eps), x, g, b, w, bias)
+
+
+ln_qkv.launches = 0
+ln_dense.launches = 0
+ln_geglu.launches = 0
+_LN_ROUTES = {'ln_qkv': (ln_qkv_plain, _ln_qkv_launch, ln_qkv),
+              'ln_dense': (ln_dense_plain, _ln_dense_launch, ln_dense),
+              'ln_geglu': (ln_geglu_plain, _ln_geglu_launch, ln_geglu)}

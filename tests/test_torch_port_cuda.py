@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from hcpdiff_tpu_torch.ops import flash_attention as fa
+from hcpdiff_tpu_torch.ops import matmul as mm
+from hcpdiff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 from hcpdiff_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
 from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_dense,
@@ -166,6 +168,79 @@ def test_group_norm(gen, B, S, C, G, silu):
            group_norm_silu_plain(x, scale, bias, G, 1e-5, silu))
 
 
+def _ln_inputs(gen, M, K):
+    """LayerNorm input, scale and shift (bf16)."""
+    return _rn(gen, M, K, scale=2.0) + 0.5, 1.0 + _rn(gen, K, scale=0.1), _rn(gen, K, scale=0.1)
+
+
+@pytest.mark.parametrize('M,K', [(4096, 320), (1000, 640), (512, 1280), (300, 32)])
+def test_ln_gemm_kernels(gen, M, K):
+    """G, H and I against their plain versions (eps 1e-6, as the UNet
+    passes it), on a ragged M and at the UNet's widths."""
+    x, g, b = _ln_inputs(gen, M, K)
+    ws = [_rn(gen, K, K, scale=K ** -0.5) for _ in range(3)]
+    w2, b2 = _rn(gen, 8 * K, K, scale=K ** -0.5), _rn(gen, 8 * K)
+    before = (mm.ln_qkv.launches, mm.ln_dense.launches, mm.ln_geglu.launches)
+    for out, ref in zip(mm.ln_qkv(x, g, b, *ws, 1e-6), mm.ln_qkv_plain(x, g, b, *ws, 1e-6)):
+        _close(out, ref)
+    _close(mm.ln_dense(x, g, b, ws[0], 1e-6), mm.ln_dense_plain(x, g, b, ws[0], 1e-6))
+    _close(mm.ln_geglu(x, g, b, w2, b2, 1e-6), mm.ln_geglu_plain(x, g, b, w2, b2, 1e-6))
+    assert (mm.ln_qkv.launches, mm.ln_dense.launches, mm.ln_geglu.launches) == tuple(
+        n + 1 for n in before)
+
+
+@pytest.mark.parametrize('B,Cin,H,W,Cout', [(2, 320, 64, 64, 320), (2, 640, 16, 16, 1280),
+                                            (8, 2560, 8, 8, 1280), (1, 96, 5, 7, 64)])
+def test_conv3x3_kernel(gen, B, Cin, H, W, Cout):
+    """J against its plain version with each epilogue; a weight that is not
+    channels_last (a merged LoRA weight) is copied into it, not refused."""
+    cl = torch.channels_last
+    x = _rn(gen, B, Cin, H, W).to(memory_format=cl)
+    w = _rn(gen, Cout, Cin, 3, 3, scale=(9 * Cin) ** -0.5).to(memory_format=cl)
+    b, rb = _rn(gen, Cout), _rn(gen, B, Cout)
+    res = _rn(gen, B, Cout, H, W).to(memory_format=cl)
+    before = conv3x3.launches
+    out = conv3x3(x, w, b)
+    assert conv3x3.launches == before + 1 and out.is_contiguous(memory_format=cl)
+    _close(out, conv3x3_plain(x, w, b))
+    _close(conv3x3(x, w, b, rb, res), conv3x3_plain(x, w, b, rb, res))
+    _close(conv3x3(x, w.contiguous(), None, rb), conv3x3_plain(x, w, None, rb))
+
+
+def test_fused_kernel_outputs_carry_grad_fn(gen):
+    """G-J: each output on grad-requiring CUDA inputs has a grad_fn, and
+    the gradients of every input match the plain version's (differentiated
+    by autograd in fp32 on the same bf16 inputs)."""
+    x, g, b = _ln_inputs(gen, 2 * 256, 320)
+    x = x.view(2, 256, 320)
+    ws = [_rn(gen, 320, 320, scale=320 ** -0.5) for _ in range(3)]
+    w2, b2 = _rn(gen, 2560, 320, scale=320 ** -0.5), _rn(gen, 2560)
+    cl = torch.channels_last
+    xc = _rn(gen, 2, 320, 16, 16).to(memory_format=cl)
+    wc = _rn(gen, 640, 320, 3, 3, scale=2880 ** -0.5).to(memory_format=cl)
+    conv_args = [xc, wc, _rn(gen, 640), _rn(gen, 2, 640),
+                 _rn(gen, 2, 640, 16, 16).to(memory_format=cl)]
+    outs = mm.ln_qkv(*[a.detach().requires_grad_(True) for a in (x, g, b, *ws)], 1e-6)
+    assert all(o.grad_fn is not None for o in outs)
+    cases = [
+        (lambda *a: torch.cat(mm.ln_qkv(*a, 1e-6), dim=-1),
+         lambda *a: torch.cat(mm.ln_qkv_plain(*a, 1e-6), dim=-1), [x, g, b, *ws]),
+        (lambda *a: mm.ln_dense(*a, 1e-6), lambda *a: mm.ln_dense_plain(*a, 1e-6),
+         [x, g, b, ws[0]]),
+        (lambda *a: mm.ln_geglu(*a, 1e-6), lambda *a: mm.ln_geglu_plain(*a, 1e-6),
+         [x, g, b, w2, b2]),
+        (conv3x3, conv3x3_plain, conv_args),
+    ]
+    for kernel, plain, args in cases:
+        out = kernel(*[a.detach().requires_grad_(True) for a in args])
+        assert out.grad_fn is not None
+        gout = _rn(gen, *out.shape)
+        _, got = _grads(kernel, args, gout)
+        _, ref = _grads(plain, [a.float() for a in args], gout.float())
+        for a, r in zip(got, ref):
+            _close_grad(a, r.to(a.dtype))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     x = _rn(gen, 2, 8, 64, 40)
     with pytest.raises(ValueError):
@@ -177,6 +252,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         group_norm_silu(_rn(gen, 2, 16, 30), torch.ones(30, device='cuda'),
                         torch.zeros(30, device='cuda'), 3)       # C % 8 != 0
+    x, g, b = _ln_inputs(gen, 4, 36)
+    with pytest.raises(ValueError):                               # K % 8 != 0
+        mm.ln_dense(x, g, b, _rn(gen, 8, 36))
+    with pytest.raises(ValueError):                               # fp32 LayerNorm scale
+        mm.ln_dense(x[:, :32].contiguous(), g[:32].float(), b[:32], _rn(gen, 8, 32))
+    with pytest.raises(ValueError):                               # Cin % 8 != 0
+        conv3x3(_rn(gen, 1, 12, 4, 4), _rn(gen, 8, 12, 3, 3))
     q = _rn(gen, 1, 2, 256, 160)
     lse = torch.zeros(1, 2, 256, device='cuda')
     with pytest.raises(ValueError):                               # no backward at D=160

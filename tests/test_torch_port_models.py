@@ -24,6 +24,7 @@ from hcpdiff_tpu_torch.models import clip as tclip
 from hcpdiff_tpu_torch.models import text_frontend as ttf
 from hcpdiff_tpu_torch.models import unet as tunet
 from hcpdiff_tpu_torch.models import vae as tvae
+from hcpdiff_tpu_torch.utils import clip_tokenizer as ttok
 from tests.torch_port_common import random_params
 
 
@@ -76,6 +77,24 @@ def test_vae_tiny_encode_matches_jax():
 
 def _tokenizer():
     return CLIPTokenizer.tiny(words=('a', 'cat', 'photo', 'of'))
+
+
+@pytest.mark.parametrize('words', [(), ('a', 'cat', 'photo', 'of')])
+def test_tokenizer_copy_gives_the_same_ids(words):
+    """The port's copy of the tokenizer against the JAX package's: the
+    padded call, windows, bare ids and decode, with emphasis syntax, a
+    prompt over 77 tokens and a trigger word added to both."""
+    ref, tok = CLIPTokenizer.tiny(words=words), ttok.CLIPTokenizer.tiny(words=words)
+    assert (tok.bos_token_id, tok.eos_token_id, tok.vocab_size) == (
+        ref.bos_token_id, ref.eos_token_id, ref.vocab_size)
+    assert tok.add_word('sks', 2) == ref.add_word('sks', 2)
+    prompts = ['a photo of a {cat:1.3}', '{a {cat}} , sks photo', 'a cat ' * 60, '']
+    assert tok(prompts) == ref(prompts)
+    for p in prompts:
+        assert tok.tokenize_words(p) == ref.tokenize_words(p)
+        assert tok.encode_windows(p, n_repeats=2) == ref.encode_windows(p, n_repeats=2)
+        ids = ref.tokenize_words(p)
+        assert tok.decode(ids) == ref.decode(ids)
 
 
 def _clip_pair(tk):

@@ -18,6 +18,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from hcpdiff_tpu.adapt import overlay as jov
 from hcpdiff_tpu.diffusion import losses as jlosses
@@ -162,16 +163,24 @@ def _jax_draws(rng, latents_shape, accum, lo, hi):
     return out
 
 
-@pytest.mark.parametrize('case', ['plain', 'accum_ema'])
-def test_train_step_matches_jax(unet_pair, case):
+@pytest.mark.parametrize('case', ['plain', 'accum_ema', 'fused'])
+def test_train_step_matches_jax(unet_pair, case, monkeypatch):
     """(g) two LoRA steps of the tiny UNet + tiny CLIP: loss, grad_norm and
     the updated factors (and the EMA) against jax build_train_step, with
     Min-SNR, AdamW after a global-norm clip at 1.0; the accumulating case
-    also weights the loss by an att_mask and per-sample loss_weight."""
+    also weights the loss by an att_mask and per-sample loss_weight. The
+    fused case runs the port's UNet with fused_sublayers=True (kernels
+    G-J's plain versions and autograd.Functions) against the JAX UNet with
+    HCP_PALLAS_CONV/LN/PROJ(/FORCE)=1, its Pallas kernels in interpret mode
+    (16x16 latents, to keep the time down)."""
     accum, use_ema = (2, True) if case == 'accum_ema' else (1, False)
     pred = 'v_prediction' if case == 'accum_ema' else 'epsilon'
     lo, hi = (100, 900) if case == 'accum_ema' else (0, None)
-    B, lat = 2, 32
+    fused = case == 'fused'
+    B, lat = 2, 16 if fused else 32
+    if fused:
+        for k in ('HCP_PALLAS_CONV', 'HCP_PALLAS_LN', 'HCP_PALLAS_PROJ', 'HCP_PALLAS_FORCE'):
+            monkeypatch.setenv(k, '1')
     jm, params = unet_pair
     jte, te_params, tte = _clip_pair()
     rng = np.random.default_rng(35)
@@ -198,7 +207,8 @@ def test_train_step_matches_jax(unet_pair, case):
     frozen = {'unet': params, 'te': te_params}
 
     # the port, on the same weights and factors
-    tm = load_params(tunet.UNet2DCondition(tunet.UNetConfig.tiny()), params).requires_grad_(False)
+    tm = load_params(tunet.UNet2DCondition(tunet.UNetConfig.tiny(), fused_sublayers=fused),
+                     params).requires_grad_(False)
     tte.requires_grad_(False)
     pack = {'lora_unet': lora_overlay_from_params(_numpy_tree(overlay), tm)}
     tsched = TSchedule.make(prediction_type=pred)
@@ -214,7 +224,8 @@ def test_train_step_matches_jax(unet_pair, case):
 
     for i in range(2):
         key = jax.random.PRNGKey(10 + i)
-        jstate, jm_ = jfn(jstate, frozen, batch, key)
+        with pltpu.force_tpu_interpret_mode():
+            jstate, jm_ = jfn(jstate, frozen, batch, key)
         draws = _jax_draws(key, batch['latents'].shape[len(lead):], accum, lo, hi or 1000)
         tstate, tm_ = tfn(tstate, tfrozen, tbatch, draws=draws)
         for m in ('loss', 'grad_norm'):
@@ -233,9 +244,12 @@ def test_train_step_matches_jax(unet_pair, case):
     assert float(up.detach().abs().max()) > 0     # the factors did move
 
 
-def test_remat_gives_the_same_gradients(unet_pair, monkeypatch):
+@pytest.mark.parametrize('fused', [False, True])
+def test_remat_gives_the_same_gradients(unet_pair, monkeypatch, fused):
     """(h) whole-block remat recomputes each block in the backward (the
-    GroupNorms run again) and gives the same LoRA gradients."""
+    GroupNorms run again) and gives the same LoRA gradients, in both UNet
+    configurations (the fused one reads its weights at call time, so the
+    recompute sees the merged LoRA weights)."""
     _, params = unet_pair
     tte = _clip_pair()[2]
     calls = []
@@ -249,7 +263,8 @@ def test_remat_gives_the_same_gradients(unet_pair, monkeypatch):
         ctx = tte(_t(rng.integers(0, 1000, (2, 77))))[0]
     grads, counts = [], []
     for remat in (False, True):
-        tm = load_params(tunet.UNet2DCondition(tunet.UNetConfig.tiny(), remat=remat),
+        tm = load_params(tunet.UNet2DCondition(tunet.UNetConfig.tiny(), remat=remat,
+                                               fused_sublayers=fused),
                          params).requires_grad_(False)
         ov, scales = tov.make_lora_overlay(torch.Generator().manual_seed(1), tm,
                                            [{'layers': PATTERNS, 'rank': 4}])
