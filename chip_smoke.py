@@ -40,7 +40,17 @@ package is missing. Phases, each fatal on failure:
    the same function where there is one (library_ms, a yardstick the port
    never calls); each record has its bound (bound_ms: the larger of the
    bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
-   bf16, or 67 TFLOP/s fp32 outside the tensor cores).
+   bf16, or 67 TFLOP/s fp32 outside the tensor cores);
+7b. the same for A, A with lse, E and F at the shapes of the TPU's
+   classic-layout kernels (#2 _flash_kernel, #4 _flash_kernel_lse, #6
+   _flash_bwd_dq/dkv_kernel), causal and not: [2, 10, 4096, 64] (SDXL's
+   1024 px level-1 self-attention under CFG) and [2, 8, 4096, 128] (the
+   head dim the JAX defaults send to the classic kernels), and E and F at
+   [8, 8, 1024, 160] (SD1.5's 1024 px 32x32 level at batch 8); A's o there
+   also within a relative L2 error; a causal bound counts only the
+   S(S+1)/2 unmasked pairs of a head. These shapes join the records of
+   the same wrappers (no path here runs them; the records' launches are
+   the paths', at #2/#4/#6's exact-route shapes).
 
 The line before the last is one JSON object with the kernels' records; the
 last line is {"ok": true, "device": {...}}.
@@ -75,6 +85,10 @@ GRAD_REL_TOL = 5e-2
 GRAD_ATOL_REL = 1e-2
 # A's lse vs the plain lse, both fp32
 LSE_ATOL = 1e-3
+# A's o at the classic shapes, relative L2 over the whole tensor: at
+# S=4096 |o| is ~0.03, so ATOL alone would pass an error of a third of o;
+# rounding o and P to bf16 gives a few 1e-3
+O_REL_L2 = 1e-2
 TRAIN_BATCH, TRAIN_LATENT, TIMED_STEPS = 8, 64, 5
 LORA_PATTERNS = ['re:.*attn[12]\\.to_(q|k|v|out)$', 're:.*ff\\.(proj|out)$']
 CLIP_VOCAB = 49405              # bench_train.py draws input_ids in [0, 49405)
@@ -314,15 +328,22 @@ def bound(flops, nbytes, peak=PEAK_BF16):
 # The work of each kernel at one shape: each input read once and each
 # output written once (bf16 2 bytes, fp32 4), and the operations its
 # function needs.
-def attention_work(B, H, S, D, lse=False):
-    return bound(4 * B * H * S * S * D, 2 * 4 * B * H * S * D + (4 * B * H * S if lse else 0))
+def attention_pairs(S, causal):
+    """The (query, key) pairs of one head that are work: under causal only
+    the S(S+1)/2 unmasked ones."""
+    return S * (S + 1) // 2 if causal else S * S
 
 
-def attention_bwd_work(B, H, S, D, dkv):
+def attention_work(B, H, S, D, lse=False, causal=False):
+    return bound(4 * B * H * attention_pairs(S, causal) * D,
+                 2 * 4 * B * H * S * D + (4 * B * H * S if lse else 0))
+
+
+def attention_bwd_work(B, H, S, D, dkv, causal=False):
     """E recomputes S = QK^T and does dP = dO V^T and dQ = dS K; F
     recomputes S and dP and does dV = P^T dO and dK = dS^T Q. Both read q,
     k, v, dO and the fp32 lse and delta; E writes dq, F dk and dv."""
-    flops = (8 if dkv else 6) * B * H * S * S * D
+    flops = (8 if dkv else 6) * B * H * attention_pairs(S, causal) * D
     return bound(flops, 2 * B * H * S * D * (6 if dkv else 5) + 2 * 4 * B * H * S)
 
 
@@ -497,13 +518,38 @@ def kernel_phase(launches):
                       {'train': launches['train'], 'fused': launches['fused']})
 
 
+def _library_attention(q, k, v, do, scale, causal):
+    """PyTorch's own flash-attention forward (with its logsumexp) and
+    backward (dq, dk and dv in one call) on these inputs; the backward is
+    None when this build refuses the forward."""
+    aten = torch.ops.aten
+
+    def lib_fwd():
+        return aten._scaled_dot_product_flash_attention(q, k, v, is_causal=causal, scale=scale)
+    try:
+        r = lib_fwd()
+
+        def lib_bwd():
+            return aten._scaled_dot_product_flash_attention_backward(
+                do, q, k, v, r[0], r[1], r[2], r[3], r[4], r[5], 0.0, causal, r[6], r[7],
+                scale=scale)
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        log(f'library flash-attention forward refused, no backward yardstick: {e}')
+        lib_bwd = None
+    return lib_fwd, lib_bwd
+
+
+GRAD_TOL = {'atol': f'{GRAD_ATOL_REL} * max|plain|', 'rtol': RTOL}
+LIB_BWD_NOTE = ('library_ms: one aten flash-attention backward call, which computes dq, dk '
+                'and dv together (the same call is timed for E and for F)')
+
+
 @torch.inference_mode()
 def train_kernel_phase(launches):
     """A with its lse, E and F at the training path's shapes. The library
     calls are PyTorch's own flash-attention forward (with its logsumexp)
     and backward (dq, dk and dv in one call, timed for E and F each)."""
     from hcpdiff_tpu_torch.ops import flash_attention as fa
-    aten = torch.ops.aten
     gen = torch.Generator(device='cuda').manual_seed(SEED + 6)
     rn = _rn_on(gen)
     per = {'flash_attention_lse': [], 'flash_attention_bwd_dq': [],
@@ -512,26 +558,13 @@ def train_kernel_phase(launches):
         label = f'q/k/v/dO {list(shape)}'
         q, k, v, do = (rn(*shape) for _ in range(4))
         scale = shape[-1] ** -0.5
-
-        def lib_fwd():
-            return aten._scaled_dot_product_flash_attention(q, k, v, scale=scale)
-
+        lib_fwd, lib_bwd = _library_attention(q, k, v, do, scale, False)
         per['flash_attention_lse'].append(_measure(
             label, lambda q, k, v: fa.flash_attention_lse(q, k, v, scale),
             lambda q, k, v: (fa.attention_plain(q, k, v, scale),
                              fa.attention_lse_plain(q, k, scale)),
             [q, k, v], _within_lse, 'flash_attention_lse', attention_work(*shape, lse=True),
             lib_fwd))
-        try:
-            r = lib_fwd()
-
-            def lib_bwd():
-                return aten._scaled_dot_product_flash_attention_backward(
-                    do, q, k, v, r[0], r[1], r[2], r[3], r[4], r[5], 0.0, False, r[6], r[7],
-                    scale=scale)
-        except (RuntimeError, TypeError, NotImplementedError) as e:
-            log(f'library flash-attention forward refused, no backward yardstick: {e}')
-            lib_bwd = None
         o, lse = fa.flash_attention_lse(q, k, v, scale)
         delta = fa.attention_delta(o, do)
         args = [q, k, v, lse, do, delta, scale]
@@ -543,21 +576,106 @@ def train_kernel_phase(launches):
             per[name].append(_measure(label, kernel, plain, args, _within_grad, name,
                                       attention_bwd_work(*shape, dkv), lib_bwd))
         del q, k, v, do, o, lse, delta, args
-    grad_tol = {'atol': f'{GRAD_ATOL_REL} * max|plain|', 'rtol': RTOL}
-    lib_note = ('library_ms: one aten flash-attention backward call, which computes dq, dk '
-                'and dv together (the same call is timed for E and for F)')
     return [
-        _record('flash_attention_lse', CSRC + 'flash_attention.cu', [FA + '379', FA + '613'],
+        _record('flash_attention_lse', CSRC + 'flash_attention.cu', [FA + '379'],
                 launches['flash_attention_lse'], per['flash_attention_lse'],
                 {'o': TOL, 'lse_atol': LSE_ATOL},
-                note='kernel A writing its lse output (emit_lse variant of #1)'),
+                note='kernel A writing its lse output (emit_lse variant of #1, :453-457)'),
         _record('flash_attention_bwd_dq', CSRC + 'flash_attention_bwd.cu', [FA + '780'],
-                launches['flash_attention_bwd_dq'], per['flash_attention_bwd_dq'], grad_tol,
-                note='kernel E; plain is flash_bwd_dq_plain; ' + lib_note),
+                launches['flash_attention_bwd_dq'], per['flash_attention_bwd_dq'], GRAD_TOL,
+                note='kernel E; plain is flash_bwd_dq_plain; ' + LIB_BWD_NOTE),
         _record('flash_attention_bwd_dkv', CSRC + 'flash_attention_bwd.cu', [FA + '834'],
-                launches['flash_attention_bwd_dkv'], per['flash_attention_bwd_dkv'], grad_tol,
-                note='kernel F; plain is flash_bwd_dkv_plain; ' + lib_note),
+                launches['flash_attention_bwd_dkv'], per['flash_attention_bwd_dkv'], GRAD_TOL,
+                note='kernel F; plain is flash_bwd_dkv_plain; ' + LIB_BWD_NOTE),
     ]
+
+
+# the classic-layout kernels' shapes: SDXL's 1024 px level-1 self-attention
+# under CFG (D=64, which takes #2 under HCP_FLASH_NOMAX=0) and the head dim
+# the JAX defaults send to #2 (D=128); the backward also at SD1.5's 1024 px
+# 32x32 level at batch 8 (D=160)
+CLASSIC_SHAPES = ((2, 10, 4096, 64), (2, 8, 4096, 128))
+CLASSIC_BWD_SHAPES = CLASSIC_SHAPES + ((TRAIN_BATCH, 8, 1024, 160),)
+
+
+def _within_rel(out, ref):
+    """_within, and a relative L2 error of at most O_REL_L2; the lse of
+    (o, lse) as _within_lse."""
+    if out.dtype == torch.float32:
+        return _within_lse(out, ref)
+    ok, err = _within(out, ref)
+    out, ref = out.float(), ref.float()
+    rel = float((out - ref).norm() / ref.norm())
+    log(f'  o rel L2 err {rel:.3e} (limit {O_REL_L2})')
+    return ok and rel <= O_REL_L2, err
+
+
+@torch.inference_mode()
+def classic_kernel_phase():
+    """A, A with lse, E and F at the classic-layout kernels' (#2, #4, #6)
+    shapes, causal and not: {wrapper name: (TPU kernel, per-shape
+    records)}, to add to the wrappers' own records."""
+    from hcpdiff_tpu_torch.ops import flash_attention as fa
+    F = torch.nn.functional
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
+    rn = _rn_on(gen)
+    per = {'flash_attention': (FA + '54', []), 'flash_attention_lse': (FA + '613', []),
+           'flash_attention_bwd_dq': (FA + '683', []),
+           'flash_attention_bwd_dkv': (FA + '733', [])}
+    for shape in CLASSIC_BWD_SHAPES:
+        for causal in (False, True):
+            label = f'classic q/k/v/dO {list(shape)}' + (' causal' if causal else '')
+            q, k, v, do = (rn(*shape) for _ in range(4))
+            scale = shape[-1] ** -0.5
+            lib_fwd, lib_bwd = _library_attention(q, k, v, do, scale, causal)
+            if shape in CLASSIC_SHAPES:
+                per['flash_attention'][1].append(_measure(
+                    label, lambda q, k, v: fa.flash_attention(q, k, v, scale, causal),
+                    lambda q, k, v: fa.attention_plain(q, k, v, scale, causal), [q, k, v],
+                    _within_rel, 'flash_attention', attention_work(*shape, causal=causal),
+                    lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)))
+                per['flash_attention_lse'][1].append(_measure(
+                    label, lambda q, k, v: fa.flash_attention_lse(q, k, v, scale, causal),
+                    lambda q, k, v: (fa.attention_plain(q, k, v, scale, causal),
+                                     fa.attention_lse_plain(q, k, scale, causal)),
+                    [q, k, v], _within_rel, 'flash_attention_lse',
+                    attention_work(*shape, lse=True, causal=causal), lib_fwd))
+            o, lse = fa.flash_attention_lse(q, k, v, scale, causal)
+            args = [q, k, v, lse, do, fa.attention_delta(o, do), scale, causal]
+            for name, kernel, plain, dkv in (
+                    ('flash_attention_bwd_dq', fa.flash_attention_bwd_dq, fa.flash_bwd_dq_plain,
+                     False),
+                    ('flash_attention_bwd_dkv', fa.flash_attention_bwd_dkv,
+                     fa.flash_bwd_dkv_plain, True)):
+                per[name][1].append(_measure(label, kernel, plain, args, _within_grad, name,
+                                             attention_bwd_work(*shape, dkv, causal), lib_bwd))
+            del q, k, v, do, o, lse, args
+            torch.cuda.empty_cache()
+    return per
+
+
+CLASSIC_NOTE = ("the shapes labelled classic are #2/#4/#6's (D=64/128/160, causal and not), "
+                "which no path driven here runs: the launches are the paths' D=40/80 "
+                "non-causal ones, at #2/#4/#6's exact-route shapes")
+
+
+def add_classic_shapes(records, classic):
+    """The records of A, A with lse, E and F with the classic shapes added
+    (and the TPU kernels they replace there); o at those shapes is also
+    held to O_REL_L2."""
+    out = []
+    for rec in records:
+        if rec['name'] in classic:
+            replaces, shapes = classic[rec['name']]
+            keep = {k: v for k, v in rec.items() if k.startswith('launches_') or k == 'note'}
+            tol = rec['tolerance']
+            if 'bwd' not in rec['name']:
+                tol = {**tol, 'classic_o_rel_l2': O_REL_L2}
+            rec = _record(rec['name'], rec['source'],
+                          [rec['replaces'], *rec['also_replaces'], replaces], rec['launches'],
+                          rec['shapes'] + shapes, tol, classic_note=CLASSIC_NOTE, **keep)
+        out.append(rec)
+    return out
 
 
 @torch.inference_mode()
@@ -689,6 +807,7 @@ def main() -> int:
     records = kernel_phase({'txt2img': launches, 'train': train_launches,
                             'fused': fused_launches})
     records += train_kernel_phase(train_launches)
+    records = add_classic_shapes(records, classic_kernel_phase())
     records += fused_kernel_phase(fused_launches)
     log(gpu)
     print(json.dumps({'kernels': records}))

@@ -1,37 +1,57 @@
 // Kernel A: attention forward, O = softmax(Q K^T * scale) V, on bf16
-// [B, H, S, D] tensors given by strides, fp32 softmax state.
+// [B, H, S, D] tensors given by strides, fp32 softmax state, with an
+// optional causal mask (key <= query, top-left aligned; Sq == Sk).
 //
-// Replaces hcpdiff_tpu/ops/flash_attention.py:_flash_kernel_tq (:379, via
-// _flash_forward_tq :460; the UNet's D=40/80 self-attention) and
-// _flash_kernel_stream (:226, via _flash_forward_stream :325; the VAE's
-// D=512 mid-block attention). One kernel serves both: the TPU's transposed
-// layout only fixed lane padding, and its K/V streaming is what every
-// block here does anyway.
+// Replaces, in hcpdiff_tpu/ops/flash_attention.py:
+//   #1 _flash_kernel_tq (:379, via _flash_forward_tq :460; the UNet's
+//      D=40/80 self-attention under the JAX defaults);
+//   #2 _flash_kernel (:54, via _flash_forward :548; the classic layout
+//      with K/V resident: every head dim under HCP_FLASH_NOMAX=0 or
+//      HCP_FLASH_TQ=0, and head dims outside the transposed set, D=128);
+//   #3 _flash_kernel_stream (:226, via _flash_forward_stream :325; the
+//      VAE's D=512 mid-block attention);
+//   with its lse output, #1's emit_lse variant (:453-457) and #4
+//   _flash_kernel_lse (:613, via _flash_forward_lse :634).
+// One kernel serves all four: the TPU's transposed layout only fixed lane
+// padding, its K/V residency and streaming were VMEM budgeting, and here
+// every block streams K/V tiles anyway. The TPU kernels' causal option
+// (:84-89, :122-127, loop bound :189-192) is the `causal` flag below.
 //
 // What bounds it on the H100: at S=4096 the [S, S] logits would be 64 MB
 // per head in fp32, so materialising them makes attention memory-bound;
-// kept on chip, QK^T and PV are 4*S*S*D FLOPs over 4*S*D*2 bytes, far
-// above the ridge, so the tensor cores and the softmax's exp bound it.
-// The design streams K/V tiles through shared memory with an online
-// softmax (running max m, running sum l, fp32 accumulator), as in
-// FlashAttention-2: each warp owns 16 query rows, S and P stay in
-// registers, and P feeds the PV product straight from the S accumulator
-// fragments. The TPU kernel's no-max softmax (clamped at NOMAX_CLAMP) is
-// not copied: the running max is exact for any logit range.
+// kept on chip, QK^T and PV are 4*S*S*D FLOPs (causal: 4*S(S+1)/2*D, the
+// unmasked pairs only) over 4*S*D*2 bytes, far above the ridge, so the
+// tensor cores and the softmax's exp bound it. The design streams K/V
+// tiles through shared memory with an online softmax (running max m,
+// running sum l, fp32 accumulator), as in FlashAttention-2: each warp owns
+// 16 query rows, S and P stay in registers, and P feeds the PV product
+// straight from the S accumulator fragments. The TPU kernels' no-max
+// softmax (clamped at NOMAX_CLAMP, the default there) is not copied: the
+// running max is exact for any logit range, which is the classic kernels'
+// HCP_FLASH_NOMAX=0 function.
 //
-// Head dims: D is padded to DP (a multiple of 16) inside the shared tiles
-// with zeros, which leaves QK^T unchanged; output columns >= D are never
-// stored. D=512 would need a 16x512 fp32 accumulator per warp (256
-// registers a thread), so the output dims are split into chunks of DVC
-// over grid.z; each chunk recomputes QK^T (the VAE calls this once per
-// image, so the repeat costs little next to the UNet).
+// Causal: a block of queries [q0, q0+BQ) loops only over the key tiles
+// that start at or before q0+BQ-1, so about half the tiles are skipped;
+// inside the diagonal tile the keys past each row are -inf before the
+// running max. With Sq == Sk key 0 is in every row, so m and lse stay
+// finite. The flag is a template parameter, so the non-causal kernel
+// carries no per-row mask state (registers decide how many blocks share
+// an SM). The causal kernel is built for DP <= 160 only: D=512 is the
+// VAE's attention, which is not causal, and has no backward.
+//
+// Head dims: D is padded to DP (a multiple of 16: 48, 64, 80, 128, 160,
+// 512) inside the shared tiles with zeros, which leaves QK^T unchanged;
+// output columns >= D are never stored. DP=160 and DP=512 would need a
+// 16xDP fp32 accumulator per warp (DP/2 registers a thread), so their
+// output dims are split into chunks of DVC over grid.z; each chunk
+// recomputes QK^T.
 //
 // Training: when given an lse buffer, the kernel also writes each row's
-// natural-log logsumexp of the scaled logits (fp32 [B, H, Sq]), which the
-// backward kernels (flash_attention_bwd.cu) use to recompute P. This
-// replaces _flash_kernel_tq's emit_lse variant (:453-457). The running max
-// is in log2 units, so lse = (m + log2 l) * ln 2; with D split over grid.z
-// only the first chunk stores it. Inference passes no buffer.
+// natural-log logsumexp of the scaled (and masked) logits (fp32
+// [B, H, Sq]), which the backward kernels (flash_attention_bwd.cu) use to
+// recompute P. The running max is in log2 units, so
+// lse = (m + log2 l) * ln 2; with D split over grid.z only the first chunk
+// stores it. Inference passes no buffer.
 //
 // Simple first version: mma.sync m16n8k16, 64 query rows x 64 keys per
 // step, K and V single-buffered, V transposed into shared memory by the
@@ -53,8 +73,16 @@ constexpr int smem_bytes() {
     return ((BQ + BKV) * (DP + 8) + DVC * LDV) * 2;
 }
 
-template <int DP, int DVC>
-__global__ void __launch_bounds__(THREADS)
+// Up to DP=160 four blocks fit an SM's shared memory; ask ptxas for the
+// registers to match (<= 128 a thread), or a few registers over 128 leave
+// one SM slot in four empty (S=1024, D=80: 3 blocks an SM, two waves).
+template <int DP>
+constexpr int min_blocks() {
+    return DP <= 160 ? 4 : 1;
+}
+
+template <int DP, int DVC, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, min_blocks<DP>())
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                  int H, int Sq, int Sk,
@@ -93,7 +121,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-    const int nkt = (Sk + BKV - 1) / BKV;
+    // the last key each of this thread's rows g, g+8 may see
+    int last_key[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+        last_key[r] = CAUSAL ? min(Sk - 1, q0 + warp * 16 + g + r * 8) : Sk - 1;
+    int nkt = (Sk + BKV - 1) / BKV;
+    if (CAUSAL) nkt = min(nkt, (q0 + BQ - 1) / BKV + 1);   // skip tiles past the diagonal
     for (int kt = 0; kt < nkt; ++kt) {
         const int k0 = kt * BKV;
         __syncthreads();             // previous tile fully consumed
@@ -142,7 +176,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 int key = k0 + ni * 8 + 2 * t + (e & 1);
-                float val = key < Sk ? s[ni][e] * scale_log2 : -INFINITY;
+                float val = key <= last_key[e >> 1] ? s[ni][e] * scale_log2 : -INFINITY;
                 s[ni][e] = val;
                 mx[e >> 1] = fmaxf(mx[e >> 1], val);
             }
@@ -218,9 +252,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DP, int DVC>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-           int Sq, int Sk, int D, const long long* st, float scale_log2, cudaStream_t s) {
+           int Sq, int Sk, int D, const long long* st, float scale_log2, int causal,
+           cudaStream_t s) {
     constexpr int smem = smem_bytes<DP, DVC>();
-    auto kern = flash_fwd_kernel<DP, DVC>;
+    auto kern = flash_fwd_kernel<DP, DVC, false>;
+    if constexpr (DP <= 160) {
+        if (causal) kern = flash_fwd_kernel<DP, DVC, true>;
+    } else if (causal) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -238,23 +278,28 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // q [B,H,Sq,D], k/v [B,H,Sk,D], o [B,H,Sq,D], all bf16 with unit stride on
 // D; `strides` holds (batch, head, seq) strides in elements for q, k, v, o
 // (12 values). D % 8 == 0 and 16-byte aligned rows. `lse` is null, or a
-// contiguous fp32 [B, H, Sq] buffer for the row logsumexp. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D.
+// contiguous fp32 [B, H, Sq] buffer for the row logsumexp. `causal` != 0
+// masks keys past each query (top-left aligned; the caller ensures
+// Sq == Sk; D <= 160). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unsupported D or causal D.
 extern "C" int hcp_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse_out, int B, int H, int Sq, int Sk, int D,
-                                   const long long* strides, float scale, void* stream) {
+                                   const long long* strides, float scale, int causal,
+                                   void* stream) {
     using namespace hcp;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float scale_log2 = scale * 1.4426950408889634f;
+    const float sl2 = scale * 1.4426950408889634f;
     float* lse = static_cast<float*>(lse_out);
-    const int dp = (D + 15) / 16 * 16;
-    switch (dp) {
-        case 48: return launch<48, 48>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
-        case 80: return launch<80, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
+    switch ((D + 15) / 16 * 16) {
+        case 48: return launch<48, 48>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
+        case 64: return launch<64, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
+        case 80: return launch<80, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
+        case 128:
+            return launch<128, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
         case 160:
-            return launch<160, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
+            return launch<160, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
         case 512:
-            return launch<512, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale_log2, s);
+            return launch<512, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -43,15 +43,16 @@ _SIGNATURES = {
                     ctypes.c_float, _P],
     # x, w, bias, row_bias, res, out, B, H, W, Cin, Cout, stream
     'hcp_conv3x3': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, lse (or null), B, H, Sq, Sk, D, strides[12], scale, stream
+    # q, k, v, o, lse (or null), B, H, Sq, Sk, D, strides[12], scale, causal, stream
     'hcp_flash_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                            ctypes.c_float, _P],
-    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides[15], scale, stream
+                            ctypes.c_float, _I, _P],
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides[15], scale, causal, stream
     'hcp_flash_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                         ctypes.c_float, _P],
-    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides[18], scale, stream
+                         ctypes.c_float, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides[18], scale, causal,
+    # stream
     'hcp_flash_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                          ctypes.c_float, _P],
+                          ctypes.c_float, _I, _P],
     # x, scale, bias, y, workspace, B, S, C, G, nsplit, rows, eps, silu, stream
     'hcp_group_norm': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P],
@@ -93,20 +94,22 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         def compile_one(src: Path):
             obj = Path(tmp) / (src.stem + '.o')
+            t = time.time()
             proc = subprocess.run([nvcc, *NVCC_FLAGS, '-c', str(src), '-o', str(obj)],
                                   capture_output=True, text=True)
-            return src, obj, proc
+            return src, obj, proc, time.time() - t
 
         with ThreadPoolExecutor(max_workers=len(_sources())) as pool:
             results = list(pool.map(compile_one, _sources()))
         log = []
-        for src, _, proc in results:
-            log.append(f'== {src.name} (rc {proc.returncode})\n{proc.stdout}{proc.stderr}')
-        failed = [src.name for src, _, proc in results if proc.returncode != 0]
+        for src, _, proc, seconds in results:
+            log.append(f'== {src.name} (rc {proc.returncode}, {seconds:.1f} s)\n'
+                       f'{proc.stdout}{proc.stderr}')
+        failed = [src.name for src, _, proc, _ in results if proc.returncode != 0]
         if not failed:
             tmp_lib = Path(tmp) / lib_path.name
             proc = subprocess.run([nvcc, *ARCH_FLAGS, '-shared', '-o', str(tmp_lib),
-                                   *[str(obj) for _, obj, _ in results]],
+                                   *[str(obj) for _, obj, _, _ in results]],
                                   capture_output=True, text=True)
             log.append(f'== link (rc {proc.returncode})\n{proc.stdout}{proc.stderr}')
             if proc.returncode != 0:

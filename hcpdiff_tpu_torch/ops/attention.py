@@ -2,15 +2,16 @@
 elsewhere.
 
 Counterpart of ``hcpdiff_tpu/ops/attention.py``, with its default rule
-(:59-79): the kernel takes attention whose query length is at least 1024
-and a multiple of 128, with as many keys as queries and a head dim of at
-most 512 (UNet self-attention at the 64x64 and 32x32 levels, VAE
-mid-block attention). The JAX rule also sends attention with a bias to
-XLA; no caller of the port passes one yet, so there is no bias argument.
-Cross-attention over the 77 text tokens, CLIP's causal attention and the
-16x16 / 8x8 levels run the plain version, which the JAX package leaves to
-XLA. The kernel has no causal mask, so causal attention never takes it.
-Nothing falls back: on a CUDA tensor the kernel runs or raises.
+(:59-79) whole: the kernel takes attention whose query length is at least
+1024 and a multiple of 128, with as many keys as queries and a head dim of
+at most 512 (UNet self-attention at the 64x64 and 32x32 levels, VAE
+mid-block attention), causal or not; with Sk == Sq the kernel's top-left
+causal mask is the plain version's. The JAX rule also sends attention with
+a bias to XLA; no caller of the port passes one yet, so there is no bias
+argument. Cross-attention over the 77 text tokens, CLIP's causal attention
+over 77 tokens and the 16x16 / 8x8 levels run the plain version, which the
+JAX package leaves to XLA. Nothing falls back: on a CUDA tensor the kernel
+runs or raises (it takes padded head dims 48-160, and 512 when not causal).
 """
 from __future__ import annotations
 
@@ -27,6 +28,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
               scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention on [B, H, S, D] tensors."""
     Sq, Sk, D = q.shape[-2], k.shape[-2], q.shape[-1]
-    if not causal and Sq >= FLASH_MIN_SEQ and Sq % 128 == 0 and Sk == Sq and D <= 512:
-        return flash_attention(q, k, v, scale)
+    if Sq >= FLASH_MIN_SEQ and Sq % 128 == 0 and Sk == Sq and D <= 512:
+        return flash_attention(q, k, v, scale, causal)
     return attention_plain(q, k, v, scale, causal)

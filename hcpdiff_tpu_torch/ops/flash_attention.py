@@ -2,16 +2,32 @@
 optional logsumexp output, ``csrc/flash_attention.cu``), kernels E and F
 (backward dQ and dK/dV, ``csrc/flash_attention_bwd.cu``), their plain
 PyTorch versions, and the ``torch.autograd.Function`` that joins them.
+Every entry takes ``causal``: keys past each query are masked.
 
-Counterpart of ``hcpdiff_tpu/ops/flash_attention.py``: its forward kernels
-(the transposed ``_flash_kernel_tq`` for D=40/80, with ``emit_lse`` for
-training, and the K/V-streaming ``_flash_kernel_stream`` for the VAE's
-D=512) and its transposed backward kernels (``_flash_bwd_dq_kernel_tq``,
-``_flash_bwd_dkv_kernel_tq``) inside the ``custom_vjp`` of
-``_make_flash``. The forward's online softmax differs from the TPU
-kernels' no-max softmax only where a row's scaled logits exceed ~55 nats
-(``NOMAX_CLAMP_NAT``), where the TPU kernel clamps and this one stays
-exact; so the backward recomputes P from the exact lse and needs no clamp.
+Counterpart of every Pallas kernel of ``hcpdiff_tpu/ops/flash_attention.py``
+inside the ``custom_vjp`` of ``_make_flash``. Kernel A replaces the
+forwards: the transposed ``_flash_kernel_tq`` (D=40/80 under the JAX
+defaults, with ``emit_lse`` for training), the classic K/V-resident
+``_flash_kernel`` and its lse variant ``_flash_kernel_lse`` (every head dim
+under ``HCP_FLASH_NOMAX=0``, and D=128-like head dims under the defaults)
+and the K/V-streaming ``_flash_kernel_stream`` (the VAE's D=512). E and F
+replace both backward pairs, the transposed ``_flash_bwd_dq/dkv_kernel_tq``
+and the classic ``_flash_bwd_dq/dkv_kernel``. On the card the TPU's
+layouts (a matter of lane padding) are one: the kernels read their
+operands through strides. The kernels take padded head dims 48, 64, 80,
+128, 160, causal or not, and the forward also 512, not causal.
+
+Softmax: one exact online softmax with a running max, the classic kernels'
+``HCP_FLASH_NOMAX=0`` function. The TPU's default no-max softmax differs
+only where a row's scaled logits exceed ~55 nats (``NOMAX_CLAMP_NAT``),
+where it clamps and this one stays exact; so the backward recomputes P from
+the exact lse and needs no clamp.
+
+Causal: the kernels' mask is top-left aligned (key <= query), as the TPU
+kernels' is, and a CUDA tensor with ``causal`` and Sq != Sk raises; the JAX
+dispatcher admits causal attention to its kernels only with Sk == Sq. The
+plain versions keep ``_xla_attention``'s bottom-right ``tril(kl - ql)``,
+which is the same mask when Sq == Sk.
 """
 from __future__ import annotations
 
@@ -25,11 +41,23 @@ from ._build import (accum_dtype, aligned16, check, library, require, require_cu
                      stream_handle)
 
 # Head dims the kernels are instantiated for, after padding D up to a
-# multiple of 16 (D=40 -> 48): the forward for the SD1.5 UNet's 40/80/160
-# and the VAE's 512, the backward for the heads that take kernel A in
-# training at 512 px (D=40 at 64x64, D=80 at 32x32).
-PADDED_HEAD_DIMS = (48, 80, 160, 512)
-BWD_PADDED_HEAD_DIMS = (48, 80)
+# multiple of 16 (D=40 -> 48): SD1.5's 40/80/160, SD2.1's and SDXL's 64,
+# 128 (which the JAX defaults send to the classic kernels) and, forward
+# only and not causal, the VAE's 512.
+PADDED_HEAD_DIMS = (48, 64, 80, 128, 160, 512)
+BWD_PADDED_HEAD_DIMS = CAUSAL_PADDED_HEAD_DIMS = (48, 64, 80, 128, 160)
+
+
+def _logits(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool) -> torch.Tensor:
+    """q k^T * scale in fp32 (or wider); ``causal`` sets the keys past each
+    query (aligned to the sequence ends) to the dtype's minimum."""
+    dt = accum_dtype(q)
+    logits = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale
+    if causal:
+        ql, kl = q.shape[-2], k.shape[-2]
+        keep = torch.ones(ql, kl, dtype=torch.bool, device=q.device).tril(kl - ql)
+        logits = logits.masked_fill(~keep, torch.finfo(dt).min)
+    return logits
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,20 +66,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probabilities cast back to q's dtype, as ``_xla_attention`` does it.
     ``causal`` masks keys past each query (aligned to the sequence ends)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    dt = accum_dtype(q)
-    logits = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale
-    if causal:
-        ql, kl = q.shape[-2], k.shape[-2]
-        keep = torch.ones(ql, kl, dtype=torch.bool, device=q.device).tril(kl - ql)
-        logits = logits.masked_fill(~keep, torch.finfo(dt).min)
-    probs = logits.softmax(dim=-1).to(q.dtype)
+    probs = _logits(q, k, scale, causal).softmax(dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
 
 
-def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
-    """Row logsumexp of the scaled logits, [B, H, Sq], in natural log."""
-    dt = accum_dtype(q)
-    return torch.logsumexp(torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale, dim=-1)
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, scale: float,
+                        causal: bool = False) -> torch.Tensor:
+    """Row logsumexp of the scaled (masked) logits, [B, H, Sq], in natural log."""
+    return torch.logsumexp(_logits(q, k, scale, causal), dim=-1)
 
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -61,38 +83,39 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.to(dt) * o.to(dt)).sum(dim=-1).contiguous()
 
 
-def _plain_p_ds(q, k, v, lse, do, delta, scale):
-    """Recomputed P = exp(S*scale - lse) and dS = P*(dO V^T - delta)*scale."""
+def _plain_p_ds(q, k, v, lse, do, delta, scale, causal):
+    """Recomputed P = exp(S*scale - lse) and dS = P*(dO V^T - delta)*scale;
+    under ``causal`` P (and so dS) is 0 past each query."""
     dt = accum_dtype(q)
-    p = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)).mul_(scale)
-    p = p.sub_(lse.to(dt)[..., None]).exp_()
+    p = _logits(q, k, scale, causal).sub_(lse.to(dt)[..., None]).exp_()
     ds = torch.matmul(do.to(dt), v.to(dt).transpose(-1, -2))
     ds = ds.sub_(delta.to(dt)[..., None]).mul_(p).mul_(scale)
     return p, ds
 
 
-def flash_bwd_dq_plain(q, k, v, lse, do, delta, scale: float) -> torch.Tensor:
+def flash_bwd_dq_plain(q, k, v, lse, do, delta, scale: float,
+                       causal: bool = False) -> torch.Tensor:
     """Plain version of kernel E: dQ = dS K, computed explicitly in fp32."""
-    _, ds = _plain_p_ds(q, k, v, lse, do, delta, scale)
+    _, ds = _plain_p_ds(q, k, v, lse, do, delta, scale, causal)
     return torch.matmul(ds, k.to(ds.dtype)).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale: float
+def flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale: float, causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernel F: dK = dS^T Q, dV = P^T dO, in fp32."""
-    p, ds = _plain_p_ds(q, k, v, lse, do, delta, scale)
+    p, ds = _plain_p_ds(q, k, v, lse, do, delta, scale, causal)
     dk = torch.matmul(ds.transpose(-1, -2), q.to(ds.dtype)).to(k.dtype)
     dv = torch.matmul(p.transpose(-1, -2), do.to(p.dtype)).to(v.dtype)
     return dk, dv
 
 
-def flash_attention_backward_plain(q, k, v, o, lse, do, scale: float):
+def flash_attention_backward_plain(q, k, v, o, lse, do, scale: float, causal: bool = False):
     """dq, dk, dv of softmax(q k^T * scale) v from the forward's o and lse,
     computed explicitly in fp32: the function kernels E and F are held
     against."""
     delta = attention_delta(o, do)
-    dq = flash_bwd_dq_plain(q, k, v, lse, do, delta, scale)
-    return (dq, *flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale))
+    dq = flash_bwd_dq_plain(q, k, v, lse, do, delta, scale, causal)
+    return (dq, *flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale, causal))
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -109,20 +132,26 @@ def _strides(name: str, tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
-def _check_qkv(name: str, q, k, v, padded_dims) -> None:
+def _check_qkv(name: str, q, k, v, padded_dims, causal: bool) -> None:
     require_cuda_bf16(name, q, k, v)
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, name, 'expects [B, H, S, D] tensors')
-    B, H, _, D = q.shape
+    B, H, Sq, D = q.shape
     Sk = k.shape[2]
     require(k.shape == (B, H, Sk, D) and v.shape == k.shape and Sk > 0, name,
             f'shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}')
-    require(D % 8 == 0 and -(-D // 16) * 16 in padded_dims, name,
+    padded = -(-D // 16) * 16
+    require(D % 8 == 0 and padded in padded_dims, name,
             f'head dim {D} not supported (padded dims {padded_dims})')
+    require(not causal or padded in CAUSAL_PADDED_HEAD_DIMS, name,
+            f'causal head dim {D} not supported (padded dims {CAUSAL_PADDED_HEAD_DIMS})')
     require(B * H <= 65535, name, f'B*H={B * H} exceeds the grid limit')
+    require(not causal or Sk == Sq, name,
+            f'causal needs as many keys as queries (the mask is top-left aligned), '
+            f'got Sq={Sq}, Sk={Sk}')
 
 
-def _check_bwd(name: str, q, k, v, lse, do, delta) -> None:
-    _check_qkv(name, q, k, v, BWD_PADDED_HEAD_DIMS)
+def _check_bwd(name: str, q, k, v, lse, do, delta, causal: bool) -> None:
+    _check_qkv(name, q, k, v, BWD_PADDED_HEAD_DIMS, causal)
     require_cuda_bf16(name, q, do)
     require(do.shape == q.shape, name, f'dO must be {tuple(q.shape)}')
     for t in (lse, delta):
@@ -137,9 +166,9 @@ def _like_heads(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(B, S, H, D, dtype=t.dtype, device=t.device).transpose(1, 2)
 
 
-def _launch_forward(q, k, v, scale: float, with_lse: bool):
+def _launch_forward(q, k, v, scale: float, causal: bool, with_lse: bool):
     name = 'flash_attention'
-    _check_qkv(name, q, k, v, PADDED_HEAD_DIMS)
+    _check_qkv(name, q, k, v, PADDED_HEAD_DIMS, causal)
     B, H, Sq, D = q.shape
     out = _like_heads(q)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) if with_lse
@@ -147,7 +176,7 @@ def _launch_forward(q, k, v, scale: float, with_lse: bool):
     rc = library().hcp_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2], D,
-        ctypes.cast(_strides(name, (q, k, v, out)), ctypes.c_void_p), scale,
+        ctypes.cast(_strides(name, (q, k, v, out)), ctypes.c_void_p), scale, int(causal),
         stream_handle(q.device))
     check(rc, name)
     flash_attention.launches += 1
@@ -156,51 +185,53 @@ def _launch_forward(q, k, v, scale: float, with_lse: bool):
     return out, lse
 
 
-def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                        causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward that also returns the row logsumexp: (o [B, H, Sq, D],
     lse [B, H, Sq] fp32, natural log). A CPU tensor takes the plain
     versions; a CUDA tensor launches kernel A with its lse output or raises.
     No gradient: :func:`flash_attention` is the differentiable entry."""
     if q.device.type == 'cpu':
-        return attention_plain(q, k, v, scale), attention_lse_plain(q, k, scale)
-    return _launch_forward(q, k, v, scale, with_lse=True)
+        return (attention_plain(q, k, v, scale, causal),
+                attention_lse_plain(q, k, scale, causal))
+    return _launch_forward(q, k, v, scale, causal, with_lse=True)
 
 
-def flash_attention_bwd_dq(q, k, v, lse, do, delta, scale: float) -> torch.Tensor:
+def flash_attention_bwd_dq(q, k, v, lse, do, delta, scale: float,
+                           causal: bool = False) -> torch.Tensor:
     """dQ from q, k, v, dO [B, H, S, D] and fp32 lse, delta [B, H, Sq]. A
     CPU tensor takes the plain version; a CUDA tensor launches kernel E or
     raises."""
     if q.device.type == 'cpu':
-        return flash_bwd_dq_plain(q, k, v, lse, do, delta, scale)
+        return flash_bwd_dq_plain(q, k, v, lse, do, delta, scale, causal)
     name = 'flash_attention_bwd_dq'
-    _check_bwd(name, q, k, v, lse, do, delta)
+    _check_bwd(name, q, k, v, lse, do, delta, causal)
     B, H, Sq, D = q.shape
     dq = _like_heads(q)
     rc = library().hcp_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[2], D,
-        ctypes.cast(_strides(name, (q, k, v, do, dq)), ctypes.c_void_p), scale,
+        ctypes.cast(_strides(name, (q, k, v, do, dq)), ctypes.c_void_p), scale, int(causal),
         stream_handle(q.device))
     check(rc, name)
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale: float
+def flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale: float, causal: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV), as :func:`flash_attention_bwd_dq`; kernel F on the card."""
     if q.device.type == 'cpu':
-        return flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale)
+        return flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale, causal)
     name = 'flash_attention_bwd_dkv'
-    _check_bwd(name, q, k, v, lse, do, delta)
+    _check_bwd(name, q, k, v, lse, do, delta, causal)
     B, H, Sq, D = q.shape
     dk, dv = _like_heads(k), _like_heads(v)
     rc = library().hcp_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], D,
         ctypes.cast(_strides(name, (q, k, v, do, dk, dv)), ctypes.c_void_p), scale,
-        stream_handle(q.device))
+        int(causal), stream_handle(q.device))
     check(rc, name)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -210,18 +241,18 @@ class _FlashAttention(torch.autograd.Function):
     """Forward: kernel A (with lse when a gradient will be taken) or the
     plain versions on the CPU. Backward: kernels E and F, or their plain
     versions on the CPU. Saves q, k, v, o and lse, as the JAX ``fwd``
-    (:1071-1085) does."""
+    (:1071-1085) does, and ``causal``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, needs_grad: bool):
+    def forward(ctx, q, k, v, scale: float, causal: bool, needs_grad: bool):
         if needs_grad:
-            o, lse = flash_attention_lse(q, k, v, scale)
+            o, lse = flash_attention_lse(q, k, v, scale, causal)
             ctx.save_for_backward(q, k, v, o, lse)
-            ctx.scale = scale
+            ctx.scale, ctx.causal = scale, causal
             return o
         if q.device.type == 'cpu':
-            return attention_plain(q, k, v, scale)
-        return _launch_forward(q, k, v, scale, with_lse=False)[0]
+            return attention_plain(q, k, v, scale, causal)
+        return _launch_forward(q, k, v, scale, causal, with_lse=False)[0]
 
     @staticmethod
     @once_differentiable
@@ -233,24 +264,26 @@ class _FlashAttention(torch.autograd.Function):
             do = do.contiguous()
         delta = attention_delta(o, do)
         need_q, need_k, need_v = ctx.needs_input_grad[:3]
-        dq = flash_attention_bwd_dq(q, k, v, lse, do, delta, ctx.scale) if need_q else None
+        args = (q, k, v, lse, do, delta, ctx.scale, ctx.causal)
+        dq = flash_attention_bwd_dq(*args) if need_q else None
         dk = dv = None
         if need_k or need_v:
-            dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, ctx.scale)
-        return dq, dk, dv, None, None
+            dk, dv = flash_attention_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, causal: bool = False) -> torch.Tensor:
     """q [B, H, Sq, D], k/v [B, H, Sk, D], any strides with a unit stride on
     D (so a head split ``x.view(B, S, H, D).transpose(1, 2)`` needs no
-    copy). Differentiable. A CPU tensor takes the plain versions; a CUDA
-    tensor launches kernel A (and E, F in the backward) or raises. The
+    copy). ``causal`` masks keys past each query (on the card only with
+    Sq == Sk). Differentiable. A CPU tensor takes the plain versions; a
+    CUDA tensor launches kernel A (and E, F in the backward) or raises. The
     kernel's output is returned as a [B, H, Sq, D] view of a [B, Sq, H, D]
     buffer, so merging heads back costs no copy."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    return _FlashAttention.apply(q, k, v, scale, needs_grad)
+    return _FlashAttention.apply(q, k, v, scale, bool(causal), needs_grad)
 
 
 flash_attention.launches = 0            # kernel A, with or without lse

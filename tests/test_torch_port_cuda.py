@@ -112,6 +112,58 @@ def test_flash_backward_kernels(gen, shape):
         _close_grad(out, ref)
 
 
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('shape', [(2, 10, 1024, 64), (1, 2, 512, 128), (2, 4, 512, 160),
+                                   (1, 2, 300, 120), (1, 2, 300, 40)])
+def test_flash_classic_head_dims_and_causal(gen, shape, causal):
+    """A, A with lse, E and F at the head dims the classic route adds (64,
+    128, 160; 120 pads to 128) and a ragged S, causal and not, against
+    their plain versions; then the Function's gradients (ctx keeps causal)
+    against the plain version's, differentiated in fp32."""
+    B, H, S, D = shape
+    q, k, v = (_rn(gen, *shape) for _ in range(3))
+    do = _rn(gen, B, S, H * D).view(B, S, H, D).transpose(1, 2)
+    scale = D ** -0.5
+    counters = (flash_attention, fa.flash_attention_lse, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    _close(flash_attention(q, k, v, scale, causal), attention_plain(q, k, v, scale, causal))
+    o, lse = fa.flash_attention_lse(q, k, v, scale, causal)
+    _close(o, attention_plain(q, k, v, scale, causal))
+    ref = fa.attention_lse_plain(q, k, scale, causal)
+    torch.cuda.synchronize()
+    assert float((lse - ref).abs().max()) <= LSE_ATOL
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, scale, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale, causal)
+    assert [c.launches for c in counters] == [before[0] + 2, before[1] + 1, before[2] + 1,
+                                              before[3] + 1]
+    for out, ref in zip((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                                         scale, causal)):
+        _close_grad(out, ref)
+    _, got = _grads(lambda *a: flash_attention(*a, causal=causal), [q, k, v], do)
+    _, ref = _grads(lambda *a: attention_plain(*a, causal=causal), [q.float(), k.float(),
+                                                                     v.float()], do.float())
+    for a, r in zip(got, ref):
+        _close_grad(a, r.to(a.dtype))
+
+
+def test_flash_causal_needs_as_many_keys_as_queries(gen):
+    """The kernels' causal mask is top-left aligned, so causal with Sq != Sk
+    raises; without causal, Sq != Sk runs."""
+    q, kv = _rn(gen, 1, 2, 256, 64), _rn(gen, 1, 2, 128, 64)
+    lse = torch.zeros(1, 2, 256, device='cuda')
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv, causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_lse(q, kv, kv, 0.125, causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dq(q, kv, kv, lse, q, lse, 0.125, causal=True)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd_dkv(q, kv, kv, lse, q, lse, 0.125, causal=True)
+    _close(flash_attention(q, kv, kv), attention_plain(q, kv, kv))
+
+
 def _grads(fn, args, g):
     """Output and input gradients of fn(*args) with cotangent g."""
     leaves = [a.detach().requires_grad_(True) if a is not None else None for a in args]
@@ -259,7 +311,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         mm.ln_dense(x[:, :32].contiguous(), g[:32].float(), b[:32], _rn(gen, 8, 32))
     with pytest.raises(ValueError):                               # Cin % 8 != 0
         conv3x3(_rn(gen, 1, 12, 4, 4), _rn(gen, 8, 12, 3, 3))
-    q = _rn(gen, 1, 2, 256, 160)
+    q = _rn(gen, 1, 2, 256, 512)
     lse = torch.zeros(1, 2, 256, device='cuda')
-    with pytest.raises(ValueError):                               # no backward at D=160
+    with pytest.raises(ValueError):                               # no backward at D=512
         fa.flash_attention_bwd_dq(q, q, q, lse, q, lse, 1.0)
+    with pytest.raises(ValueError):                               # head dim 96
+        flash_attention(q[..., :96], q[..., :96], q[..., :96])
+    with pytest.raises(ValueError):                               # causal at D=512
+        flash_attention(q, q, q, causal=True)

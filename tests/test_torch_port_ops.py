@@ -50,7 +50,7 @@ def test_flash_attention_matches_pallas(path, D):
 
 def test_attention_dispatch_rule(monkeypatch):
     """The JAX package's default rule (ops/attention.py:59-79): the kernel
-    takes non-causal self-attention with Sq >= 1024, Sq % 128 == 0 and
+    takes self-attention (causal or not) with Sq >= 1024, Sq % 128 == 0 and
     D <= 512; everything else is plain torch. (The port has no attention
     bias, which the rule also sends to plain torch.)"""
     calls = []
@@ -70,7 +70,8 @@ def test_attention_dispatch_rule(monkeypatch):
     assert not run(256, 256, 160)              # 16x16 level
     assert not run(1152, 1152, 640)            # D > 512
     assert not run(1100, 1100, 40)             # Sq % 128 != 0
-    assert not run(1024, 1024, 40, causal=True)
+    assert run(1024, 1024, 40, causal=True)    # causal with Sk == Sq
+    assert not run(77, 77, 64, causal=True)    # CLIP's causal attention
 
 
 @pytest.mark.parametrize('M,K,inner', [(256, 64, 128), (128, 96, 160)])
