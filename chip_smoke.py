@@ -50,7 +50,21 @@ package is missing. Phases, each fatal on failure:
    also within a relative L2 error; a causal bound counts only the
    S(S+1)/2 unmasked pairs of a head. These shapes join the records of
    the same wrappers (no path here runs them; the records' launches are
-   the paths', at #2/#4/#6's exact-route shapes).
+   the paths', at #2/#4/#6's exact-route shapes);
+7c. kernel J also at the UNet's other levels (the 8x8 and 16x16 convs,
+   most of them split K; 32x32 and 64x64 at Cin 640 and 960), with
+   F.conv2d as the yardstick for the bias-only epilogue, and kernel D
+   without SiLU (the transformer and VAE-attention norms) with
+   F.group_norm;
+8. head dims outside the built set: A, A with lse, E and F at D = 16, 96
+   and 144 (zero-padded by the wrappers to 48, 128, 160) against their
+   plain versions;
+9. fp32 on the card: one case per kernel family (A, A with lse, E, F,
+   B, C, D, G, H, I, J) at a main-path shape against its fp32 plain
+   version on the operands rounded to bf16 as the fp32 route rounds them
+   (each record's `fp32` entry), and the tiny UNet (default and fused) at
+   a 32x32 latent in fp32 against the CPU; kernels A and D (and J, G in
+   the fused one) must launch.
 
 The line before the last is one JSON object with the kernels' records; the
 last line is {"ok": true, "device": {...}}.
@@ -59,6 +73,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -104,6 +119,19 @@ def log(msg):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f'chip smoke check failed: {what}')
+
+
+def build_seconds(log_path) -> dict:
+    """Each source's nvcc seconds and the whole build's, from the build log."""
+    out = {}
+    for line in open(log_path).read().splitlines():
+        m = re.match(r'== (\S+) \(rc \d+, ([0-9.]+) s\)', line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+        m = re.match(r'== build seconds: ([0-9.]+)', line)
+        if m:
+            out['total'] = float(m.group(1))
+    return out
 
 
 def gpu_name_and_power_limit() -> str:
@@ -363,10 +391,11 @@ def conv_work(B, H, W, Cin, Cout, row_bias=False, res=False):
     return bound(2 * pix * 9 * Cin * Cout, nbytes)
 
 
-def group_norm_work(B, S, C):
+def group_norm_work(B, S, C, silu=True):
     """About 10 fp32 operations an element (statistics, normalization,
-    affine, SiLU), outside the tensor cores; fp32 scale and bias."""
-    return bound(10 * B * S * C, 2 * 2 * B * S * C + 2 * 4 * C, PEAK_FP32)
+    affine, SiLU; 6 without SiLU), outside the tensor cores; fp32 scale and
+    bias."""
+    return bound((10 if silu else 6) * B * S * C, 2 * 2 * B * S * C + 2 * 4 * C, PEAK_FP32)
 
 
 def _time_library(fn, what):
@@ -483,6 +512,14 @@ def kernel_phase(launches):
                 torch.rand(C, device='cuda', generator=gen) + 0.5,
                 torch.randn(C, device='cuda', generator=gen))
 
+    def gn_no_silu(B, S, C):
+        """D without SiLU (the transformer and VAE-attention norms); the
+        yardstick is F.group_norm on the same tensor viewed as [B, C, S]."""
+        x, sc, bi = gn_args(B, S, C)
+        return (f'x [{B}, {S}, {C}] no silu', [x, sc, bi, 32, 1e-6, False],
+                group_norm_work(B, S, C, silu=False),
+                lambda: F.group_norm(x.transpose(1, 2), 32, sc.to(x.dtype), bi.to(x.dtype), 1e-6))
+
     def attn(s):
         q, k, v = rn(*s), rn(*s), rn(*s)
         return (f'q/k/v {list(s)}', [q, k, v], attention_work(*s),
@@ -512,7 +549,7 @@ def kernel_phase(launches):
             [(f'x [{B}, {S}, {C}] silu', [*gn_args(B, S, C), 32, eps, True],
               group_norm_work(B, S, C), None)
              for B, S, C, eps in ((4, 64 * 64, 320, 1e-5), (4, 16 * 16, 1280, 1e-5),
-                                  (2, 512 * 512, 128, 1e-6))]),
+                                  (2, 512 * 512, 128, 1e-6))] + [gn_no_silu(4, 64 * 64, 320)]),
     }
     return _run_cases(cases, launches['txt2img'],
                       {'train': launches['train'], 'fused': launches['fused']})
@@ -678,6 +715,13 @@ def add_classic_shapes(records, classic):
     return out
 
 
+# kernel J at the UNet's other levels (size, Cin, Cout): the 8x8 and
+# 16x16 convs, most of whose grids the plan splits over K, and one conv
+# each at 32x32 and 64x64
+J_LEVELS = ((32, 640, 640), (16, 1280, 1280), (16, 2560, 1280), (8, 1280, 1280),
+            (64, 960, 320))
+
+
 @torch.inference_mode()
 def fused_kernel_phase(launches):
     """Kernels G-J at the fused path's shapes (SD1.5 512 px, batch 4, so
@@ -708,6 +752,8 @@ def fused_kernel_phase(launches):
                          gemm_work(M, C, C, C, ln=True), None))
 
     def conv_case(B, Cin, H, W, Cout, epilogue):
+        from hcpdiff_tpu_torch.ops.conv import conv_plan
+        log(f'  J plan at [{B}, {Cin}, {H}, {W}] -> {Cout}: {conv_plan(B, H, W, Cin, Cout)}')
         x = rn(B, Cin, H, W).to(memory_format=cl)
         w = rn(Cout, Cin, 3, 3, scale=(9 * Cin) ** -0.5).to(memory_format=cl)
         b = rn(Cout)
@@ -728,9 +774,177 @@ def fused_kernel_phase(launches):
                     [conv_case(8, 320, 64, 64, 320, 'row_bias'),
                      conv_case(8, 320, 64, 64, 320, 'res'),
                      conv_case(8, 320, 64, 64, 320, 'bias'),
-                     conv_case(8, 2560, 8, 8, 1280, 'bias')]),
+                     conv_case(8, 2560, 8, 8, 1280, 'bias')]
+                    + [conv_case(8, Cin, size, size, Cout, 'bias')
+                       for size, Cin, Cout in J_LEVELS]),
     }
     return _run_cases(cases, launches, {})
+
+
+# kernel D in fp32 against its fp32 plain version (fp32 sums in two orders)
+GN_F32_TOL = 1e-5
+
+
+def _within_gn32(out, ref):
+    err = (out - ref).abs()
+    return bool((err <= GN_F32_TOL * (1 + ref.abs())).all()), float(err.max())
+
+
+@torch.inference_mode()
+def head_dim_phase():
+    """A, A with lse, E and F at head dims outside the built set, which the
+    wrappers zero-pad to the next built one (16 -> 48, 96 -> 128, 144 ->
+    160), against the plain versions at D; causal at 144."""
+    from hcpdiff_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 9)
+    rn = _rn_on(gen)
+    zero_counters()
+    for D, causal in ((16, False), (96, False), (144, True)):
+        shape = (2, 8, 1024, D)
+        q, k, v, do = (rn(*shape) for _ in range(4))
+        sc = D ** -0.5
+        o, lse = fa.flash_attention_lse(q, k, v, sc, causal)
+        delta = fa.attention_delta(o, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, sc, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, sc, causal)
+        checks = [('o', _within(fa.flash_attention(q, k, v, sc, causal),
+                                fa.attention_plain(q, k, v, sc, causal))),
+                  ('o with lse', _within(o, fa.attention_plain(q, k, v, sc, causal))),
+                  ('lse', _within_lse(lse, fa.attention_lse_plain(q, k, sc, causal)))]
+        refs = fa.flash_attention_backward_plain(q, k, v, o, lse, do, sc, causal)
+        checks += [(n, _within_grad(a, r)) for n, a, r in zip(('dq', 'dk', 'dv'), (dq, dk, dv),
+                                                               refs)]
+        log(f'head dim {D} (kernel at {fa.kernel_head_dim("A", D, fa.BWD_PADDED_HEAD_DIMS)})'
+            f'{" causal" if causal else ""}: ' + ', '.join(f'{n} max err {e:.3g}'
+                                                          for n, (_, e) in checks))
+        for n, (ok, e) in checks:
+            check(ok, f'head dim {D}: {n} disagrees with its plain version ({e})')
+    read_counters('the head-dim checks', ('flash_attention', 'flash_attention_lse',
+                                          'flash_attention_bwd_dq', 'flash_attention_bwd_dkv'))
+
+
+def _r(t):
+    """t with its values rounded to bf16: an fp32 call's matrix operand."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _ln_fp32_reference(route, x, g, b, *params, eps):
+    """G, H and I's fp32 function: LayerNorm of the rounded x with the
+    rounded scale and shift, rounded to bf16 (the product's operand, as in
+    the bf16 route), then the fp32 product with the rounded weights, and
+    H's bias in fp32."""
+    from hcpdiff_tpu_torch.ops import matmul as mm
+    xn = mm._layer_norm(x.to(torch.bfloat16), g.to(torch.bfloat16), b.to(torch.bfloat16), eps)
+    if route == 'ln_geglu':
+        return mm.geglu_dense_plain(xn, _r(params[0]), params[1])
+    outs = tuple(torch.nn.functional.linear(xn, _r(w)) for w in params)
+    return outs if route == 'ln_qkv' else outs[0]
+
+
+@torch.inference_mode()
+def fp32_phase(records, device):
+    """Every kernel family on fp32 tensors at a main-path shape, stored as
+    each record's `fp32` entry: the tensor-core kernels compute the fp32
+    function on their matrix operands rounded to bf16 (the TPU's default
+    fp32 matmul precision) with an fp32 epilogue and output, and are held
+    to TOL against the plain versions on those rounded operands; D is fp32
+    throughout, held to GN_F32_TOL. Then the tiny UNet (default and fused)
+    in fp32 at a 32x32 latent against the CPU."""
+    from hcpdiff_tpu_torch.models.layers import init_flax_like
+    from hcpdiff_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+    from hcpdiff_tpu_torch.ops import flash_attention as fa
+    from hcpdiff_tpu_torch.ops import matmul as mm
+    from hcpdiff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
+    from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 10)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, device='cuda', generator=gen) * scale
+
+    q, k, v, do = (rn(8, 8, 1024, 80) for _ in range(4))
+    sc = 80 ** -0.5
+    o, lse = fa.attention_plain(q, k, v, sc), fa.attention_lse_plain(q, k, sc)
+    bwd = [q, k, v, lse, do, fa.attention_delta(o, do), sc]
+    x1, x2 = rn(16384, 320), rn(2048, 1280)
+    g2, b2 = 1.0 + rn(1280, scale=0.1), rn(1280, scale=0.1)
+    w2 = [rn(1280, 1280, scale=1280 ** -0.5) for _ in range(3)]
+    cl = torch.channels_last
+    xc = rn(8, 320, 64, 64).to(memory_format=cl)
+    wc = rn(320, 320, 3, 3, scale=2880 ** -0.5).to(memory_format=cl)
+    def qkv(q, k, v, *rest):
+        return (_r(q), _r(k), _r(v), *rest)
+
+    def grads(q, k, v, lse, do, *rest):
+        return (_r(q), _r(k), _r(v), lse, _r(do), *rest)
+
+    cases = {
+        'flash_attention': ('q/k/v [8, 8, 1024, 80]', fa.flash_attention,
+                            lambda *a: fa.attention_plain(*qkv(*a), sc), [q, k, v], _within),
+        'flash_attention_lse': ('q/k/v [8, 8, 1024, 80]',
+                                lambda *a: fa.flash_attention_lse(*a, sc),
+                                lambda *a: (fa.attention_plain(*qkv(*a), sc),
+                                            fa.attention_lse_plain(*qkv(*a)[:2], sc)),
+                                [q, k, v], _within_lse),
+        'flash_attention_bwd_dq': ('q/k/v/dO [8, 8, 1024, 80]', fa.flash_attention_bwd_dq,
+                                   lambda *a: fa.flash_bwd_dq_plain(*grads(*a)), bwd,
+                                   _within_grad),
+        'flash_attention_bwd_dkv': ('q/k/v/dO [8, 8, 1024, 80]', fa.flash_attention_bwd_dkv,
+                                    lambda *a: fa.flash_bwd_dkv_plain(*grads(*a)), bwd,
+                                    _within_grad),
+        'geglu_dense': ('x [16384, 320], w [2560, 320]', mm.geglu_dense,
+                        lambda x, w, b: mm.geglu_dense_plain(_r(x), _r(w), b),
+                        [x1, rn(2560, 320, scale=320 ** -0.5), rn(2560)], _within),
+        'fused_dense': ('x [16384, 320], w [320, 320], res', mm.fused_dense,
+                        lambda x, w, *e: mm.fused_dense_plain(_r(x), _r(w), *e),
+                        [x1, rn(320, 320, scale=320 ** -0.5), rn(320), rn(16384, 320)], _within),
+        'group_norm_silu': ('x [4, 4096, 320] silu', group_norm_silu, group_norm_silu_plain,
+                            [rn(4, 4096, 320, scale=3.0) + 1.0,
+                             torch.rand(320, device='cuda', generator=gen) + 0.5, rn(320), 32,
+                             1e-5, True], _within_gn32),
+        'ln_qkv': ('x [2048, 1280], wq/wk/wv [1280, 1280]', mm.ln_qkv,
+                   lambda *a: _ln_fp32_reference('ln_qkv', *a[:-1], eps=a[-1]),
+                   [x2, g2, b2, *w2, 1e-6], _within),
+        'ln_geglu': ('x [2048, 1280], w [10240, 1280]', mm.ln_geglu,
+                     lambda *a: _ln_fp32_reference('ln_geglu', *a[:-1], eps=a[-1]),
+                     [x2, g2, b2, rn(10240, 1280, scale=1280 ** -0.5), rn(10240), 1e-6],
+                     _within),
+        'ln_dense': ('x [2048, 1280], w [1280, 1280]', mm.ln_dense,
+                     lambda *a: _ln_fp32_reference('ln_dense', *a[:-1], eps=a[-1]),
+                     [x2, g2, b2, w2[0], 1e-6], _within),
+        'conv3x3': ('x [8, 320, 64, 64] -> 320, row_bias', conv3x3,
+                    lambda x, w, *e: conv3x3_plain(_r(x), _r(w), *e),
+                    [xc, wc, rn(320), rn(8, 320), None], _within),
+    }
+    zero_counters()
+    by_name = {r['name']: r for r in records}
+    for name, (label, kernel, plain, args, ok_fn) in cases.items():
+        outs = kernel(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        check(all(t.dtype == torch.float32 for t in outs), f'{name} fp32 output dtype')
+        del outs
+        rec = _measure(f'fp32 {label}', kernel, plain, args, ok_fn, name, (0.0, 'none'))
+        del rec['bound_ms'], rec['bound_by'], rec['library_ms']
+        by_name[name]['fp32'] = rec
+    read_counters('the fp32 checks', tuple(cases))
+    del cases, q, k, v, do, o, lse, bwd, x1, x2, xc
+    torch.cuda.empty_cache()
+
+    cpu = init_flax_like(UNet2DCondition(UNetConfig.tiny()), torch.Generator().manual_seed(SEED))
+    lat = torch.randn(2, 32, 32, 4, generator=torch.Generator().manual_seed(SEED + 11))
+    ctx = torch.randn(2, 77, 32, generator=torch.Generator().manual_seed(SEED + 12))
+    t = torch.tensor([801, 301])
+    ref = cpu(lat, t, ctx)
+    for fused in (False, True):
+        card = UNet2DCondition(UNetConfig.tiny(), fused_sublayers=fused)
+        card.load_state_dict(cpu.state_dict())
+        card = card.to(device).to(memory_format=cl).eval()
+        zero_counters()
+        err = rel_err(card(lat.to(device), t.to(device), ctx.to(device)), ref)
+        what = f'the tiny {"fused " if fused else ""}UNet in fp32 at a 32x32 latent'
+        read_counters(what, ('flash_attention', 'group_norm_silu')
+                      + (('conv3x3', 'ln_qkv') if fused else ()))
+        log(f'{what}: card vs cpu fp32 rel L2 err {err:.3e} (limit {MODEL_REL_TOL})')
+        check(err <= MODEL_REL_TOL, f'{what}: rel err {err} > {MODEL_REL_TOL}')
 
 
 def answer_requests(pipe, batches, what):
@@ -774,7 +988,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    log(f'build seconds: {time.perf_counter() - t0:.2f} ({_build.BUILD_DIR})')
+    log(f'build seconds: {time.perf_counter() - t0:.2f} ({_build.BUILD_DIR}); nvcc seconds '
+        f'by source: {build_seconds(_build.BUILD_DIR / "build.log")}')
 
     t0 = time.perf_counter()
     unet, vae, te = build_sd15(device, SEED)
@@ -809,6 +1024,8 @@ def main() -> int:
     records += train_kernel_phase(train_launches)
     records = add_classic_shapes(records, classic_kernel_phase())
     records += fused_kernel_phase(fused_launches)
+    head_dim_phase()
+    fp32_phase(records, device)
     log(gpu)
     print(json.dumps({'kernels': records}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

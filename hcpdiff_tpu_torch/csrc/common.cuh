@@ -1,9 +1,10 @@
 // Shared device helpers for the hand-written Hopper kernels (sm_90a).
 //
-// Every kernel of this directory uses the warp-level bf16 tensor-core
-// instruction mma.sync.m16n8k16 with fp32 accumulation, and cp.async for
-// global -> shared copies. Fragment layouts (PTX ISA, "Matrix Fragments for
-// mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
+// The kernels use cp.async for global -> shared copies and bf16 tensor-core
+// products with fp32 accumulation: the warp-level mma.sync.m16n8k16 (A-I),
+// or the warpgroup-level wgmma (J, wgmma.cuh). mma.sync's fragment layouts
+// (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with g = lane / 4 and
+// t = lane % 4:
 //   A (16x16, row-major): a0 = (g, 2t..2t+1)   a1 = (g+8, 2t..2t+1)
 //                         a2 = (g, 2t+8..+9)   a3 = (g+8, 2t+8..+9)
 //   B (16x8, "col"):      b0 = (k=2t..2t+1, n=g)   b1 = (k=2t+8..+9, n=g)
@@ -31,6 +32,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
     int n = pred ? 16 : 0;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(smem_addr(smem)), "l"(gmem), "r"(n));
+}
+
+// The same, to a shared-memory address given as a 32-bit shared-window offset.
+__device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem, bool pred) {
+    int n = pred ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem), "l"(gmem), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -78,6 +86,23 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+
+// Epilogue inputs and outputs of type T (bf16, or fp32 for an fp32 call):
+// read as float, and a pair of adjacent columns stored in one access.
+__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float as_float(float v) { return v; }
+
+__device__ __forceinline__ void store2(bf16* p, float lo, float hi) { store_bf16x2(p, lo, hi); }
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+__device__ __forceinline__ float2 load2(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
 }
 
 }  // namespace hcp

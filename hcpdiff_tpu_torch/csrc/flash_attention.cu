@@ -53,6 +53,10 @@
 // lse = (m + log2 l) * ln 2; with D split over grid.z only the first chunk
 // stores it. Inference passes no buffer.
 //
+// Output type: o is bf16, or fp32 for an fp32 call (whose q, k and v the
+// wrapper rounds to bf16). The type is a run-time flag read only in the
+// final store, after the key loop, so it costs the loop no registers.
+//
 // Simple first version: mma.sync m16n8k16, 64 query rows x 64 keys per
 // step, K and V single-buffered, V transposed into shared memory by the
 // loading threads (no ldmatrix.trans, no wgmma/TMA).
@@ -84,11 +88,11 @@ constexpr int min_blocks() {
 template <int DP, int DVC, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, min_blocks<DP>())
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 const bf16* __restrict__ v, void* __restrict__ o, float* __restrict__ lse,
                  int H, int Sq, int Sk,
                  int D, long long qsb, long long qsh, long long qss, long long ksb,
                  long long ksh, long long kss, long long vsb, long long vsh, long long vss,
-                 long long osb, long long osh, long long oss, float scale_log2) {
+                 long long osb, long long osh, long long oss, float scale_log2, int out_f32) {
     constexpr int LDQ = DP + 8;
     constexpr int NDT = DVC / 8;     // output n-tiles per warp
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -104,7 +108,6 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* qb = q + b * qsb + h * qsh;
     const bf16* kb = k + b * ksb + h * ksh;
     const bf16* vb = v + b * vsb + h * vsh;
-    bf16* ob = o + b * osb + h * osh;
 
     for (int c = tid; c < BQ * (DP / 8); c += THREADS) {
         int r = c / (DP / 8), d = (c % (DP / 8)) * 8;
@@ -243,16 +246,20 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int nd = 0; nd < NDT; ++nd) {
             int d = dc0 + nd * 8 + 2 * t;
-            if (d < D)
-                store_bf16x2(ob + row * oss + d, acc[nd][2 * r] * inv[r],
-                             acc[nd][2 * r + 1] * inv[r]);
+            if (d >= D) continue;
+            const long long off = b * osb + h * osh + row * oss + d;
+            const float y0 = acc[nd][2 * r] * inv[r], y1 = acc[nd][2 * r + 1] * inv[r];
+            if (out_f32)
+                store2(static_cast<float*>(o) + off, y0, y1);
+            else
+                store2(static_cast<bf16*>(o) + off, y0, y1);
         }
     }
 }
 
 template <int DP, int DVC>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-           int Sq, int Sk, int D, const long long* st, float scale_log2, int causal,
+           int Sq, int Sk, int D, const long long* st, float scale_log2, int causal, int out_f32,
            cudaStream_t s) {
     constexpr int smem = smem_bytes<DP, DVC>();
     auto kern = flash_fwd_kernel<DP, DVC, false>;
@@ -267,39 +274,40 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
     dim3 grid((Sq + BQ - 1) / BQ, B * H, (DP + DVC - 1) / DVC);
     kern<<<grid, THREADS, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), lse, H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-        st[7], st[8], st[9], st[10], st[11], scale_log2);
+        o, lse, H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        st[9], st[10], st[11], scale_log2, out_f32);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace hcp
 
-// q [B,H,Sq,D], k/v [B,H,Sk,D], o [B,H,Sq,D], all bf16 with unit stride on
-// D; `strides` holds (batch, head, seq) strides in elements for q, k, v, o
-// (12 values). D % 8 == 0 and 16-byte aligned rows. `lse` is null, or a
-// contiguous fp32 [B, H, Sq] buffer for the row logsumexp. `causal` != 0
-// masks keys past each query (top-left aligned; the caller ensures
-// Sq == Sk; D <= 160). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an unsupported D or causal D.
+// q [B,H,Sq,D], k/v [B,H,Sk,D]: bf16; o [B,H,Sq,D]: bf16, or fp32 when
+// out_f32 != 0; all with unit stride on D; `strides` holds (batch, head,
+// seq) strides in elements for q, k, v, o (12 values). D % 8 == 0 and
+// 16-byte aligned rows. `lse` is null, or a contiguous fp32 [B, H, Sq]
+// buffer for the row logsumexp. `causal` != 0 masks keys past each query
+// (top-left aligned; the caller ensures Sq == Sk; D <= 160). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D or
+// causal D.
 extern "C" int hcp_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse_out, int B, int H, int Sq, int Sk, int D,
                                    const long long* strides, float scale, int causal,
-                                   void* stream) {
+                                   int out_f32, void* stream) {
     using namespace hcp;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float sl2 = scale * 1.4426950408889634f;
     float* lse = static_cast<float*>(lse_out);
+#define HCP_FWD(DP, DVC) \
+    launch<DP, DVC>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, out_f32, s)
     switch ((D + 15) / 16 * 16) {
-        case 48: return launch<48, 48>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
-        case 64: return launch<64, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
-        case 80: return launch<80, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
-        case 128:
-            return launch<128, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
-        case 160:
-            return launch<160, 80>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
-        case 512:
-            return launch<512, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, s);
+        case 48: return HCP_FWD(48, 48);
+        case 64: return HCP_FWD(64, 64);
+        case 80: return HCP_FWD(80, 80);
+        case 128: return HCP_FWD(128, 128);
+        case 160: return HCP_FWD(160, 80);
+        case 512: return HCP_FWD(512, 128);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+#undef HCP_FWD
 }

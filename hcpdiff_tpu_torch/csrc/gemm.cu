@@ -35,6 +35,11 @@
 //
 // Simple first version: mma.sync m16n8k16 (not wgmma/TMA), 128x128 block
 // tile, 8 warps of 32x64, two shared-memory stages (gemm_tile.cuh).
+//
+// Types: x, the weights and the LayerNorm scale and shift are bf16. The
+// epilogue's bias and residual and the output are OutT: bf16, or fp32 for
+// an fp32 call (whose x and weights the wrapper rounds to bf16), so its
+// result is rounded once.
 #include "gemm_tile.cuh"
 
 namespace hcp {
@@ -45,9 +50,9 @@ enum Mode { DENSE = 0, DENSE_RES = 1, GEGLU = 2 };
 struct Params {
     const bf16* x;
     const bf16* w[3];           // G: wq, wk, wv; otherwise w[0]
-    const bf16* bias;           // [N] or [2N] (GEGLU) or null
-    const bf16* res;            // [M, N] (DENSE_RES)
-    bf16* out[3];               // one output per weight
+    const void* bias;           // [N] or [2N] (GEGLU) or null (OutT)
+    const void* res;            // [M, N] (DENSE_RES) (OutT)
+    void* out[3];               // one output per weight (OutT)
     const bf16* ln_g;           // LayerNorm scale and shift [K] (LN modes)
     const bf16* ln_b;
     float eps;
@@ -99,7 +104,7 @@ __device__ void row_stats(const bf16* x, int M, int K, int m0, float eps, float*
     }
 }
 
-template <int MODE, bool LN>
+template <int MODE, bool LN, typename OutT>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
     __shared__ __align__(16) TileSmem sm;
     __shared__ float s_mean[LN ? BM : 1], s_rstd[LN ? BM : 1];
@@ -111,7 +116,9 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
     // selected, not indexed: a runtime index into the parameter struct
     // would copy it to local memory
     const bf16* w = which == 0 ? p.w[0] : which == 1 ? p.w[1] : p.w[2];
-    bf16* out = which == 0 ? p.out[0] : which == 1 ? p.out[1] : p.out[2];
+    OutT* out = static_cast<OutT*>(which == 0 ? p.out[0] : which == 1 ? p.out[1] : p.out[2]);
+    const OutT* bias = static_cast<const OutT*>(p.bias);
+    const OutT* res = static_cast<const OutT*>(p.res);
 
     if (LN) {
         row_stats(p.x, p.M, p.K, m0, p.eps, s_mean, s_rstd);
@@ -152,7 +159,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
     float acc[2][8][4];
     mainloop<PAIRED>(acc, sm, w, p.N, p.K, n0, fill_a, prep_a);
 
-    // Epilogue: fp32 bias (+ residual | GELU gate), one bf16 store.
+    // Epilogue: fp32 bias (+ residual | GELU gate), one store.
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int wm = warp & 3, wn = warp >> 2;
@@ -173,13 +180,13 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
                     for (int e = 0; e < 2; ++e) {
                         float v = acc[mi][ni][2 * h + e];
                         float gt = acc[mi][ni + 4][2 * h + e];
-                        if (p.bias) {
-                            v += __bfloat162float(p.bias[col + e]);
-                            gt += __bfloat162float(p.bias[N + col + e]);
+                        if (bias) {
+                            v += as_float(bias[col + e]);
+                            gt += as_float(bias[N + col + e]);
                         }
                         y[e] = v * (0.5f * gt * (1.f + erff(gt * 0.70710678118654752f)));
                     }
-                    store_bf16x2(out + (size_t)row * N + col, y[0], y[1]);
+                    store2(out + (size_t)row * N + col, y[0], y[1]);
                 }
             } else {
 #pragma unroll
@@ -187,17 +194,16 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
                     int col = n0 + wn * 64 + ni * 8 + 2 * t;
                     if (col >= N) continue;
                     float y0 = acc[mi][ni][2 * h], y1 = acc[mi][ni][2 * h + 1];
-                    if (p.bias) {
-                        y0 += __bfloat162float(p.bias[col]);
-                        y1 += __bfloat162float(p.bias[col + 1]);
+                    if (bias) {
+                        y0 += as_float(bias[col]);
+                        y1 += as_float(bias[col + 1]);
                     }
                     if (MODE == DENSE_RES) {
-                        __nv_bfloat162 r2 =
-                            *reinterpret_cast<const __nv_bfloat162*>(p.res + (size_t)row * N + col);
-                        y0 += __low2float(r2);
-                        y1 += __high2float(r2);
+                        const float2 r2 = load2(res + (size_t)row * N + col);
+                        y0 += r2.x;
+                        y1 += r2.y;
                     }
-                    store_bf16x2(out + (size_t)row * N + col, y0, y1);
+                    store2(out + (size_t)row * N + col, y0, y1);
                 }
             }
         }
@@ -205,9 +211,12 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
 }
 
 template <int MODE, bool LN>
-int launch(const Params& p, int nw, cudaStream_t s) {
+int launch(const Params& p, int nw, int out_f32, cudaStream_t s) {
     dim3 grid(nw * p.ntn, (p.M + BM - 1) / BM);
-    gemm_kernel<MODE, LN><<<grid, THREADS, 0, s>>>(p);
+    if (out_f32)
+        gemm_kernel<MODE, LN, float><<<grid, THREADS, 0, s>>>(p);
+    else
+        gemm_kernel<MODE, LN, bf16><<<grid, THREADS, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -215,8 +224,8 @@ Params make_params(const void* x, const void* bias, const void* res, int M, int 
                    int mode) {
     Params p = {};
     p.x = static_cast<const bf16*>(x);
-    p.bias = static_cast<const bf16*>(bias);
-    p.res = static_cast<const bf16*>(res);
+    p.bias = bias;
+    p.res = res;
     p.M = M;
     p.N = N;
     p.K = K;
@@ -228,21 +237,22 @@ Params make_params(const void* x, const void* bias, const void* res, int M, int 
 }  // namespace
 }  // namespace hcp
 
-// Kernels B and C. x [M, K], w [N, K] (DENSE / DENSE_RES) or [2N, K]
-// (GEGLU), bias [N] or [2N] or null, res [M, N] or null, out [M, N]; all
-// bf16, row-major, 16-byte aligned; K % 8 == 0, N % 2 == 0. Returns
-// cudaGetLastError().
+// Kernels B and C. x [M, K] and w [N, K] (DENSE / DENSE_RES) or [2N, K]
+// (GEGLU): bf16. bias [N] or [2N] or null, res [M, N] or null, out [M, N]:
+// bf16, or fp32 when out_f32 != 0. All row-major, 16-byte aligned;
+// K % 8 == 0, N % 2 == 0. Returns cudaGetLastError().
 extern "C" int hcp_gemm(int mode, const void* x, const void* w, const void* bias,
-                        const void* res, void* out, int M, int N, int K, void* stream) {
+                        const void* res, void* out, int M, int N, int K, int out_f32,
+                        void* stream) {
     using namespace hcp;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     Params p = make_params(x, bias, res, M, N, K, mode);
     p.w[0] = static_cast<const bf16*>(w);
-    p.out[0] = static_cast<bf16*>(out);
+    p.out[0] = out;
     switch (mode) {
-        case DENSE: return launch<DENSE, false>(p, 1, s);
-        case DENSE_RES: return launch<DENSE_RES, false>(p, 1, s);
-        case GEGLU: return launch<GEGLU, false>(p, 1, s);
+        case DENSE: return launch<DENSE, false>(p, 1, out_f32, s);
+        case DENSE_RES: return launch<DENSE_RES, false>(p, 1, out_f32, s);
+        case GEGLU: return launch<GEGLU, false>(p, 1, out_f32, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -250,12 +260,13 @@ extern "C" int hcp_gemm(int mode, const void* x, const void* w, const void* bias
 // Kernels G, H and I: LayerNorm(x; ln_g, ln_b, eps) over rows of x [M, K],
 // then mode 0 (DENSE: G with nw = 3 weights w0..w2 into out0..out2, I with
 // nw = 1; no bias) or mode 2 (GEGLU: H, w0 [2N, K], bias [2N] or null).
-// ln_g, ln_b [K]; each w [N, K], each out [M, N]; bf16, row-major, 16-byte
-// aligned; K % 8 == 0, N % 2 == 0. Returns cudaGetLastError().
+// ln_g, ln_b [K] and each w [N, K]: bf16; bias and each out [M, N]: bf16,
+// or fp32 when out_f32 != 0. Row-major, 16-byte aligned; K % 8 == 0,
+// N % 2 == 0. Returns cudaGetLastError().
 extern "C" int hcp_ln_gemm(int mode, const void* x, const void* ln_g, const void* ln_b,
                            const void* w0, const void* w1, const void* w2, const void* bias,
                            void* out0, void* out1, void* out2, int nw, int M, int N, int K,
-                           float eps, void* stream) {
+                           float eps, int out_f32, void* stream) {
     using namespace hcp;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (nw < 1 || nw > 3 || (mode == GEGLU && nw != 1))
@@ -265,14 +276,14 @@ extern "C" int hcp_ln_gemm(int mode, const void* x, const void* ln_g, const void
     void* outs[3] = {out0, out1, out2};
     for (int i = 0; i < nw; ++i) {
         p.w[i] = static_cast<const bf16*>(ws[i]);
-        p.out[i] = static_cast<bf16*>(outs[i]);
+        p.out[i] = outs[i];
     }
     p.ln_g = static_cast<const bf16*>(ln_g);
     p.ln_b = static_cast<const bf16*>(ln_b);
     p.eps = eps;
     switch (mode) {
-        case DENSE: return launch<DENSE, true>(p, nw, s);
-        case GEGLU: return launch<GEGLU, true>(p, 1, s);
+        case DENSE: return launch<DENSE, true>(p, nw, out_f32, s);
+        case GEGLU: return launch<GEGLU, true>(p, 1, out_f32, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

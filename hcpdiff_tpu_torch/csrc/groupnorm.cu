@@ -1,5 +1,7 @@
 // Kernel D: GroupNorm with fp32 statistics, affine, optional SiLU, on a
-// channels-last bf16 tensor x [B, S, C].
+// channels-last tensor x [B, S, C] of type T: bf16, or fp32 (an fp32 model:
+// fp32 in, fp32 out, fp32 statistics, as _gn_silu_kernel computes for an
+// fp32 x).
 //
 // Replaces hcpdiff_tpu/ops/groupnorm.py:_gn_silu_kernel (:22, via
 // _gn_silu_pallas_raw :125 and group_norm_silu :281) and computes the same
@@ -28,8 +30,36 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// 8 consecutive channels as floats, and back
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        float2 v = __bfloat1622float2(p2[i]);
+        f[2 * i] = v.x;
+        f[2 * i + 1] = v.y;
+    }
+}
+__device__ __forceinline__ void load8(const float* p, float* f) {
+    float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float* f) {
+    uint4 v;
+    uint32_t* v32 = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v32[i] = pack_bf16x2(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = v;
+}
+__device__ __forceinline__ void store8(float* p, const float* f) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ partial, int S, int C, int G,
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int S, int C, int G,
                 int rows_per_split, int nsplit) {
     extern __shared__ float sh[];            // [2C]: per-channel sum, sum of squares
     float* ssum = sh;
@@ -40,7 +70,7 @@ gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ partial, int S, 
 
     const int r0 = sp * rows_per_split;
     const int r1 = min(S, r0 + rows_per_split);
-    const bf16* xb = x + (size_t)b * S * C;
+    const T* xb = x + (size_t)b * S * C;
     const int vr = C / 8;                    // 8-channel vectors per row
     for (int v0 = 0; v0 < vr; v0 += THREADS) {
         const int strip = min(THREADS, vr - v0);
@@ -51,15 +81,12 @@ gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ partial, int S, 
 #pragma unroll
         for (int i = 0; i < 8; ++i) s[i] = q[i] = 0.f;
         for (int r = r0 + tid / strip; r < r1; r += rpp) {
-            uint4 raw = *reinterpret_cast<const uint4*>(xb + (size_t)r * C + v * 8);
-            const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+            float f[8];
+            load8(xb + (size_t)r * C + v * 8, f);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                float2 f = __bfloat1622float2(p2[i]);
-                s[2 * i] += f.x;
-                s[2 * i + 1] += f.y;
-                q[2 * i] += f.x * f.x;
-                q[2 * i + 1] += f.y * f.y;
+            for (int i = 0; i < 8; ++i) {
+                s[i] += f[i];
+                q[i] += f[i] * f[i];
             }
         }
 #pragma unroll
@@ -83,10 +110,11 @@ gn_stats_kernel(const bf16* __restrict__ x, float* __restrict__ partial, int S, 
     }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ partial,
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ partial,
                 const float* __restrict__ scale, const float* __restrict__ bias,
-                bf16* __restrict__ y, int S, int C, int G, int rows_per_split, int nsplit,
+                T* __restrict__ y, int S, int C, int G, int rows_per_split, int nsplit,
                 float eps, int silu) {
     extern __shared__ float sh[];            // [C] scale a, [C] shift c, [G] mean, [G] rstd
     float* sa = sh;
@@ -142,46 +170,49 @@ gn_apply_kernel(const bf16* __restrict__ x, const float* __restrict__ partial,
     for (size_t idx = tid; idx < total; idx += THREADS) {
         const int v = (int)(idx % vr);
         const size_t off = base + idx * 8;   // rows are contiguous: idx*8 walks them
-        uint4 raw = *reinterpret_cast<const uint4*>(x + off);
-        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        uint4 outv;
-        uint32_t* o32 = reinterpret_cast<uint32_t*>(&outv);
+        float f[8];
+        load8(x + off, f);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            float2 f = __bfloat1622float2(p2[i]);
-            int c = v * 8 + 2 * i;
-            float y0 = f.x * sa[c] + sc[c];
-            float y1 = f.y * sa[c + 1] + sc[c + 1];
-            if (silu) {
-                y0 = y0 / (1.f + __expf(-y0));
-                y1 = y1 / (1.f + __expf(-y1));
-            }
-            o32[i] = pack_bf16x2(y0, y1);
+        for (int i = 0; i < 8; ++i) {
+            const int c = v * 8 + i;
+            float yi = f[i] * sa[c] + sc[c];
+            if (silu) yi = yi / (1.f + __expf(-yi));
+            f[i] = yi;
         }
-        *reinterpret_cast<uint4*>(y + off) = outv;
+        store8(y + off, f);
     }
+}
+
+template <typename T>
+int launch(const void* x, const void* scale, const void* bias, void* y, void* workspace, int B,
+           int S, int C, int G, int nsplit, int rows_per_split, float eps, int silu,
+           cudaStream_t s) {
+    dim3 grid(nsplit, B);
+    const T* xp = static_cast<const T*>(x);
+    float* ws = static_cast<float*>(workspace);
+    gn_stats_kernel<T><<<grid, THREADS, 2 * C * sizeof(float), s>>>(xp, ws, S, C, G,
+                                                                    rows_per_split, nsplit);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gn_apply_kernel<T><<<grid, THREADS, (2 * C + 2 * G) * sizeof(float), s>>>(
+        xp, ws, static_cast<const float*>(scale), static_cast<const float*>(bias),
+        static_cast<T*>(y), S, C, G, rows_per_split, nsplit, eps, silu);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace hcp
 
-// x, y [B, S, C] bf16 contiguous, 16-byte aligned, C % 8 == 0, C % G == 0;
-// scale, bias [C] fp32; workspace [B, nsplit, G, 2] fp32 with
-// nsplit * rows_per_split >= S. Returns cudaGetLastError().
+// x, y [B, S, C]: bf16, or fp32 when f32 != 0; contiguous, 16-byte aligned,
+// C % 8 == 0, C % G == 0; scale, bias [C] fp32; workspace [B, nsplit, G, 2]
+// fp32 with nsplit * rows_per_split >= S. Returns cudaGetLastError().
 extern "C" int hcp_group_norm(const void* x, const void* scale, const void* bias, void* y,
                               void* workspace, int B, int S, int C, int G, int nsplit,
-                              int rows_per_split, float eps, int silu, void* stream) {
+                              int rows_per_split, float eps, int silu, int f32, void* stream) {
     using namespace hcp;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    dim3 grid(nsplit, B);
-    const bf16* xp = static_cast<const bf16*>(x);
-    float* ws = static_cast<float*>(workspace);
-    gn_stats_kernel<<<grid, THREADS, 2 * C * sizeof(float), s>>>(xp, ws, S, C, G,
-                                                                 rows_per_split, nsplit);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    gn_apply_kernel<<<grid, THREADS, (2 * C + 2 * G) * sizeof(float), s>>>(
-        xp, ws, static_cast<const float*>(scale), static_cast<const float*>(bias),
-        static_cast<bf16*>(y), S, C, G, rows_per_split, nsplit, eps, silu);
-    return static_cast<int>(cudaGetLastError());
+    return f32 ? launch<float>(x, scale, bias, y, workspace, B, S, C, G, nsplit, rows_per_split,
+                               eps, silu, s)
+               : launch<bf16>(x, scale, bias, y, workspace, B, S, C, G, nsplit, rows_per_split,
+                              eps, silu, s);
 }

@@ -36,26 +36,33 @@ NVCC_FLAGS = ARCH_FLAGS + ['-O3', '-std=c++17', '-Xcompiler', '-fPIC',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # mode, x, w, bias, res, out, M, N, K, stream
-    'hcp_gemm': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # mode, x, ln_g, ln_b, w0, w1, w2, bias, out0, out1, out2, nw, M, N, K, eps, stream
-    'hcp_ln_gemm': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    ctypes.c_float, _P],
-    # x, w, bias, row_bias, res, out, B, H, W, Cin, Cout, stream
-    'hcp_conv3x3': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, o, lse (or null), B, H, Sq, Sk, D, strides[12], scale, causal, stream
-    'hcp_flash_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                            ctypes.c_float, _I, _P],
-    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides[15], scale, causal, stream
-    'hcp_flash_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                         ctypes.c_float, _I, _P],
-    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides[18], scale, causal,
+    # `out_f32`: the epilogue's inputs (bias, res, row_bias) and the output
+    # are fp32, not bf16; the matrix operands are bf16 either way.
+    # mode, x, w, bias, res, out, M, N, K, out_f32, stream
+    'hcp_gemm': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # mode, x, ln_g, ln_b, w0, w1, w2, bias, out0, out1, out2, nw, M, N, K, eps, out_f32,
     # stream
+    'hcp_ln_gemm': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    ctypes.c_float, _I, _P],
+    # x, w, bias, row_bias, res, out, workspace, B, H, W, Cin, Cout, bn, splits, out_f32,
+    # stream
+    'hcp_conv3x3': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, lse (or null), B, H, Sq, Sk, D, strides[12], scale, causal, out_f32,
+    # stream
+    'hcp_flash_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                            ctypes.c_float, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dq, B, H, Sq, Sk, D, strides[15], scale, causal,
+    # out_f32, stream
+    'hcp_flash_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                         ctypes.c_float, _I, _I, _P],
+    # q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D, strides[18], scale, causal,
+    # out_f32, stream
     'hcp_flash_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                          ctypes.c_float, _I, _P],
-    # x, scale, bias, y, workspace, B, S, C, G, nsplit, rows, eps, silu, stream
+                          ctypes.c_float, _I, _I, _P],
+    # x, scale, bias, y, workspace, B, S, C, G, nsplit, rows, eps, silu, f32 (x and y
+    # fp32, not bf16), stream
     'hcp_group_norm': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _I, _P],
+                       ctypes.c_float, _I, _I, _P],
 }
 
 
@@ -149,15 +156,23 @@ def require(cond: bool, kernel: str, what: str) -> None:
         raise ValueError(f'{kernel} kernel: {what}')
 
 
-def require_cuda_bf16(kernel: str, *tensors) -> None:
-    """All given tensors (``None`` skipped) are bf16 on one CUDA device."""
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def require_cuda(kernel: str, *tensors) -> torch.dtype:
+    """All given tensors (``None`` skipped) lie on one CUDA device and share
+    one dtype, bf16 or fp32; returns it. An fp32 call rounds its matrix
+    operands to bf16 and accumulates in fp32, the TPU's default precision
+    for an fp32 product; what it reads around the product and writes stays
+    fp32."""
     given = [t for t in tensors if t is not None]
-    dev = given[0].device
+    dev, dt = given[0].device, given[0].dtype
     for t in given:
         require(t.device.type == 'cuda' and t.device == dev, kernel,
                 f'tensors must share one CUDA device, got {t.device} and {dev}')
-        require(t.dtype == torch.bfloat16, kernel,
-                f'expects bfloat16 tensors, got {t.dtype}')
+        require(t.dtype == dt and dt in KERNEL_DTYPES, kernel,
+                f'expects tensors of one dtype, bfloat16 or float32, got {t.dtype} and {dt}')
+    return dt
 
 
 def aligned16(t) -> bool:

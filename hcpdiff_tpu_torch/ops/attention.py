@@ -10,8 +10,10 @@ causal mask is the plain version's. The JAX rule also sends attention with
 a bias to XLA; no caller of the port passes one yet, so there is no bias
 argument. Cross-attention over the 77 text tokens, CLIP's causal attention
 over 77 tokens and the 16x16 / 8x8 levels run the plain version, which the
-JAX package leaves to XLA. Nothing falls back: on a CUDA tensor the kernel
-runs or raises (it takes padded head dims 48-160, and 512 when not causal).
+JAX package leaves to XLA. Nothing falls back: on a CUDA tensor (bf16 or
+fp32) the kernel runs at any head dim the rule admits, zero-padded up to
+a built one where D is not (``flash_attention.kernel_head_dim``); only
+causal attention with 160 < D <= 512 raises, which no model reaches.
 """
 from __future__ import annotations
 

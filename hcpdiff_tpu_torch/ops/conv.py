@@ -1,6 +1,6 @@
 """3x3 stride-1 SAME convolution with a fused epilogue (bias, per-sample row
-bias, residual): kernel J, its plain PyTorch version and its
-``torch.autograd.Function``.
+bias, residual): kernel J, its plain PyTorch version, its launch plan and
+its ``torch.autograd.Function``.
 
 Counterpart of ``hcpdiff_tpu/ops/conv.py``. The UNet's resblocks fuse
 their time-embedding add into conv1 (``row_bias``) and their skip add into
@@ -11,17 +11,121 @@ the kernel reads as OHWI, the memory of a channels_last weight. The TPU
 kernel's VMEM gate (``_fits``, which sent large images to XLA) has no
 counterpart: kernel J (``csrc/conv.cu``) takes every shape. The backward is
 the vjp of ``_conv3_ref`` (``conv.py:150-160``, ``:183-185``) in fp32.
+
+Kernel J takes bf16 or fp32 tensors. An fp32 call rounds x and w to bf16
+(the TPU's default precision for an fp32 product: bf16 operands, fp32
+accumulation) and keeps bias, row_bias, res and the output in fp32, so
+the result is rounded once.
+
+The launch plan (:func:`conv_plan`, plain Python) picks the kernel's
+column tile BN and a split of K over ``splits`` blocks for each shape;
+see its docstring.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ._build import (accum_dtype, aligned16, check, library, require, require_cuda_bf16,
-                     stream_handle)
+from ._build import accum_dtype, aligned16, check, library, require, require_cuda, stream_handle
+
+# csrc/conv.cu: output pixels per block, channels per K step, the column
+# tiles it is built for, and the most K splits a plan takes
+BM, BK_CHANNELS = 128, 64
+BN_CHOICES = (320, 160, 128)
+MAX_SPLITS = 8
+SMS = 132                       # the H100's streaming multiprocessors
+WAVE_FILL = 0.9                 # a grid of >= 90% of SMS blocks counts as a full wave
+# the plan's cost model: seconds per output column of one block's K step
+# (2 * BM * 64 FLOPs at half of one SM's share of 989 TFLOP/s), the fixed
+# per-step share in columns (the A tile's copies and the step's barrier),
+# and the rate at which split partial sums are written and read back
+_STEP_S = 2 * BM * BK_CHANNELS / (0.5 * 989e12 / SMS)
+_STEP_FIXED_COLUMNS = 64
+_REDUCE_BYTES_PER_S = 2.5e12
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How kernel J covers out[M = B*H*W, N = Cout]: a grid of
+    (n_tiles, m_tiles, splits) blocks of BM x bn outputs, block z summing
+    the K steps ``k_range(z)`` (a K step is one tap of 64 input channels,
+    zero-padded past Cin: ``ksteps = 9 * ceil(Cin / 64)``). With splits > 1
+    the blocks write fp32 partial sums to a [splits, M, N] workspace and a
+    second kernel adds them in split order and applies the epilogue."""
+    bn: int
+    splits: int
+    m: int
+    n: int
+    ksteps: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.m // BM)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.n // self.bn)
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def k_range(self, z: int):
+        """The K steps [start, stop) of split z, as the kernel computes them."""
+        return z * self.ksteps // self.splits, (z + 1) * self.ksteps // self.splits
+
+    @property
+    def waste(self) -> int:
+        """Columns of the last tile past N, whose tensor-core work is thrown away."""
+        return self.n_tiles * self.bn - self.n
+
+
+def split_workspace(plan: ConvPlan, device) -> Optional[torch.Tensor]:
+    """The fp32 [splits, M, N] partial sums a split plan writes (None for
+    one split)."""
+    if plan.splits == 1:
+        return None
+    return torch.empty(plan.splits * plan.m * plan.n, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(B: int, H: int, W: int, Cin: int, Cout: int) -> ConvPlan:
+    """BN and the K split for one conv shape (cached: the UNet asks for the
+    same few shapes at every step).
+
+    BN is one of BN_CHOICES that divides Cout (SD1.5's 320, 640 and 1280:
+    160 or 320); where none does, those wasting the fewest columns of the
+    last tile. Among those and splits S <= MAX_SPLITS, the plan takes the
+    least estimated time: waves of blocks x K steps a block x (BN + a fixed
+    share) for the products, plus the split partial sums' traffic. S > 1 is
+    taken only where the unsplit grid is short of a wave (WAVE_FILL * SMS
+    blocks) and the split grid reaches one."""
+    M = B * H * W
+    ksteps = 9 * -(-Cin // BK_CHANNELS)
+    waste = {bn: -(-Cout // bn) * bn - Cout for bn in BN_CHOICES}
+    wave = WAVE_FILL * SMS
+    best = None
+    for bn in BN_CHOICES:
+        if waste[bn] != min(waste.values()):
+            continue
+        tiles = -(-M // BM) * -(-Cout // bn)
+        for s in range(1, min(MAX_SPLITS, ksteps) + 1):
+            if s > 1 and (tiles >= wave or tiles * s < wave):
+                continue
+            est = (math.ceil(tiles * s / SMS) * -(-ksteps // s) * (bn + _STEP_FIXED_COLUMNS)
+                   * _STEP_S)
+            if s > 1:
+                est += 2 * 4 * s * M * Cout / _REDUCE_BYTES_PER_S
+            key = (est, -bn, s)
+            if best is None or key < best[0]:
+                best = (key, bn, s)
+    return ConvPlan(best[1], best[2], M, Cout, ksteps)
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
@@ -37,11 +141,12 @@ def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = 
     return out.to(x.dtype)
 
 
-def _launch(x, w, b, row_bias, res) -> torch.Tensor:
+def _launch(x, w, b, row_bias, res, plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """x, w and res are taken in channels_last memory; a tensor in another
-    layout (a merged LoRA weight, say) is copied into it first."""
+    layout (a merged LoRA weight, say) is copied into it first. ``plan``
+    defaults to :func:`conv_plan` of the shape."""
     name = 'conv3x3'
-    require_cuda_bf16(name, x, w, b, row_bias, res)
+    dt = require_cuda(name, x, w, b, row_bias, res)
     require(x.dim() == 4 and w.dim() == 4, name, 'x and w must be 4-d')
     B, Cin, H, W = x.shape
     Cout = w.shape[0]
@@ -50,9 +155,9 @@ def _launch(x, w, b, row_bias, res) -> torch.Tensor:
     require(Cin % 8 == 0 and Cout % 2 == 0, name,
             f'needs Cin % 8 == 0 and an even Cout, got Cin={Cin}, Cout={Cout}')
     cl = torch.channels_last
-    x = x.contiguous(memory_format=cl)
-    w = w.contiguous(memory_format=cl)
-    out = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device, memory_format=cl)
+    x = x.to(torch.bfloat16).contiguous(memory_format=cl)
+    w = w.to(torch.bfloat16).contiguous(memory_format=cl)
+    out = torch.empty(B, Cout, H, W, dtype=dt, device=x.device, memory_format=cl)
     if res is not None:
         require(res.shape == out.shape, name, f'res must be {tuple(out.shape)}')
         res = res.contiguous(memory_format=cl)
@@ -61,9 +166,15 @@ def _launch(x, w, b, row_bias, res) -> torch.Tensor:
             name, f'row_bias must be a contiguous [{B}, {Cout}] tensor')
     require(all(aligned16(t) for t in (x, w, out) + ((res,) if res is not None else ())),
             name, 'x, w and res must be 16-byte aligned')
-    rc = library().hcp_conv3x3(x.data_ptr(), w.data_ptr(), *[0 if t is None else t.data_ptr()
-                                                             for t in (b, row_bias, res)],
-                               out.data_ptr(), B, H, W, Cin, Cout, stream_handle(x.device))
+    plan = conv_plan(B, H, W, Cin, Cout) if plan is None else plan
+    require(plan.bn in BN_CHOICES and 1 <= plan.splits <= plan.ksteps, name,
+            f'no kernel instance for {plan}')
+    ws = split_workspace(plan, x.device)
+    rc = library().hcp_conv3x3(
+        x.data_ptr(), w.data_ptr(), *[0 if t is None else t.data_ptr()
+                                      for t in (b, row_bias, res)],
+        out.data_ptr(), 0 if ws is None else ws.data_ptr(), B, H, W, Cin, Cout, plan.bn,
+        plan.splits, int(dt == torch.float32), stream_handle(x.device))
     check(rc, name)
     return out
 
@@ -105,8 +216,9 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     """3x3 stride-1 SAME conv of x [B, Cin, H, W] with w [Cout, Cin, 3, 3],
     plus b [Cout], row_bias [B, Cout] (broadcast over pixels) and res
     [B, Cout, H, W], added in fp32 and rounded once. Differentiable. A CPU
-    tensor takes the plain version; a CUDA tensor launches kernel J (output
-    in channels_last memory) or raises."""
+    tensor takes the plain version; a CUDA tensor (bf16, or fp32 with x and
+    w rounded to bf16) launches kernel J (output in channels_last memory)
+    or raises."""
     return _Conv3x3.apply(x, w, b, row_bias, res)
 
 

@@ -1,8 +1,9 @@
 """Attention on [B, H, S, D] with its gradient: kernel A (forward, with an
 optional logsumexp output, ``csrc/flash_attention.cu``), kernels E and F
-(backward dQ and dK/dV, ``csrc/flash_attention_bwd.cu``), their plain
-PyTorch versions, and the ``torch.autograd.Function`` that joins them.
-Every entry takes ``causal``: keys past each query are masked.
+(backward dQ and dK/dV, ``csrc/flash_attention_bwd_dq.cu`` and
+``flash_attention_bwd_dkv.cu``), their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them. Every entry takes ``causal``:
+keys past each query are masked.
 
 Counterpart of every Pallas kernel of ``hcpdiff_tpu/ops/flash_attention.py``
 inside the ``custom_vjp`` of ``_make_flash``. Kernel A replaces the
@@ -14,8 +15,20 @@ and the K/V-streaming ``_flash_kernel_stream`` (the VAE's D=512). E and F
 replace both backward pairs, the transposed ``_flash_bwd_dq/dkv_kernel_tq``
 and the classic ``_flash_bwd_dq/dkv_kernel``. On the card the TPU's
 layouts (a matter of lane padding) are one: the kernels read their
-operands through strides. The kernels take padded head dims 48, 64, 80,
-128, 160, causal or not, and the forward also 512, not causal.
+operands through strides.
+
+Head dims: the kernels are built for padded head dims 48, 64, 80, 128 and
+160, causal or not, and the forward also for 512, not causal. Any other D
+(16, 20, 96, 144, ...) is zero-padded along D up to the next built dim in
+the wrapper, run with the scale of the original D, and o, dq, dk and dv
+are sliced back to D. That is exact: zero columns add nothing to q k^T,
+and they give zero columns of o and of dS K, which are sliced away. So on
+a CUDA tensor the forward takes any D <= 512 (causal: D <= 160), and the
+forward with lse and the backward any D <= 160; past that it raises.
+
+Types: bf16 or fp32 tensors. An fp32 call rounds q, k, v (and dO) to bf16,
+the TPU's default precision for an fp32 product, and writes o, dq, dk and
+dv in fp32; lse and delta are fp32 either way.
 
 Softmax: one exact online softmax with a running max, the classic kernels'
 ``HCP_FLASH_NOMAX=0`` function. The TPU's default no-max softmax differs
@@ -32,13 +45,13 @@ which is the same mask when Sq == Sk.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ._build import (accum_dtype, aligned16, check, library, require, require_cuda_bf16,
-                     stream_handle)
+from ._build import accum_dtype, aligned16, check, library, require, require_cuda, stream_handle
 
 # Head dims the kernels are instantiated for, after padding D up to a
 # multiple of 16 (D=40 -> 48): SD1.5's 40/80/160, SD2.1's and SDXL's 64,
@@ -46,6 +59,24 @@ from ._build import (accum_dtype, aligned16, check, library, require, require_cu
 # only and not causal, the VAE's 512.
 PADDED_HEAD_DIMS = (48, 64, 80, 128, 160, 512)
 BWD_PADDED_HEAD_DIMS = CAUSAL_PADDED_HEAD_DIMS = (48, 64, 80, 128, 160)
+
+
+def kernel_head_dim(name: str, D: int, built: Sequence[int]) -> int:
+    """The head dim a kernel built for padded dims ``built`` runs a call of
+    head dim D at: D itself where D % 8 == 0 and D padded to a multiple of
+    16 is built (the kernel pads inside its tiles), else the smallest built
+    dim above D, to which the wrapper zero-pads the operands; raises where
+    there is none."""
+    if D % 8 == 0 and -(-D // 16) * 16 in built:
+        return D
+    above = [d for d in built if d >= D]
+    require(bool(above), name, f'head dim {D} exceeds the built dims {tuple(built)}')
+    return min(above)
+
+
+def pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    """t [..., D] zero-padded along D to Dp (t itself when D == Dp)."""
+    return t if t.shape[-1] == Dp else F.pad(t, (0, Dp - t.shape[-1]))
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool) -> torch.Tensor:
@@ -132,57 +163,56 @@ def _strides(name: str, tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
-def _check_qkv(name: str, q, k, v, padded_dims, causal: bool) -> None:
-    require_cuda_bf16(name, q, k, v)
+def _kernel_operands(name: str, q, k, v, do, built, causal: bool):
+    """Check a call's tensors and return (dtype, D, Dp, operands): q, k, v
+    (and dO) rounded to bf16 and zero-padded along D to the dim Dp the
+    kernel runs at."""
+    dt = require_cuda(name, q, k, v, do)
     require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, name, 'expects [B, H, S, D] tensors')
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     require(k.shape == (B, H, Sk, D) and v.shape == k.shape and Sk > 0, name,
             f'shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}')
-    padded = -(-D // 16) * 16
-    require(D % 8 == 0 and padded in padded_dims, name,
-            f'head dim {D} not supported (padded dims {padded_dims})')
-    require(not causal or padded in CAUSAL_PADDED_HEAD_DIMS, name,
-            f'causal head dim {D} not supported (padded dims {CAUSAL_PADDED_HEAD_DIMS})')
+    require(do is None or do.shape == q.shape, name, f'dO must be {tuple(q.shape)}')
+    Dp = kernel_head_dim(name, D, CAUSAL_PADDED_HEAD_DIMS if causal else built)
     require(B * H <= 65535, name, f'B*H={B * H} exceeds the grid limit')
     require(not causal or Sk == Sq, name,
             f'causal needs as many keys as queries (the mask is top-left aligned), '
             f'got Sq={Sq}, Sk={Sk}')
+    ops = [None if t is None else pad_head_dim(t.to(torch.bfloat16), Dp) for t in (q, k, v, do)]
+    return dt, D, Dp, ops
 
 
-def _check_bwd(name: str, q, k, v, lse, do, delta, causal: bool) -> None:
-    _check_qkv(name, q, k, v, BWD_PADDED_HEAD_DIMS, causal)
-    require_cuda_bf16(name, q, do)
-    require(do.shape == q.shape, name, f'dO must be {tuple(q.shape)}')
+def _check_stats(name: str, q, lse, delta) -> None:
     for t in (lse, delta):
         require(t.shape == q.shape[:3] and t.dtype == torch.float32 and t.is_contiguous()
                 and t.device == q.device, name, 'lse/delta must be contiguous fp32 [B, H, Sq]')
 
 
-def _like_heads(t: torch.Tensor) -> torch.Tensor:
-    """An empty [B, H, S, D] tensor laid out as [B, S, H, D], so merging
-    heads back costs no copy."""
+def _like_heads(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An empty [B, H, S, D] tensor of ``dtype`` laid out as [B, S, H, D],
+    so merging heads back costs no copy."""
     B, H, S, D = t.shape
-    return torch.empty(B, S, H, D, dtype=t.dtype, device=t.device).transpose(1, 2)
+    return torch.empty(B, S, H, D, dtype=dtype, device=t.device).transpose(1, 2)
 
 
 def _launch_forward(q, k, v, scale: float, causal: bool, with_lse: bool):
     name = 'flash_attention'
-    _check_qkv(name, q, k, v, PADDED_HEAD_DIMS, causal)
-    B, H, Sq, D = q.shape
-    out = _like_heads(q)
+    dt, D, Dp, (q, k, v, _) = _kernel_operands(name, q, k, v, None, PADDED_HEAD_DIMS, causal)
+    B, H, Sq, _ = q.shape
+    out = _like_heads(q, dt)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) if with_lse
            else None)
     rc = library().hcp_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        0 if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2], D,
+        0 if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2], Dp,
         ctypes.cast(_strides(name, (q, k, v, out)), ctypes.c_void_p), scale, int(causal),
-        stream_handle(q.device))
+        int(dt == torch.float32), stream_handle(q.device))
     check(rc, name)
     flash_attention.launches += 1
     if with_lse:
         flash_attention_lse.launches += 1
-    return out, lse
+    return out[..., :D], lse
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -205,17 +235,18 @@ def flash_attention_bwd_dq(q, k, v, lse, do, delta, scale: float,
     if q.device.type == 'cpu':
         return flash_bwd_dq_plain(q, k, v, lse, do, delta, scale, causal)
     name = 'flash_attention_bwd_dq'
-    _check_bwd(name, q, k, v, lse, do, delta, causal)
-    B, H, Sq, D = q.shape
-    dq = _like_heads(q)
+    dt, D, Dp, (q, k, v, do) = _kernel_operands(name, q, k, v, do, BWD_PADDED_HEAD_DIMS, causal)
+    _check_stats(name, q, lse, delta)
+    B, H, Sq, _ = q.shape
+    dq = _like_heads(q, dt)
     rc = library().hcp_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[2], D,
+        delta.data_ptr(), dq.data_ptr(), B, H, Sq, k.shape[2], Dp,
         ctypes.cast(_strides(name, (q, k, v, do, dq)), ctypes.c_void_p), scale, int(causal),
-        stream_handle(q.device))
+        int(dt == torch.float32), stream_handle(q.device))
     check(rc, name)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq[..., :D]
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale: float, causal: bool = False
@@ -224,17 +255,18 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale: float, causal: bool 
     if q.device.type == 'cpu':
         return flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale, causal)
     name = 'flash_attention_bwd_dkv'
-    _check_bwd(name, q, k, v, lse, do, delta, causal)
-    B, H, Sq, D = q.shape
-    dk, dv = _like_heads(k), _like_heads(v)
+    dt, D, Dp, (q, k, v, do) = _kernel_operands(name, q, k, v, do, BWD_PADDED_HEAD_DIMS, causal)
+    _check_stats(name, q, lse, delta)
+    B, H, Sq, _ = q.shape
+    dk, dv = _like_heads(k, dt), _like_heads(v, dt)
     rc = library().hcp_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], D,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Sq, k.shape[2], Dp,
         ctypes.cast(_strides(name, (q, k, v, do, dk, dv)), ctypes.c_void_p), scale,
-        int(causal), stream_handle(q.device))
+        int(causal), int(dt == torch.float32), stream_handle(q.device))
     check(rc, name)
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return dk[..., :D], dv[..., :D]
 
 
 class _FlashAttention(torch.autograd.Function):

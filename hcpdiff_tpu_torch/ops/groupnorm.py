@@ -6,7 +6,8 @@ Counterpart of ``hcpdiff_tpu/ops/groupnorm.py``. There the Pallas kernel
 ran only where C % 128 == 0 and the [S, C] block fit VMEM; here one kernel
 (``csrc/groupnorm.cu``, split-S two-pass design, see its header) takes
 every shape of the slice, so every GroupNorm of the UNet and VAE on a CUDA
-tensor goes through it.
+tensor goes through it, bf16 or fp32 (an fp32 x is read, normalised and
+written in fp32).
 """
 from __future__ import annotations
 
@@ -16,8 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ._build import (accum_dtype, aligned16, check, library, require, require_cuda_bf16,
-                     stream_handle)
+from ._build import accum_dtype, aligned16, check, library, require, require_cuda, stream_handle
 
 # Blocks per sample are chosen so that a pass has about four blocks per SM
 # of the H100 (132 SMs), whatever the batch, but no block gets fewer than
@@ -46,7 +46,7 @@ def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
 
 def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool) -> torch.Tensor:
     name = 'group_norm_silu'
-    require_cuda_bf16(name, x)
+    dt = require_cuda(name, x)
     B, C = x.shape[0], x.shape[-1]
     S = math.prod(x.shape[1:-1])
     require(x.dim() >= 3 and x.is_contiguous() and aligned16(x), name,
@@ -65,7 +65,7 @@ def _launch(x, scale, bias, groups: int, eps: float, apply_silu: bool) -> torch.
     rc = library().hcp_group_norm(
         x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
         workspace.data_ptr(), B, S, C, groups, nsplit, rows, float(eps),
-        int(bool(apply_silu)), stream_handle(x.device))
+        int(bool(apply_silu)), int(dt == torch.float32), stream_handle(x.device))
     check(rc, name)
     group_norm_silu.launches += 1
     return y

@@ -11,6 +11,11 @@ JAX ``custom_vjp``s' (``matmul.py:231-238``, ``:259-266``, ``:369-381``,
 and the vjps of the LayerNorm GEMMs' ``_ref``s, ``:458-467``,
 ``:562-571``, ``:612-619``): plain torch in fp32, which XLA computes there
 and cuBLAS here.
+
+The kernels take bf16 or fp32 tensors. An fp32 call rounds x, the weights
+and the LayerNorm scale and shift to bf16 (the TPU's default precision for
+an fp32 product: bf16 operands, fp32 accumulation); bias, residual and
+output stay fp32, so the result is rounded once.
 """
 from __future__ import annotations
 
@@ -21,8 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ._build import (accum_dtype, aligned16, check, library, require, require_cuda_bf16,
-                     stream_handle)
+from ._build import accum_dtype, aligned16, check, library, require, require_cuda, stream_handle
 
 _DENSE, _DENSE_RES, _GEGLU = 0, 1, 2   # csrc/gemm.cu modes
 
@@ -46,7 +50,8 @@ def geglu_dense_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def _launch(name: str, mode: int, x, w, b, res, n_out: int) -> torch.Tensor:
-    require_cuda_bf16(name, x, w, b, res)
+    dt = require_cuda(name, x, w, b, res)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
     K = x.shape[-1]
     require(x.is_contiguous() and w.is_contiguous() and aligned16(x) and aligned16(w),
             name, 'x and w must be contiguous and 16-byte aligned')
@@ -58,14 +63,14 @@ def _launch(name: str, mode: int, x, w, b, res, n_out: int) -> torch.Tensor:
         require(b.shape == (w.shape[0],) and b.is_contiguous(), name,
                 f'b must be [{w.shape[0]}]')
     M = x.numel() // K
-    out = torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=x.device)
+    out = torch.empty(*x.shape[:-1], n_out, dtype=dt, device=x.device)
     if res is not None:
         require(res.shape == out.shape and res.is_contiguous() and aligned16(res), name,
                 f'res must be a contiguous {tuple(out.shape)} tensor')
     rc = library().hcp_gemm(
         mode, x.data_ptr(), w.data_ptr(), 0 if b is None else b.data_ptr(),
         0 if res is None else res.data_ptr(), out.data_ptr(), M, n_out, K,
-        stream_handle(x.device))
+        int(dt == torch.float32), stream_handle(x.device))
     check(rc, name)
     return out
 
@@ -196,7 +201,9 @@ def ln_geglu_plain(x, g, b, w, bias=None, eps: float = 1e-5):
 
 
 def _ln_launch(name: str, mode: int, x, g, b, ws, bias, n_out: int, eps: float):
-    require_cuda_bf16(name, x, g, b, *ws, bias)
+    dt = require_cuda(name, x, g, b, *ws, bias)
+    x, g, b = (t.to(torch.bfloat16) for t in (x, g, b))
+    ws = [w.to(torch.bfloat16) for w in ws]
     K = x.shape[-1]
     rows = 2 * n_out if mode == _GEGLU else n_out
     for t in (x, g, b, *ws, bias):
@@ -208,12 +215,13 @@ def _ln_launch(name: str, mode: int, x, g, b, ws, bias, n_out: int, eps: float):
     require(bias is None or bias.shape == (rows,), name, f'bias must be [{rows}]')
     require(K % 8 == 0 and n_out % 2 == 0, name,
             f'needs K % 8 == 0 and an even N, got K={K}, N={n_out}')
-    outs = [torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=x.device) for _ in ws]
+    outs = [torch.empty(*x.shape[:-1], n_out, dtype=dt, device=x.device) for _ in ws]
     pad = [0] * (3 - len(ws))
     rc = library().hcp_ln_gemm(
         mode, x.data_ptr(), g.data_ptr(), b.data_ptr(), *[w.data_ptr() for w in ws], *pad,
         0 if bias is None else bias.data_ptr(), *[o.data_ptr() for o in outs], *pad,
-        len(ws), x.numel() // K, n_out, K, float(eps), stream_handle(x.device))
+        len(ws), x.numel() // K, n_out, K, float(eps), int(dt == torch.float32),
+        stream_handle(x.device))
     check(rc, name)
     return outs
 

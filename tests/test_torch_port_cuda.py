@@ -10,6 +10,15 @@ Both sides are bf16 with fp32 accumulation and each rounds its output to
 bf16 once, at a different place, so they may differ by about two bf16
 ulps of the output: |kernel - plain| <= ATOL + RTOL * |plain|.
 
+fp32 calls: the tensor-core kernels compute the fp32 function with their
+matrix operands rounded to bf16 (x and the weights; q, k, v and dO; in G,
+H and I also the LayerNorm scale and shift and the normalized rows, which
+are the product's operand), the TPU's default precision for an fp32
+product, and read the epilogue's inputs and write their output in fp32.
+They are held to the same ATOL + RTOL against the fp32 plain versions on
+those rounded operands (``_fp32_reference``); kernel D computes in fp32
+throughout and is held to GN_F32_TOL * (1 + |plain|).
+
 Gradients: kernels E and F round P and dS to bf16 before their second
 tensor-core product (relative 2^-9 each) and sum up to Sk or Sq such
 terms, which the fp32 plain backward does not; an element near zero can
@@ -17,9 +26,15 @@ then miss the bound above by more than its own size, so they are held to
 |kernel - plain| <= GRAD_ATOL_REL * max|plain| + RTOL * |plain|. The lse
 is fp32 on both sides: LSE_ATOL.
 """
+import copy
+
 import pytest
 import torch
 
+from hcpdiff_tpu_torch.models.layers import init_flax_like
+from hcpdiff_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+from hcpdiff_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from hcpdiff_tpu_torch.ops import conv as cv
 from hcpdiff_tpu_torch.ops import flash_attention as fa
 from hcpdiff_tpu_torch.ops import matmul as mm
 from hcpdiff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
@@ -30,6 +45,11 @@ from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_
 
 ATOL, RTOL = 1e-2, 1.6e-2
 GRAD_ATOL_REL, LSE_ATOL = 1e-2, 1e-3
+# kernel D in fp32 against its fp32 plain version: both sum in fp32 in
+# different orders (D's statistics end in double)
+GN_F32_TOL = 1e-5
+# a whole network on the card against fp32 on the CPU: relative L2 error
+MODEL_REL_TOL = 5e-2
 pytestmark = pytest.mark.cuda
 
 
@@ -37,11 +57,19 @@ pytestmark = pytest.mark.cuda
 def gen():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
+    # fp32 references on the card compute in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device='cuda').manual_seed(0)
 
 
-def _rn(gen, *shape, scale=1.0):
-    return (torch.randn(*shape, device='cuda', generator=gen) * scale).to(torch.bfloat16)
+def _rn(gen, *shape, scale=1.0, dtype=torch.bfloat16):
+    return (torch.randn(*shape, device='cuda', generator=gen) * scale).to(dtype)
+
+
+def _r(t):
+    """t with its values rounded to bf16 (an fp32 call's matrix operand)."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def _close(out, ref):
@@ -241,22 +269,44 @@ def test_ln_gemm_kernels(gen, M, K):
         n + 1 for n in before)
 
 
-@pytest.mark.parametrize('B,Cin,H,W,Cout', [(2, 320, 64, 64, 320), (2, 640, 16, 16, 1280),
-                                            (8, 2560, 8, 8, 1280), (1, 96, 5, 7, 64)])
-def test_conv3x3_kernel(gen, B, Cin, H, W, Cout):
-    """J against its plain version with each epilogue; a weight that is not
-    channels_last (a merged LoRA weight) is copied into it, not refused."""
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('B,Cin,H,W,Cout', [
+    (2, 320, 64, 64, 320), (2, 640, 16, 16, 1280), (8, 2560, 8, 8, 1280), (1, 96, 5, 7, 64),
+    (8, 640, 16, 16, 1280), (8, 2560, 16, 16, 1280), (8, 1280, 8, 8, 1280), (2, 32, 32, 32, 32)])
+def test_conv3x3_kernel(gen, B, Cin, H, W, Cout, dtype):
+    """J against its plain version with each epilogue, at the UNet's small
+    levels (split K where the plan splits) and at Cin 32 and 96 (channels
+    zero-filled up to the 64-channel K step), in bf16 and fp32; a weight
+    that is not channels_last (a merged LoRA weight) is copied into it, not
+    refused."""
     cl = torch.channels_last
+    x = _rn(gen, B, Cin, H, W, dtype=dtype).to(memory_format=cl)
+    w = _rn(gen, Cout, Cin, 3, 3, scale=(9 * Cin) ** -0.5, dtype=dtype).to(memory_format=cl)
+    b, rb = _rn(gen, Cout, dtype=dtype), _rn(gen, B, Cout, dtype=dtype)
+    res = _rn(gen, B, Cout, H, W, dtype=dtype).to(memory_format=cl)
+    before = conv3x3.launches
+    out = conv3x3(x, w, b)
+    assert conv3x3.launches == before + 1 and out.is_contiguous(memory_format=cl)
+    _close(out, conv3x3_plain(_r(x), _r(w), b))
+    _close(conv3x3(x, w, b, rb, res), conv3x3_plain(_r(x), _r(w), b, rb, res))
+    _close(conv3x3(x, w.contiguous(), None, rb), conv3x3_plain(_r(x), _r(w), None, rb))
+
+
+def test_conv3x3_every_tile_and_split(gen):
+    """Every built column tile, split and unsplit, on one shape (the plan
+    picks one of them; the others must be right too)."""
+    cl = torch.channels_last
+    B, Cin, H, W, Cout = 2, 192, 8, 8, 640
     x = _rn(gen, B, Cin, H, W).to(memory_format=cl)
     w = _rn(gen, Cout, Cin, 3, 3, scale=(9 * Cin) ** -0.5).to(memory_format=cl)
     b, rb = _rn(gen, Cout), _rn(gen, B, Cout)
     res = _rn(gen, B, Cout, H, W).to(memory_format=cl)
-    before = conv3x3.launches
-    out = conv3x3(x, w, b)
-    assert conv3x3.launches == before + 1 and out.is_contiguous(memory_format=cl)
-    _close(out, conv3x3_plain(x, w, b))
-    _close(conv3x3(x, w, b, rb, res), conv3x3_plain(x, w, b, rb, res))
-    _close(conv3x3(x, w.contiguous(), None, rb), conv3x3_plain(x, w, None, rb))
+    ref = conv3x3_plain(x, w, b, rb, res)
+    base = cv.conv_plan(B, H, W, Cin, Cout)
+    for bn in cv.BN_CHOICES:
+        for splits in (1, 2, 5):
+            plan = cv.ConvPlan(bn, splits, base.m, base.n, base.ksteps)
+            _close(cv._launch(x, w, b, rb, res, plan), ref)
 
 
 def test_fused_kernel_outputs_carry_grad_fn(gen):
@@ -295,10 +345,16 @@ def test_fused_kernel_outputs_carry_grad_fn(gen):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     x = _rn(gen, 2, 8, 64, 40)
-    with pytest.raises(ValueError):
-        flash_attention(x.float(), x.float(), x.float())        # fp32
-    with pytest.raises(ValueError):
-        flash_attention(x[..., :32], x[..., :32], x[..., :32])  # head dim 32
+    before = flash_attention.launches
+    xf = x.float()                                                # fp32 runs the kernel
+    out = flash_attention(xf, xf, xf)
+    assert out.dtype == torch.float32
+    _close(out, attention_plain(xf, xf, xf))
+    x32 = x[..., :32]                                             # head dim 32: padded to 48
+    _close(flash_attention(x32, x32, x32), attention_plain(x32, x32, x32))
+    assert flash_attention.launches == before + 2
+    with pytest.raises(ValueError):                               # mixed dtypes
+        flash_attention(x, xf, x)
     with pytest.raises(ValueError):
         fused_dense(_rn(gen, 4, 30), _rn(gen, 8, 30))            # K % 8 != 0
     with pytest.raises(ValueError):
@@ -315,7 +371,167 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     lse = torch.zeros(1, 2, 256, device='cuda')
     with pytest.raises(ValueError):                               # no backward at D=512
         fa.flash_attention_bwd_dq(q, q, q, lse, q, lse, 1.0)
-    with pytest.raises(ValueError):                               # head dim 96
-        flash_attention(q[..., :96], q[..., :96], q[..., :96])
+    q96 = q[..., :96]                                             # head dim 96: padded to 128
+    before = flash_attention.launches
+    _close(flash_attention(q96, q96, q96), attention_plain(q96, q96, q96))
+    assert flash_attention.launches == before + 1
     with pytest.raises(ValueError):                               # causal at D=512
         flash_attention(q, q, q, causal=True)
+    with pytest.raises(ValueError):                               # causal at D=192 (> 160)
+        flash_attention(q[..., :192], q[..., :192], q[..., :192], causal=True)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('D', [16, 20, 96, 144])
+def test_flash_padded_head_dims(gen, D, causal):
+    """A, A with lse, E and F at head dims outside the built set: the
+    wrapper zero-pads to the next built dim, the kernels run, and o, lse,
+    dq, dk and dv match the plain versions at D."""
+    B, H, S = 2, 2, 320
+    q, k, v = (_rn(gen, B, H, S, D) for _ in range(3))
+    do = _rn(gen, B, S, H * D).view(B, S, H, D).transpose(1, 2)
+    scale = D ** -0.5
+    counters = (flash_attention, fa.flash_attention_lse, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    _close(flash_attention(q, k, v, scale, causal), attention_plain(q, k, v, scale, causal))
+    o, lse = fa.flash_attention_lse(q, k, v, scale, causal)
+    _close(o, attention_plain(q, k, v, scale, causal))
+    ref = fa.attention_lse_plain(q, k, scale, causal)
+    torch.cuda.synchronize()
+    assert float((lse - ref).abs().max()) <= LSE_ATOL
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, scale, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale, causal)
+    assert [c.launches for c in counters] == [before[0] + 2, before[1] + 1, before[2] + 1,
+                                              before[3] + 1]
+    for out, ref in zip((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                                         scale, causal)):
+        _close_grad(out, ref)
+
+
+def _ln_fp32_reference(route, x, g, b, *params, eps=1e-6):
+    """G, H and I's fp32 function: LayerNorm of the rounded x with the
+    rounded scale and shift, rounded to bf16 (the product's operand, as in
+    the bf16 route), then the fp32 plain product with the rounded weights,
+    and H's bias in fp32."""
+    xn = mm._layer_norm(x.to(torch.bfloat16), g.to(torch.bfloat16), b.to(torch.bfloat16), eps)
+    if route == 'H':
+        return geglu_dense_plain(xn, _r(params[0]), params[1])
+    outs = tuple(torch.nn.functional.linear(xn, _r(w)) for w in params)
+    return outs if route == 'G' else outs[0]
+
+
+def _fp32_cases(gen):
+    """name -> (kernel, the fp32 reference, fp32 args) for every kernel
+    family: the plain version on the rounded matrix operands."""
+    f32 = torch.float32
+    rn = lambda *s, scale=1.0: _rn(gen, *s, scale=scale, dtype=f32)
+    q, k, v, do = (rn(2, 8, 1024, 40) for _ in range(4))
+    sc = 40 ** -0.5
+    o, lse = fa.attention_plain(q, k, v, sc), fa.attention_lse_plain(q, k, sc)
+    delta = fa.attention_delta(o, do)
+    x, w, b = rn(1000, 640), rn(2560, 640, scale=640 ** -0.5), rn(2560)
+    w1, b1, res = rn(1280, 640, scale=640 ** -0.5), rn(1280), rn(1000, 1280)
+    g_, b_ = 1.0 + rn(640, scale=0.1), rn(640, scale=0.1)
+    ws = [rn(640, 640, scale=640 ** -0.5) for _ in range(3)]
+    cl = torch.channels_last
+    xc = rn(2, 320, 32, 32).to(memory_format=cl)
+    wc = rn(640, 320, 3, 3, scale=2880 ** -0.5).to(memory_format=cl)
+    conv_extra = [rn(640), rn(2, 640), rn(2, 640, 32, 32).to(memory_format=cl)]
+    qkv = lambda q, k, v, *rest: (_r(q), _r(k), _r(v), *rest)
+    bwd = lambda q, k, v, lse, do, *rest: (_r(q), _r(k), _r(v), lse, _r(do), *rest)
+    return {
+        'A': (flash_attention, lambda *a: attention_plain(*qkv(*a), sc), [q, k, v]),
+        'A-lse': (lambda *a: fa.flash_attention_lse(*a, sc),
+                  lambda *a: (attention_plain(*qkv(*a), sc),
+                              fa.attention_lse_plain(*qkv(*a)[:2], sc)), [q, k, v]),
+        'E': (fa.flash_attention_bwd_dq, lambda *a: fa.flash_bwd_dq_plain(*bwd(*a)),
+              [q, k, v, lse, do, delta, sc]),
+        'F': (fa.flash_attention_bwd_dkv, lambda *a: fa.flash_bwd_dkv_plain(*bwd(*a)),
+              [q, k, v, lse, do, delta, sc]),
+        'B': (geglu_dense, lambda x, w, b: geglu_dense_plain(_r(x), _r(w), b), [x, w, b]),
+        'C': (fused_dense, lambda x, w, *eb: fused_dense_plain(_r(x), _r(w), *eb),
+              [x, w1, b1, res]),
+        'D': (lambda *a: group_norm_silu(*a, 32, 1e-5, True),
+              lambda *a: group_norm_silu_plain(*a, 32, 1e-5, True),
+              [rn(2, 4096, 320, scale=3.0) + 1.0, 0.5 + torch.rand(320, device='cuda'),
+               rn(320)]),
+        'G': (lambda *a: mm.ln_qkv(*a, 1e-6), lambda *a: _ln_fp32_reference('G', *a),
+              [x, g_, b_, *ws]),
+        'H': (lambda *a: mm.ln_geglu(*a, 1e-6), lambda *a: _ln_fp32_reference('H', *a),
+              [x, g_, b_, w, b]),
+        'I': (lambda *a: mm.ln_dense(*a, 1e-6), lambda *a: _ln_fp32_reference('I', *a),
+              [x, g_, b_, ws[0]]),
+        'J': (conv3x3, lambda x, w, *e: conv3x3_plain(_r(x), _r(w), *e), [xc, wc, *conv_extra]),
+    }
+
+
+FP32_COUNTERS = {'A': flash_attention, 'A-lse': fa.flash_attention_lse,
+                 'E': fa.flash_attention_bwd_dq, 'F': fa.flash_attention_bwd_dkv,
+                 'B': geglu_dense, 'C': fused_dense, 'D': group_norm_silu, 'G': mm.ln_qkv,
+                 'H': mm.ln_geglu, 'I': mm.ln_dense, 'J': conv3x3}
+
+
+@pytest.mark.parametrize('name', sorted(FP32_COUNTERS))
+def test_fp32_kernels(gen, name):
+    """Every wrapper launches its kernel on fp32 CUDA tensors, returns
+    fp32, and matches its fp32 reference (``_fp32_cases``): the
+    tensor-core kernels within ATOL + RTOL, E and F at the gradient bound,
+    the lse within LSE_ATOL, D within GN_F32_TOL * (1 + |plain|)."""
+    kernel, plain, args = _fp32_cases(gen)[name]
+    before = FP32_COUNTERS[name].launches
+    outs, refs = kernel(*args), plain(*args)
+    assert FP32_COUNTERS[name].launches == before + 1
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        if name == 'D':
+            assert bool(((out - ref).abs() <= GN_F32_TOL * (1 + ref.abs())).all()), float(
+                (out - ref).abs().max())
+        elif name in ('E', 'F'):
+            _close_grad(out, ref)
+        elif ref.dim() == 3 and name == 'A-lse' and out is outs[-1]:
+            assert float((out - ref).abs().max()) <= LSE_ATOL
+        else:
+            _close(out, ref)
+
+
+def _rel_l2(out, ref):
+    return float((out.float().cpu() - ref.float()).norm() / ref.float().norm())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('fused', [False, True])
+def test_tiny_unet_at_32x32_on_the_card(gen, fused, dtype):
+    """The tiny UNet (default and fused) at a 32x32 latent, whose level-0
+    self-attention (S = 1024, D = 16) runs kernel A zero-padded to D = 48,
+    against the same weights in fp32 on the CPU."""
+    torch.manual_seed(0)
+    cpu = init_flax_like(UNet2DCondition(UNetConfig.tiny()), torch.Generator().manual_seed(1))
+    card = UNet2DCondition(UNetConfig.tiny(), fused_sublayers=fused)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to('cuda').to_compute_dtype(dtype).to(memory_format=torch.channels_last)
+    x, ctx = torch.randn(2, 32, 32, 4), torch.randn(2, 77, 32)
+    t = torch.tensor([300, 20])
+    before = flash_attention.launches
+    with torch.no_grad():
+        out = card(x.cuda(), t.cuda(), ctx.cuda())
+        ref = cpu(x, t, ctx)
+    assert flash_attention.launches > before
+    assert _rel_l2(out, ref) <= MODEL_REL_TOL
+
+
+def test_tiny_vae_decode_fp32_on_the_card(gen):
+    """The tiny VAE decode in fp32 on the card (its mid attention, S =
+    1024, D = 32, runs kernel A zero-padded to D = 48) against the CPU."""
+    cpu = init_flax_like(AutoencoderKL(VAEConfig.tiny()), torch.Generator().manual_seed(2))
+    card = copy.deepcopy(cpu).to('cuda').to(memory_format=torch.channels_last)
+    z = torch.randn(1, 32, 32, 4, generator=torch.Generator().manual_seed(3))
+    before = flash_attention.launches
+    with torch.no_grad():
+        out, ref = card.decode(z.cuda()), cpu.decode(z)
+    assert flash_attention.launches > before
+    assert _rel_l2(out, ref) <= MODEL_REL_TOL
