@@ -182,8 +182,8 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_wgmma_kernel(ConvParams p)
         fence_proxy_async();
         __syncthreads();                 // everyone's have; every wgmma of step i - 2 is done
         const uint32_t sa = base + (i % S) * SB;
-        const uint64_t da = sw128_desc(sa + wg * 64 * 128);
-        const uint64_t db = sw128_desc(sa + A_BYTES);
+        const uint64_t da = smem_desc<128>(sa + wg * 64 * 128, 16, 1024);
+        const uint64_t db = smem_desc<128>(sa + A_BYTES, 16, 1024);
         wgmma_fence();
 #pragma unroll
         for (int w = 0; w < NW; ++w) fence_operands(acc[w]);

@@ -1,6 +1,7 @@
 // Kernel A: attention forward, O = softmax(Q K^T * scale) V, on bf16
 // [B, H, S, D] tensors given by strides, fp32 softmax state, with an
-// optional causal mask (key <= query, top-left aligned; Sq == Sk).
+// optional causal mask (key <= query, top-left aligned; Sq == Sk) and an
+// optional fp32 row logsumexp.
 //
 // Replaces, in hcpdiff_tpu/ops/flash_attention.py:
 //   #1 _flash_kernel_tq (:379, via _flash_forward_tq :460; the UNet's
@@ -14,218 +15,274 @@
 //   _flash_kernel_lse (:613, via _flash_forward_lse :634).
 // One kernel serves all four: the TPU's transposed layout only fixed lane
 // padding, its K/V residency and streaming were VMEM budgeting, and here
-// every block streams K/V tiles anyway. The TPU kernels' causal option
-// (:84-89, :122-127, loop bound :189-192) is the `causal` flag below.
+// every block streams K/V tiles. The TPU kernels' causal option (:84-89,
+// :122-127, loop bound :189-192) is the `causal` template flag.
 //
-// What bounds it on the H100: at S=4096 the [S, S] logits would be 64 MB
-// per head in fp32, so materialising them makes attention memory-bound;
-// kept on chip, QK^T and PV are 4*S*S*D FLOPs (causal: 4*S(S+1)/2*D, the
-// unmasked pairs only) over 4*S*D*2 bytes, far above the ridge, so the
-// tensor cores and the softmax's exp bound it. The design streams K/V
-// tiles through shared memory with an online softmax (running max m,
-// running sum l, fp32 accumulator), as in FlashAttention-2: each warp owns
-// 16 query rows, S and P stay in registers, and P feeds the PV product
-// straight from the S accumulator fragments. The TPU kernels' no-max
-// softmax (clamped at NOMAX_CLAMP, the default there) is not copied: the
-// running max is exact for any logit range, which is the classic kernels'
-// HCP_FLASH_NOMAX=0 function.
+// What bounds it on the H100: kept on chip, QK^T and PV are 4*S*S*D FLOPs
+// (causal: the S(S+1)/2 unmasked pairs only) over 4*S*D*2 bytes, far above
+// the ridge, so the tensor cores bound it, and at small D (40, 80) the
+// softmax's exp2 (one MUFU op a logit, ~1/60 of the tensor rate per SM)
+// competes with them. Only wgmma reaches the tensor cores' full rate.
 //
-// Causal: a block of queries [q0, q0+BQ) loops only over the key tiles
-// that start at or before q0+BQ-1, so about half the tiles are skipped;
-// inside the diagonal tile the keys past each row are -inf before the
-// running max. With Sq == Sk key 0 is in every row, so m and lse stay
-// finite. The flag is a template parameter, so the non-causal kernel
-// carries no per-row mask state (registers decide how many blocks share
-// an SM). The causal kernel is built for DP <= 160 only: D=512 is the
-// VAE's attention, which is not causal, and has no backward.
+// Design (FlashAttention-2's online softmax on Hopper's wgmma; plan per
+// padded head dim in HCP_FLASH_PLANS below):
+//   - A block is two consumer warpgroups of 64 query rows each; they
+//     share every K/V tile, so a tile is fetched from L2 once per 128 rows.
+//   - BKV = 64 keys a tile (32 at DP=512). At DP <= 80 that keeps a thread
+//     at <= 128 registers, so two blocks share an SM (MINB = 2) and one
+//     block's softmax overlaps the other's products: 0.38 against 0.47 ms
+//     at [4,8,4096,40] and 0.039 against 0.047 at [4,8,1024,80] for BKV =
+//     128 with one block an SM (device-only, tools/time_kernels.py, on an
+//     H100 SXM at 700 W; PERF.md). At DP=128, BKV = 128 took
+//     255 registers and spilled in the causal instance.
+//   - Q is loaded once; K and V tiles of BKV keys stream through a ring of
+//     STAGES slots filled by cp.async in the swizzled layout wgmma reads
+//     (wgmma.cuh), zero-filled past Sk and past D. Tile j's slot is read
+//     after cp.async.wait_group, fence.proxy.async and a barrier; the
+//     barrier of step j also frees the slot of step j - 1 (each warpgroup
+//     waited for its products of j - 1 before it), which the loads of tile
+//     j + STAGES - 1 then refill while tiles j.. are computed.
+//   - S = Q K^T: wgmma m64nBKVk16 with both operands in shared memory (Q
+//     and the K tile [key][d] are both K-major), DP / 16 products.
+//   - Online softmax in base 2 on the accumulators, whose layout is
+//     mma.sync's C fragment repeated (row max and sum over the four
+//     threads of a row with shfl_xor 1 and 2); the mask (ragged Sk, the
+//     causal diagonal) runs only on tiles that need it.
+//   - O += P V: wgmma m64nDVCk16 with A from registers (P rounded to bf16
+//     and packed from the S accumulators, which are exactly the A
+//     fragments) and B the V tile [key][d] read in place, MN-major, with
+//     the instruction's transpose bit: no transposed copy of V.
+//   - Swizzle: 128-byte rows where DP divides by 64 (64, 128, 512), 64-byte
+//     rows at 160 and 32-byte rows at 48 and 80, so no head dim is padded
+//     past its multiple of 16 (no QK^T products are wasted).
+//   - DP=512: a 64 x 512 fp32 accumulator would be 256 registers a thread,
+//     so the output dims are split into DVC=256 chunks over grid.z; each
+//     chunk recomputes QK^T (1.5x the products), and BKV=32, two stages,
+//     keep Q (128 KB), the ring and V's chunk inside 227 KB.
+// Not yet: TMA loads, warp specialisation, overlapping one tile's softmax
+// with the next tile's QK^T inside a warpgroup (each warpgroup waits for
+// its products; the two warpgroups of a block meet at every tile's
+// barrier, so only a second block on the SM fills the tensor cores during
+// their softmax).
 //
-// Head dims: D is padded to DP (a multiple of 16: 48, 64, 80, 128, 160,
-// 512) inside the shared tiles with zeros, which leaves QK^T unchanged;
-// output columns >= D are never stored. DP=160 and DP=512 would need a
-// 16xDP fp32 accumulator per warp (DP/2 registers a thread), so their
-// output dims are split into chunks of DVC over grid.z; each chunk
-// recomputes QK^T.
+// Causal: a block stops at the tile holding its last query's key, and a
+// warpgroup skips the tiles past its own last row. With Sq == Sk, key 0 is
+// in every row, so m and lse stay finite.
 //
-// Training: when given an lse buffer, the kernel also writes each row's
-// natural-log logsumexp of the scaled (and masked) logits (fp32
-// [B, H, Sq]), which the backward kernels (flash_attention_bwd.cu) use to
-// recompute P. The running max is in log2 units, so
-// lse = (m + log2 l) * ln 2; with D split over grid.z only the first chunk
-// stores it. Inference passes no buffer.
+// Training: with an lse buffer the kernel also writes each row's
+// natural-log logsumexp of the scaled (and masked) logits (fp32 [B, H,
+// Sq]), which the backward kernels (flash_attention_bwd_dq.cu,
+// flash_attention_bwd_dkv.cu) use to recompute P. The running max is in
+// log2 units, so lse = (m + log2 l) * ln 2; with D split over grid.z only
+// the first chunk stores it. Inference passes no buffer.
 //
 // Output type: o is bf16, or fp32 for an fp32 call (whose q, k and v the
-// wrapper rounds to bf16). The type is a run-time flag read only in the
-// final store, after the key loop, so it costs the loop no registers.
+// wrapper rounds to bf16), a run-time flag read only in the final store.
 //
-// Simple first version: mma.sync m16n8k16, 64 query rows x 64 keys per
-// step, K and V single-buffered, V transposed into shared memory by the
-// loading threads (no ldmatrix.trans, no wgmma/TMA).
+// The running max is taken on the unscaled logits, so the scale must be
+// >= 0: the wrapper negates k for a negative scale.
 #include <math.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace hcp {
 namespace {
 
-constexpr int BQ = 64;           // query rows per block (4 warps x 16)
-constexpr int BKV = 64;          // keys per step
-constexpr int THREADS = 128;
-constexpr int LDV = BKV + 8;     // padded row of the transposed V tile
+// Launch plan per padded head dim DP (every plan: two warpgroups of 64
+// query rows): keys per tile BKV, ring stages, output dims per block DVC (DP / DVC
+// blocks over grid.z), swizzle width SW in bytes, and the blocks an SM
+// should hold (MINB: 2 caps registers at 128 a thread, so two blocks'
+// softmax and products interleave). Read and checked on the CPU by
+// tests/test_torch_port_flash_plan.py.
+//   X(DP, BKV, STAGES, DVC, SW, MINB)
+#define HCP_FLASH_PLANS(X)        \
+    X(48, 64, 4, 48, 32, 2)       \
+    X(64, 64, 4, 64, 128, 2)      \
+    X(80, 64, 4, 80, 32, 2)       \
+    X(128, 64, 4, 128, 128, 1)    \
+    X(160, 64, 3, 160, 64, 1)     \
+    X(512, 32, 2, 256, 128, 1)
 
-template <int DP, int DVC>
-constexpr int smem_bytes() {
-    return ((BQ + BKV) * (DP + 8) + DVC * LDV) * 2;
+constexpr int MAX_SMEM = 232448;     // 227 KB: the most a block may use
+constexpr int SM_SMEM = 233472;      // 228 KB an SM, of which each block takes 1 KB more
+
+template <int DP_, int BKV_, int STAGES_, int DVC_, int SW_, int MINB_>
+struct Plan {
+    static constexpr int DP = DP_, BKV = BKV_, STAGES = STAGES_, DVC = DVC_, SW = SW_,
+                         MINB = MINB_;
+    static constexpr int BQ = 128, THREADS = 256;    // two warpgroups of 64 rows
+    static constexpr int W = SW / 2;                 // bf16 columns in a row of one block
+    static constexpr int Q_BYTES = BQ * DP * 2;
+    static constexpr int K_BYTES = BKV * DP * 2;
+    static constexpr int STAGE_BYTES = K_BYTES + BKV * DVC * 2;
+    // + 1024 to align the tiles to the swizzle's period
+    static constexpr int SMEM = Q_BYTES + STAGES * STAGE_BYTES + 1024;
+    static_assert(DP % W == 0 && DVC % W == 0 && DP % DVC == 0, "blocks must tile DP and DVC");
+    static_assert(BKV % 16 == 0 && BKV <= 256 && DVC % 8 == 0 && DVC <= 256, "wgmma N");
+    static_assert(STAGES >= 2 && SMEM <= MAX_SMEM && MINB * (SMEM + 1024) <= SM_SMEM,
+                  "shared memory");
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
-// Up to DP=160 four blocks fit an SM's shared memory; ask ptxas for the
-// registers to match (<= 128 a thread), or a few registers over 128 leave
-// one SM slot in four empty (S=1024, D=80: 3 blocks an SM, two waves).
-template <int DP>
-constexpr int min_blocks() {
-    return DP <= 160 ? 4 : 1;
+// Rows r0.. (< S) and columns col0..col0 + NCOL (< D) of a [S, D] matrix
+// with row stride ss into a tile of R rows at shared address dst, in the
+// SW-byte swizzled layout: blocks of R rows x P::W columns.
+template <class P, int R, int NCOL>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long ss, int r0,
+                                          int S, int col0, int D, int tid) {
+    constexpr int NC = NCOL / 8, CPB = P::W / 8, TOTAL = R * NC;
+#pragma unroll
+    for (int i = 0; i < (TOTAL + P::THREADS - 1) / P::THREADS; ++i) {
+        const int c = tid + i * P::THREADS;
+        if (TOTAL % P::THREADS != 0 && c >= TOTAL) break;
+        const int r = c / NC, cc = c % NC, d = col0 + cc * 8;
+        const bool ok = r0 + r < S && d < D;
+        const uint32_t off = (cc / CPB) * (R * P::SW) + swz_offset<P::SW>(r, cc % CPB);
+        cp_async16(dst + off, ok ? src + (r0 + r) * ss + d : src, ok);
+    }
 }
 
-template <int DP, int DVC, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS, min_blocks<DP>())
+template <class P, bool CAUSAL>
+__global__ void __launch_bounds__(P::THREADS, P::MINB)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, void* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Sk,
-                 int D, long long qsb, long long qsh, long long qss, long long ksb,
-                 long long ksh, long long kss, long long vsb, long long vsh, long long vss,
-                 long long osb, long long osh, long long oss, float scale_log2, int out_f32) {
-    constexpr int LDQ = DP + 8;
-    constexpr int NDT = DVC / 8;     // output n-tiles per warp
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sK = sQ + BQ * LDQ;
-    bf16* sVt = sK + BKV * LDQ;      // [DVC][LDV]: V tile transposed, d-major
+                 int H, int Sq, int Sk, int D, long long qsb, long long qsh, long long qss,
+                 long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+                 long long vss, long long osb, long long osh, long long oss, float scale_log2,
+                 int out_f32) {
+    constexpr int BKV = P::BKV, DVC = P::DVC, SW = P::SW, STAGES = P::STAGES;
+    constexpr int KB = P::W / 16;                  // k16 slices in a row of one block
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const uint32_t sKV = sQ + P::Q_BYTES;
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const int b = blockIdx.y / H, h = blockIdx.y % H;
-    const int q0 = blockIdx.x * BQ;
-    const int dc0 = blockIdx.z * DVC;
+    const int q0 = blockIdx.x * P::BQ, dc0 = blockIdx.z * DVC;
+    const int row0 = q0 + wg * 64;                 // this warpgroup's first query
     const bf16* qb = q + b * qsb + h * qsh;
     const bf16* kb = k + b * ksb + h * ksh;
     const bf16* vb = v + b * vsb + h * vsh;
 
-    for (int c = tid; c < BQ * (DP / 8); c += THREADS) {
-        int r = c / (DP / 8), d = (c % (DP / 8)) * 8;
-        bool ok = q0 + r < Sq && d < D;
-        cp_async16(sQ + r * LDQ + d, ok ? qb + (q0 + r) * qss + d : q, ok);
+    int nkt = (Sk + BKV - 1) / BKV;
+    if (CAUSAL) nkt = min(nkt, (q0 + P::BQ - 1) / BKV + 1);   // stop at the diagonal
+
+    auto load_kv = [&](int tile) {
+        const uint32_t s = sKV + (tile % STAGES) * P::STAGE_BYTES;
+        load_tile<P, BKV, P::DP>(s, kb, kss, tile * BKV, Sk, 0, D, tid);
+        load_tile<P, BKV, DVC>(s + P::K_BYTES, vb, vss, tile * BKV, Sk, dc0, D, tid);
+    };
+    load_tile<P, P::BQ, P::DP>(sQ, qb, qss, q0, Sq, 0, D, tid);   // with tile 0's group
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nkt) load_kv(s);
+        cp_async_commit();
     }
-    cp_async_commit();
 
-    float m_i[2] = {-1e30f, -1e30f};  // running max (log2 units) of rows g, g+8
-    float l_i[2] = {0.f, 0.f};        // this thread's share of the running sums
-    float acc[NDT][4];
+    // Q's K-major descriptor (this warpgroup's 64 rows: 64 * SW bytes into
+    // each block); K's (N = BKV keys); V's (MN-major, the transpose bit)
+    const uint64_t dq = smem_desc<SW>(sQ + wg * 64 * SW, 16, 8 * SW);
+    float m_i[2] = {-1e30f, -1e30f};   // running max (log2 units) of rows g, g + 8
+    float l_i[2] = {0.f, 0.f};         // this thread's share of the running sums
+    float acc[DVC / 2];
 #pragma unroll
-    for (int j = 0; j < NDT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-    // the last key each of this thread's rows g, g+8 may see
-    int last_key[2];
+    for (int i = 0; i < DVC / 2; ++i) acc[i] = 0.f;
+    int last_key[2];                   // the last key rows g, g + 8 may see
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-        last_key[r] = CAUSAL ? min(Sk - 1, q0 + warp * 16 + g + r * 8) : Sk - 1;
-    int nkt = (Sk + BKV - 1) / BKV;
-    if (CAUSAL) nkt = min(nkt, (q0 + BQ - 1) / BKV + 1);   // skip tiles past the diagonal
-    for (int kt = 0; kt < nkt; ++kt) {
-        const int k0 = kt * BKV;
-        __syncthreads();             // previous tile fully consumed
-        for (int c = tid; c < BKV * (DP / 8); c += THREADS) {
-            int r = c / (DP / 8), d = (c % (DP / 8)) * 8;
-            bool ok = k0 + r < Sk && d < D;
-            cp_async16(sK + r * LDQ + d, ok ? kb + (k0 + r) * kss + d : k, ok);
-        }
+        last_key[r] = CAUSAL ? min(Sk - 1, row0 + warp * 16 + g + r * 8) : Sk - 1;
+
+    for (int j = 0; j < nkt; ++j) {
+        cp_async_wait<STAGES - 2>();   // this thread's copies of tile j have landed
+        fence_proxy_async();
+        __syncthreads();               // everyone's have; every product of tile j - 1 is done
+        if (j + STAGES - 1 < nkt) load_kv(j + STAGES - 1);
         cp_async_commit();
-        for (int c = tid; c < BKV * (DVC / 8); c += THREADS) {
-            int r = c / (DVC / 8), dd = (c % (DVC / 8)) * 8;
-            int d = dc0 + dd;
-            uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-            if (k0 + r < Sk && d < D)
-                raw = *reinterpret_cast<const uint4*>(vb + (k0 + r) * vss + d);
-            const bf16* e8 = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) sVt[(dd + i) * LDV + r] = e8[i];
-        }
-        cp_async_wait<0>();
-        __syncthreads();
+        const int k0 = j * BKV;
+        if (CAUSAL && k0 > row0 + 63) continue;   // no key of this tile is visible here
 
-        // S = Q K^T for this warp's 16 rows x 64 keys.
-        float s[8][4];
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < DP; kk += 16) {
-            uint32_t af[4];
-            load_a(af, sQ, LDQ, warp * 16, kk, g, t);
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni) {
-                uint32_t bfr[2];
-                load_b(bfr, sK, LDQ, ni * 8, kk, g, t);
-                mma_16816(s[ni], af, bfr);
-            }
-        }
+        const uint32_t sK = sKV + (j % STAGES) * P::STAGE_BYTES;
+        const uint64_t dk = smem_desc<SW>(sK, 16, 8 * SW);
+        const uint64_t dv = smem_desc<SW>(sK + P::K_BYTES, BKV * SW, 8 * SW);
 
-        // Online softmax in base 2. Elements e=0,1 belong to row g, e=2,3
-        // to row g+8; the four threads t=0..3 of a group share each row.
+        // S = Q K^T for this warpgroup's 64 rows x BKV keys
+        float s[BKV / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < P::DP / 16; ++kk)   // slice kk: block kk / KB, 32 B per slice in it
+            Wgmma<BKV>::mma(s, dq + (kk / KB) * (P::BQ * SW / 16) + (kk % KB) * 2,
+                            dk + (kk / KB) * (BKV * SW / 16) + (kk % KB) * 2, kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(s);
+
+        // Online softmax in base 2 on the unscaled logits (scale >= 0):
+        // elements i with (i / 2) % 2 == 0 are row g, the others row g + 8;
+        // the four threads t = 0..3 of a group share each row.
+        const bool masked = k0 + BKV > Sk || (CAUSAL && k0 + BKV - 1 > row0);
         float mx[2] = {-INFINITY, -INFINITY};
+        if (masked) {
 #pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                int key = k0 + ni * 8 + 2 * t + (e & 1);
-                float val = key <= last_key[e >> 1] ? s[ni][e] * scale_log2 : -INFINITY;
-                s[ni][e] = val;
-                mx[e >> 1] = fmaxf(mx[e >> 1], val);
+            for (int i = 0; i < BKV / 2; ++i) {
+                const int key = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+                if (key > last_key[(i >> 1) & 1]) s[i] = -INFINITY;
             }
-        float alpha[2];
+        }
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        float alpha[2], neg_m[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
             mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
             mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            float m_new = fmaxf(m_i[r], mx[r]);
-            alpha[r] = exp2f(m_i[r] - m_new);
+            const float m_new = fmaxf(m_i[r], mx[r] * scale_log2);
+            alpha[r] = fast_exp2(m_i[r] - m_new);
             m_i[r] = m_new;
+            neg_m[r] = -m_new;
             l_i[r] *= alpha[r];
         }
 #pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                float p = exp2f(s[ni][e] - m_i[e >> 1]);
-                s[ni][e] = p;
-                l_i[e >> 1] += p;
-            }
-#pragma unroll
-        for (int j = 0; j < NDT; ++j) {
-            acc[j][0] *= alpha[0];
-            acc[j][1] *= alpha[0];
-            acc[j][2] *= alpha[1];
-            acc[j][3] *= alpha[1];
+        for (int i = 0; i < BKV / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            float p = fast_exp2(fmaf(s[i], scale_log2, neg_m[r]));
+            if (masked && s[i] == -INFINITY) p = 0.f;   // exact for scale 0 too
+            s[i] = p;
+            l_i[r] += p;
         }
+#pragma unroll
+        for (int i = 0; i < DVC / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-        // O += P V: the S fragments of n-tiles 2j, 2j+1 are exactly the A
-        // fragment of keys [16j, 16j+16).
+        // O += P V: the S accumulators of column tiles 2jj, 2jj + 1 are the
+        // A fragment of keys [16jj, 16jj + 16)
+        uint32_t pa[BKV / 16][4];
 #pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) {
-            uint32_t pa[4];
-            pa[0] = pack_bf16x2(s[2 * j][0], s[2 * j][1]);
-            pa[1] = pack_bf16x2(s[2 * j][2], s[2 * j][3]);
-            pa[2] = pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]);
-            pa[3] = pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-            for (int nd = 0; nd < NDT; ++nd) {
-                uint32_t bv[2];
-                load_b(bv, sVt, LDV, nd * 8, j * 16, g, t);
-                mma_16816(acc[nd], pa, bv);
-            }
+        for (int jj = 0; jj < BKV / 16; ++jj) {
+            pa[jj][0] = pack_bf16x2(s[8 * jj + 0], s[8 * jj + 1]);
+            pa[jj][1] = pack_bf16x2(s[8 * jj + 2], s[8 * jj + 3]);
+            pa[jj][2] = pack_bf16x2(s[8 * jj + 4], s[8 * jj + 5]);
+            pa[jj][3] = pack_bf16x2(s[8 * jj + 6], s[8 * jj + 7]);
         }
+        // the rescaled O and the packed P are written before the fence
+        fence_operands(acc);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) fence_operands(pa[jj]);
+        wgmma_fence();
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj)   // keys 16jj..: 16 rows of SW bytes further
+            WgmmaRS<DVC>::mma(acc, pa[jj], dv + jj * SW);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) fence_operands(pa[jj]);
     }
+    cp_async_wait<0>();
 
     float inv[2];
 #pragma unroll
@@ -234,21 +291,21 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         inv[r] = 1.f / l;
-        int row = q0 + warp * 16 + g + r * 8;
+        const int row = row0 + warp * 16 + g + r * 8;
         if (lse != nullptr && blockIdx.z == 0 && t == 0 && row < Sq)
             lse[static_cast<long long>(blockIdx.y) * Sq + row] =
                 (m_i[r] + log2f(l)) * 0.6931471805599453f;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        int row = q0 + warp * 16 + g + r * 8;
+        const int row = row0 + warp * 16 + g + r * 8;
         if (row >= Sq) continue;
 #pragma unroll
-        for (int nd = 0; nd < NDT; ++nd) {
-            int d = dc0 + nd * 8 + 2 * t;
+        for (int nd = 0; nd < DVC / 8; ++nd) {
+            const int d = dc0 + nd * 8 + 2 * t;
             if (d >= D) continue;
             const long long off = b * osb + h * osh + row * oss + d;
-            const float y0 = acc[nd][2 * r] * inv[r], y1 = acc[nd][2 * r + 1] * inv[r];
+            const float y0 = acc[nd * 4 + 2 * r] * inv[r], y1 = acc[nd * 4 + 2 * r + 1] * inv[r];
             if (out_f32)
                 store2(static_cast<float*>(o) + off, y0, y1);
             else
@@ -257,22 +314,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-template <int DP, int DVC>
+template <class P>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
            int Sq, int Sk, int D, const long long* st, float scale_log2, int causal, int out_f32,
            cudaStream_t s) {
-    constexpr int smem = smem_bytes<DP, DVC>();
-    auto kern = flash_fwd_kernel<DP, DVC, false>;
-    if constexpr (DP <= 160) {
-        if (causal) kern = flash_fwd_kernel<DP, DVC, true>;
-    } else if (causal) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    auto kern = causal ? flash_fwd_kernel<P, true> : flash_fwd_kernel<P, false>;
     cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((Sq + BQ - 1) / BQ, B * H, (DP + DVC - 1) / DVC);
-    kern<<<grid, THREADS, smem, s>>>(
+    dim3 grid((Sq + P::BQ - 1) / P::BQ, B * H, P::DP / P::DVC);
+    kern<<<grid, P::THREADS, P::SMEM, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         o, lse, H, Sq, Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
         st[9], st[10], st[11], scale_log2, out_f32);
@@ -284,12 +335,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 // q [B,H,Sq,D], k/v [B,H,Sk,D]: bf16; o [B,H,Sq,D]: bf16, or fp32 when
 // out_f32 != 0; all with unit stride on D; `strides` holds (batch, head,
-// seq) strides in elements for q, k, v, o (12 values). D % 8 == 0 and
-// 16-byte aligned rows. `lse` is null, or a contiguous fp32 [B, H, Sq]
-// buffer for the row logsumexp. `causal` != 0 masks keys past each query
-// (top-left aligned; the caller ensures Sq == Sk; D <= 160). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an unsupported D or
-// causal D.
+// seq) strides in elements for q, k, v, o (12 values). D % 8 == 0, D <=
+// 512, and 16-byte aligned rows. `lse` is null, or a contiguous fp32
+// [B, H, Sq] buffer for the row logsumexp. `causal` != 0 masks keys past
+// each query (top-left aligned; the caller ensures Sq == Sk). scale >= 0.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a D whose
+// multiple of 16 has no plan.
 extern "C" int hcp_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse_out, int B, int H, int Sq, int Sk, int D,
                                    const long long* strides, float scale, int causal,
@@ -298,16 +349,13 @@ extern "C" int hcp_flash_attention(const void* q, const void* k, const void* v, 
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float sl2 = scale * 1.4426950408889634f;
     float* lse = static_cast<float*>(lse_out);
-#define HCP_FWD(DP, DVC) \
-    launch<DP, DVC>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, out_f32, s)
+#define HCP_FWD_CASE(DP, BKV, STAGES, DVC, SW, MINB)                                  \
+    case DP:                                                                          \
+        return launch<Plan<DP, BKV, STAGES, DVC, SW, MINB>>(                          \
+            q, k, v, o, lse, B, H, Sq, Sk, D, strides, sl2, causal, out_f32, s);
     switch ((D + 15) / 16 * 16) {
-        case 48: return HCP_FWD(48, 48);
-        case 64: return HCP_FWD(64, 64);
-        case 80: return HCP_FWD(80, 80);
-        case 128: return HCP_FWD(128, 128);
-        case 160: return HCP_FWD(160, 80);
-        case 512: return HCP_FWD(512, 128);
+        HCP_FLASH_PLANS(HCP_FWD_CASE)
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
-#undef HCP_FWD
+#undef HCP_FWD_CASE
 }

@@ -43,14 +43,23 @@
 // The TPU forward's no-max clamp has no counterpart: A's running max is
 // exact, so P needs no clamp and dS no mask beyond the causal one.
 //
-// Head dims: D is zero-padded to DP = 48, 64, 80, 128 or 160 inside the
-// shared tiles; pad columns are never stored. E holds a 16 x DP fp32
+// Head dims: D is zero-padded to DP = 48, 64, 80, 128, 160 or 512 inside
+// the shared tiles; pad columns are never stored. E holds a 16 x DP fp32
 // accumulator per warp (DP/2 registers a thread). F holds two (dK and dV),
 // which at DP=128 or 160 would pass 255 registers with the S and dP
 // fragments, so F's output dims are split into chunks of DVC <= 80 over
-// grid.z, as A does for D=512; each chunk recomputes S and dP over the
-// whole DP. E at DP=160 takes ~109 KB of shared memory (dynamic, set by
-// cudaFuncSetAttribute).
+// grid.z; each chunk recomputes S and dP over the whole DP. E at DP=160
+// takes ~109 KB of shared memory (dynamic, set by cudaFuncSetAttribute).
+//
+// DP=512 (causal attention or training at the VAE's head dim, and any D in
+// (160, 512], which the wrapper zero-pads to 512): whole-row tiles of Q,
+// dO, K and V would be 4 x 64 x 520 x 2 = 266 KB, past the 227 KB a block
+// may use. So E and F have a D-chunked variant: S and dP accumulate over
+// DC=128 columns at a time through four [64][DC + 8] shared slots
+// (chunked_abt2), and the outputs are split over grid.z (E: DVC=128, F:
+// DVC=64, so the accumulators stay in registers); each output chunk
+// recomputes S and dP, and every tile is re-read per chunk. A simple, slow
+// route for head dims no shipped model uses.
 //
 // Output type: dq, dk and dv are bf16, or fp32 for an fp32 call (whose q,
 // k, v and dO the wrapper rounds to bf16); a run-time flag read only in the
@@ -108,16 +117,12 @@ __device__ __forceinline__ void load_rows_t(bf16* s, const bf16* g, long long ss
     }
 }
 
-// acc[16 x 64] = A[16 rows at r0][DP] * B[64 rows][DP]^T, both row-major in
-// shared memory with row length LD.
+// acc[16 x 64] += A[16 rows at r0][DP] * B[64 rows][DP]^T, both row-major
+// in shared memory with row length LD.
 template <int DP>
-__device__ __forceinline__ void tile_abt(float (&acc)[8][4], const bf16* a, const bf16* b,
-                                         int r0, int g, int t) {
+__device__ __forceinline__ void tile_abt_acc(float (&acc)[8][4], const bf16* a, const bf16* b,
+                                             int r0, int g, int t) {
     constexpr int LD = DP + 8;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DP; kk += 16) {
         uint32_t af[4];
@@ -128,6 +133,50 @@ __device__ __forceinline__ void tile_abt(float (&acc)[8][4], const bf16* a, cons
             load_b(bfr, b, LD, ni * 8, kk, g, t);
             mma_16816(acc[ni], af, bfr);
         }
+    }
+}
+
+// acc[16 x 64] = A[16 rows at r0][DP] * B[64 rows][DP]^T.
+template <int DP>
+__device__ __forceinline__ void tile_abt(float (&acc)[8][4], const bf16* a, const bf16* b,
+                                         int r0, int g, int t) {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
+    tile_abt_acc<DP>(acc, a, b, r0, g, t);
+}
+
+// The DP=512 kernels' S and dP: x = A1 B1^T and y = A2 B2^T for this warp's
+// 16 rows, where A1/A2 are 64 rows from ar0 (< aS) and B1/B2 64 rows from
+// br0 (< bS) of [S, D] matrices (row strides a1s.., columns >= D read as
+// 0), summed over DP columns DC at a time through the four [64][DC + 8]
+// shared tiles at sm. Each chunk starts with a barrier, so every thread's
+// reads of shared memory before the call are done when sm is rewritten.
+template <int DP, int DC>
+__device__ __forceinline__ void chunked_abt2(float (&x)[8][4], float (&y)[8][4], bf16* sm,
+                                             const bf16* a1, long long a1s, const bf16* a2,
+                                             long long a2s, int ar0, int aS, const bf16* b1,
+                                             long long b1s, const bf16* b2, long long b2s,
+                                             int br0, int bS, int D, int warp, int g, int t,
+                                             int tid) {
+    constexpr int TILE = 64 * (DC + 8);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[ni][e] = y[ni][e] = 0.f;
+#pragma unroll 1
+    for (int c0 = 0; c0 < DP; c0 += DC) {
+        __syncthreads();              // the previous chunk's tiles fully consumed
+        load_rows<DC>(sm, a1 + c0, a1s, ar0, aS, D - c0, 64, tid);
+        load_rows<DC>(sm + TILE, a2 + c0, a2s, ar0, aS, D - c0, 64, tid);
+        load_rows<DC>(sm + 2 * TILE, b1 + c0, b1s, br0, bS, D - c0, 64, tid);
+        load_rows<DC>(sm + 3 * TILE, b2 + c0, b2s, br0, bS, D - c0, 64, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        tile_abt_acc<DC>(x, sm, sm + 2 * TILE, warp * 16, g, t);
+        tile_abt_acc<DC>(y, sm + TILE, sm + 3 * TILE, warp * 16, g, t);
     }
 }
 

@@ -12,8 +12,7 @@ argument. Cross-attention over the 77 text tokens, CLIP's causal attention
 over 77 tokens and the 16x16 / 8x8 levels run the plain version, which the
 JAX package leaves to XLA. Nothing falls back: on a CUDA tensor (bf16 or
 fp32) the kernel runs at any head dim the rule admits, zero-padded up to
-a built one where D is not (``flash_attention.kernel_head_dim``); only
-causal attention with 160 < D <= 512 raises, which no model reaches.
+a built one where D is not (``flash_attention.kernel_head_dim``).
 """
 from __future__ import annotations
 

@@ -17,14 +17,19 @@ and the classic ``_flash_bwd_dq/dkv_kernel``. On the card the TPU's
 layouts (a matter of lane padding) are one: the kernels read their
 operands through strides.
 
-Head dims: the kernels are built for padded head dims 48, 64, 80, 128 and
-160, causal or not, and the forward also for 512, not causal. Any other D
-(16, 20, 96, 144, ...) is zero-padded along D up to the next built dim in
-the wrapper, run with the scale of the original D, and o, dq, dk and dv
-are sliced back to D. That is exact: zero columns add nothing to q k^T,
-and they give zero columns of o and of dS K, which are sliced away. So on
-a CUDA tensor the forward takes any D <= 512 (causal: D <= 160), and the
-forward with lse and the backward any D <= 160; past that it raises.
+Head dims: the kernels are built for padded head dims 48, 64, 80, 128, 160
+and 512, causal or not, forward (with or without lse) and backward. Any
+other D (16, 20, 96, 144, 192, ...) is zero-padded along D up to the next
+built dim in the wrapper, run with the scale of the original D, and o, dq,
+dk and dv are sliced back to D. That is exact: zero columns add nothing to
+q k^T, and they give zero columns of o and of dS K, which are sliced away.
+So on a CUDA tensor every entry takes any D <= 512, causal or not; a D >
+512 raises (no entry falls back to the plain version on the card).
+
+Kernel A's launch plan per padded head dim (key tile, ring stages, output
+split, swizzle, blocks an SM) is the ``HCP_FLASH_PLANS`` table of
+``csrc/flash_attention.cu``, which ``tests/test_torch_port_flash_plan.py``
+reads and checks on the CPU.
 
 Types: bf16 or fp32 tensors. An fp32 call rounds q, k, v (and dO) to bf16,
 the TPU's default precision for an fp32 product, and writes o, dq, dk and
@@ -45,7 +50,7 @@ which is the same mask when Sq == Sk.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,22 +60,21 @@ from ._build import accum_dtype, aligned16, check, library, require, require_cud
 
 # Head dims the kernels are instantiated for, after padding D up to a
 # multiple of 16 (D=40 -> 48): SD1.5's 40/80/160, SD2.1's and SDXL's 64,
-# 128 (which the JAX defaults send to the classic kernels) and, forward
-# only and not causal, the VAE's 512.
+# 128 (which the JAX defaults send to the classic kernels) and the VAE's
+# 512 (E and F there: a D-chunked variant). Kernel A has one launch plan
+# for each, the HCP_FLASH_PLANS table of csrc/flash_attention.cu.
 PADDED_HEAD_DIMS = (48, 64, 80, 128, 160, 512)
-BWD_PADDED_HEAD_DIMS = CAUSAL_PADDED_HEAD_DIMS = (48, 64, 80, 128, 160)
 
 
-def kernel_head_dim(name: str, D: int, built: Sequence[int]) -> int:
-    """The head dim a kernel built for padded dims ``built`` runs a call of
-    head dim D at: D itself where D % 8 == 0 and D padded to a multiple of
-    16 is built (the kernel pads inside its tiles), else the smallest built
-    dim above D, to which the wrapper zero-pads the operands; raises where
-    there is none."""
-    if D % 8 == 0 and -(-D // 16) * 16 in built:
+def kernel_head_dim(name: str, D: int) -> int:
+    """The head dim the kernels run a call of head dim D at: D itself where
+    D % 8 == 0 and D padded to a multiple of 16 is built (the kernels pad
+    inside their tiles), else the smallest built dim above D, to which the
+    wrapper zero-pads the operands; raises where there is none (D > 512)."""
+    if D % 8 == 0 and -(-D // 16) * 16 in PADDED_HEAD_DIMS:
         return D
-    above = [d for d in built if d >= D]
-    require(bool(above), name, f'head dim {D} exceeds the built dims {tuple(built)}')
+    above = [d for d in PADDED_HEAD_DIMS if d >= D]
+    require(bool(above), name, f'head dim {D} exceeds the built dims {PADDED_HEAD_DIMS}')
     return min(above)
 
 
@@ -163,7 +167,7 @@ def _strides(name: str, tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
-def _kernel_operands(name: str, q, k, v, do, built, causal: bool):
+def _kernel_operands(name: str, q, k, v, do, causal: bool):
     """Check a call's tensors and return (dtype, D, Dp, operands): q, k, v
     (and dO) rounded to bf16 and zero-padded along D to the dim Dp the
     kernel runs at."""
@@ -174,7 +178,7 @@ def _kernel_operands(name: str, q, k, v, do, built, causal: bool):
     require(k.shape == (B, H, Sk, D) and v.shape == k.shape and Sk > 0, name,
             f'shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}')
     require(do is None or do.shape == q.shape, name, f'dO must be {tuple(q.shape)}')
-    Dp = kernel_head_dim(name, D, CAUSAL_PADDED_HEAD_DIMS if causal else built)
+    Dp = kernel_head_dim(name, D)
     require(B * H <= 65535, name, f'B*H={B * H} exceeds the grid limit')
     require(not causal or Sk == Sq, name,
             f'causal needs as many keys as queries (the mask is top-left aligned), '
@@ -198,7 +202,9 @@ def _like_heads(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _launch_forward(q, k, v, scale: float, causal: bool, with_lse: bool):
     name = 'flash_attention'
-    dt, D, Dp, (q, k, v, _) = _kernel_operands(name, q, k, v, None, PADDED_HEAD_DIMS, causal)
+    dt, D, Dp, (q, k, v, _) = _kernel_operands(name, q, k, v, None, causal)
+    if scale < 0:           # the kernel's running max needs scale >= 0: q (-k)^T * -scale
+        k, scale = -k, -scale
     B, H, Sq, _ = q.shape
     out = _like_heads(q, dt)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) if with_lse
@@ -235,7 +241,7 @@ def flash_attention_bwd_dq(q, k, v, lse, do, delta, scale: float,
     if q.device.type == 'cpu':
         return flash_bwd_dq_plain(q, k, v, lse, do, delta, scale, causal)
     name = 'flash_attention_bwd_dq'
-    dt, D, Dp, (q, k, v, do) = _kernel_operands(name, q, k, v, do, BWD_PADDED_HEAD_DIMS, causal)
+    dt, D, Dp, (q, k, v, do) = _kernel_operands(name, q, k, v, do, causal)
     _check_stats(name, q, lse, delta)
     B, H, Sq, _ = q.shape
     dq = _like_heads(q, dt)
@@ -255,7 +261,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale: float, causal: bool 
     if q.device.type == 'cpu':
         return flash_bwd_dkv_plain(q, k, v, lse, do, delta, scale, causal)
     name = 'flash_attention_bwd_dkv'
-    dt, D, Dp, (q, k, v, do) = _kernel_operands(name, q, k, v, do, BWD_PADDED_HEAD_DIMS, causal)
+    dt, D, Dp, (q, k, v, do) = _kernel_operands(name, q, k, v, do, causal)
     _check_stats(name, q, lse, delta)
     B, H, Sq, _ = q.shape
     dk, dv = _like_heads(k, dt), _like_heads(v, dt)

@@ -32,7 +32,7 @@ ITERS = 20
 # A, E and F at the classic route's head dims (B, H, S, D), causal and not;
 # the D=160 heads take A at the main paths' shapes already, so only E, F
 CLASSIC_SHAPES = [((2, 10, 4096, 64), True), ((2, 8, 4096, 128), True),
-                  ((8, 8, 1024, 160), False)]
+                  ((8, 8, 1024, 160), False), ((2, 1, 4096, 512), True)]
 
 
 def _time_ms(fn):
@@ -115,11 +115,14 @@ def _cases(gen):
         sc = shape[-1] ** -0.5
         for causal in (False, True):
             label = f'{list(shape)}' + (' causal' if causal else '')
-            o, lse = fa.flash_attention_lse(q, k, v, sc, causal)
+            # an lse from the plain version: a checkout whose kernels refuse
+            # this shape still times the others
+            o, lse = fa.attention_plain(q, k, v, sc, causal), fa.attention_lse_plain(q, k, sc, causal)
             bwd = (q, k, v, lse, do, fa.attention_delta(o, do), sc, causal)
-            if fwd:
+            if fwd and (shape[-1] != 512 or causal):    # A at [2,1,4096,512] is a main-path shape
                 cases[f'A {label}'] = lambda q=q, k=k, v=v, sc=sc, c=causal: fa.flash_attention(
                     q, k, v, sc, c)
+            if fwd:
                 cases[f'A+lse {label}'] = (lambda q=q, k=k, v=v, sc=sc, c=causal:
                                            fa.flash_attention_lse(q, k, v, sc, c))
             cases[f'E {label}'] = lambda bwd=bwd: fa.flash_attention_bwd_dq(*bwd)
@@ -158,7 +161,10 @@ def _cases(gen):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--tree', default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument('--only', default='',
+                    help='comma-separated label prefixes to time (e.g. "A ,A+lse"); all if empty')
     args = ap.parse_args()
+    only = tuple(p for p in args.only.split(',') if p)
     if not torch.cuda.is_available():
         print('time_kernels: no CUDA device', file=sys.stderr)
         return 2
@@ -175,7 +181,13 @@ def main() -> int:
     times = {}
     with torch.inference_mode():
         for label, fn in _cases(torch.Generator(device='cuda').manual_seed(0)).items():
-            times[label] = {'eager': _time_ms(fn)}
+            if only and not label.startswith(only):
+                continue
+            try:
+                times[label] = {'eager': _time_ms(fn)}
+            except (RuntimeError, ValueError) as e:   # a shape this checkout's kernels refuse
+                times[label] = {'eager': None, 'graph': None, 'error': str(e)[:200]}
+                continue
             try:
                 times[label]['graph'] = _graph_ms(fn)
             except RuntimeError as e:           # a wrapper this checkout cannot capture

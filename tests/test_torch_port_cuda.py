@@ -45,6 +45,9 @@ from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_
 
 ATOL, RTOL = 1e-2, 1.6e-2
 GRAD_ATOL_REL, LSE_ATOL = 1e-2, 1e-3
+# A's o at long sequences, relative L2 over the whole tensor (rounding o and
+# P to bf16 gives a few 1e-3)
+O_REL_L2 = 1e-2
 # kernel D in fp32 against its fp32 plain version: both sum in fp32 in
 # different orders (D's statistics end in double)
 GN_F32_TOL = 1e-5
@@ -119,8 +122,34 @@ def test_flash_attention_lse(gen, shape):
     assert float((lse - ref).abs().max()) <= LSE_ATOL
 
 
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('S', [1000, 4000])
+@pytest.mark.parametrize('D', fa.PADDED_HEAD_DIMS)
+def test_flash_every_plan(gen, D, S, causal):
+    """A, with and without lse, at every padded head dim it is built for
+    (each its own plan: tiles, ring, swizzle, output split), causal and
+    not, at a ragged S (the masks of the last tile and of the diagonal), on
+    head-split views of [B, S, H * D] buffers (strides, no copy). o is also
+    held to O_REL_L2 relative L2 over the whole tensor: at S = 4000 |o| is
+    ~0.02, so ATOL alone would pass an error of half of o."""
+    B, H = 1, 2
+    q, k, v = (_rn(gen, B, S, H * D).view(B, S, H, D).transpose(1, 2) for _ in range(3))
+    scale = D ** -0.5
+    counters = (flash_attention, fa.flash_attention_lse)
+    before = [c.launches for c in counters]
+    ref = attention_plain(q, k, v, scale, causal)
+    for out in (flash_attention(q, k, v, scale, causal),
+                fa.flash_attention_lse(q, k, v, scale, causal)[0]):
+        _close(out, ref)
+        assert float((out.float() - ref.float()).norm() / ref.float().norm()) <= O_REL_L2
+    _, lse = fa.flash_attention_lse(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert float((lse - fa.attention_lse_plain(q, k, scale, causal)).abs().max()) <= LSE_ATOL
+    assert [c.launches for c in counters] == [before[0] + 3, before[1] + 2]
+
+
 @pytest.mark.parametrize('shape', [(2, 8, 1024, 40), (2, 8, 1024, 80), (1, 2, 300, 40),
-                                   (1, 2, 200, 80)])
+                                   (1, 2, 200, 80), (1, 2, 300, 512)])
 def test_flash_backward_kernels(gen, shape):
     """E and F against the plain backward, with dO a head-split view as
     autograd hands it over (strides taken, no copy)."""
@@ -142,10 +171,11 @@ def test_flash_backward_kernels(gen, shape):
 
 @pytest.mark.parametrize('causal', [False, True])
 @pytest.mark.parametrize('shape', [(2, 10, 1024, 64), (1, 2, 512, 128), (2, 4, 512, 160),
-                                   (1, 2, 300, 120), (1, 2, 300, 40)])
+                                   (1, 2, 300, 120), (1, 2, 300, 40), (1, 2, 320, 512)])
 def test_flash_classic_head_dims_and_causal(gen, shape, causal):
     """A, A with lse, E and F at the head dims the classic route adds (64,
-    128, 160; 120 pads to 128) and a ragged S, causal and not, against
+    128, 160; 120 pads to 128), and at 512 (E and F's D-chunked variant),
+    and a ragged S, causal and not, against
     their plain versions; then the Function's gradients (ctx keeps causal)
     against the plain version's, differentiated in fp32."""
     B, H, S, D = shape
@@ -367,22 +397,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         mm.ln_dense(x[:, :32].contiguous(), g[:32].float(), b[:32], _rn(gen, 8, 32))
     with pytest.raises(ValueError):                               # Cin % 8 != 0
         conv3x3(_rn(gen, 1, 12, 4, 4), _rn(gen, 8, 12, 3, 3))
-    q = _rn(gen, 1, 2, 256, 512)
+    q = _rn(gen, 1, 2, 256, 576)
     lse = torch.zeros(1, 2, 256, device='cuda')
-    with pytest.raises(ValueError):                               # no backward at D=512
-        fa.flash_attention_bwd_dq(q, q, q, lse, q, lse, 1.0)
     q96 = q[..., :96]                                             # head dim 96: padded to 128
     before = flash_attention.launches
     _close(flash_attention(q96, q96, q96), attention_plain(q96, q96, q96))
-    assert flash_attention.launches == before + 1
-    with pytest.raises(ValueError):                               # causal at D=512
-        flash_attention(q, q, q, causal=True)
-    with pytest.raises(ValueError):                               # causal at D=192 (> 160)
-        flash_attention(q[..., :192], q[..., :192], q[..., :192], causal=True)
+    # a negative scale: the wrapper runs q (-k)^T * -scale
+    _close(flash_attention(q96, q96, q96, -0.1), attention_plain(q96, q96, q96, -0.1))
+    q192 = q[..., :192]                                           # causal 192: padded to 512
+    _close(flash_attention(q192, q192, q192, causal=True),
+           attention_plain(q192, q192, q192, causal=True))
+    assert flash_attention.launches == before + 3
+    for causal in (False, True):                                  # D=576 (> 512) raises
+        with pytest.raises(ValueError):
+            flash_attention(q, q, q, causal=causal)
+        with pytest.raises(ValueError):
+            fa.flash_attention_lse(q, q, q, 0.1, causal)
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_dq(q, q, q, lse, q, lse, 0.1, causal)
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd_dkv(q, q, q, lse, q, lse, 0.1, causal)
 
 
 @pytest.mark.parametrize('causal', [False, True])
-@pytest.mark.parametrize('D', [16, 20, 96, 144])
+@pytest.mark.parametrize('D', [16, 20, 96, 144, 192])
 def test_flash_padded_head_dims(gen, D, causal):
     """A, A with lse, E and F at head dims outside the built set: the
     wrapper zero-pads to the next built dim, the kernels run, and o, lse,

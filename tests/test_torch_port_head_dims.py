@@ -29,18 +29,14 @@ PAD_ATOL = 1e-6
 
 def test_kernel_head_dim_choices():
     """Built dims run as they are (the kernel pads D to a multiple of 16 in
-    its tiles); any other D pads to the next built dim; causal and the
-    backward stop at 160, the forward at 512."""
-    fwd, bwd = fa.PADDED_HEAD_DIMS, fa.BWD_PADDED_HEAD_DIMS
+    its tiles); any other D pads to the next built dim; every entry (causal,
+    lse and the backward too) stops at 512."""
     want = {16: 48, 20: 48, 40: 40, 44: 48, 80: 80, 96: 128, 120: 120, 144: 160, 160: 160,
-            192: 512, 320: 512, 512: 512}
-    assert {D: fa.kernel_head_dim('A', D, fwd) for D in want} == want
-    assert fa.kernel_head_dim('E', 144, bwd) == 160
-    for D in (192, 512):
+            192: 512, 256: 512, 320: 512, 512: 512}
+    assert {D: fa.kernel_head_dim('A', D) for D in want} == want
+    for D in (576, 640):
         with pytest.raises(ValueError):
-            fa.kernel_head_dim('E', D, bwd)
-    with pytest.raises(ValueError):
-        fa.kernel_head_dim('A', 640, fwd)
+            fa.kernel_head_dim('A', D)
 
 
 @pytest.mark.parametrize('causal', [False, True])
@@ -51,7 +47,7 @@ def test_padded_head_dim_is_exact(D, causal):
     q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(np.float32))
                    for _ in range(4))
     scale = D ** -0.5
-    Dp = fa.kernel_head_dim('E', D, fa.BWD_PADDED_HEAD_DIMS)
+    Dp = fa.kernel_head_dim('E', D)
     assert Dp > D
     qp, kp, vp, dop = (fa.pad_head_dim(t, Dp) for t in (q, k, v, do))
     assert qp.shape[-1] == Dp and bool((qp[..., D:] == 0).all())
