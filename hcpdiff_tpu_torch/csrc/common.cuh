@@ -45,6 +45,13 @@ __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// 4-byte async copy global -> shared (zero-filled when `pred` is false).
+__device__ __forceinline__ void cp_async4(uint32_t smem, const void* gmem, bool pred) {
+    int n = pred ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem), "l"(gmem), "r"(n));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
@@ -77,6 +84,13 @@ __device__ __forceinline__ void load_b(uint32_t* b, const bf16* s, int ld, int n
                                        int g, int t) {
     b[0] = ld32(s + (n0 + g) * ld + k0 + 2 * t);
     b[1] = ld32(s + (n0 + g) * ld + k0 + 8 + 2 * t);
+}
+
+// 2^x on the MUFU unit (relative error ~2^-22; -inf gives +0).
+__device__ __forceinline__ float fast_exp2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

@@ -123,30 +123,6 @@ struct Plan {
                   "shared memory");
 };
 
-__device__ __forceinline__ float fast_exp2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// Rows r0.. (< S) and columns col0..col0 + NCOL (< D) of a [S, D] matrix
-// with row stride ss into a tile of R rows at shared address dst, in the
-// SW-byte swizzled layout: blocks of R rows x P::W columns.
-template <class P, int R, int NCOL>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long ss, int r0,
-                                          int S, int col0, int D, int tid) {
-    constexpr int NC = NCOL / 8, CPB = P::W / 8, TOTAL = R * NC;
-#pragma unroll
-    for (int i = 0; i < (TOTAL + P::THREADS - 1) / P::THREADS; ++i) {
-        const int c = tid + i * P::THREADS;
-        if (TOTAL % P::THREADS != 0 && c >= TOTAL) break;
-        const int r = c / NC, cc = c % NC, d = col0 + cc * 8;
-        const bool ok = r0 + r < S && d < D;
-        const uint32_t off = (cc / CPB) * (R * P::SW) + swz_offset<P::SW>(r, cc % CPB);
-        cp_async16(dst + off, ok ? src + (r0 + r) * ss + d : src, ok);
-    }
-}
-
 template <class P, bool CAUSAL>
 __global__ void __launch_bounds__(P::THREADS, P::MINB)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -175,10 +151,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     auto load_kv = [&](int tile) {
         const uint32_t s = sKV + (tile % STAGES) * P::STAGE_BYTES;
-        load_tile<P, BKV, P::DP>(s, kb, kss, tile * BKV, Sk, 0, D, tid);
-        load_tile<P, BKV, DVC>(s + P::K_BYTES, vb, vss, tile * BKV, Sk, dc0, D, tid);
+        load_swizzled<SW, P::THREADS, BKV, P::DP>(s, kb, kss, tile * BKV, Sk, 0, D, tid);
+        load_swizzled<SW, P::THREADS, BKV, DVC>(s + P::K_BYTES, vb, vss, tile * BKV, Sk, dc0, D,
+                                                tid);
     };
-    load_tile<P, P::BQ, P::DP>(sQ, qb, qss, q0, Sq, 0, D, tid);   // with tile 0's group
+    // Q with tile 0's group
+    load_swizzled<SW, P::THREADS, P::BQ, P::DP>(sQ, qb, qss, q0, Sq, 0, D, tid);
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < nkt) load_kv(s);
@@ -261,13 +239,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         // O += P V: the S accumulators of column tiles 2jj, 2jj + 1 are the
         // A fragment of keys [16jj, 16jj + 16)
         uint32_t pa[BKV / 16][4];
-#pragma unroll
-        for (int jj = 0; jj < BKV / 16; ++jj) {
-            pa[jj][0] = pack_bf16x2(s[8 * jj + 0], s[8 * jj + 1]);
-            pa[jj][1] = pack_bf16x2(s[8 * jj + 2], s[8 * jj + 3]);
-            pa[jj][2] = pack_bf16x2(s[8 * jj + 4], s[8 * jj + 5]);
-            pa[jj][3] = pack_bf16x2(s[8 * jj + 6], s[8 * jj + 7]);
-        }
+        pack_a<BKV>(pa, s);
         // the rescaled O and the packed P are written before the fence
         fence_operands(acc);
 #pragma unroll

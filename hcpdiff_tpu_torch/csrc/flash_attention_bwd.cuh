@@ -17,213 +17,139 @@
 //
 // What bounds them on the H100: the [Sq, Sk] probabilities would be 64 MB
 // per head in fp32 at S=4096, so the plain backward is bound by device
-// memory traffic; recomputed on chip, each kernel does 3 (E) or 4 (F)
-// S*S*D products per head (causal: S(S+1)/2*D, the unmasked pairs only)
-// over O(S*D) bytes, far above the ridge, so the tensor cores and the exp
-// bound them. Both recompute P = exp(S*scale - lse) in fp32 registers from
-// a Q K^T tile, as the TPU kernels do.
+// memory traffic; recomputed on chip, E does 3 and F 4 S*S*D products per
+// head (causal: the S(S+1)/2 unmasked pairs only) over O(S*D) bytes, far
+// above the ridge, so the tensor cores bound them, and at small D (40, 80)
+// the exp2 and the fp32 arithmetic of P and dS (one MUFU op and ~4 FP32 ops
+// a pair) compete with them. Only wgmma reaches the tensor cores' full rate.
 //
-// Design, as the JAX package splits it: two kernels and no atomics, so the
-// gradients are deterministic. E grids over (query block, B*H) and loops
-// over key tiles: dP = dO V^T, dS = P * (dP - delta) * scale, dQ += dS K.
-// F grids over (key block, B*H, output-dim chunk) and loops over query
-// tiles, computing the transposed tiles S^T = K Q^T and dP^T = V dO^T so
-// that each warp owns 16 keys: dV += P^T dO and dK += dS^T Q accumulate in
-// fp32 registers. P and dS feed the second product straight from the
-// accumulator fragments (rounded to bf16), as P does in kernel A. The
-// operands of the second products are needed [d][k]-major (K for E, Q and
-// dO for F): the loading threads store them transposed into shared memory,
-// as A does for V.
+// Design: kernel A's loop (flash_attention.cu) with more products; two
+// kernels and no atomics, as the JAX package splits them, so the gradients
+// are deterministic. A block is two consumer warpgroups of 64 rows that
+// share every streamed tile, so a tile is fetched from L2 once per 128 rows.
+//   E: grid (ceil(Sq / 128), B*H). Q and dO stay resident; K and V tiles of
+//      BKV keys stream through a ring of STAGES cp.async slots. Per tile and
+//      warpgroup: S = Q K^T and dP = dO V^T by wgmma from shared memory,
+//      committed as two groups, so that P = exp2(S * scale * log2 e - lse *
+//      log2 e) is computed on S's accumulators while dP is; then
+//      dS = P * (dP - delta) in fp32; dQ += dS K by wgmma with dS from
+//      registers and the same K slot read MN-major with the transpose bit.
+//   F: grid (ceil(Sk / 128), B*H[, DP / DVC]), the mirror. K and V stay
+//      resident; Q and dO tiles of BQ queries stream through the ring with
+//      that tile's lse and delta (BQ floats each); S^T = K Q^T and
+//      dP^T = V dO^T by wgmma from shared memory (two groups, as in E),
+//      then dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers
+//      and the dO and Q slots read MN-major. Each Q and dO slot is read
+//      both ways from one copy. F splits its output dims over grid.z only
+//      where a plan's DVC < DP (none does now).
+// The ring is A's: tile j's slot is read after cp.async.wait_group,
+// fence.proxy.async and a barrier, which also frees the slot of tile j - 1
+// (each warpgroup waited for its products of j - 1 before it); the loads of
+// tile j + STAGES - 1 then refill it while tiles j.. are computed. Tiles
+// are stored in wgmma's swizzled layouts (wgmma.cuh): 128-, 64- or 32-byte
+// rows by DP, so no head dim pads past its multiple of 16. The scale
+// multiplies dQ and dK once, in the final store, not every dS. Launch plans
+// per padded head dim are the tables HCP_FLASH_DQ_PLANS
+// (flash_attention_bwd_dq.cu) and HCP_FLASH_DKV_PLANS
+// (flash_attention_bwd_dkv.cu), which tests/test_torch_port_flash_plan.py
+// reads and checks on the CPU. Registers decide F's query tile: dK and dV
+// take DVC fp32 a thread and S^T and dP^T BQ, so whole rows of outputs
+// (no grid.z split) need BQ = 48 at DP=128 and 32 at 160.
 //
-// Causal: E's key loop stops at the diagonal tile and F's query loop
-// starts there, so about half the tiles are skipped; inside the diagonal
-// tile P (and so dS) is 0 above the diagonal. The flag is a template
-// parameter, so the non-causal kernels carry no mask state.
+// Masks: P is set to 0 only on tiles that need it (the ragged last tile of
+// the streamed side and the causal diagonal). Causal: E's key loop stops at
+// the tile that holds its last query's key, F's query loop starts at the
+// tile that holds its first key, and a warpgroup skips the tiles wholly
+// masked for its own 64 rows. Rows and columns past S or D are zero-filled
+// in shared memory and never stored.
 //
 // The TPU forward's no-max clamp has no counterpart: A's running max is
 // exact, so P needs no clamp and dS no mask beyond the causal one.
 //
-// Head dims: D is zero-padded to DP = 48, 64, 80, 128, 160 or 512 inside
-// the shared tiles; pad columns are never stored. E holds a 16 x DP fp32
-// accumulator per warp (DP/2 registers a thread). F holds two (dK and dV),
-// which at DP=128 or 160 would pass 255 registers with the S and dP
-// fragments, so F's output dims are split into chunks of DVC <= 80 over
-// grid.z; each chunk recomputes S and dP over the whole DP. E at DP=160
-// takes ~109 KB of shared memory (dynamic, set by cudaFuncSetAttribute).
-//
-// DP=512 (causal attention or training at the VAE's head dim, and any D in
-// (160, 512], which the wrapper zero-pads to 512): whole-row tiles of Q,
-// dO, K and V would be 4 x 64 x 520 x 2 = 266 KB, past the 227 KB a block
-// may use. So E and F have a D-chunked variant: S and dP accumulate over
-// DC=128 columns at a time through four [64][DC + 8] shared slots
-// (chunked_abt2), and the outputs are split over grid.z (E: DVC=128, F:
-// DVC=64, so the accumulators stay in registers); each output chunk
-// recomputes S and dP, and every tile is re-read per chunk. A simple, slow
-// route for head dims no shipped model uses.
+// Head dims: the kernels are built for padded DP = 48, 64, 80, 128, 160
+// and 512. At 512 (the VAE's head dim; any D in (160, 512] is zero-padded
+// to it) the whole-row tiles do not fit a block, so E and F run the
+// D-chunked mma.sync variants of flash_attention_bwd_chunked.cu.
 //
 // Output type: dq, dk and dv are bf16, or fp32 for an fp32 call (whose q,
 // k, v and dO the wrapper rounds to bf16); a run-time flag read only in the
-// final store, after the loop.
+// final store.
 //
-// E lives in flash_attention_bwd_dq.cu and F in flash_attention_bwd_dkv.cu,
-// so the two compile in parallel; this header holds what they share.
-//
-// Simple first version: mma.sync m16n8k16, 64 x 64 tiles, single-buffered
-// cp.async, no wgmma/TMA.
+// Not yet: TMA loads, warp specialisation (a producer warp and mbarriers in
+// place of the barrier per tile), overlapping one tile's exp with the next
+// tile's products inside a warpgroup, and a Hopper design of the DP=512
+// variants.
 #pragma once
 
 #include <math.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace hcp {
 
-constexpr int BQ = 64;           // query rows per tile
-constexpr int BKV = 64;          // keys per tile
-constexpr int THREADS = 128;     // 4 warps x 16 rows
-constexpr int LDT = 64 + 8;      // padded row of a transposed [DP][64] tile
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(BQ == 64 && BKV == 64, "tile_abt, tile_xy and LDT assume 64 x 64 tiles");
 
 // (batch, head, seq) strides of the tensors, passed by value
 struct Strides15 { long long v[15]; };
 struct Strides18 { long long v[18]; };
 
-// Row-major [rows][DP] tile of rows r0.. of a [S, D] matrix (row stride
-// `ss`), zero-filled past S and past D.
-template <int DP>
-__device__ __forceinline__ void load_rows(bf16* s, const bf16* g, long long ss, int r0,
-                                          int S, int D, int rows, int tid) {
-    constexpr int LD = DP + 8;
-    for (int c = tid; c < rows * (DP / 8); c += THREADS) {
-        int r = c / (DP / 8), d = (c % (DP / 8)) * 8;
-        bool ok = r0 + r < S && d < D;
-        cp_async16(s + r * LD + d, ok ? g + (r0 + r) * ss + d : g, ok);
-    }
-}
+// A launch plan of E (DKV false) or F (DKV true): padded head dim DP,
+// rows BN of a streamed tile (E: keys, F: queries), ring stages, output
+// dims per block DVC (DP / DVC blocks over grid.z), swizzle width SW in
+// bytes, blocks an SM MINB (2 caps registers at 128 a thread).
+template <int DP_, int BN_, int STAGES_, int DVC_, int SW_, int MINB_, bool DKV>
+struct BwdPlan {
+    static constexpr int DP = DP_, BN = BN_, STAGES = STAGES_, DVC = DVC_, SW = SW_,
+                         MINB = MINB_;
+    static constexpr int BM = 128, THREADS = 256;    // resident rows: two warpgroups of 64
+    static constexpr int W = SW / 2;                 // bf16 columns in a row of one block
+    static constexpr int RES_BYTES = BM * DP * 2;    // one resident tile (E: Q, dO; F: K, V)
+    static constexpr int TILE_BYTES = BN * DP * 2;   // one streamed tile (E: K, V; F: Q, dO)
+    static constexpr int STAT_BYTES = DKV ? 2 * BN * 4 : 0;   // F: the tile's lse and delta
+    // + 1024 to align the tiles to the swizzle's period
+    static constexpr int SMEM = 2 * RES_BYTES + STAGES * (2 * TILE_BYTES + STAT_BYTES) + 1024;
+    static_assert(DP % W == 0 && DVC % W == 0 && DP % DVC == 0, "blocks must tile DP and DVC");
+    static_assert(DKV || DVC == DP, "E writes whole rows of dQ");
+    static_assert((BN == 32 || BN == 48 || BN == 64 || BN == 128) && DVC % 16 == 0 &&
+                  DVC <= 256, "wgmma N");
+    static_assert(STAGES >= 2 && SMEM <= 232448 && MINB * (SMEM + 1024) <= 233472,
+                  "shared memory");
+};
 
-// Columns [d0, d0 + DC) of the same rows stored transposed, [DC][LDT]:
-// element (r, d0 + dd) at dd * LDT + r.
-template <int DC>
-__device__ __forceinline__ void load_rows_t(bf16* s, const bf16* g, long long ss, int r0,
-                                            int S, int D, int d0, int rows, int tid) {
-    for (int c = tid; c < rows * (DC / 8); c += THREADS) {
-        int r = c / (DC / 8), dd = (c % (DC / 8)) * 8, d = d0 + dd;
-        uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < S && d < D) raw = *reinterpret_cast<const uint4*>(g + (r0 + r) * ss + d);
-        const bf16* e8 = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s[(dd + i) * LDT + r] = e8[i];
-    }
-}
-
-// acc[16 x 64] += A[16 rows at r0][DP] * B[64 rows][DP]^T, both row-major
-// in shared memory with row length LD.
-template <int DP>
-__device__ __forceinline__ void tile_abt_acc(float (&acc)[8][4], const bf16* a, const bf16* b,
-                                             int r0, int g, int t) {
-    constexpr int LD = DP + 8;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-        uint32_t af[4];
-        load_a(af, a, LD, r0, kk, g, t);
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-            uint32_t bfr[2];
-            load_b(bfr, b, LD, ni * 8, kk, g, t);
-            mma_16816(acc[ni], af, bfr);
-        }
-    }
-}
-
-// acc[16 x 64] = A[16 rows at r0][DP] * B[64 rows][DP]^T.
-template <int DP>
-__device__ __forceinline__ void tile_abt(float (&acc)[8][4], const bf16* a, const bf16* b,
-                                         int r0, int g, int t) {
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-    tile_abt_acc<DP>(acc, a, b, r0, g, t);
-}
-
-// The DP=512 kernels' S and dP: x = A1 B1^T and y = A2 B2^T for this warp's
-// 16 rows, where A1/A2 are 64 rows from ar0 (< aS) and B1/B2 64 rows from
-// br0 (< bS) of [S, D] matrices (row strides a1s.., columns >= D read as
-// 0), summed over DP columns DC at a time through the four [64][DC + 8]
-// shared tiles at sm. Each chunk starts with a barrier, so every thread's
-// reads of shared memory before the call are done when sm is rewritten.
-template <int DP, int DC>
-__device__ __forceinline__ void chunked_abt2(float (&x)[8][4], float (&y)[8][4], bf16* sm,
-                                             const bf16* a1, long long a1s, const bf16* a2,
-                                             long long a2s, int ar0, int aS, const bf16* b1,
-                                             long long b1s, const bf16* b2, long long b2s,
-                                             int br0, int bS, int D, int warp, int g, int t,
-                                             int tid) {
-    constexpr int TILE = 64 * (DC + 8);
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[ni][e] = y[ni][e] = 0.f;
-#pragma unroll 1
-    for (int c0 = 0; c0 < DP; c0 += DC) {
-        __syncthreads();              // the previous chunk's tiles fully consumed
-        load_rows<DC>(sm, a1 + c0, a1s, ar0, aS, D - c0, 64, tid);
-        load_rows<DC>(sm + TILE, a2 + c0, a2s, ar0, aS, D - c0, 64, tid);
-        load_rows<DC>(sm + 2 * TILE, b1 + c0, b1s, br0, bS, D - c0, 64, tid);
-        load_rows<DC>(sm + 3 * TILE, b2 + c0, b2s, br0, bS, D - c0, 64, tid);
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        tile_abt_acc<DC>(x, sm, sm + 2 * TILE, warp * 16, g, t);
-        tile_abt_acc<DC>(y, sm + TILE, sm + 3 * TILE, warp * 16, g, t);
-    }
-}
-
-// out[16 x DC] += X[16 x 64] * Y[64 x DC], X given as accumulator fragments
-// (fragments of n-tiles 2j, 2j+1 are the A fragment of k-block j) and Y
-// stored transposed in shared memory, [DC][LDT].
-template <int DC>
-__device__ __forceinline__ void tile_xy(float (&out)[DC / 8][4], const float (&x)[8][4],
-                                        const bf16* yt, int g, int t) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        uint32_t xa[4];
-        xa[0] = pack_bf16x2(x[2 * j][0], x[2 * j][1]);
-        xa[1] = pack_bf16x2(x[2 * j][2], x[2 * j][3]);
-        xa[2] = pack_bf16x2(x[2 * j + 1][0], x[2 * j + 1][1]);
-        xa[3] = pack_bf16x2(x[2 * j + 1][2], x[2 * j + 1][3]);
-#pragma unroll
-        for (int nd = 0; nd < DC / 8; ++nd) {
-            uint32_t yb[2];
-            load_b(yb, yt, LDT, nd * 8, j * 16, g, t);
-            mma_16816(out[nd], xa, yb);
-        }
-    }
-}
-
-// Store a warp's [16 x DC] fp32 accumulator as rows r0.. (< S) and columns
-// d0.. (< D) of the matrix at element offset `base` of gdst (row stride
-// `ss`): bf16, or fp32 when out_f32 != 0.
-template <int DC>
-__device__ __forceinline__ void store_rows(void* gdst, long long base, long long ss,
-                                           const float (&acc)[DC / 8][4], int r0, int S, int D,
-                                           int d0, int g, int t, int out_f32) {
+// Store a warpgroup's [64 x DVC] fp32 accumulator, times `mul`, as rows
+// r0.. (< S) and columns d0.. (< D) of the matrix at element offset `base`
+// of dst (row stride ss): bf16, or fp32 when out_f32 != 0. Thread (warp w,
+// g, t) holds rows r0 + 16w + g (+ 8) and columns 8n + 2t (+ 1).
+template <int DVC>
+__device__ __forceinline__ void store_acc(void* dst, long long base, long long ss,
+                                          const float (&acc)[DVC / 2], float mul, int r0, int S,
+                                          int d0, int D, int warp, int g, int t, int out_f32) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        int row = r0 + g + r * 8;
+        const int row = r0 + warp * 16 + g + r * 8;
         if (row >= S) continue;
 #pragma unroll
-        for (int nd = 0; nd < DC / 8; ++nd) {
-            int d = d0 + nd * 8 + 2 * t;
+        for (int nd = 0; nd < DVC / 8; ++nd) {
+            const int d = d0 + nd * 8 + 2 * t;
             if (d >= D) continue;
             const long long off = base + row * ss + d;
+            const float y0 = acc[nd * 4 + 2 * r] * mul, y1 = acc[nd * 4 + 2 * r + 1] * mul;
             if (out_f32)
-                store2(static_cast<float*>(gdst) + off, acc[nd][2 * r], acc[nd][2 * r + 1]);
+                store2(static_cast<float*>(dst) + off, y0, y1);
             else
-                store2(static_cast<bf16*>(gdst) + off, acc[nd][2 * r], acc[nd][2 * r + 1]);
+                store2(static_cast<bf16*>(dst) + off, y0, y1);
         }
     }
 }
+
+// The D-chunked DP=512 variants (flash_attention_bwd_chunked.cu).
+int flash_bwd_dq_512(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, void* dq, int B, int H, int Sq, int Sk,
+                     int D, const long long* strides, float scale, int causal, int out_f32,
+                     cudaStream_t s);
+int flash_bwd_dkv_512(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dk, void* dv, int B, int H,
+                      int Sq, int Sk, int D, const long long* strides, float scale, int causal,
+                      int out_f32, cudaStream_t s);
 
 }  // namespace hcp

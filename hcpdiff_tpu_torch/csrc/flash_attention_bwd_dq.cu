@@ -5,195 +5,165 @@
 namespace hcp {
 namespace {
 
-template <int DP>
-constexpr int dq_smem_bytes() {
-    return (4 * 64 * (DP + 8) + DP * LDT) * 2;
-}
+// E's launch plan per padded head dim DP below 512 (every plan: two
+// warpgroups of 64 query rows): keys per tile BKV, ring stages, output dims
+// per block DVC (E writes whole rows: DVC = DP), swizzle width SW in bytes,
+// blocks an SM MINB. Read and checked on the CPU by
+// tests/test_torch_port_flash_plan.py.
+//   X(DP, BKV, STAGES, DVC, SW, MINB)
+#define HCP_FLASH_DQ_PLANS(X)     \
+    X(48, 64, 4, 48, 32, 2)       \
+    X(64, 64, 4, 64, 128, 2)      \
+    X(80, 32, 4, 80, 32, 2)       \
+    X(128, 64, 4, 128, 128, 1)    \
+    X(160, 64, 3, 160, 64, 1)
 
-// Kernel E. grid (ceil(Sq / BQ), B * H); st holds the (batch, head, seq)
+// Kernel E. grid (ceil(Sq / 128), B * H); st holds the (batch, head, seq)
 // strides of q, k, v, dO, dQ (15 values).
-template <int DP, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS)
+template <class P, bool CAUSAL>
+__global__ void __launch_bounds__(P::THREADS, P::MINB)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     void* __restrict__ dq, int H, int Sq, int Sk, int D, Strides15 st,
                     float scale, int out_f32) {
-    constexpr int LD = DP + 8;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sdO = sQ + BQ * LD;
-    bf16* sK = sdO + BQ * LD;
-    bf16* sV = sK + BKV * LD;
-    bf16* sKt = sV + BKV * LD;        // [DP][LDT]
+    constexpr int DP = P::DP, BKV = P::BN, SW = P::SW, STAGES = P::STAGES, BM = P::BM;
+    constexpr int KB = P::W / 16;                  // k16 slices in a row of one block
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+    const uint32_t sdO = sQ + P::RES_BYTES;
+    const uint32_t sKV = sdO + P::RES_BYTES;       // ring: slot s holds K, then V
 
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const int bh = blockIdx.y, b = bh / H, h = bh % H;
-    const int q0 = blockIdx.x * BQ;
+    // causal: the last query blocks, which see the most keys, start first
+    const int qblock = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    const int q0 = qblock * BM, row0 = q0 + wg * 64;   // this warpgroup's first query
     const bf16* qb = q + b * st.v[0] + h * st.v[1];
     const bf16* kb = k + b * st.v[3] + h * st.v[4];
     const bf16* vb = v + b * st.v[6] + h * st.v[7];
     const bf16* ob = dout + b * st.v[9] + h * st.v[10];
 
-    load_rows<DP>(sQ, qb, st.v[2], q0, Sq, D, BQ, tid);
-    load_rows<DP>(sdO, ob, st.v[11], q0, Sq, D, BQ, tid);
-    cp_async_commit();
-
-    // lse (in log2 units), delta and the last key of this thread's rows
-    // g and g+8
-    float lse2[2], dl[2];
-    int last_key[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        int row = q0 + warp * 16 + g + r * 8;
-        bool ok = row < Sq;
-        lse2[r] = ok ? lse[static_cast<long long>(bh) * Sq + row] * LOG2E : 0.f;
-        dl[r] = ok ? delta[static_cast<long long>(bh) * Sq + row] : 0.f;
-        last_key[r] = CAUSAL ? min(Sk - 1, row) : Sk - 1;
-    }
-    const float scale_log2 = scale * LOG2E;
-
-    float acc[DP / 8][4];
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
     int nkt = (Sk + BKV - 1) / BKV;
-    if (CAUSAL) nkt = min(nkt, (q0 + BQ - 1) / BKV + 1);   // stop at the diagonal tile
-    for (int kt = 0; kt < nkt; ++kt) {
-        const int k0 = kt * BKV;
-        __syncthreads();              // previous tile fully consumed
-        load_rows<DP>(sK, kb, st.v[5], k0, Sk, D, BKV, tid);
-        load_rows<DP>(sV, vb, st.v[8], k0, Sk, D, BKV, tid);
+    if (CAUSAL) nkt = min(nkt, (q0 + BM - 1) / BKV + 1);   // stop at the diagonal
+
+    auto load_kv = [&](int tile) {
+        const uint32_t s = sKV + (tile % STAGES) * 2 * P::TILE_BYTES;
+        load_swizzled<SW, P::THREADS, BKV, DP>(s, kb, st.v[5], tile * BKV, Sk, 0, D, tid);
+        load_swizzled<SW, P::THREADS, BKV, DP>(s + P::TILE_BYTES, vb, st.v[8], tile * BKV, Sk,
+                                               0, D, tid);
+    };
+    // Q and dO with tile 0's group
+    load_swizzled<SW, P::THREADS, BM, DP>(sQ, qb, st.v[2], q0, Sq, 0, D, tid);
+    load_swizzled<SW, P::THREADS, BM, DP>(sdO, ob, st.v[11], q0, Sq, 0, D, tid);
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nkt) load_kv(s);
         cp_async_commit();
-        load_rows_t<DP>(sKt, kb, st.v[5], k0, Sk, D, 0, BKV, tid);
-        cp_async_wait<0>();
-        __syncthreads();
-
-        float s[8][4], dp[8][4];
-        tile_abt<DP>(s, sQ, sK, warp * 16, g, t);     // S = Q K^T
-        tile_abt<DP>(dp, sdO, sV, warp * 16, g, t);   // dP = dO V^T
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                int key = k0 + ni * 8 + 2 * t + (e & 1);
-                int r = e >> 1;
-                float p = key <= last_key[r] ? exp2f(s[ni][e] * scale_log2 - lse2[r]) : 0.f;
-                s[ni][e] = p * (dp[ni][e] - dl[r]) * scale;  // dS
-            }
-        tile_xy<DP>(acc, s, sKt, g, t);                // dQ += dS K
     }
-    store_rows<DP>(dq, b * st.v[12] + h * st.v[13], st.v[14], acc, q0 + warp * 16, Sq, D, 0,
-                   g, t, out_f32);
-}
 
-// Kernel E at DP=512 (see chunked_abt2): grid (ceil(Sq / BQ), B * H,
-// DP / DVC); block z writes the dQ columns [z * DVC, (z + 1) * DVC).
-template <int DP, int DC, int DVC>
-constexpr int dq_chunked_smem_bytes() {
-    return (4 * 64 * (DC + 8) + DVC * LDT) * 2;
-}
-
-template <int DP, int DC, int DVC, bool CAUSAL>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            void* __restrict__ dq, int H, int Sq, int Sk, int D, Strides15 st,
-                            float scale, int out_f32) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    bf16* sm = reinterpret_cast<bf16*>(smem_raw);
-    bf16* sKt = sm + 4 * 64 * (DC + 8);    // [DVC][LDT]: this block's columns of K
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int bh = blockIdx.y, b = bh / H, h = bh % H;
-    const int q0 = blockIdx.x * BQ, dc0 = blockIdx.z * DVC;
-    const bf16* qb = q + b * st.v[0] + h * st.v[1];
-    const bf16* kb = k + b * st.v[3] + h * st.v[4];
-    const bf16* vb = v + b * st.v[6] + h * st.v[7];
-    const bf16* ob = dout + b * st.v[9] + h * st.v[10];
-
+    // lse (log2 units) and delta of rows g, g + 8, and the last key row g
+    // may see (row g + 8: 8 more under causal). A row past Sq sees keys
+    // past Sk under causal, whose zero-filled K and V rows add nothing; its
+    // dQ is never stored.
     float lse2[2], dl[2];
-    int last_key[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-        int row = q0 + warp * 16 + g + r * 8;
-        bool ok = row < Sq;
+        const int row = row0 + warp * 16 + g + r * 8;
+        const bool ok = row < Sq;
         lse2[r] = ok ? lse[static_cast<long long>(bh) * Sq + row] * LOG2E : 0.f;
         dl[r] = ok ? delta[static_cast<long long>(bh) * Sq + row] : 0.f;
-        last_key[r] = CAUSAL ? min(Sk - 1, row) : Sk - 1;
     }
+    const int last_key = CAUSAL ? row0 + warp * 16 + g : Sk - 1;
     const float scale_log2 = scale * LOG2E;
 
-    float acc[DVC / 8][4];
+    // this warpgroup's 64 rows of Q and dO, K-major
+    const uint64_t qd = smem_desc<SW>(sQ + wg * 64 * SW, 16, 8 * SW);
+    const uint64_t od = smem_desc<SW>(sdO + wg * 64 * SW, 16, 8 * SW);
+    float acc[DP / 2];
 #pragma unroll
-    for (int j = 0; j < DVC / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
-    int nkt = (Sk + BKV - 1) / BKV;
-    if (CAUSAL) nkt = min(nkt, (q0 + BQ - 1) / BKV + 1);
-    for (int kt = 0; kt < nkt; ++kt) {
-        const int k0 = kt * BKV;
-        float s[8][4], dp[8][4];
-        chunked_abt2<DP, DC>(s, dp, sm, qb, st.v[2], ob, st.v[11], q0, Sq, kb, st.v[5], vb,
-                             st.v[8], k0, Sk, D, warp, g, t, tid);   // S = Q K^T, dP = dO V^T
+    for (int j = 0; j < nkt; ++j) {
+        cp_async_wait<STAGES - 2>();   // this thread's copies of tile j have landed
+        fence_proxy_async();
+        __syncthreads();               // everyone's have; every product of tile j - 1 is done
+        if (j + STAGES - 1 < nkt) load_kv(j + STAGES - 1);
+        cp_async_commit();
+        const int k0 = j * BKV;
+        if (CAUSAL && k0 > row0 + 63) continue;   // no key of this tile is visible here
+
+        const uint32_t sK = sKV + (j % STAGES) * 2 * P::TILE_BYTES;
+        const uint64_t kd = smem_desc<SW>(sK, 16, 8 * SW);
+        const uint64_t vd = smem_desc<SW>(sK + P::TILE_BYTES, 16, 8 * SW);
+        const uint64_t kt = smem_desc<SW>(sK, BKV * SW, 8 * SW);   // K MN-major: N = DP
+
+        // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows x BKV keys,
+        // two groups: P's exp runs while dP is computed
+        float s[BKV / 2], dp[BKV / 2];
+        wgmma_fence();
 #pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
+        for (int kk = 0; kk < DP / 16; ++kk)   // slice kk: block kk / KB, 32 B per slice in it
+            Wgmma<BKV>::mma(s, qd + (kk / KB) * (BM * SW / 16) + (kk % KB) * 2,
+                            kd + (kk / KB) * (BKV * SW / 16) + (kk % KB) * 2, kk > 0);
+        wgmma_commit();
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                int key = k0 + ni * 8 + 2 * t + (e & 1);
-                int r = e >> 1;
-                float p = key <= last_key[r] ? exp2f(s[ni][e] * scale_log2 - lse2[r]) : 0.f;
-                s[ni][e] = p * (dp[ni][e] - dl[r]) * scale;  // dS
-            }
-        // sKt's last reads (the previous tile) precede chunked_abt2's barriers
-        load_rows_t<DVC>(sKt, kb, st.v[5], k0, Sk, D, dc0, BKV, tid);
-        __syncthreads();
-        tile_xy<DVC>(acc, s, sKt, g, t);                // dQ += dS K
+        for (int kk = 0; kk < DP / 16; ++kk)
+            Wgmma<BKV>::mma(dp, od + (kk / KB) * (BM * SW / 16) + (kk % KB) * 2,
+                            vd + (kk / KB) * (BKV * SW / 16) + (kk % KB) * 2, kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_operands(s);
+
+        // P, then dS / scale, on the accumulators: element i is row g + 8 *
+        // ((i / 2) % 2), key k0 + (i / 4) * 8 + 2t + i % 2
+        const bool masked = k0 + BKV > Sk || (CAUSAL && k0 + BKV - 1 > row0);
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            s[i] = fast_exp2(fmaf(s[i], scale_log2, -lse2[r]));
+            if (masked && k0 + (i / 4) * 8 + 2 * t + (i & 1) > last_key + (CAUSAL ? 8 * r : 0))
+                s[i] = 0.f;
+        }
+        wgmma_wait<0>();
+        fence_operands(dp);
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) s[i] *= dp[i] - dl[(i >> 1) & 1];
+
+        // dQ += dS K: dS from registers, K read MN-major (keys 16jj..: 16
+        // rows of SW bytes further)
+        uint32_t da[BKV / 16][4];
+        pack_a<BKV>(da, s);
+        fence_operands(acc);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) fence_operands(da[jj]);
+        wgmma_fence();
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) WgmmaRS<DP>::mma(acc, da[jj], kt + jj * SW);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 16; ++jj) fence_operands(da[jj]);
     }
-    store_rows<DVC>(dq, b * st.v[12] + h * st.v[13], st.v[14], acc, q0 + warp * 16, Sq, D, dc0,
-                    g, t, out_f32);
+    cp_async_wait<0>();
+    store_acc<DP>(dq, b * st.v[12] + h * st.v[13], st.v[14], acc, scale, row0, Sq, 0, D, warp,
+                  g, t, out_f32);
 }
 
-template <int DP, int DC, int DVC>
-int launch_dq_chunked(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, void* dq, int B, int H, int Sq, int Sk,
-                      int D, const long long* strides, float scale, int causal, int out_f32,
-                      cudaStream_t s) {
-    constexpr int smem = dq_chunked_smem_bytes<DP, DC, DVC>();
-    auto kern = causal ? flash_bwd_dq_chunked_kernel<DP, DC, DVC, true>
-                       : flash_bwd_dq_chunked_kernel<DP, DC, DVC, false>;
+template <class P>
+int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dq, int B, int H, int Sq, int Sk, int D,
+           const long long* strides, float scale, int causal, int out_f32, cudaStream_t s) {
+    auto kern = causal ? flash_bwd_dq_kernel<P, true> : flash_bwd_dq_kernel<P, false>;
     cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     Strides15 st;
     for (int i = 0; i < 15; ++i) st.v[i] = strides[i];
-    dim3 grid((Sq + BQ - 1) / BQ, B * H, DP / DVC);
-    kern<<<grid, THREADS, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(dout), lse, delta, dq, H, Sq, Sk, D, st, scale, out_f32);
-    return static_cast<int>(cudaGetLastError());
-}
-
-template <int DP>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-              const float* delta, void* dq, int B, int H, int Sq, int Sk, int D,
-              const long long* strides, float scale, int causal, int out_f32,
-              cudaStream_t s) {
-    constexpr int smem = dq_smem_bytes<DP>();
-    auto kern = causal ? flash_bwd_dq_kernel<DP, true> : flash_bwd_dq_kernel<DP, false>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    Strides15 st;
-    for (int i = 0; i < 15; ++i) st.v[i] = strides[i];
-    dim3 grid((Sq + BQ - 1) / BQ, B * H);
-    kern<<<grid, THREADS, smem, s>>>(
+    dim3 grid((Sq + P::BM - 1) / P::BM, B * H);
+    kern<<<grid, P::THREADS, P::SMEM, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), lse, delta, dq, H, Sq, Sk, D, st, scale, out_f32);
     return static_cast<int>(cudaGetLastError());
@@ -218,19 +188,16 @@ extern "C" int hcp_flash_bwd_dq(const void* q, const void* k, const void* v, con
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* l = static_cast<const float*>(lse);
     const float* dl = static_cast<const float*>(delta);
-#define HCP_DQ(DP) \
-    launch_dq<DP>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, strides, scale, causal, out_f32, s)
+#define HCP_DQ_CASE(DP, BKV, STAGES, DVC, SW, MINB)                                        \
+    case DP:                                                                               \
+        return launch<BwdPlan<DP, BKV, STAGES, DVC, SW, MINB, false>>(                     \
+            q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, strides, scale, causal, out_f32, s);
     switch ((D + 15) / 16 * 16) {
-        case 48: return HCP_DQ(48);
-        case 64: return HCP_DQ(64);
-        case 80: return HCP_DQ(80);
-        case 128: return HCP_DQ(128);
-        case 160: return HCP_DQ(160);
+        HCP_FLASH_DQ_PLANS(HCP_DQ_CASE)
         case 512:
-            return launch_dq_chunked<512, 128, 128>(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
-                                                    strides, scale, causal, out_f32, s);
+            return flash_bwd_dq_512(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, strides, scale,
+                                    causal, out_f32, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
-#undef HCP_DQ
+#undef HCP_DQ_CASE
 }
-

@@ -1,5 +1,6 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a) over swizzled
-// shared-memory tiles, for kernels J (conv.cu) and A (flash_attention.cu).
+// shared-memory tiles, for kernels J (conv.cu), A (flash_attention.cu) and
+// E and F (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu).
 //
 // Layouts. A tile of R rows is stored as blocks of R rows x SW bytes (SW =
 // 128, 64 or 32: 64, 32 or 16 bf16 columns), each block at an address
@@ -24,7 +25,8 @@
 //     K); the 16-deep slice k starts 16 * k rows into the tile.
 //
 // Wgmma<N>::mma(d, a, b, scale_d): d[64 x N] (+)= A[64 x 16] * B[N x 16]^T,
-// A and B both K-major in shared memory; scale_d = 0 ignores d's old value.
+// A and B both K-major in shared memory (N 32, 48, 64, 128, 160);
+// scale_d = 0 ignores d's old value.
 // WgmmaRS<N>::mma(d, a, b): d[64 x N] += A[64 x 16] * B[16 x N], A from
 // registers (the mma.sync m16n8k16 A fragment of each warp's 16 rows: a0 =
 // (g, 2q..2q+1), a1 = (g+8, ..), a2 = (g, 2q+8..), a3 = (g+8, 2q+8..)), B
@@ -73,6 +75,26 @@ __device__ __forceinline__ void wgmma_wait() {
     asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Rows r0.. (< S) and columns col0..col0 + NCOL (< D) of a [S, D] bf16
+// matrix with row stride ss into a tile of R rows at shared address dst,
+// in the SW-byte swizzled layout (blocks of R rows x SW / 2 columns, block
+// stride R * SW), by THREADS threads with 16-byte cp.async; zero-filled
+// past S and past D.
+template <int SW, int THREADS, int R, int NCOL>
+__device__ __forceinline__ void load_swizzled(uint32_t dst, const bf16* src, long long ss,
+                                              int r0, int S, int col0, int D, int tid) {
+    constexpr int NC = NCOL / 8, CPB = SW / 16, TOTAL = R * NC;
+#pragma unroll
+    for (int i = 0; i < (TOTAL + THREADS - 1) / THREADS; ++i) {
+        const int c = tid + i * THREADS;
+        if (TOTAL % THREADS != 0 && c >= TOTAL) break;
+        const int r = c / NC, cc = c % NC, d = col0 + cc * 8;
+        const bool ok = r0 + r < S && d < D;
+        const uint32_t off = (cc / CPB) * (R * SW) + swz_offset<SW>(r, cc % CPB);
+        cp_async16(dst + off, ok ? src + (r0 + r) * ss + d : src, ok);
+    }
+}
+
 // Keep the compiler from moving reads or writes of accumulator (or
 // register-A) registers across an asynchronous product still in flight.
 template <int R>
@@ -102,6 +124,24 @@ struct Wgmma<32> {
             : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
               "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
               "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct Wgmma<48> {
+    __device__ __forceinline__ static void mma(float (&d)[24], uint64_t a, uint64_t b,
+                                               int scale_d = 1) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+            "%16, %17, %18, %19, %20, %21, %22, %23"
+            "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+              "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+              "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+              "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
             : "l"(a), "l"(b), "r"(scale_d));
     }
 };
@@ -183,6 +223,20 @@ struct Wgmma<160> {
             : "l"(a), "l"(b), "r"(scale_d));
     }
 };
+
+// WgmmaRS's A operand from a [64 x N] fp32 accumulator, rounded to bf16:
+// the accumulators of column tiles 2j, 2j + 1 are exactly the A fragment of
+// the k16 slice j (the warpgroup's rows, columns 16j..16j + 15 as depth).
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+        a[j][0] = pack_bf16x2(x[8 * j + 0], x[8 * j + 1]);
+        a[j][1] = pack_bf16x2(x[8 * j + 2], x[8 * j + 3]);
+        a[j][2] = pack_bf16x2(x[8 * j + 4], x[8 * j + 5]);
+        a[j][3] = pack_bf16x2(x[8 * j + 6], x[8 * j + 7]);
+    }
+}
 
 template <int N>
 struct WgmmaRS;

@@ -28,8 +28,10 @@ So on a CUDA tensor every entry takes any D <= 512, causal or not; a D >
 
 Kernel A's launch plan per padded head dim (key tile, ring stages, output
 split, swizzle, blocks an SM) is the ``HCP_FLASH_PLANS`` table of
-``csrc/flash_attention.cu``, which ``tests/test_torch_port_flash_plan.py``
-reads and checks on the CPU.
+``csrc/flash_attention.cu``; E's and F's (below 512; at 512 they run the
+D-chunked variants of ``csrc/flash_attention_bwd_chunked.cu``) are
+``HCP_FLASH_DQ_PLANS`` and ``HCP_FLASH_DKV_PLANS``. All three are read and
+checked on the CPU by ``tests/test_torch_port_flash_plan.py``.
 
 Types: bf16 or fp32 tensors. An fp32 call rounds q, k, v (and dO) to bf16,
 the TPU's default precision for an fp32 product, and writes o, dq, dk and
@@ -62,7 +64,8 @@ from ._build import accum_dtype, aligned16, check, library, require, require_cud
 # multiple of 16 (D=40 -> 48): SD1.5's 40/80/160, SD2.1's and SDXL's 64,
 # 128 (which the JAX defaults send to the classic kernels) and the VAE's
 # 512 (E and F there: a D-chunked variant). Kernel A has one launch plan
-# for each, the HCP_FLASH_PLANS table of csrc/flash_attention.cu.
+# for each, the HCP_FLASH_PLANS table of csrc/flash_attention.cu, and E
+# and F one below 512 (HCP_FLASH_DQ_PLANS, HCP_FLASH_DKV_PLANS).
 PADDED_HEAD_DIMS = (48, 64, 80, 128, 160, 512)
 
 

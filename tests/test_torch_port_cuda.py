@@ -23,8 +23,9 @@ Gradients: kernels E and F round P and dS to bf16 before their second
 tensor-core product (relative 2^-9 each) and sum up to Sk or Sq such
 terms, which the fp32 plain backward does not; an element near zero can
 then miss the bound above by more than its own size, so they are held to
-|kernel - plain| <= GRAD_ATOL_REL * max|plain| + RTOL * |plain|. The lse
-is fp32 on both sides: LSE_ATOL.
+|kernel - plain| <= GRAD_ATOL_REL * max|plain| + RTOL * |plain|, and
+``test_flash_backward_every_plan`` also holds each whole gradient to
+GRAD_REL_L2 relative L2 error. The lse is fp32 on both sides: LSE_ATOL.
 """
 import copy
 
@@ -45,6 +46,11 @@ from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_
 
 ATOL, RTOL = 1e-2, 1.6e-2
 GRAD_ATOL_REL, LSE_ATOL = 1e-2, 1e-3
+# E and F's dq, dk and dv, relative L2 over the whole tensor: the larger of
+# 1e-2 and twice the worst value of the mma.sync kernels E and F replaced,
+# 2.73e-3 at every shape here and in chip_smoke.py (tools/bwd_errors.py on
+# that checkout, H100 80GB HBM3); so 1e-2
+GRAD_REL_L2 = 1e-2
 # A's o at long sequences, relative L2 over the whole tensor (rounding o and
 # P to bf16 gives a few 1e-3)
 O_REL_L2 = 1e-2
@@ -80,6 +86,11 @@ def _close(out, ref):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     assert bool((err <= ATOL + RTOL * ref.float().abs()).all()), float(err.max())
+
+
+def _grad_rel_l2(out, ref):
+    """Relative L2 error of a gradient on the card against its plain version."""
+    return float((out.float() - ref.float()).norm() / ref.float().norm())
 
 
 def _close_grad(out, ref):
@@ -170,6 +181,33 @@ def test_flash_backward_kernels(gen, shape):
 
 
 @pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('S', [1000, 4000])
+@pytest.mark.parametrize('D', fa.PADDED_HEAD_DIMS)
+def test_flash_backward_every_plan(gen, D, S, causal):
+    """E and F at every padded head dim they are built for (each its own
+    plan: tiles, ring, swizzle, output split; 512 the D-chunked variants),
+    causal and not, at a ragged S (the masks of the last tile and of the
+    diagonal), on head-split views of [B, S, H * D] buffers for q, k, v and
+    dO (strides, no copy), against the plain backward: each gradient
+    within _close_grad and within GRAD_REL_L2 relative L2 over the whole
+    tensor; one launch of E and one of F a call."""
+    B, H = 1, 2
+    q, k, v, do = (_rn(gen, B, S, H * D).view(B, S, H, D).transpose(1, 2) for _ in range(4))
+    scale = D ** -0.5
+    o, lse = fa.flash_attention_lse(q, k, v, scale, causal)
+    delta = fa.attention_delta(o, do)
+    counters = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, scale, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale, causal)
+    assert [c.launches for c in counters] == [before[0] + 1, before[1] + 1]
+    for out, ref in zip((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                                         scale, causal)):
+        _close_grad(out, ref)
+        assert _grad_rel_l2(out, ref) <= GRAD_REL_L2
+
+
+@pytest.mark.parametrize('causal', [False, True])
 @pytest.mark.parametrize('shape', [(2, 10, 1024, 64), (1, 2, 512, 128), (2, 4, 512, 160),
                                    (1, 2, 300, 120), (1, 2, 300, 40), (1, 2, 320, 512)])
 def test_flash_classic_head_dims_and_causal(gen, shape, causal):
@@ -208,7 +246,8 @@ def test_flash_classic_head_dims_and_causal(gen, shape, causal):
 
 def test_flash_causal_needs_as_many_keys_as_queries(gen):
     """The kernels' causal mask is top-left aligned, so causal with Sq != Sk
-    raises; without causal, Sq != Sk runs."""
+    raises; without causal, Sq != Sk runs, forward and backward (E streams
+    Sk keys, F Sq queries), with more queries than keys and fewer."""
     q, kv = _rn(gen, 1, 2, 256, 64), _rn(gen, 1, 2, 128, 64)
     lse = torch.zeros(1, 2, 256, device='cuda')
     with pytest.raises(ValueError):
@@ -220,6 +259,15 @@ def test_flash_causal_needs_as_many_keys_as_queries(gen):
     with pytest.raises(ValueError):
         fa.flash_attention_bwd_dkv(q, kv, kv, lse, q, lse, 0.125, causal=True)
     _close(flash_attention(q, kv, kv), attention_plain(q, kv, kv))
+    for q, kv in ((q, kv), (kv, q)):
+        do = _rn(gen, *q.shape)
+        o, lse = fa.flash_attention_lse(q, kv, kv, 0.125)
+        delta = fa.attention_delta(o, do)
+        got = (fa.flash_attention_bwd_dq(q, kv, kv, lse, do, delta, 0.125),
+               *fa.flash_attention_bwd_dkv(q, kv, kv, lse, do, delta, 0.125))
+        for out, ref in zip(got, fa.flash_attention_backward_plain(q, kv, kv, o, lse, do,
+                                                                    0.125)):
+            _close_grad(out, ref)
 
 
 def _grads(fn, args, g):

@@ -1,13 +1,16 @@
-"""Kernel A's launch plans, E and F's D=512 chunking, and the plain
-versions the D=512 kernels are held to, on the CPU.
+"""The launch plans of kernels A, E and F, E and F's D=512 chunking, and
+the plain versions the D=512 kernels are held to, on the CPU.
 
 The plans are data in the CUDA sources: ``csrc/flash_attention.cu``'s
-HCP_FLASH_PLANS table (one row per padded head dim) and the template
-arguments of E and F's D-chunked launches, read here from the source. Each
-plan must fit the card: shared memory (with the blocks an SM it asks for),
-wgmma's N, swizzle blocks that tile the head dim, an output split that
-covers it exactly. A plan serves the causal and non-causal instances, with
-or without lse (a run-time flag). Then the plain versions (what
+HCP_FLASH_PLANS table, ``csrc/flash_attention_bwd_dq.cu``'s
+HCP_FLASH_DQ_PLANS and ``csrc/flash_attention_bwd_dkv.cu``'s
+HCP_FLASH_DKV_PLANS (one row per padded head dim; E and F below 512), and
+the template arguments of E and F's D-chunked launches, read here from the
+source. Each plan must fit the card: shared memory (with the blocks an SM
+it asks for), wgmma's N, swizzle blocks that tile the head dim, an output
+split that covers it exactly. A plan serves the causal and non-causal
+instances (and A's with or without lse, a run-time flag). Then the plain
+versions (what
 chip_smoke.py and the card tests hold the D=512 kernels against) against
 the JAX package's ``_flash_forward_lse`` and ``_flash_backward`` at
 [1, 1, 128, 512], causal and not, in Pallas interpret mode, in fp32: 1e-4
@@ -25,6 +28,10 @@ from hcpdiff_tpu_torch.ops import flash_attention as fa
 
 CSRC = Path(fa.__file__).resolve().parent.parent / 'csrc'
 WGMMA_N = range(8, 257, 8)       # wgmma m64nNk16 with bf16 operands
+# the N each instantiated product has in csrc/wgmma.cuh: Wgmma (both
+# operands in shared memory) and WgmmaRS (A from registers)
+WGMMA_SS_N = (32, 48, 64, 128, 160)
+WGMMA_RS_N = (48, 64, 80, 128, 160, 256)
 SWIZZLES = (32, 64, 128)
 MAX_SMEM = 232448                # 227 KB: the most shared memory a block may use
 SM_SMEM = 233472                 # 228 KB an SM, of which each block takes 1 KB more
@@ -34,15 +41,20 @@ BQ = 128                         # query rows a block: two warpgroups of 64
 Plan = namedtuple('Plan', 'dp bkv stages dvc swizzle min_blocks')
 
 
-def _plans():
-    """{DP: Plan} from the rows X(DP, BKV, STAGES, DVC, SW, MINB) of
-    HCP_FLASH_PLANS."""
-    src = (CSRC / 'flash_attention.cu').read_text()
-    table = src[src.index('#define HCP_FLASH_PLANS'):]
+def _plans(source='flash_attention.cu', table='HCP_FLASH_PLANS'):
+    """{DP: Plan} from the rows X(DP, BKV, STAGES, DVC, SW, MINB) of a plan
+    table (E and F's: X(DP, BKV or BQ, STAGES, DVC, SW, MINB))."""
+    src = (CSRC / source).read_text()
+    table = src[src.index('#define ' + table + '('):]
     table = table[:table.index('\n\n')]
     rows = [Plan(*map(int, row)) for row in
             re.findall(r'X\(' + ', '.join([r'(\d+)'] * 6) + r'\)', table)]
     return {p.dp: p for p in rows}
+
+
+BWD_TABLES = {'E': ('flash_attention_bwd_dq.cu', 'HCP_FLASH_DQ_PLANS'),
+              'F': ('flash_attention_bwd_dkv.cu', 'HCP_FLASH_DKV_PLANS')}
+BWD_DIMS = tuple(d for d in fa.PADDED_HEAD_DIMS if d < 512)   # 512: the chunked variants
 
 
 def _smem_bytes(p):
@@ -78,6 +90,47 @@ def test_flash_plan_fits_the_card(dp):
     assert dp % p.dvc == 0
     # every tile starts on the swizzle's 1024-byte period
     assert all(n % 1024 == 0 for n in (BQ * dp * 2, p.bkv * dp * 2, p.bkv * p.dvc * 2))
+    assert p.stages >= 2
+
+
+def _bwd_smem_bytes(kernel, p):
+    """As the kernels' BwdPlan::SMEM: two resident tiles of 128 rows (E: Q
+    and dO; F: K and V), the ring (each slot two streamed tiles, E: K and V,
+    F: Q and dO, and F's lse and delta, 4 bytes a query each) and 1024
+    bytes to align the tiles to the swizzle's period."""
+    stat = 2 * p.bkv * 4 if kernel == 'F' else 0
+    return 2 * BQ * p.dp * 2 + p.stages * (2 * p.bkv * p.dp * 2 + stat) + 1024
+
+
+@pytest.mark.parametrize('kernel', ['E', 'F'])
+def test_every_backward_head_dim_has_one_plan(kernel):
+    source, table = BWD_TABLES[kernel]
+    assert tuple(sorted(_plans(source, table))) == BWD_DIMS
+    assert len(re.findall(r'\n    X\(', (CSRC / source).read_text())) == len(BWD_DIMS)
+
+
+@pytest.mark.parametrize('dp', BWD_DIMS)
+@pytest.mark.parametrize('kernel', ['E', 'F'])
+def test_backward_plan_fits_the_card(kernel, dp):
+    """E and F's plan at DP: shared memory, with MINB blocks an SM; the
+    streamed tile is the N of the first products (S, dP: Wgmma) and the
+    depth of the second (k16 slices); the output chunk DVC is the N of the
+    second (WgmmaRS) and divides DP (E: whole rows); the swizzle is the
+    widest that tiles DP and DVC; F splits no output at DP <= 80."""
+    p = _plans(*BWD_TABLES[kernel])[dp]
+    smem = _bwd_smem_bytes(kernel, p)
+    assert smem <= MAX_SMEM
+    assert p.min_blocks in (1, 2) and p.min_blocks * (smem + 1024) <= SM_SMEM
+    assert p.bkv in WGMMA_SS_N and p.bkv % 16 == 0
+    assert p.dvc in WGMMA_RS_N and dp % p.dvc == 0
+    assert p.dvc == dp if kernel == 'E' or dp <= 80 else p.dvc <= dp
+    assert p.swizzle in SWIZZLES
+    width = p.swizzle // 2
+    assert dp % width == 0 and p.dvc % width == 0
+    assert all(dp % (s // 2) or p.dvc % (s // 2) for s in SWIZZLES if s > p.swizzle)
+    # every tile (and F's lse/delta after the ring) starts on the swizzle's
+    # 1024-byte period
+    assert all(n % 1024 == 0 for n in (BQ * dp * 2, p.bkv * dp * 2, 64 * p.swizzle))
     assert p.stages >= 2
 
 
