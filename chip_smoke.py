@@ -40,7 +40,11 @@ package is missing. Phases, each fatal on failure:
    the same function where there is one (library_ms, a yardstick the port
    never calls); each record has its bound (bound_ms: the larger of the
    bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
-   bf16, or 67 TFLOP/s fp32 outside the tensor cores);
+   bf16, or 67 TFLOP/s fp32 outside the tensor cores); B and C (with the
+   block residual) at every transformer level of a batch-4 request and at
+   the 64x64 (B) and 16x16 (C, a split grid) levels of the batch-2
+   requests this script drives, each also beside F.linear on the same product (linear_ms: the product
+   alone, since no single call computes B, or C with a residual);
 7b. the same for A, A with lse, E and F at the shapes of the TPU's
    classic-layout kernels (#2 _flash_kernel, #4 _flash_kernel_lse, #6
    _flash_bwd_dq/dkv_kernel), causal and not: [2, 10, 4096, 64] (SDXL's
@@ -433,11 +437,13 @@ def _record(name, source, replaces, launches, per_shape, tolerance, **extra):
             'tolerance': tolerance, 'shapes': per_shape, **extra}
 
 
-def _measure(label, kernel, plain, args, ok_fn, what, work, library=None):
+def _measure(label, kernel, plain, args, ok_fn, what, work, library=None, yardsticks=None):
     """Run, compare (ok_fn(out, ref) -> (ok, max_abs_err)) and time a kernel
     and its plain version on the same inputs, and `library` (one PyTorch
     call that computes the same function) where there is one; `work` is
-    the shape's (bound_ms, bound_by)."""
+    the shape's (bound_ms, bound_by); `yardsticks` ({key: call}) are timed
+    beside it under their keys (a part of the function, e.g. its product
+    alone)."""
     out, ref = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     outs = out if isinstance(out, tuple) else (out,)
@@ -448,12 +454,14 @@ def _measure(label, kernel, plain, args, ok_fn, what, work, library=None):
     ms = time_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args))
     library_ms = None if library is None else _time_library(library, f'{what} {label}')
+    extra = {key: time_ms(fn) for key, fn in (yardsticks or {}).items()}
     bound_ms, bound_by = work
     log(f'kernel {what} {label}: max_abs_err {max_err:.4g} kernel {ms:.4f} ms '
-        f'plain {plain_ms:.4f} ms library {library_ms} ms bound {bound_ms:.4f} ms ({bound_by})')
+        f'plain {plain_ms:.4f} ms library {library_ms} ms bound {bound_ms:.4f} ms ({bound_by})'
+        + ''.join(f' {k} {v:.4f} ms' for k, v in extra.items()))
     check(all(oks), f'{what} {label} disagrees with its plain version: {max_err}')
     return {'shape': label, 'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
-            'library_ms': library_ms, 'bound_ms': bound_ms, 'bound_by': bound_by}
+            'library_ms': library_ms, 'bound_ms': bound_ms, 'bound_by': bound_by, **extra}
 
 
 def _within(out, ref):
@@ -504,18 +512,20 @@ def _rn_on(gen):
 
 def _run_cases(cases, launches, extra_launches):
     """cases: name -> (source, TPU kernels replaced, kernel, plain, ok_fn,
-    tolerance, [(label, args, work, library)]); launches: the main path's
-    counts; extra_launches: {label: counts} of the other paths."""
+    tolerance, [(label, args, work, library[, yardsticks])]); launches: the
+    main path's counts; extra_launches: {label: counts} of the other paths."""
     records = []
     for name, (source, replaces, kernel, plain, ok_fn, tol, shapes) in cases.items():
-        per_shape = [_measure(label, kernel, plain, args, ok_fn, name, work, library)
-                     for label, args, work, library in shapes]
+        per_shape = [_measure(label, kernel, plain, args, ok_fn, name, work, library, *more)
+                     for label, args, work, library, *more in shapes]
         records.append(_record(name, source, replaces, launches[name], per_shape, tol,
                                **{f'launches_{k}': v[name] for k, v in extra_launches.items()}))
     return records
 
 
 TOL = {'atol': ATOL, 'rtol': RTOL}
+# (S, C) of the UNet's transformer levels: 64x64, 32x32, 16x16 and the 8x8 mid block
+FFN_LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 O_TOL = {**TOL, 'o_rel_l2': O_REL_L2}          # kernel A's o
 
 
@@ -548,6 +558,18 @@ def kernel_phase(launches):
         return (f'q/k/v {list(s)}', [q, k, v], attention_work(*s),
                 lambda: F.scaled_dot_product_attention(q, k, v))
 
+    def ffn(kind, M, K, rows):
+        """B, or C with the block residual, at one transformer level;
+        F.linear times the product alone (linear_ms)."""
+        x, w, b = rn(M, K), rn(rows, K, scale=K ** -0.5), rn(rows)
+        if kind == 'B':
+            return (f'x [{M}, {K}], w [{rows}, {K}]', [x, w, b],
+                    gemm_work(M, K, rows, rows // 2, bias=rows), None,
+                    {'linear_ms': lambda: F.linear(x, w, b)})
+        return (f'x [{M}, {K}], w [{rows}, {K}], res', [x, w, b, rn(M, rows)],
+                gemm_work(M, K, rows, rows, bias=rows, res=True), None,
+                {'linear_ms': lambda: F.linear(x, w, b)})
+
     x_in, w_in, b_in = rn(32768, 320), rn(320, 320, scale=320 ** -0.5), rn(320)
     cases = {
         'flash_attention': (
@@ -555,17 +577,14 @@ def kernel_phase(launches):
             flash_attention, attention_plain, _within_rel, O_TOL,
             [attn(s) for s in ((4, 8, 4096, 40), (4, 8, 1024, 80), (2, 1, 4096, 512))]),
         'geglu_dense': (
-            CSRC + 'gemm.cu', [MM + '301'], geglu_dense, geglu_dense_plain, _within, TOL,
-            [(f'x [{M}, 320], w [2560, 320]',
-              [rn(M, 320), rn(2560, 320, scale=320 ** -0.5), rn(2560)],
-              gemm_work(M, 320, 2560, 1280, bias=2560), None) for M in (16384, 32768)]),
+            CSRC + 'gemm_wgmma.cu', [MM + '301'], geglu_dense, geglu_dense_plain, _within, TOL,
+            [ffn('B', 8 * S, C, 8 * C) for S, C in FFN_LEVELS] + [ffn('B', 16384, 320, 2560)]),
         'fused_dense': (
-            CSRC + 'gemm.cu', [MM + '87', MM + '66'], fused_dense, fused_dense_plain, _within, TOL,
-            [('x [1024, 5120], w [1280, 5120], res',
-              [rn(1024, 5120), rn(1280, 5120, scale=5120 ** -0.5), rn(1280), rn(1024, 1280)],
-              gemm_work(1024, 5120, 1280, 1280, bias=1280, res=True), None),
-             ('x [32768, 320], w [320, 320] (proj_in, no res)', [x_in, w_in, b_in],
-              gemm_work(32768, 320, 320, 320, bias=320), lambda: F.linear(x_in, w_in, b_in))]),
+            CSRC + 'gemm_wgmma.cu', [MM + '87', MM + '66'], fused_dense, fused_dense_plain,
+            _within, TOL,
+            [ffn('C', 8 * S, 4 * C, C) for S, C in FFN_LEVELS] + [ffn('C', 1024, 5120, 1280)]
+            + [('x [32768, 320], w [320, 320] (proj_in, no res)', [x_in, w_in, b_in],
+                gemm_work(32768, 320, 320, 320, bias=320), lambda: F.linear(x_in, w_in, b_in))]),
         'group_norm_silu': (
             CSRC + 'groupnorm.cu', [GN + '22', GN + '177', GN + '204'],
             group_norm_silu, group_norm_silu_plain, _within, TOL,

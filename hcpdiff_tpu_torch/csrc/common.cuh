@@ -1,8 +1,9 @@
 // Shared device helpers for the hand-written Hopper kernels (sm_90a).
 //
 // The kernels use cp.async for global -> shared copies and bf16 tensor-core
-// products with fp32 accumulation: the warp-level mma.sync.m16n8k16 (A-I),
-// or the warpgroup-level wgmma (J, wgmma.cuh). mma.sync's fragment layouts
+// products with fp32 accumulation: the warp-level mma.sync.m16n8k16 (G-I,
+// and E and F at D=512), or the warpgroup-level wgmma (A-C, E, F, J;
+// wgmma.cuh). mma.sync's fragment layouts
 // (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with g = lane / 4 and
 // t = lane % 4:
 //   A (16x16, row-major): a0 = (g, 2t..2t+1)   a1 = (g+8, 2t..2t+1)

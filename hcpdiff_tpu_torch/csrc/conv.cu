@@ -39,7 +39,7 @@
 //     so no tensor-core column is thrown away at those widths. The wider
 //     the tile, the fewer bytes each product pulls from L2 (a K step copies
 //     16 KB of image rows and BN x 128 B of weights); the plan's choices
-//     are timed by tools/time_conv_plans.py.
+//     are timed by tools/time_plans.py.
 //   - Split-K: where the grid (Cout / BN x M / 128 blocks) is short of a
 //     wave on 132 SMs, the host plan (ops/conv.py:conv_plan) splits the K
 //     steps into `splits` ranges over grid.z. Each block then writes its

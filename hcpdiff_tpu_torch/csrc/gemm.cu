@@ -1,57 +1,52 @@
-// The bf16 GEMMs with fused epilogues and prologues, y = x @ w^T with
+// The bf16 GEMMs with a LayerNorm prologue, y = LayerNorm(x) @ w^T with
 // x [M, K] and w [N, K] (nn.Linear layout), fp32 accumulation:
-//   B  geglu_dense  (x W^T + b) value half * gelu_erf(gate half)
-//   C  fused_dense  x W^T + b (+ res)
 //   G  ln_qkv       LayerNorm(x) Wq^T, LayerNorm(x) Wk^T, LayerNorm(x) Wv^T
 //   H  ln_geglu     GEGLU of LayerNorm(x)
 //   I  ln_dense     LayerNorm(x) W^T
+// (B and C, the same GEMMs without the LayerNorm, are gemm_wgmma.cu.)
 //
-// Replaces hcpdiff_tpu/ops/matmul.py:_geglu_kernel (:301, via geglu_dense
-// :387), _dense_kernel_kres / _dense_kernel_kstream (:66 / :87, via
-// fused_dense :272), _ln_qkv_kernel (:412, via ln_qkv :489),
-// _ln_geglu_kernel (:497, via ln_geglu :591) and _ln_dense_kernel (:600,
-// via ln_dense :669).
+// Replaces hcpdiff_tpu/ops/matmul.py:_ln_qkv_kernel (:412, via ln_qkv
+// :489), _ln_geglu_kernel (:497, via ln_geglu :591) and _ln_dense_kernel
+// (:600, via ln_dense :669).
 //
 // What bounds it on the H100: at the UNet's shapes (M = 2b*S up to 32768,
-// K in 320..5120, N in 320..5120) the GEMMs are far above the 295
-// FLOP/byte ridge, so the tensor cores bound them; the epilogue and
-// prologue work (bias, residual, GELU gate, LayerNorm) is memory traffic
-// that separate elementwise passes would add on top. The design keeps it
-// on chip: GEGLU computes the value and the gate tile of the same output
-// columns in one block with two accumulators, so the [M, 2n] intermediate
-// never reaches device memory; ff.out adds bias and residual before its
-// single store; the LayerNorm modes normalize each A stage in shared
-// memory, so the normalized activation is never written, and G reads x
-// for all three projections (a block picks wq, wk or wv by its grid
-// index). The TPU kernels' K-resident / K-streamed split was a VMEM-size
-// artefact: every K runs the same loop over 32-wide slices.
+// K in 320..1280, N in 320..10240) the GEMMs are far above the 295
+// FLOP/byte ridge, so the tensor cores bound them; the prologue and
+// epilogue work (LayerNorm, bias, GELU gate) is memory traffic that
+// separate elementwise passes would add on top. The design keeps it on
+// chip: the LayerNorm modes normalize each A stage in shared memory, so
+// the normalized activation is never written, and G reads x for all three
+// projections (a block picks wq, wk or wv by its grid index); GEGLU
+// computes the value and the gate tile of the same output columns in one
+// block with two accumulators, so the [M, 2n] intermediate never reaches
+// device memory. The TPU kernels' K-resident / K-streamed split was a
+// VMEM-size artefact: every K runs the same loop over 32-wide slices.
 //
-// LayerNorm (G, H, I): before the main loop a block computes its 128 rows'
-// mean and 1/sqrt(var + eps) in fp32, two passes over the row (the mean of
-// squared deviations, as _ln_rows does, matmul.py:404-409); x rows are at
-// most a few KB, so the second pass and the main loop read them from
-// cache. Each A stage is then rewritten in place as bf16((x - mean) * rstd
-// * g + b), the rounding the TPU kernels apply before their product.
+// LayerNorm: before the main loop a block computes its 128 rows' mean and
+// 1/sqrt(var + eps) in fp32, two passes over the row (the mean of squared
+// deviations, as _ln_rows does, matmul.py:404-409); x rows are at most a
+// few KB, so the second pass and the main loop read them from cache. Each
+// A stage is then rewritten in place as bf16((x - mean) * rstd * g + b),
+// the rounding the TPU kernels apply before their product.
 //
 // Simple first version: mma.sync m16n8k16 (not wgmma/TMA), 128x128 block
 // tile, 8 warps of 32x64, two shared-memory stages (gemm_tile.cuh).
 //
-// Types: x, the weights and the LayerNorm scale and shift are bf16. The
-// epilogue's bias and residual and the output are OutT: bf16, or fp32 for
-// an fp32 call (whose x and weights the wrapper rounds to bf16), so its
-// result is rounded once.
+// Types: x, the weights and the LayerNorm scale and shift are bf16. H's
+// bias and the outputs are OutT: bf16, or fp32 for an fp32 call (whose x,
+// weights, scale and shift the wrapper rounds to bf16), so its result is
+// rounded once.
 #include "gemm_tile.cuh"
 
 namespace hcp {
 namespace {
 
-enum Mode { DENSE = 0, DENSE_RES = 1, GEGLU = 2 };
+enum Mode { DENSE = 0, GEGLU = 2 };
 
 struct Params {
     const bf16* x;
     const bf16* w[3];           // G: wq, wk, wv; otherwise w[0]
-    const void* bias;           // [N] or [2N] (GEGLU) or null (OutT)
-    const void* res;            // [M, N] (DENSE_RES) (OutT)
+    const void* bias;           // [2N] (GEGLU) or null (OutT)
     void* out[3];               // one output per weight (OutT)
     const bf16* ln_g;           // LayerNorm scale and shift [K] (LN modes)
     const bf16* ln_b;
@@ -104,10 +99,10 @@ __device__ void row_stats(const bf16* x, int M, int K, int m0, float eps, float*
     }
 }
 
-template <int MODE, bool LN, typename OutT>
+template <int MODE, typename OutT>
 __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
     __shared__ __align__(16) TileSmem sm;
-    __shared__ float s_mean[LN ? BM : 1], s_rstd[LN ? BM : 1];
+    __shared__ float s_mean[BM], s_rstd[BM];
 
     constexpr bool PAIRED = MODE == GEGLU;
     const int which = blockIdx.x / p.ntn;
@@ -118,12 +113,9 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
     const bf16* w = which == 0 ? p.w[0] : which == 1 ? p.w[1] : p.w[2];
     OutT* out = static_cast<OutT*>(which == 0 ? p.out[0] : which == 1 ? p.out[1] : p.out[2]);
     const OutT* bias = static_cast<const OutT*>(p.bias);
-    const OutT* res = static_cast<const OutT*>(p.res);
 
-    if (LN) {
-        row_stats(p.x, p.M, p.K, m0, p.eps, s_mean, s_rstd);
-        __syncthreads();
-    }
+    row_stats(p.x, p.M, p.K, m0, p.eps, s_mean, s_rstd);
+    __syncthreads();
     auto fill_a = [&](bf16* s, int k0) {
 #pragma unroll
         for (int i = 0; i < A_CHUNKS; ++i) {
@@ -134,7 +126,6 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
         }
     };
     auto prep_a = [&](bf16* s, int k0) {
-        if (!LN) return;
 #pragma unroll
         for (int i = 0; i < A_CHUNKS; ++i) {
             const int r = a_chunk_row(i), kc = a_chunk_col(i);
@@ -159,7 +150,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
     float acc[2][8][4];
     mainloop<PAIRED>(acc, sm, w, p.N, p.K, n0, fill_a, prep_a);
 
-    // Epilogue: fp32 bias (+ residual | GELU gate), one store.
+    // Epilogue: fp32 bias and GELU gate (GEGLU), one store.
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
     const int wm = warp & 3, wn = warp >> 2;
@@ -193,69 +184,26 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Params p) {
                 for (int ni = 0; ni < 8; ++ni) {
                     int col = n0 + wn * 64 + ni * 8 + 2 * t;
                     if (col >= N) continue;
-                    float y0 = acc[mi][ni][2 * h], y1 = acc[mi][ni][2 * h + 1];
-                    if (bias) {
-                        y0 += as_float(bias[col]);
-                        y1 += as_float(bias[col + 1]);
-                    }
-                    if (MODE == DENSE_RES) {
-                        const float2 r2 = load2(res + (size_t)row * N + col);
-                        y0 += r2.x;
-                        y1 += r2.y;
-                    }
-                    store2(out + (size_t)row * N + col, y0, y1);
+                    store2(out + (size_t)row * N + col, acc[mi][ni][2 * h],
+                           acc[mi][ni][2 * h + 1]);
                 }
             }
         }
     }
 }
 
-template <int MODE, bool LN>
+template <int MODE>
 int launch(const Params& p, int nw, int out_f32, cudaStream_t s) {
     dim3 grid(nw * p.ntn, (p.M + BM - 1) / BM);
     if (out_f32)
-        gemm_kernel<MODE, LN, float><<<grid, THREADS, 0, s>>>(p);
+        gemm_kernel<MODE, float><<<grid, THREADS, 0, s>>>(p);
     else
-        gemm_kernel<MODE, LN, bf16><<<grid, THREADS, 0, s>>>(p);
+        gemm_kernel<MODE, bf16><<<grid, THREADS, 0, s>>>(p);
     return static_cast<int>(cudaGetLastError());
-}
-
-Params make_params(const void* x, const void* bias, const void* res, int M, int N, int K,
-                   int mode) {
-    Params p = {};
-    p.x = static_cast<const bf16*>(x);
-    p.bias = bias;
-    p.res = res;
-    p.M = M;
-    p.N = N;
-    p.K = K;
-    int bn = mode == GEGLU ? 64 : 128;
-    p.ntn = (N + bn - 1) / bn;
-    return p;
 }
 
 }  // namespace
 }  // namespace hcp
-
-// Kernels B and C. x [M, K] and w [N, K] (DENSE / DENSE_RES) or [2N, K]
-// (GEGLU): bf16. bias [N] or [2N] or null, res [M, N] or null, out [M, N]:
-// bf16, or fp32 when out_f32 != 0. All row-major, 16-byte aligned;
-// K % 8 == 0, N % 2 == 0. Returns cudaGetLastError().
-extern "C" int hcp_gemm(int mode, const void* x, const void* w, const void* bias,
-                        const void* res, void* out, int M, int N, int K, int out_f32,
-                        void* stream) {
-    using namespace hcp;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    Params p = make_params(x, bias, res, M, N, K, mode);
-    p.w[0] = static_cast<const bf16*>(w);
-    p.out[0] = out;
-    switch (mode) {
-        case DENSE: return launch<DENSE, false>(p, 1, out_f32, s);
-        case DENSE_RES: return launch<DENSE_RES, false>(p, 1, out_f32, s);
-        case GEGLU: return launch<GEGLU, false>(p, 1, out_f32, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
 
 // Kernels G, H and I: LayerNorm(x; ln_g, ln_b, eps) over rows of x [M, K],
 // then mode 0 (DENSE: G with nw = 3 weights w0..w2 into out0..out2, I with
@@ -271,7 +219,13 @@ extern "C" int hcp_ln_gemm(int mode, const void* x, const void* ln_g, const void
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (nw < 1 || nw > 3 || (mode == GEGLU && nw != 1))
         return static_cast<int>(cudaErrorInvalidValue);
-    Params p = make_params(x, mode == GEGLU ? bias : nullptr, nullptr, M, N, K, mode);
+    Params p = {};
+    p.x = static_cast<const bf16*>(x);
+    p.bias = mode == GEGLU ? bias : nullptr;
+    p.M = M;
+    p.N = N;
+    p.K = K;
+    p.ntn = (N + (mode == GEGLU ? 63 : 127)) / (mode == GEGLU ? 64 : 128);
     const void* ws[3] = {w0, w1, w2};
     void* outs[3] = {out0, out1, out2};
     for (int i = 0; i < nw; ++i) {
@@ -282,8 +236,8 @@ extern "C" int hcp_ln_gemm(int mode, const void* x, const void* ln_g, const void
     p.ln_b = static_cast<const bf16*>(ln_b);
     p.eps = eps;
     switch (mode) {
-        case DENSE: return launch<DENSE, true>(p, nw, out_f32, s);
-        case GEGLU: return launch<GEGLU, true>(p, 1, out_f32, s);
+        case DENSE: return launch<DENSE>(p, nw, out_f32, s);
+        case GEGLU: return launch<GEGLU>(p, 1, out_f32, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -1,4 +1,4 @@
-// The block tile shared by the GEMM kernels B, C, G, H and I (gemm.cu).
+// The block tile of the LayerNorm GEMM kernels G, H and I (gemm.cu).
 //
 // A block computes a 128 x 128 tile of A[M, K] x W[N, K]^T with 8 warps of
 // 32 x 64 (mma.sync m16n8k16, fp32 accumulators), over K in 32-wide slices

@@ -38,8 +38,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # `out_f32`: the epilogue's inputs (bias, res, row_bias) and the output
     # are fp32, not bf16; the matrix operands are bf16 either way.
-    # mode, x, w, bias, res, out, M, N, K, out_f32, stream
-    'hcp_gemm': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # mode, x, w, bias, res, out, workspace, M, N, K, bn, minb, splits, out_f32, stream
+    'hcp_gemm': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # mode, x, ln_g, ln_b, w0, w1, w2, bias, out0, out1, out2, nw, M, N, K, eps, out_f32,
     # stream
     'hcp_ln_gemm': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

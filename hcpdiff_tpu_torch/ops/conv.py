@@ -33,14 +33,13 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ._build import accum_dtype, aligned16, check, library, require, require_cuda, stream_handle
+from ._plan import BM, SMS, WAVE_FILL, TilePlan, split_workspace
 
-# csrc/conv.cu: output pixels per block, channels per K step, the column
-# tiles it is built for, and the most K splits a plan takes
-BM, BK_CHANNELS = 128, 64
+# csrc/conv.cu: channels per K step (BM output pixels per block), the
+# column tiles it is built for, and the most K splits a plan takes
+BK_CHANNELS = 64
 BN_CHOICES = (320, 160, 128)
 MAX_SPLITS = 8
-SMS = 132                       # the H100's streaming multiprocessors
-WAVE_FILL = 0.9                 # a grid of >= 90% of SMS blocks counts as a full wave
 # the plan's cost model: seconds per output column of one block's K step
 # (2 * BM * 64 FLOPs at half of one SM's share of 989 TFLOP/s), the fixed
 # per-step share in columns (the A tile's copies and the step's barrier),
@@ -51,47 +50,10 @@ _REDUCE_BYTES_PER_S = 2.5e12
 
 
 @dataclasses.dataclass(frozen=True)
-class ConvPlan:
-    """How kernel J covers out[M = B*H*W, N = Cout]: a grid of
-    (n_tiles, m_tiles, splits) blocks of BM x bn outputs, block z summing
-    the K steps ``k_range(z)`` (a K step is one tap of 64 input channels,
-    zero-padded past Cin: ``ksteps = 9 * ceil(Cin / 64)``). With splits > 1
-    the blocks write fp32 partial sums to a [splits, M, N] workspace and a
-    second kernel adds them in split order and applies the epilogue."""
-    bn: int
-    splits: int
-    m: int
-    n: int
-    ksteps: int
-
-    @property
-    def m_tiles(self) -> int:
-        return -(-self.m // BM)
-
-    @property
-    def n_tiles(self) -> int:
-        return -(-self.n // self.bn)
-
-    @property
-    def blocks(self) -> int:
-        return self.m_tiles * self.n_tiles * self.splits
-
-    def k_range(self, z: int):
-        """The K steps [start, stop) of split z, as the kernel computes them."""
-        return z * self.ksteps // self.splits, (z + 1) * self.ksteps // self.splits
-
-    @property
-    def waste(self) -> int:
-        """Columns of the last tile past N, whose tensor-core work is thrown away."""
-        return self.n_tiles * self.bn - self.n
-
-
-def split_workspace(plan: ConvPlan, device) -> Optional[torch.Tensor]:
-    """The fp32 [splits, M, N] partial sums a split plan writes (None for
-    one split)."""
-    if plan.splits == 1:
-        return None
-    return torch.empty(plan.splits * plan.m * plan.n, dtype=torch.float32, device=device)
+class ConvPlan(TilePlan):
+    """How kernel J covers out[M = B*H*W, N = Cout] (``TilePlan``); a K step
+    is one tap of 64 input channels, zero-padded past Cin: ``ksteps = 9 *
+    ceil(Cin / 64)``."""
 
 
 @functools.lru_cache(maxsize=None)

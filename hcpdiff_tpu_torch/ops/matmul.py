@@ -1,24 +1,30 @@
 """Projection GEMMs with fused epilogues and LayerNorm prologues: kernels B
 (``geglu_dense``), C (``fused_dense``), G (``ln_qkv``), H (``ln_geglu``)
-and I (``ln_dense``), their plain PyTorch versions, and the
-``torch.autograd.Function`` of each.
+and I (``ln_dense``), their plain PyTorch versions, B and C's launch plan,
+and the ``torch.autograd.Function`` of each.
 
 Counterpart of ``hcpdiff_tpu/ops/matmul.py``. Weights follow
 ``nn.Linear``'s [out, in] layout (the weight bridge transposes the JAX
-[in, out] kernels), so ``y = x @ w.T``. All five kernels live in
-``csrc/gemm.cu`` (see its header for the design). The backwards are the
-JAX ``custom_vjp``s' (``matmul.py:231-238``, ``:259-266``, ``:369-381``,
-and the vjps of the LayerNorm GEMMs' ``_ref``s, ``:458-467``,
-``:562-571``, ``:612-619``): plain torch in fp32, which XLA computes there
-and cuBLAS here.
+[in, out] kernels), so ``y = x @ w.T``. B and C live in
+``csrc/gemm_wgmma.cu``, G, H and I in ``csrc/gemm.cu`` (see their headers
+for the designs). The backwards are the JAX ``custom_vjp``s'
+(``matmul.py:231-238``, ``:259-266``, ``:369-381``, and the vjps of the
+LayerNorm GEMMs' ``_ref``s, ``:458-467``, ``:562-571``, ``:612-619``):
+plain torch in fp32, which XLA computes there and cuBLAS here.
 
 The kernels take bf16 or fp32 tensors. An fp32 call rounds x, the weights
 and the LayerNorm scale and shift to bf16 (the TPU's default precision for
 an fp32 product: bf16 operands, fp32 accumulation); bias, residual and
 output stay fp32, so the result is rounded once.
+
+B and C's launch plan (:func:`gemm_plan`, plain Python) picks the column
+tile BN and a split of K over ``splits`` blocks for each shape; see its
+docstring.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -27,8 +33,83 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ._build import accum_dtype, aligned16, check, library, require, require_cuda, stream_handle
+from ._plan import BM, SMS, TilePlan, split_workspace
 
-_DENSE, _DENSE_RES, _GEGLU = 0, 1, 2   # csrc/gemm.cu modes
+_DENSE, _DENSE_RES, _GEGLU = 0, 1, 2   # csrc/gemm_wgmma.cu and csrc/gemm.cu modes
+
+# csrc/gemm_wgmma.cu: channels per K step (BM rows of x per block), and
+# its HCP_GEMM_TILES table, (GEGLU?, BN, blocks an SM) -> ring stages
+BK = 64
+GEMM_TILES = {(True, 64, 2): 3, (False, 160, 1): 5, (False, 160, 2): 3, (False, 128, 2): 3}
+MAX_SPLITS = 16
+# the plan's cost model: seconds per output column of one block's K step
+# (2 * BM * 64 FLOPs at half of one SM's share of 989 TFLOP/s), the fixed
+# per-step share in columns (the x tile's copies and the step's barrier),
+# a block's fixed time (filling the ring, the epilogue), which a second
+# block on the SM hides, the slowdown of a two-block tile alone on its SM
+# (its steps wait for their own products), and the split partial sums'
+# cost: the rate at which they are written and read back, and the second
+# kernel's launch. Tuned to tools/time_plans.py's times (PERF.md).
+_STEP_S = 2 * BM * BK / (0.5 * 989e12 / SMS)
+_STEP_FIXED_COLUMNS = 64
+_BLOCK_FIXED_S = 2e-6
+_ALONE_SLOWDOWN = 1.35
+_REDUCE_BYTES_PER_S = 2.5e12
+_REDUCE_FIXED_S = 5e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan(TilePlan):
+    """How kernel B (``geglu``) or C covers out[M, N] (``TilePlan``), with
+    the tile built for `per_sm` blocks an SM (GEMM_TILES); a K step is 64
+    channels, zero-padded past K: ``ksteps = ceil(K / 64)``. B's partial
+    sums hold the value and the gate columns, 2N a row."""
+    geglu: bool
+    per_sm: int
+
+    @property
+    def partial_columns(self) -> int:
+        return 2 * self.n if self.geglu else self.n
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(geglu: bool, M: int, N: int, K: int) -> GemmPlan:
+    """BN and the K split of kernel B (``geglu``) or C for out[M, N] with K
+    input channels (cached: the UNet asks for the same few shapes at every
+    step).
+
+    The tile is one of GEMM_TILES whose BN divides N where one does
+    (SD1.5's 320, 640 and 1280 all divide by 160; B's one tile, 64, divides
+    1280-5120); where none does, those wasting the fewest columns of the last
+    tile. Among those and splits S <= MAX_SPLITS, the plan takes the least
+    estimated time: waves of blocks (an SM holds up to the tile's blocks an
+    SM) x (K steps a block x (the columns its SM's blocks multiply + a fixed
+    share) + a block's fixed time, shared by the blocks an SM), and the
+    split partial sums' cost. The model alone decides the split: it pays
+    only where the unsplit grid leaves SMs idle."""
+    ksteps = -(-K // BK)
+    tiles_built = [(bn, per_sm) for g, bn, per_sm in GEMM_TILES if g == geglu]
+    waste = {bn: -(-N // bn) * bn - N for bn, _ in tiles_built}
+    best = None
+    for bn, per_sm in tiles_built:
+        if waste[bn] != min(waste.values()):
+            continue
+        cols = (2 if geglu else 1) * bn
+        tiles = -(-M // BM) * -(-N // bn)
+        for s in range(1, min(MAX_SPLITS, ksteps) + 1):
+            occ = min(per_sm, -(-tiles * s // SMS))      # blocks an SM holds at once
+            waves = math.ceil(tiles * s / (SMS * occ))
+            step = (occ * cols + _STEP_FIXED_COLUMNS) * _STEP_S
+            if occ < per_sm:
+                step *= _ALONE_SLOWDOWN
+            est = waves * (-(-ksteps // s) * step + _BLOCK_FIXED_S / occ)
+            if s > 1:
+                est += (2 * 4 * s * M * N * (2 if geglu else 1) / _REDUCE_BYTES_PER_S
+                        + _REDUCE_FIXED_S)
+            key = (est, -bn, s)
+            if best is None or key < best[0]:
+                best = (key, bn, per_sm, s)
+    return GemmPlan(best[1], best[3], M, N, ksteps, geglu, best[2])
 
 
 # The plain versions compute in the accumulation dtype and round once, as
@@ -49,7 +130,9 @@ def geglu_dense_plain(x: torch.Tensor, w: torch.Tensor,
     return (h * F.gelu(gate)).to(x.dtype)
 
 
-def _launch(name: str, mode: int, x, w, b, res, n_out: int) -> torch.Tensor:
+def _launch(name: str, mode: int, x, w, b, res, n_out: int,
+            plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """``plan`` defaults to :func:`gemm_plan` of the shape."""
     dt = require_cuda(name, x, w, b, res)
     x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
     K = x.shape[-1]
@@ -67,10 +150,17 @@ def _launch(name: str, mode: int, x, w, b, res, n_out: int) -> torch.Tensor:
     if res is not None:
         require(res.shape == out.shape and res.is_contiguous() and aligned16(res), name,
                 f'res must be a contiguous {tuple(out.shape)} tensor')
+    geglu = mode == _GEGLU
+    plan = gemm_plan(geglu, M, n_out, K) if plan is None else plan
+    if ((plan.geglu, plan.bn, plan.per_sm) not in GEMM_TILES or not 1 <= plan.splits <= plan.ksteps
+            or (plan.geglu, plan.m, plan.n, plan.ksteps) != (geglu, M, n_out, -(-K // BK))):
+        require(False, name, f'no kernel instance for {plan}')   # formatted only on failure
+    ws = split_workspace(plan, x.device)
     rc = library().hcp_gemm(
         mode, x.data_ptr(), w.data_ptr(), 0 if b is None else b.data_ptr(),
-        0 if res is None else res.data_ptr(), out.data_ptr(), M, n_out, K,
-        int(dt == torch.float32), stream_handle(x.device))
+        0 if res is None else res.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        M, n_out, K, plan.bn, plan.per_sm, plan.splits, int(dt == torch.float32),
+        stream_handle(x.device))
     check(rc, name)
     return out
 

@@ -1,6 +1,8 @@
 """Time every kernel of the port (A-J) at the main paths' shapes, and A,
 E and F also at the classic route's head dims, causal and not, in bf16,
-for one checkout, to compare two versions on one card.
+for one checkout, to compare two versions on one card. B and C are timed
+at every transformer level of a batch-4 request, beside F.linear on the
+same products (labels "F.linear ...").
 
     python hcpdiff_tpu_torch/tools/time_kernels.py [--tree DIR] > result.json
 
@@ -33,6 +35,8 @@ ITERS = 20
 # the D=160 heads take A at the main paths' shapes already, so only E, F
 CLASSIC_SHAPES = [((2, 10, 4096, 64), True), ((2, 8, 4096, 128), True),
                   ((8, 8, 1024, 160), False), ((2, 1, 4096, 512), True)]
+# (S, C) of the UNet's transformer levels: 64x64, 32x32, 16x16 and the 8x8 mid block
+FFN_LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 
 
 def _time_ms(fn):
@@ -127,13 +131,21 @@ def _cases(gen):
                                            fa.flash_attention_lse(q, k, v, sc, c))
             cases[f'E {label}'] = lambda bwd=bwd: fa.flash_attention_bwd_dq(*bwd)
             cases[f'F {label}'] = lambda bwd=bwd: fa.flash_attention_bwd_dkv(*bwd)
-    for M in (16384, 32768):
-        args = (rn(M, 320), rn(2560, 320, scale=320 ** -0.5), rn(2560))
-        cases[f'B x [{M}, 320]'] = lambda args=args: mm.geglu_dense(*args)
-    args = (rn(1024, 5120), rn(1280, 5120, scale=5120 ** -0.5), rn(1280), rn(1024, 1280))
-    cases['C x [1024, 5120] +res'] = lambda args=args: mm.fused_dense(*args)
+    # B and C (+ the block residual) at every transformer level of a batch-4
+    # request (x [8S, C] w [8C, C]; x [8S, 4C] w [C, 4C]), C without one at
+    # proj_in's [32768, 320] x [320, 320]; F.linear on each product beside them
+    linear = torch.nn.functional.linear
+    for S, C in FFN_LEVELS:
+        M = 8 * S
+        x, w, b = rn(M, C), rn(8 * C, C, scale=C ** -0.5), rn(8 * C)
+        cases[f'B x [{M}, {C}]'] = lambda a=(x, w, b): mm.geglu_dense(*a)
+        cases[f'F.linear B x [{M}, {C}]'] = lambda a=(x, w, b): linear(*a)
+        x, w, b = rn(M, 4 * C), rn(C, 4 * C, scale=(4 * C) ** -0.5), rn(C)
+        cases[f'C x [{M}, {4 * C}] +res'] = lambda a=(x, w, b, rn(M, C)): mm.fused_dense(*a)
+        cases[f'F.linear C x [{M}, {4 * C}]'] = lambda a=(x, w, b): linear(*a)
     args = (rn(32768, 320), rn(320, 320, scale=320 ** -0.5), rn(320))
     cases['C x [32768, 320]'] = lambda args=args: mm.fused_dense(*args)
+    cases['F.linear C x [32768, 320]'] = lambda args=args: linear(*args)
     for B, S, C, silu in ((4, 4096, 320, True), (4, 256, 1280, True), (2, 262144, 128, True),
                           (4, 4096, 320, False)):
         args = (rn(B, S, C, scale=3.0) + 1.0, torch.rand(C, device='cuda', generator=gen) + 0.5,

@@ -305,14 +305,73 @@ def test_kernel_outputs_carry_grad_fn(gen):
             _close_grad(a, r.to(a.dtype))
 
 
-@pytest.mark.parametrize('M,K,N', [(4096, 320, 1280), (1000, 640, 2560), (2048, 5120, 1280)])
-def test_gemm_kernels(gen, M, K, N):
-    x = _rn(gen, M, K)
-    w, b = _rn(gen, 2 * N, K, scale=K ** -0.5), _rn(gen, 2 * N)
-    _close(geglu_dense(x, w, b), geglu_dense_plain(x, w, b))
-    w1, b1, res = _rn(gen, N, K, scale=K ** -0.5), _rn(gen, N), _rn(gen, M, N)
-    _close(fused_dense(x, w1, b1), fused_dense_plain(x, w1, b1))
-    _close(fused_dense(x, w1, b1, res), fused_dense_plain(x, w1, b1, res))
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('M,K,N', [
+    (4096, 320, 1280), (1000, 640, 2560), (2048, 5120, 1280), (300, 5120, 1280),
+    (1000, 32, 128), (300, 64, 64), (1000, 64, 100), (300, 32, 200), (1000, 64, 98),
+    (300, 5120, 130)])
+def test_gemm_kernels(gen, M, K, N, dtype):
+    """B and C (with and without a residual) against their plain versions:
+    ragged M (1000, 300; split K at [300, 5120]), K of 32 and 64 (channels
+    zero-filled up to the 64-channel K step), N that no built tile divides
+    (100, 200), and N % 4 == 2 (98 unsplit, 130 split: the epilogue's
+    column pairs), in bf16 and fp32."""
+    x = _rn(gen, M, K, dtype=dtype)
+    w, b = _rn(gen, 2 * N, K, scale=K ** -0.5, dtype=dtype), _rn(gen, 2 * N, dtype=dtype)
+    before = (geglu_dense.launches, fused_dense.launches)
+    _close(geglu_dense(x, w, b), geglu_dense_plain(_r(x), _r(w), b))
+    w1, b1 = _rn(gen, N, K, scale=K ** -0.5, dtype=dtype), _rn(gen, N, dtype=dtype)
+    res = _rn(gen, M, N, dtype=dtype)
+    _close(fused_dense(x, w1, b1), fused_dense_plain(_r(x), _r(w1), b1))
+    _close(fused_dense(x, w1, b1, res), fused_dense_plain(_r(x), _r(w1), b1, res))
+    _close(fused_dense(x, w1), fused_dense_plain(_r(x), _r(w1)))
+    assert (geglu_dense.launches, fused_dense.launches) == (before[0] + 1, before[1] + 3)
+
+
+# x [M, K] and the weight's rows of the default UNet's B (w [8C, C]) and C
+# with the block residual (w [C, 4C]) at each level, batch 4 under CFG
+FFN_MAIN_SHAPES = [('B', 32768, 320, 2560), ('B', 8192, 640, 5120), ('B', 2048, 1280, 10240),
+                   ('B', 512, 1280, 10240), ('C', 32768, 1280, 320), ('C', 8192, 2560, 640),
+                   ('C', 2048, 5120, 1280), ('C', 512, 5120, 1280)]
+
+
+@pytest.mark.parametrize('kind,M,K,rows', FFN_MAIN_SHAPES)
+def test_gemm_main_path_shapes(gen, kind, M, K, rows):
+    x, w = _rn(gen, M, K), _rn(gen, rows, K, scale=K ** -0.5)
+    b = _rn(gen, rows)
+    if kind == 'B':
+        _close(geglu_dense(x, w, b), geglu_dense_plain(x, w, b))
+    else:
+        res = _rn(gen, M, rows)
+        _close(fused_dense(x, w, b, res), fused_dense_plain(x, w, b, res))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_gemm_every_tile_and_split(gen, dtype):
+    """Every built column tile, split and unsplit, on one ragged shape (the
+    plan picks one of them; the others must be right too), and a split
+    output is the same, bit for bit, on a second run (the partial sums are
+    added in split order, with no atomics)."""
+    M, K, N = 300, 1000, 640
+    x = _rn(gen, M, K, dtype=dtype)
+    for geglu in (True, False):
+        rows = 2 * N if geglu else N
+        w, b = _rn(gen, rows, K, scale=K ** -0.5, dtype=dtype), _rn(gen, rows, dtype=dtype)
+        res = None if geglu else _rn(gen, M, N, dtype=dtype)
+        mode = mm._GEGLU if geglu else mm._DENSE_RES
+        ref = (geglu_dense_plain(_r(x), _r(w), b) if geglu
+               else fused_dense_plain(_r(x), _r(w), b, res))
+        for g, bn, per_sm in mm.GEMM_TILES:
+            if g != geglu:
+                continue
+            for splits in (1, 2, 5, 16):
+                plan = mm.GemmPlan(bn, splits, M, N, -(-K // mm.BK), geglu, per_sm)
+                out = mm._launch('gemm', mode, x, w, b, res, N, plan)
+                _close(out, ref)
+                if splits > 1:
+                    again = mm._launch('gemm', mode, x, w, b, res, N, plan)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, again), (plan, float((out - again).abs().max()))
 
 
 @pytest.mark.parametrize('B,S,C,G', [(2, 4096, 320, 32), (2, 256, 1280, 32),
@@ -435,6 +494,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         flash_attention(x, xf, x)
     with pytest.raises(ValueError):
         fused_dense(_rn(gen, 4, 30), _rn(gen, 8, 30))            # K % 8 != 0
+    with pytest.raises(ValueError):                               # a tile B is not built with
+        mm._launch('geglu_dense', mm._GEGLU, _rn(gen, 4, 32), _rn(gen, 16, 32), None, None, 8,
+                   mm.GemmPlan(320, 1, 4, 8, 1, True, 1))
     with pytest.raises(ValueError):
         group_norm_silu(_rn(gen, 2, 16, 30), torch.ones(30, device='cuda'),
                         torch.zeros(30, device='cuda'), 3)       # C % 8 != 0
