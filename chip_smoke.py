@@ -58,9 +58,12 @@ package is missing. Phases, each fatal on failure:
    the paths', at #2/#4/#6's exact-route shapes);
 7c. kernel J also at the UNet's other levels (the 8x8 and 16x16 convs,
    most of them split K; 32x32 and 64x64 at Cin 640 and 960), with
-   F.conv2d as the yardstick for the bias-only epilogue, and kernel D
-   without SiLU (the transformer and VAE-attention norms) with
-   F.group_norm;
+   F.conv2d as the yardstick for the bias-only epilogue; kernel D is
+   timed at every GroupNorm shape of a batch-4 request (UNet [8, S, C],
+   VAE [4, S, C]; tools/time_kernels.py's GN_SHAPES: both of its regimes),
+   without SiLU (the transformer and VAE-attention norms) beside
+   F.group_norm, and at each shape also launched twice (bitwise equal),
+   with fp32 scale and bias, and on an fp32 x;
 8. head dims outside the built set: A, A with lse, E and F at D = 16, 96,
    144 and 192 (zero-padded by the wrappers to 48, 128, 160, 512; causal
    at 144 and 192) against their plain versions;
@@ -403,9 +406,9 @@ def conv_work(B, H, W, Cin, Cout, row_bias=False, res=False):
 
 def group_norm_work(B, S, C, silu=True):
     """About 10 fp32 operations an element (statistics, normalization,
-    affine, SiLU; 6 without SiLU), outside the tensor cores; fp32 scale and
-    bias."""
-    return bound((10 if silu else 6) * B * S * C, 2 * 2 * B * S * C + 2 * 4 * C, PEAK_FP32)
+    affine, SiLU; 6 without SiLU), outside the tensor cores; bf16 x, y,
+    scale and bias."""
+    return bound((10 if silu else 6) * B * S * C, 2 * 2 * B * S * C + 2 * 2 * C, PEAK_FP32)
 
 
 def _time_library(fn, what):
@@ -469,6 +472,15 @@ def _within(out, ref):
     return bool((err <= ATOL + RTOL * ref.float().abs()).all()), float(err.max())
 
 
+# kernel D in fp32 against its fp32 plain version (fp32 sums in two orders)
+GN_F32_TOL = 1e-5
+
+
+def _within_gn32(out, ref):
+    err = (out - ref).abs()
+    return bool((err <= GN_F32_TOL * (1 + ref.abs())).all()), float(err.max())
+
+
 def _within_grad(out, ref):
     """|out - ref| <= GRAD_ATOL_REL * max|ref| + RTOL * |ref|, and a relative
     L2 error of at most GRAD_REL_L2."""
@@ -529,6 +541,28 @@ FFN_LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 O_TOL = {**TOL, 'o_rel_l2': O_REL_L2}          # kernel A's o
 
 
+def gn_checks(B, S, C, args):
+    """Kernel D beyond the timed call at one shape: two launches bitwise
+    equal; fp32 scale and bias (an fp32 model's parameters under a bf16
+    UNet) within TOL; an fp32 x within GN_F32_TOL. Fatal on failure."""
+    from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+    x, sc, bi, *rest = args
+    out, again = group_norm_silu(*args), group_norm_silu(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f'D at [{B}, {S}, {C}]: two launches differ')
+    del out, again
+    f32 = [sc.float(), bi.float(), *rest]
+    ok, err = _within(group_norm_silu(x, *f32), group_norm_silu_plain(x, *f32))
+    check(ok, f'D at [{B}, {S}, {C}] with fp32 scale/bias disagrees: {err}')
+    xf = x.float()
+    ok32, err32 = _within_gn32(group_norm_silu(xf, *f32), group_norm_silu_plain(xf, *f32))
+    check(ok32, f'D at [{B}, {S}, {C}] in fp32 disagrees: {err32}')
+    log(f'  D [{B}, {S}, {C}]: bitwise equal twice; fp32 scale/bias max err {err:.3g}; '
+        f'fp32 x max err {err32:.3g}')
+    del xf
+    torch.cuda.empty_cache()
+
+
 @torch.inference_mode()
 def kernel_phase(launches):
     """Kernels A-D at the txt2img path's shapes."""
@@ -536,22 +570,25 @@ def kernel_phase(launches):
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
     from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_dense,
                                               geglu_dense_plain)
+    from hcpdiff_tpu_torch.tools.time_kernels import GN_SHAPES
     F = torch.nn.functional
     gen = torch.Generator(device='cuda').manual_seed(SEED + 2)
     rn = _rn_on(gen)
 
-    def gn_args(B, S, C):
-        return (rn(B, S, C, scale=3.0) + 1.0,
-                torch.rand(C, device='cuda', generator=gen) + 0.5,
-                torch.randn(C, device='cuda', generator=gen))
-
-    def gn_no_silu(B, S, C):
-        """D without SiLU (the transformer and VAE-attention norms); the
-        yardstick is F.group_norm on the same tensor viewed as [B, C, S]."""
-        x, sc, bi = gn_args(B, S, C)
-        return (f'x [{B}, {S}, {C}] no silu', [x, sc, bi, 32, 1e-6, False],
-                group_norm_work(B, S, C, silu=False),
-                lambda: F.group_norm(x.transpose(1, 2), 32, sc.to(x.dtype), bi.to(x.dtype), 1e-6))
+    def gn_case(B, S, C, silu):
+        """D at one GroupNorm shape of a batch-4 request, with bf16 scale
+        and bias as the model holds them (the VAE's norms at batch 4 take
+        eps 1e-6); without SiLU the yardstick is F.group_norm on the same
+        tensor viewed as [B, C, S]."""
+        x = rn(B, S, C, scale=3.0) + 1.0
+        sc, bi = rn(C, scale=0.2) + 1.0, rn(C)
+        eps = 1e-6 if B == 4 else 1e-5
+        args = [x, sc, bi, 32, eps, silu]
+        gn_checks(B, S, C, args)
+        library = None if silu else (
+            lambda: F.group_norm(x.transpose(1, 2), 32, sc, bi, eps))
+        return (f'x [{B}, {S}, {C}]{" silu" if silu else " no silu"}', args,
+                group_norm_work(B, S, C, silu), library)
 
     def attn(s):
         q, k, v = rn(*s), rn(*s), rn(*s)
@@ -588,10 +625,7 @@ def kernel_phase(launches):
         'group_norm_silu': (
             CSRC + 'groupnorm.cu', [GN + '22', GN + '177', GN + '204'],
             group_norm_silu, group_norm_silu_plain, _within, TOL,
-            [(f'x [{B}, {S}, {C}] silu', [*gn_args(B, S, C), 32, eps, True],
-              group_norm_work(B, S, C), None)
-             for B, S, C, eps in ((4, 64 * 64, 320, 1e-5), (4, 16 * 16, 1280, 1e-5),
-                                  (2, 512 * 512, 128, 1e-6))] + [gn_no_silu(4, 64 * 64, 320)]),
+            [gn_case(*shape) for shape in GN_SHAPES]),
     }
     return _run_cases(cases, launches['txt2img'],
                       {'train': launches['train'], 'fused': launches['fused']})
@@ -819,15 +853,6 @@ def fused_kernel_phase(launches):
                        for size, Cin, Cout in J_LEVELS]),
     }
     return _run_cases(cases, launches, {})
-
-
-# kernel D in fp32 against its fp32 plain version (fp32 sums in two orders)
-GN_F32_TOL = 1e-5
-
-
-def _within_gn32(out, ref):
-    err = (out - ref).abs()
-    return bool((err <= GN_F32_TOL * (1 + ref.abs())).all()), float(err.max())
 
 
 @torch.inference_mode()

@@ -59,10 +59,11 @@ _SIGNATURES = {
     # out_f32, stream
     'hcp_flash_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                           ctypes.c_float, _I, _I, _P],
-    # x, scale, bias, y, workspace, B, S, C, G, nsplit, rows, eps, silu, f32 (x and y
-    # fp32, not bf16), stream
-    'hcp_group_norm': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _I, _I, _P],
+    # x, scale, bias, y, partial, counters, B, S, C, G, nb, rows, chunk_rows, slots, rpp,
+    # threads, smem, eps, silu, x_f32 (x and y fp32, not bf16), p_f32 (scale and bias
+    # fp32), stream
+    'hcp_group_norm': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _I, _I, _P],
 }
 
 

@@ -8,8 +8,9 @@ warms both pipelines up, then for each batch size times unprofiled
 512x512, 20-step DPM++ 2M requests in turns (default, fused, fused,
 default) and profiles one request of each with ``torch.profiler``. It
 prints, per configuration, the request seconds, the kernel time by family
-(ms and launches per request) and the device's idle share (1 - kernel
-time / the unprofiled request time), and writes them as JSON to --out.
+(ms and launches per request), the calls of kernel D's wrapper in the
+profiled request, and the device's idle share (1 - kernel time / the
+unprofiled request time), and writes them as JSON to --out.
 Needs one CUDA card.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ import time
 import torch
 
 from ..infer.pipeline import DiffusionPipeline
+from ..ops.groupnorm import group_norm_silu
 from .random_sd15 import build_sd15, fused_copy
 
 PROMPT = 'a photo of a cat sitting on a wooden table, highly detailed'
@@ -72,11 +74,14 @@ def request(pipe, batch: int, steps: int = 20):
 
 
 def kernel_breakdown(pipe, batch: int):
-    """Kernel time (ms) and launches by family over one profiled request."""
+    """Kernel time (ms) and launches by family over one profiled request,
+    the top kernels, and the calls of kernel D's wrapper in that request."""
     from torch.profiler import ProfilerActivity, profile
+    before = group_norm_silu.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         request(pipe, batch)
         torch.cuda.synchronize()
+    d_calls = group_norm_silu.launches - before
     fams, names = {}, []
     for ev in prof.key_averages():
         us = getattr(ev, 'self_device_time_total', None)
@@ -89,7 +94,7 @@ def kernel_breakdown(pipe, batch: int):
         fam['launches'] += ev.count
         names.append((us / 1e3, ev.count, ev.key[:110], family(ev.key)))
     names.sort(reverse=True)
-    return fams, names[:20]
+    return fams, names[:20], d_calls
 
 
 def main() -> int:
@@ -113,18 +118,20 @@ def main() -> int:
             for name in ('default', 'fused', 'fused', 'default'):
                 secs[name].append(request(pipes[name], batch))
         for name, pipe in pipes.items():
-            fams, top = kernel_breakdown(pipe, batch)
+            fams, top, d_calls = kernel_breakdown(pipe, batch)
             median = statistics.median(secs[name])
             kernel_ms = sum(f['ms'] for f in fams.values())
             rec = {'request_s': secs[name], 'median_s': median, 'kernel_ms': kernel_ms,
                    'idle_share': 1.0 - kernel_ms / 1e3 / median,
                    'launches': sum(f['launches'] for f in fams.values()),
+                   'group_norm_silu_calls': d_calls,
                    'families': dict(sorted(fams.items(), key=lambda kv: -kv[1]['ms'])),
                    'top_kernels': top}
             result['configs'][f'{name} batch {batch}'] = rec
             print(f'== {name} batch {batch}: requests {[round(s, 4) for s in secs[name]]} s, '
                   f'median {median:.4f} s; kernel time {kernel_ms:.1f} ms, '
-                  f'{rec["launches"]} launches, idle {rec["idle_share"]:.1%}')
+                  f'{rec["launches"]} launches ({d_calls} group_norm_silu calls), '
+                  f'idle {rec["idle_share"]:.1%}')
             for fam, f in rec['families'].items():
                 print(f'   {fam:24s} {f["ms"]:9.2f} ms {f["launches"]:6d} launches '
                       f'{f["ms"] / kernel_ms:6.1%}')

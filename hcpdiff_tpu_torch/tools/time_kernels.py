@@ -2,7 +2,9 @@
 E and F also at the classic route's head dims, causal and not, in bf16,
 for one checkout, to compare two versions on one card. B and C are timed
 at every transformer level of a batch-4 request, beside F.linear on the
-same products (labels "F.linear ...").
+same products (labels "F.linear ..."), and D at every GroupNorm shape of a
+batch-4 request (GN_SHAPES), with bf16 scale and bias as the model holds
+them, beside F.group_norm where there is no SiLU.
 
     python hcpdiff_tpu_torch/tools/time_kernels.py [--tree DIR] > result.json
 
@@ -37,6 +39,17 @@ CLASSIC_SHAPES = [((2, 10, 4096, 64), True), ((2, 8, 4096, 128), True),
                   ((8, 8, 1024, 160), False), ((2, 1, 4096, 512), True)]
 # (S, C) of the UNet's transformer levels: 64x64, 32x32, 16x16 and the 8x8 mid block
 FFN_LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
+# (B, S, C, silu) of every GroupNorm of a batch-4 512 px request: the UNet
+# at batch 8 (CFG), with SiLU (resblocks, conv_norm_out) at every shape and
+# without (the transformer blocks' norms) at its 4 levels; the VAE decoder
+# at batch 4, with SiLU, and without at its mid-block attention
+GN_UNET = ((4096, 320), (4096, 640), (4096, 960), (1024, 320), (1024, 640), (1024, 960),
+           (1024, 1280), (1024, 1920), (256, 640), (256, 1280), (256, 1920), (256, 2560),
+           (64, 1280), (64, 2560))
+GN_VAE = ((4096, 512), (16384, 512), (65536, 512), (65536, 256), (262144, 256),
+          (262144, 128))
+GN_SHAPES = ([(8, S, C, True) for S, C in GN_UNET] + [(4, S, C, True) for S, C in GN_VAE]
+             + [(8, S, C, False) for S, C in FFN_LEVELS] + [(4, 4096, 512, False)])
 
 
 def _time_ms(fn):
@@ -146,12 +159,15 @@ def _cases(gen):
     args = (rn(32768, 320), rn(320, 320, scale=320 ** -0.5), rn(320))
     cases['C x [32768, 320]'] = lambda args=args: mm.fused_dense(*args)
     cases['F.linear C x [32768, 320]'] = lambda args=args: linear(*args)
-    for B, S, C, silu in ((4, 4096, 320, True), (4, 256, 1280, True), (2, 262144, 128, True),
-                          (4, 4096, 320, False)):
-        args = (rn(B, S, C, scale=3.0) + 1.0, torch.rand(C, device='cuda', generator=gen) + 0.5,
-                torch.randn(C, device='cuda', generator=gen), 32, 1e-5, silu)
+    for B, S, C, silu in GN_SHAPES:
+        x = rn(B, S, C, scale=3.0) + 1.0
+        sc, bi = rn(C, scale=0.2) + 1.0, rn(C)
         cases[f'D [{B}, {S}, {C}]{"" if silu else " no silu"}'] = (
-            lambda args=args: group_norm_silu(*args))
+            lambda args=(x, sc, bi, 32, 1e-5, silu): group_norm_silu(*args))
+        if not silu:
+            cases[f'F.group_norm [{B}, {S}, {C}]'] = (
+                lambda x=x, sc=sc, bi=bi: torch.nn.functional.group_norm(
+                    x.transpose(1, 2), 32, sc, bi, 1e-5))
     for M, C in ((32768, 320), (2048, 1280)):
         x, g, b = rn(M, C), 1.0 + rn(C, scale=0.1), rn(C, scale=0.1)
         ws = [rn(C, C, scale=C ** -0.5) for _ in range(3)]

@@ -1,17 +1,21 @@
-"""Time kernel J (the 3x3 conv) and kernels B and C (the feed-forward
-GEMMs) under every launch plan they could take at the SD1.5 UNet's
-shapes, beside the plan their planner picks (``ops/conv.py:conv_plan``,
-``ops/matmul.py:gemm_plan``) and one PyTorch call on the same inputs
-(F.conv2d; F.linear, the product alone), to check and tune the plans on
-one card.
+"""Time kernel J (the 3x3 conv), kernels B and C (the feed-forward GEMMs)
+and kernel D (GroupNorm) under the launch plans they could take at the
+SD1.5 paths' shapes, beside the plan their planner picks
+(``ops/conv.py:conv_plan``, ``ops/matmul.py:gemm_plan``,
+``ops/groupnorm.py:gn_plan``) and one PyTorch call on the same inputs
+(F.conv2d; F.linear, the product alone; F.group_norm without SiLU), to
+check and tune the plans on one card.
 
-    python -m hcpdiff_tpu_torch.tools.time_plans [--only conv|gemm] > result.json
+    python -m hcpdiff_tpu_torch.tools.time_plans [--only conv|gemm|gn] > result.json
 
 Shapes: J at every resblock conv of UNet batch 8 (a batch-4 request under
 CFG); B, and C with the block residual, at every transformer level of a
 batch-4 request, the batch-1 shapes whose grids are short of a wave, and C
 without a residual at proj_in's [32768, 320] x [320, 320] and at the mid
-block's proj [512, 1280] x [1280, 1280]. Plans (``candidates``): every
+block's proj [512, 1280] x [1280, 1280]; D at every GroupNorm shape of a
+batch-4 request (``time_kernels.GN_SHAPES``), under chunks of about 16,
+32 and 64 KB, at the planned blocks a sample and half of them. Plans
+(``candidates``) of J, B and C: every
 built tile whose BN divides the output columns, unsplit and, where the
 unsplit grid is short of a wave, at every split the kernel takes (J: the
 counts in CONV_SPLITS); B and C also at split 2 where the grid is full.
@@ -32,8 +36,9 @@ import torch
 
 from ..ops import _build, _plan
 from ..ops import conv as cv
+from ..ops import groupnorm as gn
 from ..ops import matmul as mm
-from .time_kernels import _graph_ms
+from .time_kernels import GN_SHAPES, _graph_ms
 
 # (size, Cin, Cout) of the UNet's resblock convs, one or two per level
 CONV_SHAPES = ((64, 320, 320), (64, 960, 320), (32, 640, 640), (32, 1920, 640),
@@ -54,10 +59,18 @@ def _short(plan) -> bool:
     return plan.blocks < _plan.WAVE_FILL * _plan.SMS
 
 
+# kernel D's plans beside the chosen one: chunks of about these bytes, and
+# half the blocks a sample
+GN_CHUNK_BYTES = (16384, 32768, 65536)
+
+
 def plan_name(plan) -> str:
-    """J: BN x splits, e.g. '160x2'; B, C: BN/blocks an SM x splits, '160/2x1'."""
+    """J: BN x splits, e.g. '160x2'; B, C: BN/blocks an SM x splits,
+    '160/2x1'; D: blocks a sample, chunk rows and slots, '16b/52r/5s'."""
     if isinstance(plan, mm.GemmPlan):
         return f'{plan.bn}/{plan.per_sm}x{plan.splits}'
+    if isinstance(plan, gn.GnPlan):
+        return f'{plan.blocks}b/{plan.chunk_rows}r/{plan.slots}s'
     return f'{plan.bn}x{plan.splits}'
 
 
@@ -71,8 +84,13 @@ def gemm_chosen(kind, M, K, rows):
 
 
 def candidates(chosen) -> list:
-    """The plans timed beside ``chosen`` (a ConvPlan or a GemmPlan), the
-    chosen one among them."""
+    """The plans timed beside ``chosen`` (a ConvPlan, a GemmPlan or a
+    GnPlan), the chosen one among them."""
+    if isinstance(chosen, gn.GnPlan):
+        p = chosen
+        plans = {gn.gn_plan(p.B, p.S, p.C, p.itemsize, p.groups, chunk_bytes=cb, blocks=nb)
+                 for cb in GN_CHUNK_BYTES for nb in (p.blocks, max(1, p.blocks // 2))}
+        return sorted(plans | {chosen}, key=plan_name)
     gemm = isinstance(chosen, mm.GemmPlan)
     if gemm:
         tiles = [(bn, per_sm) for g, bn, per_sm in mm.GEMM_TILES if g == chosen.geglu]
@@ -109,7 +127,7 @@ def _time(chosen, launch, ref, library):
         plans[plan_name(plan)] = _graph_ms(lambda plan=plan: launch(plan))
     return {'plan': plan_name(chosen), 'plan_ms': plans[plan_name(chosen)],
             'best': min(plans, key=plans.get), 'plans_ms': plans,
-            'library_ms': _graph_ms(library)}
+            'library_ms': None if library is None else _graph_ms(library)}
 
 
 def _conv_results(gen):
@@ -145,9 +163,24 @@ def _gemm_results(gen):
         yield f'{kind} x [{M}, {K}] w [{rows}, {K}]', 'F.linear', result
 
 
+def _gn_results(gen):
+    for B, S, C, silu in GN_SHAPES:
+        x = (torch.randn(B, S, C, device='cuda', generator=gen) * 3.0 + 1.0).to(torch.bfloat16)
+        sc = (torch.randn(C, device='cuda', generator=gen) * 0.2 + 1.0).to(torch.bfloat16)
+        bi = torch.randn(C, device='cuda', generator=gen).to(torch.bfloat16)
+        library = None if silu else (
+            lambda: torch.nn.functional.group_norm(x.transpose(1, 2), 32, sc, bi, 1e-5))
+        result = _time(gn.gn_plan(B, S, C, 2),
+                       lambda plan: gn._launch(x, sc, bi, 32, 1e-5, silu, plan),
+                       gn.group_norm_silu_plain(x, sc, bi, 32, 1e-5, silu).float(), library)
+        yield (f'D [{B}, {S}, {C}]{"" if silu else " no silu"}',
+               None if silu else 'F.group_norm', result)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--only', choices=('conv', 'gemm'), help='time only J or only B and C')
+    ap.add_argument('--only', choices=('conv', 'gemm', 'gn'),
+                    help='time only J, only B and C, or only D')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('time_plans: no CUDA device', file=sys.stderr)
@@ -156,8 +189,8 @@ def main(argv=None) -> int:
     gpu = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator(device='cuda').manual_seed(0)
-    families = [f for key, f in (('conv', _conv_results), ('gemm', _gemm_results))
-                if args.only in (None, key)]
+    families = [f for key, f in (('conv', _conv_results), ('gemm', _gemm_results),
+                                 ('gn', _gn_results)) if args.only in (None, key)]
     results = {}
     with torch.inference_mode():
         for family in families:

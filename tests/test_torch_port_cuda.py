@@ -37,6 +37,7 @@ from hcpdiff_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from hcpdiff_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from hcpdiff_tpu_torch.ops import conv as cv
 from hcpdiff_tpu_torch.ops import flash_attention as fa
+from hcpdiff_tpu_torch.ops import groupnorm as gn
 from hcpdiff_tpu_torch.ops import matmul as mm
 from hcpdiff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
 from hcpdiff_tpu_torch.ops.flash_attention import attention_plain, flash_attention
@@ -374,15 +375,82 @@ def test_gemm_every_tile_and_split(gen, dtype):
                     assert torch.equal(out, again), (plan, float((out - again).abs().max()))
 
 
-@pytest.mark.parametrize('B,S,C,G', [(2, 4096, 320, 32), (2, 256, 1280, 32),
-                                     (1, 512 * 512, 128, 32), (3, 100, 64, 8)])
+# (B, S, C, G): both regimes (gn_plan: resident [2, 4096, 320], [8, 64,
+# 2560]; re-read [1, 512 * 512, 128], [8, 4096, 640]), a ragged S (3, 100:
+# spans of 3 rows, the last block shorter) and odd group widths (C / G = 3
+# and 5: groups straddle the 8-channel vectors)
+GN_SHAPES = [(2, 4096, 320, 32), (2, 256, 1280, 32), (1, 512 * 512, 128, 32), (3, 100, 64, 8),
+             (8, 4096, 640, 32), (8, 64, 2560, 32), (2, 300, 96, 32), (2, 1000, 160, 32)]
+
+
+@pytest.mark.parametrize('B,S,C,G', GN_SHAPES)
 @pytest.mark.parametrize('silu', [True, False])
 def test_group_norm(gen, B, S, C, G, silu):
     x = _rn(gen, B, S, C, scale=3.0) + 1.0
     scale = torch.rand(C, device='cuda', generator=gen) + 0.5
     bias = torch.randn(C, device='cuda', generator=gen)
+    before = group_norm_silu.launches
     _close(group_norm_silu(x, scale, bias, G, 1e-5, silu),
            group_norm_silu_plain(x, scale, bias, G, 1e-5, silu))
+    assert group_norm_silu.launches == before + 1
+
+
+@pytest.mark.parametrize('B,S,C,G', GN_SHAPES)
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_group_norm_param_dtypes_and_determinism(gen, B, S, C, G, dtype):
+    """D reads bf16 scale and bias as they are (a bf16 model's parameters)
+    as well as fp32 ones, for a bf16 and an fp32 x, and two launches give
+    bitwise equal outputs (every block reduces the partial sums in one
+    fixed order)."""
+    x = _rn(gen, B, S, C, scale=3.0, dtype=dtype) + 1.0
+    for p_dtype in (torch.bfloat16, torch.float32):
+        scale = (torch.rand(C, device='cuda', generator=gen) + 0.5).to(p_dtype)
+        bias = torch.randn(C, device='cuda', generator=gen).to(p_dtype)
+        out = group_norm_silu(x, scale, bias, G, 1e-5, True)
+        again = group_norm_silu(x, scale, bias, G, 1e-5, True)
+        ref = group_norm_silu_plain(x, scale, bias, G, 1e-5, True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        if dtype == torch.float32:
+            assert bool(((out - ref).abs() <= GN_F32_TOL * (1 + ref.abs())).all()), float(
+                (out - ref).abs().max())
+        else:
+            _close(out, ref)
+
+
+def test_group_norm_batch_past_the_card(gen):
+    """A batch of more samples than the card has SMs takes one launch a
+    slice of as many samples as it holds blocks at once."""
+    B = 300
+    x = _rn(gen, B, 100, 64, scale=3.0) + 1.0
+    scale = torch.rand(64, device='cuda', generator=gen) + 0.5
+    bias = torch.randn(64, device='cuda', generator=gen)
+    per_launch = torch.cuda.get_device_properties(0).multi_processor_count
+    before = group_norm_silu.launches
+    _close(group_norm_silu(x, scale, bias, 8, 1e-5, True),
+           group_norm_silu_plain(x, scale, bias, 8, 1e-5, True))
+    assert group_norm_silu.launches == before + -(-B // per_launch)
+
+
+def test_group_norm_in_a_cuda_graph(gen):
+    """D's cooperative launch is captured in a CUDA graph and replays
+    right, its barrier counters left as they were."""
+    x = _rn(gen, 2, 4096, 320, scale=3.0) + 1.0
+    scale = torch.rand(320, device='cuda', generator=gen) + 0.5
+    bias = torch.randn(320, device='cuda', generator=gen)
+    ref = group_norm_silu_plain(x, scale, bias, 32, 1e-5, True)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        group_norm_silu(x, scale, bias, 32, 1e-5, True)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = group_norm_silu(x, scale, bias, 32, 1e-5, True)
+    for _ in range(3):
+        graph.replay()
+        _close(out, ref)
+    _close(group_norm_silu(x, scale, bias, 32, 1e-5, True), ref)
 
 
 def _ln_inputs(gen, M, K):
@@ -500,6 +568,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         group_norm_silu(_rn(gen, 2, 16, 30), torch.ones(30, device='cuda'),
                         torch.zeros(30, device='cuda'), 3)       # C % 8 != 0
+    ones = torch.ones(64, device='cuda')
+    with pytest.raises(ValueError):                               # an fp16 scale
+        group_norm_silu(_rn(gen, 2, 16, 64), ones.half(), ones.half(), 32)
+    x = _rn(gen, 200, 16, 64)                                     # a grid the card cannot hold
+    with pytest.raises(RuntimeError):                             # at once: the launch is refused
+        gn._launch(x, ones, ones, 32, 1e-5, True, gn.gn_plan(200, 16, 64, 2, sms=264))
     x, g, b = _ln_inputs(gen, 4, 36)
     with pytest.raises(ValueError):                               # K % 8 != 0
         mm.ln_dense(x, g, b, _rn(gen, 8, 36))
