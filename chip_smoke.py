@@ -43,8 +43,11 @@ package is missing. Phases, each fatal on failure:
    bf16, or 67 TFLOP/s fp32 outside the tensor cores); B and C (with the
    block residual) at every transformer level of a batch-4 request and at
    the 64x64 (B) and 16x16 (C, a split grid) levels of the batch-2
-   requests this script drives, each also beside F.linear on the same product (linear_ms: the product
-   alone, since no single call computes B, or C with a residual);
+   requests this script drives, and G, H and I at every transformer level
+   of a batch-4 request (each also launched twice, bitwise equal, and its
+   plan logged), each beside F.linear on the same product (linear_ms: the
+   product alone, since no single call computes B, C with a residual, or
+   a LayerNorm and a product);
 7b. the same for A, A with lse, E and F at the shapes of the TPU's
    classic-layout kernels (#2 _flash_kernel, #4 _flash_kernel_lse, #6
    _flash_bwd_dq/dkv_kernel), causal and not: [2, 10, 4096, 64] (SDXL's
@@ -799,8 +802,10 @@ J_LEVELS = ((32, 640, 640), (16, 1280, 1280), (16, 2560, 1280), (8, 1280, 1280),
 @torch.inference_mode()
 def fused_kernel_phase(launches):
     """Kernels G-J at the fused path's shapes (SD1.5 512 px, batch 4, so
-    a UNet batch of 8): G-I at levels 0 and 2, J at level 0 with each
-    epilogue and at the 8x8, Cin = 2560 conv (up_0's first resblock)."""
+    a UNet batch of 8): G-I at every transformer level, each also launched
+    twice (bitwise equal, fatal) and beside F.linear on its product alone
+    (linear_ms; G's three weights as one), J at level 0 with each epilogue
+    and at the 8x8, Cin = 2560 conv (up_0's first resblock)."""
     from hcpdiff_tpu_torch.ops import matmul as mm
     from hcpdiff_tpu_torch.ops.conv import conv3x3, conv3x3_plain
     F = torch.nn.functional
@@ -809,21 +814,37 @@ def fused_kernel_phase(launches):
     cl = torch.channels_last
     eps = 1e-6
 
-    def ln_args(M, C):
-        return rn(M, C), 1.0 + rn(C, scale=0.1), rn(C, scale=0.1)
+    def ln_case(kind, kernel, M, C, args, work, product):
+        """One G/H/I shape: its plan logged, two launches bitwise equal."""
+        geglu = kind == 'H'
+        plan = mm.ln_gemm_plan(geglu, 3 if kind == 'G' else 1, M, 4 * C if geglu else C, C)
+        outs, again = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        outs, again = (outs, again) if kind == 'G' else ((outs,), (again,))
+        check(all(torch.equal(a, b) for a, b in zip(outs, again)),
+              f'{kind} at x [{M}, {C}]: two launches differ')
+        log(f'  {kind} plan at x [{M}, {C}]: {plan}; bitwise equal twice')
+        del outs, again
+        label = (f'x [{M}, {C}], ' + ('wq/wk/wv' if kind == 'G' else 'w')
+                 + f' [{args[3].shape[0]}, {C}]')
+        return (label, args, work, None, {'linear_ms': product})
 
-    levels = ((8 * 64 * 64, 320), (8 * 16 * 16, 1280))       # (M, C) at levels 0 and 2
     g_shapes, h_shapes, i_shapes = [], [], []
-    for M, C in levels:
-        x, g, b = ln_args(M, C)
+    for S, C in FFN_LEVELS:
+        M = 8 * S
+        x, g, b = rn(M, C), 1.0 + rn(C, scale=0.1), rn(C, scale=0.1)
         ws = [rn(C, C, scale=C ** -0.5) for _ in range(3)]
         w2, b2 = rn(8 * C, C, scale=C ** -0.5), rn(8 * C)
-        g_shapes.append((f'x [{M}, {C}], wq/wk/wv [{C}, {C}]', [x, g, b, *ws, eps],
-                         gemm_work(M, C, C, C, nw=3, ln=True), None))
-        h_shapes.append((f'x [{M}, {C}], w [{8 * C}, {C}]', [x, g, b, w2, b2, eps],
-                         gemm_work(M, C, 8 * C, 4 * C, bias=8 * C, ln=True), None))
-        i_shapes.append((f'x [{M}, {C}], w [{C}, {C}]', [x, g, b, ws[0], eps],
-                         gemm_work(M, C, C, C, ln=True), None))
+        wqkv = torch.cat(ws)
+        g_shapes.append(ln_case('G', mm.ln_qkv, M, C, [x, g, b, *ws, eps],
+                                gemm_work(M, C, C, C, nw=3, ln=True),
+                                lambda x=x, w=wqkv: F.linear(x, w)))
+        h_shapes.append(ln_case('H', mm.ln_geglu, M, C, [x, g, b, w2, b2, eps],
+                                gemm_work(M, C, 8 * C, 4 * C, bias=8 * C, ln=True),
+                                lambda x=x, w=w2, bb=b2: F.linear(x, w, bb)))
+        i_shapes.append(ln_case('I', mm.ln_dense, M, C, [x, g, b, ws[0], eps],
+                                gemm_work(M, C, C, C, ln=True),
+                                lambda x=x, w=ws[0]: F.linear(x, w)))
 
     def conv_case(B, Cin, H, W, Cout, epilogue):
         from hcpdiff_tpu_torch.ops.conv import conv_plan
@@ -838,12 +859,12 @@ def fused_kernel_phase(launches):
                 conv_work(B, H, W, Cin, Cout, rb is not None, res is not None), library)
 
     cases = {
-        'ln_qkv': (CSRC + 'gemm.cu', [MM + '412'], mm.ln_qkv, mm.ln_qkv_plain, _within, TOL,
-                   g_shapes),
-        'ln_geglu': (CSRC + 'gemm.cu', [MM + '497'], mm.ln_geglu, mm.ln_geglu_plain, _within,
-                     TOL, h_shapes),
-        'ln_dense': (CSRC + 'gemm.cu', [MM + '600'], mm.ln_dense, mm.ln_dense_plain, _within,
-                     TOL, i_shapes),
+        'ln_qkv': (CSRC + 'ln_gemm_wgmma.cu', [MM + '412'], mm.ln_qkv, mm.ln_qkv_plain,
+                   _within, TOL, g_shapes),
+        'ln_geglu': (CSRC + 'ln_gemm_wgmma.cu', [MM + '497'], mm.ln_geglu, mm.ln_geglu_plain,
+                     _within, TOL, h_shapes),
+        'ln_dense': (CSRC + 'ln_gemm_wgmma.cu', [MM + '600'], mm.ln_dense, mm.ln_dense_plain,
+                     _within, TOL, i_shapes),
         'conv3x3': (CSRC + 'conv.cu', [CV + '48'], conv3x3, conv3x3_plain, _within, TOL,
                     [conv_case(8, 320, 64, 64, 320, 'row_bias'),
                      conv_case(8, 320, 64, 64, 320, 'res'),

@@ -1,11 +1,10 @@
 // Shared device helpers for the hand-written Hopper kernels (sm_90a).
 //
 // The kernels use cp.async for global -> shared copies and bf16 tensor-core
-// products with fp32 accumulation: the warp-level mma.sync.m16n8k16 (G-I,
-// and E and F at D=512), or the warpgroup-level wgmma (A-C, E, F, J;
-// wgmma.cuh). mma.sync's fragment layouts
-// (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with g = lane / 4 and
-// t = lane % 4:
+// products with fp32 accumulation: the warp-level mma.sync.m16n8k16 (E and
+// F at D=512), or the warpgroup-level wgmma (A-C, E-J; wgmma.cuh).
+// mma.sync's fragment layouts (PTX ISA, "Matrix Fragments for
+// mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major): a0 = (g, 2t..2t+1)   a1 = (g+8, 2t..2t+1)
 //                         a2 = (g, 2t+8..+9)   a3 = (g+8, 2t+8..+9)
 //   B (16x8, "col"):      b0 = (k=2t..2t+1, n=g)   b1 = (k=2t+8..+9, n=g)

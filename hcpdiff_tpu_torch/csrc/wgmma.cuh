@@ -1,7 +1,7 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a) over swizzled
 // shared-memory tiles, for kernels J (conv.cu), A (flash_attention.cu), E
-// and F (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu) and B and C
-// (gemm_wgmma.cu).
+// and F (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu), B and C
+// (gemm_wgmma.cu) and G, H and I (ln_gemm_wgmma.cu).
 //
 // Layouts. A tile of R rows is stored as blocks of R rows x SW bytes (SW =
 // 128, 64 or 32: 64, 32 or 16 bf16 columns), each block at an address

@@ -40,10 +40,10 @@ _SIGNATURES = {
     # are fp32, not bf16; the matrix operands are bf16 either way.
     # mode, x, w, bias, res, out, workspace, M, N, K, bn, minb, splits, out_f32, stream
     'hcp_gemm': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # mode, x, ln_g, ln_b, w0, w1, w2, bias, out0, out1, out2, nw, M, N, K, eps, out_f32,
-    # stream
+    # mode, x, ln_g, ln_b, w0, w1, w2, bias, out0, out1, out2, nw, M, N, K, eps, rows, bn,
+    # stages, minb, groups, out_f32, stream
     'hcp_ln_gemm': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                    ctypes.c_float, _I, _P],
+                    ctypes.c_float, _I, _I, _I, _I, _I, _I, _P],
     # x, w, bias, row_bias, res, out, workspace, B, H, W, Cin, Cout, bn, splits, out_f32,
     # stream
     'hcp_conv3x3': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -6,8 +6,8 @@ and the ``torch.autograd.Function`` of each.
 Counterpart of ``hcpdiff_tpu/ops/matmul.py``. Weights follow
 ``nn.Linear``'s [out, in] layout (the weight bridge transposes the JAX
 [in, out] kernels), so ``y = x @ w.T``. B and C live in
-``csrc/gemm_wgmma.cu``, G, H and I in ``csrc/gemm.cu`` (see their headers
-for the designs). The backwards are the JAX ``custom_vjp``s'
+``csrc/gemm_wgmma.cu``, G, H and I in ``csrc/ln_gemm_wgmma.cu`` (see their
+headers for the designs). The backwards are the JAX ``custom_vjp``s'
 (``matmul.py:231-238``, ``:259-266``, ``:369-381``, and the vjps of the
 LayerNorm GEMMs' ``_ref``s, ``:458-467``, ``:562-571``, ``:612-619``):
 plain torch in fp32, which XLA computes there and cuBLAS here.
@@ -18,8 +18,9 @@ an fp32 product: bf16 operands, fp32 accumulation); bias, residual and
 output stay fp32, so the result is rounded once.
 
 B and C's launch plan (:func:`gemm_plan`, plain Python) picks the column
-tile BN and a split of K over ``splits`` blocks for each shape; see its
-docstring.
+tile BN and a split of K over ``splits`` blocks for each shape; G, H and
+I's (:func:`ln_gemm_plan`) the rows a block holds, the column tile and how
+many blocks share a row tile's column tiles; see their docstrings.
 """
 from __future__ import annotations
 
@@ -33,9 +34,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from ._build import accum_dtype, aligned16, check, library, require, require_cuda, stream_handle
-from ._plan import BM, SMS, TilePlan, split_workspace
+from ._plan import BM, SMS, WAVE_FILL, TilePlan, split_workspace
 
-_DENSE, _DENSE_RES, _GEGLU = 0, 1, 2   # csrc/gemm_wgmma.cu and csrc/gemm.cu modes
+_DENSE, _DENSE_RES, _GEGLU = 0, 1, 2   # csrc/gemm_wgmma.cu and csrc/ln_gemm_wgmma.cu modes
 
 # csrc/gemm_wgmma.cu: channels per K step (BM rows of x per block), and
 # its HCP_GEMM_TILES table, (GEGLU?, BN, blocks an SM) -> ring stages
@@ -110,6 +111,129 @@ def gemm_plan(geglu: bool, M: int, N: int, K: int) -> GemmPlan:
             if best is None or key < best[0]:
                 best = (key, bn, per_sm, s)
     return GemmPlan(best[1], best[3], M, N, ksteps, geglu, best[2])
+
+
+# csrc/ln_gemm_wgmma.cu: its HCP_LN_GEMM_TILES table, (GEGLU?, rows a
+# block, BN, ring stages, blocks an SM), and the shared memory a block and
+# an SM hold
+LN_GEMM_TILES = ((False, 128, 160, 3, 1), (False, 64, 128, 3, 1), (True, 128, 64, 3, 1),
+                 (True, 64, 64, 3, 1))
+MAX_SMEM, SM_SMEM = 232448, 233472
+# the plan's cost model: the tensor cores' share of their peak that a
+# block's products reach, the L2's rate for the weight tiles all blocks
+# stream, device memory's and one SM's most, a column tile's epilogue (128
+# rows; H adds its GELU gate, about 25 fp32 operations an output at 128 a
+# cycle), and a block's fixed time (its launch, the statistics)
+_LN_MMA_EFF = 0.8
+_L2_BYTES_PER_S = 5.5e12
+_HBM_BYTES_PER_S = 3.35e12
+_SM_BYTES_PER_S = 112e9
+_LN_EPI_S = 1e-6
+_GELU_S = 25 / (128 * 1.755e9)
+_LN_BLOCK_FIXED_S = 2e-6
+
+
+def ln_gemm_smem(geglu: bool, rows: int, bn: int, stages: int, ksteps: int) -> int:
+    """A block's shared memory, as csrc/ln_gemm_wgmma.cu's LnCfg: the
+    resident rows (ksteps of 64 channels), the weight ring, the staging
+    buffer (a 16-byte-padded row of bn bf16 outputs, or H's fp32 gate rows
+    at 64 rows where they are larger), + 1024 bytes of alignment."""
+    ring = stages * (2 * bn if geglu else bn) * BK * 2
+    staging = rows * (2 * bn + 16)
+    if geglu and rows == 64:
+        staging = max(staging, rows * (4 * bn + 16))
+    return rows * ksteps * BK * 2 + ring + staging + 1024
+
+
+def ln_gemm_fits(geglu: bool, rows: int, bn: int, stages: int, per_sm: int, ksteps: int) -> bool:
+    """Whether per_sm blocks of the tile fit an SM at ksteps K steps."""
+    smem = ln_gemm_smem(geglu, rows, bn, stages, ksteps)
+    return smem <= MAX_SMEM and per_sm * (smem + 1024) <= SM_SMEM
+
+
+@dataclasses.dataclass(frozen=True)
+class LnGemmPlan:
+    """How kernel G, H (``geglu``) or I covers its nw outputs [m, n] with
+    K steps of 64 channels: blocks of ``rows`` rows (``per_sm`` an SM),
+    each holding its rows normalized in shared memory and walking a run of
+    column tiles of ``bn`` columns, a weight's tiles after the previous
+    weight's (G: q, k, v); ``groups`` runs a row tile, so a row's
+    statistics are computed ``groups`` times. The grid is (groups,
+    m_tiles)."""
+    geglu: bool
+    nw: int
+    m: int
+    n: int
+    ksteps: int
+    rows: int
+    bn: int
+    stages: int
+    per_sm: int
+    groups: int
+
+    @property
+    def tile(self):
+        """The tile's row of LN_GEMM_TILES."""
+        return self.geglu, self.rows, self.bn, self.stages, self.per_sm
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.m // self.rows)
+
+    @property
+    def tiles(self) -> int:
+        """Column tiles of all the weights."""
+        return self.nw * -(-self.n // self.bn)
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.groups
+
+    def tile_range(self, group: int):
+        """The column tiles [start, stop) of run `group`, as the kernel computes them."""
+        return group * self.tiles // self.groups, (group + 1) * self.tiles // self.groups
+
+    @property
+    def smem(self) -> int:
+        return ln_gemm_smem(self.geglu, self.rows, self.bn, self.stages, self.ksteps)
+
+
+def _ln_gemm_cost(plan: LnGemmPlan) -> float:
+    """Estimated seconds: waves of blocks (one an SM, as every built tile
+    is), each loading its rows, then per column tile the slowest of its
+    products, its weight tiles' L2 reads and its output's write, and its
+    epilogue."""
+    active = min(plan.blocks, SMS)
+    l2 = min(_L2_BYTES_PER_S / active, _SM_BYTES_PER_S)
+    hbm = min(_HBM_BYTES_PER_S / active, _SM_BYTES_PER_S)
+    b_rows = 2 * plan.bn if plan.geglu else plan.bn
+    per_tile = max(plan.ksteps * 2 * plan.rows * b_rows * BK / (_LN_MMA_EFF * 989e12 / SMS),
+                   plan.ksteps * b_rows * BK * 2 / l2, plan.rows * plan.bn * 2 / hbm)
+    per_tile += (_LN_EPI_S * plan.rows / 128
+                 + (plan.rows * plan.bn * _GELU_S if plan.geglu else 0.0))
+    run = -(-plan.tiles // plan.groups)
+    block = plan.rows * plan.ksteps * BK * 2 / hbm + _LN_BLOCK_FIXED_S + run * per_tile
+    return math.ceil(plan.blocks / SMS) * block
+
+
+@functools.lru_cache(maxsize=None)
+def ln_gemm_plan(geglu: bool, nw: int, M: int, N: int, K: int) -> LnGemmPlan:
+    """The tile and the runs of kernel G (nw = 3), I (nw = 1) or H
+    (``geglu``) for outputs [M, N] with K input channels (cached).
+
+    Among the built tiles whose blocks fit an SM at K, and groups from 1 to
+    the column tiles, it takes the least estimated time
+    (:func:`_ln_gemm_cost`) among the plans whose grid fills a wave
+    (WAVE_FILL of the SMs) where some plan's does; ties go to fewer groups,
+    so a row's statistics are computed as few times as the card allows."""
+    ksteps = -(-K // BK)
+    plans = [LnGemmPlan(geglu, nw, M, N, ksteps, rows, bn, stages, per_sm, groups)
+             for g, rows, bn, stages, per_sm in LN_GEMM_TILES
+             if g == geglu and ln_gemm_fits(g, rows, bn, stages, per_sm, ksteps)
+             for groups in range(1, nw * -(-N // bn) + 1)]
+    wave = WAVE_FILL * SMS
+    full = [p for p in plans if p.blocks >= wave]
+    return min(full or plans, key=lambda p: (_ln_gemm_cost(p), p.groups, -p.rows))
 
 
 # The plain versions compute in the accumulation dtype and round once, as
@@ -290,7 +414,9 @@ def ln_geglu_plain(x, g, b, w, bias=None, eps: float = 1e-5):
     return (h * F.gelu(gate)).to(x.dtype)
 
 
-def _ln_launch(name: str, mode: int, x, g, b, ws, bias, n_out: int, eps: float):
+def _ln_launch(name: str, mode: int, x, g, b, ws, bias, n_out: int, eps: float,
+               plan: Optional[LnGemmPlan] = None):
+    """``plan`` defaults to :func:`ln_gemm_plan` of the shape."""
     dt = require_cuda(name, x, g, b, *ws, bias)
     x, g, b = (t.to(torch.bfloat16) for t in (x, g, b))
     ws = [w.to(torch.bfloat16) for w in ws]
@@ -305,13 +431,21 @@ def _ln_launch(name: str, mode: int, x, g, b, ws, bias, n_out: int, eps: float):
     require(bias is None or bias.shape == (rows,), name, f'bias must be [{rows}]')
     require(K % 8 == 0 and n_out % 2 == 0, name,
             f'needs K % 8 == 0 and an even N, got K={K}, N={n_out}')
+    M = x.numel() // K
+    geglu = mode == _GEGLU
+    plan = ln_gemm_plan(geglu, len(ws), M, n_out, K) if plan is None else plan
+    if (plan.tile not in LN_GEMM_TILES or not 1 <= plan.groups <= plan.tiles
+            or not ln_gemm_fits(*plan.tile, plan.ksteps)
+            or (plan.geglu, plan.nw, plan.m, plan.n, plan.ksteps)
+            != (geglu, len(ws), M, n_out, -(-K // BK))):
+        require(False, name, f'no kernel instance for {plan}')   # formatted only on failure
     outs = [torch.empty(*x.shape[:-1], n_out, dtype=dt, device=x.device) for _ in ws]
     pad = [0] * (3 - len(ws))
     rc = library().hcp_ln_gemm(
         mode, x.data_ptr(), g.data_ptr(), b.data_ptr(), *[w.data_ptr() for w in ws], *pad,
         0 if bias is None else bias.data_ptr(), *[o.data_ptr() for o in outs], *pad,
-        len(ws), x.numel() // K, n_out, K, float(eps), int(dt == torch.float32),
-        stream_handle(x.device))
+        len(ws), M, n_out, K, float(eps), plan.rows, plan.bn, plan.stages, plan.per_sm,
+        plan.groups, int(dt == torch.float32), stream_handle(x.device))
     check(rc, name)
     return outs
 

@@ -31,12 +31,12 @@ NEGATIVE = 'blurry, low quality'
 # kernel name (as CUPTI reports it) -> family; the first match wins
 FAMILIES = (
     ('flash_fwd_kernel', 'A flash_attention'),
+    ('LnCfg<true', 'H ln_geglu'),       # ln_proj_kernel<LnCfg<GEGLU, ..>, ..>
+    ('LnCfg<false', 'G ln_qkv / I ln_dense'),
     ('Tile<true', 'B geglu_dense'),     # ffn_gemm_kernel<Tile<GEGLU, ..>, ..>
     ('ffn_splitk_reduce<true', 'B geglu_dense'),
     ('Tile<false', 'C fused_dense'),
     ('ffn_splitk_reduce<false', 'C fused_dense'),
-    ('gemm_kernel<0', 'G ln_qkv / I ln_dense'),
-    ('gemm_kernel<2', 'H ln_geglu'),
     ('conv3x3_', 'J conv3x3'),          # the wgmma kernel and its split-K sum
     ('::gn_', 'D group_norm_silu'),
     ('layer_norm', 'LayerNorm'),

@@ -1,10 +1,10 @@
 """Time every kernel of the port (A-J) at the main paths' shapes, and A,
 E and F also at the classic route's head dims, causal and not, in bf16,
-for one checkout, to compare two versions on one card. B and C are timed
-at every transformer level of a batch-4 request, beside F.linear on the
-same products (labels "F.linear ..."), and D at every GroupNorm shape of a
-batch-4 request (GN_SHAPES), with bf16 scale and bias as the model holds
-them, beside F.group_norm where there is no SiLU.
+for one checkout, to compare two versions on one card. B, C, G, H and I
+are timed at every transformer level of a batch-4 request, beside
+F.linear on the same products (labels "F.linear ..."), and D at every
+GroupNorm shape of a batch-4 request (GN_SHAPES), with bf16 scale and
+bias as the model holds them, beside F.group_norm where there is no SiLU.
 
     python hcpdiff_tpu_torch/tools/time_kernels.py [--tree DIR] > result.json
 
@@ -168,14 +168,22 @@ def _cases(gen):
             cases[f'F.group_norm [{B}, {S}, {C}]'] = (
                 lambda x=x, sc=sc, bi=bi: torch.nn.functional.group_norm(
                     x.transpose(1, 2), 32, sc, bi, 1e-5))
-    for M, C in ((32768, 320), (2048, 1280)):
+    # G, H and I at every transformer level of a batch-4 request (x [8S, C];
+    # G: wq/wk/wv [C, C], H: w [8C, C], I: w [C, C]), F.linear beside each on
+    # the same product (G's three weights as one [3C, C])
+    for S, C in FFN_LEVELS:
+        M = 8 * S
         x, g, b = rn(M, C), 1.0 + rn(C, scale=0.1), rn(C, scale=0.1)
         ws = [rn(C, C, scale=C ** -0.5) for _ in range(3)]
         w2, b2 = rn(8 * C, C, scale=C ** -0.5), rn(8 * C)
+        wqkv = torch.cat(ws)
         cases[f'G x [{M}, {C}]'] = lambda x=x, g=g, b=b, ws=ws: mm.ln_qkv(x, g, b, *ws, 1e-6)
+        cases[f'F.linear G x [{M}, {C}]'] = lambda a=(x, wqkv): linear(*a)
         cases[f'H x [{M}, {C}]'] = lambda x=x, g=g, b=b, w=w2, bb=b2: mm.ln_geglu(
             x, g, b, w, bb, 1e-6)
+        cases[f'F.linear H x [{M}, {C}]'] = lambda a=(x, w2, b2): linear(*a)
         cases[f'I x [{M}, {C}]'] = lambda x=x, g=g, b=b, w=ws[0]: mm.ln_dense(x, g, b, w, 1e-6)
+        cases[f'F.linear I x [{M}, {C}]'] = lambda a=(x, ws[0]): linear(*a)
     cl = torch.channels_last
     for B, Cin, H, Cout in ((8, 320, 64, 320), (8, 960, 64, 320), (8, 640, 32, 640),
                             (8, 1280, 16, 1280), (8, 2560, 16, 1280), (8, 1280, 8, 1280),

@@ -1,12 +1,13 @@
-"""Time kernel J (the 3x3 conv), kernels B and C (the feed-forward GEMMs)
-and kernel D (GroupNorm) under the launch plans they could take at the
-SD1.5 paths' shapes, beside the plan their planner picks
-(``ops/conv.py:conv_plan``, ``ops/matmul.py:gemm_plan``,
-``ops/groupnorm.py:gn_plan``) and one PyTorch call on the same inputs
+"""Time kernel J (the 3x3 conv), kernels B and C (the feed-forward GEMMs),
+kernel D (GroupNorm) and kernels G, H and I (the LayerNorm GEMMs) under
+the launch plans they could take at the SD1.5 paths' shapes, beside the
+plan their planner picks (``ops/conv.py:conv_plan``,
+``ops/matmul.py:gemm_plan``, ``ops/groupnorm.py:gn_plan``,
+``ops/matmul.py:ln_gemm_plan``) and one PyTorch call on the same inputs
 (F.conv2d; F.linear, the product alone; F.group_norm without SiLU), to
 check and tune the plans on one card.
 
-    python -m hcpdiff_tpu_torch.tools.time_plans [--only conv|gemm|gn] > result.json
+    python -m hcpdiff_tpu_torch.tools.time_plans [--only conv|gemm|gn|ln] > result.json
 
 Shapes: J at every resblock conv of UNet batch 8 (a batch-4 request under
 CFG); B, and C with the block residual, at every transformer level of a
@@ -14,8 +15,11 @@ batch-4 request, the batch-1 shapes whose grids are short of a wave, and C
 without a residual at proj_in's [32768, 320] x [320, 320] and at the mid
 block's proj [512, 1280] x [1280, 1280]; D at every GroupNorm shape of a
 batch-4 request (``time_kernels.GN_SHAPES``), under chunks of about 16,
-32 and 64 KB, at the planned blocks a sample and half of them. Plans
-(``candidates``) of J, B and C: every
+32 and 64 KB, at the planned blocks a sample and half of them; G, H and I
+at every transformer level of a batch-4 request and at batch 1's mid
+block, under every built tile whose rows fit shared memory at the
+shape's K and runs of LN_GROUPS a row tile. Plans (``candidates``) of J,
+B and C: every
 built tile whose BN divides the output columns, unsplit and, where the
 unsplit grid is short of a wave, at every split the kernel takes (J: the
 counts in CONV_SPLITS); B and C also at split 2 where the grid is full.
@@ -28,6 +32,7 @@ ms and the library call's ms. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,11 +67,20 @@ def _short(plan) -> bool:
 # kernel D's plans beside the chosen one: chunks of about these bytes, and
 # half the blocks a sample
 GN_CHUNK_BYTES = (16384, 32768, 65536)
+# (kernel, M, C) of G, H and I: x [M, C]; G: three weights [C, C], H: w
+# [8C, C], I: w [C, C]; the batch-4 levels and batch 1's mid block
+LN_SHAPES = tuple((kind, M, C) for M, C in ((32768, 320), (8192, 640), (2048, 1280),
+                                            (512, 1280), (128, 1280)) for kind in 'GHI')
+# G, H and I's runs a row tile beside the chosen plan's
+LN_GROUPS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 
 
 def plan_name(plan) -> str:
     """J: BN x splits, e.g. '160x2'; B, C: BN/blocks an SM x splits,
-    '160/2x1'; D: blocks a sample, chunk rows and slots, '16b/52r/5s'."""
+    '160/2x1'; D: blocks a sample, chunk rows and slots, '16b/52r/5s';
+    G, H, I: rows/BN/stages/blocks an SM x groups, '128/160/5/1x1'."""
+    if isinstance(plan, mm.LnGemmPlan):
+        return f'{plan.rows}/{plan.bn}/{plan.stages}/{plan.per_sm}x{plan.groups}'
     if isinstance(plan, mm.GemmPlan):
         return f'{plan.bn}/{plan.per_sm}x{plan.splits}'
     if isinstance(plan, gn.GnPlan):
@@ -83,9 +97,24 @@ def gemm_chosen(kind, M, K, rows):
     return mm.gemm_plan(geglu, M, rows // 2 if geglu else rows, K)
 
 
+def ln_chosen(kind, M, C):
+    geglu = kind == 'H'
+    return mm.ln_gemm_plan(geglu, 3 if kind == 'G' else 1, M, 4 * C if geglu else C, C)
+
+
 def candidates(chosen) -> list:
-    """The plans timed beside ``chosen`` (a ConvPlan, a GemmPlan or a
-    GnPlan), the chosen one among them."""
+    """The plans timed beside ``chosen`` (a ConvPlan, a GemmPlan, a GnPlan
+    or an LnGemmPlan), the chosen one among them."""
+    if isinstance(chosen, mm.LnGemmPlan):
+        plans = []
+        for g, rows, bn, stages, per_sm in mm.LN_GEMM_TILES:
+            if g != chosen.geglu or not mm.ln_gemm_fits(g, rows, bn, stages, per_sm,
+                                                         chosen.ksteps):
+                continue
+            p = dataclasses.replace(chosen, rows=rows, bn=bn, stages=stages, per_sm=per_sm,
+                                    groups=1)
+            plans += [dataclasses.replace(p, groups=n) for n in LN_GROUPS if n <= p.tiles]
+        return plans + ([chosen] if chosen not in plans else [])
     if isinstance(chosen, gn.GnPlan):
         p = chosen
         plans = {gn.gn_plan(p.B, p.S, p.C, p.itemsize, p.groups, chunk_bytes=cb, blocks=nb)
@@ -120,7 +149,8 @@ def _time(chosen, launch, ref, library):
     and time the library call."""
     plans = {}
     for plan in candidates(chosen):
-        err = (launch(plan).float() - ref).abs()
+        out = launch(plan)            # G's three outputs are checked side by side
+        err = ((torch.cat(out, -1) if isinstance(out, list) else out).float() - ref).abs()
         if not bool((err <= 1e-2 + 1.6e-2 * ref.abs()).all()):
             raise SystemExit(f'time_plans: {plan} disagrees with the plain version by '
                              f'{float(err.max())}')
@@ -177,10 +207,33 @@ def _gn_results(gen):
                None if silu else 'F.group_norm', result)
 
 
+def _ln_results(gen):
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, device='cuda', generator=gen) * scale).to(torch.bfloat16)
+
+    for kind, M, C in LN_SHAPES:
+        geglu = kind == 'H'
+        x, g, b = rn(M, C), 1.0 + rn(C, scale=0.1), rn(C, scale=0.1)
+        ws = [rn(8 * C if geglu else C, C, scale=C ** -0.5) for _ in range(3 if kind == 'G' else 1)]
+        bias = rn(8 * C) if geglu else None
+        n_out = 4 * C if geglu else C
+        mode = mm._GEGLU if geglu else mm._DENSE
+        plain = (mm.ln_geglu_plain(x, g, b, ws[0], bias, 1e-6) if geglu
+                 else torch.cat(mm.ln_qkv_plain(x, g, b, *ws, 1e-6), -1) if kind == 'G'
+                 else mm.ln_dense_plain(x, g, b, ws[0], 1e-6))
+        weight = torch.cat(ws)
+
+        def launch(plan):
+            return mm._ln_launch(kind, mode, x, g, b, ws, bias, n_out, 1e-6, plan)
+        result = _time(ln_chosen(kind, M, C), launch, plain.float(),
+                       lambda: torch.nn.functional.linear(x, weight, bias))
+        yield f'{kind} x [{M}, {C}]', 'F.linear', result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--only', choices=('conv', 'gemm', 'gn'),
-                    help='time only J, only B and C, or only D')
+    ap.add_argument('--only', choices=('conv', 'gemm', 'gn', 'ln'),
+                    help='time only J, only B and C, only D, or only G, H and I')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('time_plans: no CUDA device', file=sys.stderr)
@@ -190,7 +243,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator(device='cuda').manual_seed(0)
     families = [f for key, f in (('conv', _conv_results), ('gemm', _gemm_results),
-                                 ('gn', _gn_results)) if args.only in (None, key)]
+                                 ('gn', _gn_results), ('ln', _ln_results))
+                if args.only in (None, key)]
     results = {}
     with torch.inference_mode():
         for family in families:

@@ -28,6 +28,7 @@ then miss the bound above by more than its own size, so they are held to
 GRAD_REL_L2 relative L2 error. The lse is fp32 on both sides: LSE_ATOL.
 """
 import copy
+import dataclasses
 
 import pytest
 import torch
@@ -458,10 +459,18 @@ def _ln_inputs(gen, M, K):
     return _rn(gen, M, K, scale=2.0) + 0.5, 1.0 + _rn(gen, K, scale=0.1), _rn(gen, K, scale=0.1)
 
 
-@pytest.mark.parametrize('M,K', [(4096, 320), (1000, 640), (512, 1280), (300, 32)])
+# x [M, C] of the fused UNet's G, H and I at its four transformer levels
+# (64x64, 32x32, 16x16, 8x8 mid), batch 1 and 4 under CFG (M = 2 * batch * S)
+LN_LEVELS = [(2 * b * S, C) for b in (1, 4)
+             for S, C in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))]
+
+
+@pytest.mark.parametrize('M,K', [(4096, 320), (1000, 640), (512, 1280), (300, 32)]
+                         + [s for s in LN_LEVELS if s != (512, 1280)])
 def test_ln_gemm_kernels(gen, M, K):
     """G, H and I against their plain versions (eps 1e-6, as the UNet
-    passes it), on a ragged M and at the UNet's widths."""
+    passes it), on a ragged M and at the UNet's widths, and at the fused
+    UNet's four levels at batch 1 and 4."""
     x, g, b = _ln_inputs(gen, M, K)
     ws = [_rn(gen, K, K, scale=K ** -0.5) for _ in range(3)]
     w2, b2 = _rn(gen, 8 * K, K, scale=K ** -0.5), _rn(gen, 8 * K)
@@ -472,6 +481,86 @@ def test_ln_gemm_kernels(gen, M, K):
     _close(mm.ln_geglu(x, g, b, w2, b2, 1e-6), mm.ln_geglu_plain(x, g, b, w2, b2, 1e-6))
     assert (mm.ln_qkv.launches, mm.ln_dense.launches, mm.ln_geglu.launches) == tuple(
         n + 1 for n in before)
+
+
+def _ln_route(kind, x, g, b, ws, bias, plan=None):
+    """G (three weights), H (one [2N, K] weight and its bias) or I through
+    ``_ln_launch`` under ``plan`` (the planned one if None); the outputs."""
+    mode = mm._GEGLU if kind == 'H' else mm._DENSE
+    n_out = ws[0].shape[0] // 2 if kind == 'H' else ws[0].shape[0]
+    return mm._ln_launch(kind, mode, x, g, b, ws, bias, n_out, 1e-6, plan)
+
+
+def _ln_refs(kind, x, g, b, ws, bias):
+    """The plain version on the operands an fp32 call rounds to bf16."""
+    if x.dtype == torch.float32:
+        outs = _ln_fp32_reference(kind, x, g, b, *ws, *([bias] if kind == 'H' else []))
+    elif kind == 'H':
+        outs = mm.ln_geglu_plain(x, g, b, ws[0], bias, 1e-6)
+    elif kind == 'G':
+        outs = mm.ln_qkv_plain(x, g, b, *ws, 1e-6)
+    else:
+        outs = mm.ln_dense_plain(x, g, b, ws[0], 1e-6)
+    return list(outs) if isinstance(outs, tuple) else [outs]
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('M,K,N', [(300, 320, 320), (300, 320, 98), (130, 1280, 200)])
+def test_ln_gemm_every_tile_and_group(gen, M, K, N, dtype):
+    """Every built tile whose rows fit at K, under one run, two and as
+    many runs as column tiles, on a ragged M, against the plain versions:
+    N = 320 (the 160-column tile divides it, the others leave a ragged
+    last tile), 98 (N * 2 % 16 != 0: the epilogue's column pairs) and 200;
+    and two launches are the same, bit for bit (a fixed order, no
+    atomics)."""
+    x, g, b = _ln_inputs(gen, M, K)
+    x, g, b = x.to(dtype), g.to(dtype), b.to(dtype)
+    for kind in 'GHI':
+        rows = 2 * N if kind == 'H' else N
+        ws = [_rn(gen, rows, K, scale=K ** -0.5, dtype=dtype)
+              for _ in range(3 if kind == 'G' else 1)]
+        bias = _rn(gen, rows, dtype=dtype) if kind == 'H' else None
+        refs = _ln_refs(kind, x, g, b, ws, bias)
+        base = mm.ln_gemm_plan(kind == 'H', len(ws), M, N, K)
+        for geglu, r, bn, stages, per_sm in mm.LN_GEMM_TILES:
+            if geglu != (kind == 'H') or not mm.ln_gemm_fits(geglu, r, bn, stages, per_sm,
+                                                              base.ksteps):
+                continue
+            tile = dataclasses.replace(base, rows=r, bn=bn, stages=stages, per_sm=per_sm,
+                                       groups=1)
+            for groups in sorted({1, min(2, tile.tiles), tile.tiles}):
+                plan = dataclasses.replace(tile, groups=groups)
+                outs = _ln_route(kind, x, g, b, ws, bias, plan)
+                again = _ln_route(kind, x, g, b, ws, bias, plan)
+                for out, ref, twice in zip(outs, refs, again):
+                    _close(out, ref)
+                    assert torch.equal(out, twice), plan
+
+
+def test_ln_gemm_in_a_cuda_graph(gen):
+    """G, H and I captured in one CUDA graph replay right."""
+    M, K = 2 * 1024, 640
+    x, g, b = _ln_inputs(gen, M, K)
+    ws = [_rn(gen, K, K, scale=K ** -0.5) for _ in range(3)]
+    w2, b2 = _rn(gen, 8 * K, K, scale=K ** -0.5), _rn(gen, 8 * K)
+    refs = (list(mm.ln_qkv_plain(x, g, b, *ws, 1e-6)) + [mm.ln_dense_plain(x, g, b, ws[0], 1e-6)]
+            + [mm.ln_geglu_plain(x, g, b, w2, b2, 1e-6)])
+
+    def run():
+        return (list(mm.ln_qkv(x, g, b, *ws, 1e-6)) + [mm.ln_dense(x, g, b, ws[0], 1e-6)]
+                + [mm.ln_geglu(x, g, b, w2, b2, 1e-6)])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for _ in range(2):
+        graph.replay()
+        for out, ref in zip(outs, refs):
+            _close(out, ref)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
