@@ -21,6 +21,19 @@ package is missing. Phases, each fatal on failure:
 4. hold the card's UNet, VAE decode and CLIP (bf16, kernels) against the
    same weights in fp32 on the CPU (plain versions) on a small input, and
    the fused UNet too;
+4b. SDXL: build UNetConfig.sdxl(), VAEConfig.sdxl() and CLIP-L + bigG
+   (CLIPTextConfig.sd15() and .sdxl_big_g(), the tiny tokenizer's BOS/EOS
+   ids) at full width and depth, bf16, seeded (tools/random_sdxl.py);
+   answer txt2img requests at 1024x1024, 20 DPM++ 2M steps, guidance 7.5,
+   batch 1 and 4 (the pooled embedding and time_ids conditioning), each
+   image finite and in [0, 1], with seconds a request and an image and
+   peak device memory; kernels A-D must launch, as often as the configs
+   say (SDXL_LAUNCHES), and G-J never;
+4c. hold the SDXL text frontend (both encoders, full width: hidden and
+   pooled) and the SDXL UNet at full width with one transformer block a
+   level (transformer_layers_per_block (1, 1, 1)) on a [2, 64, 64, 4]
+   latent (S = 1024 at level 1, so A runs) against the same weights in
+   fp32 on the CPU;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -67,6 +80,17 @@ package is missing. Phases, each fatal on failure:
    without SiLU (the transformer and VAE-attention norms) beside
    F.group_norm, and at each shape also launched twice (bitwise equal),
    with fp32 scale and bias, and on an fp32 x;
+7d. A, B, C and D also at the SDXL request's batch-4 shapes (labelled
+   sdxl): A at [8, 10, 4096, 64], [8, 20, 1024, 64] (self-attention at
+   levels 1 and 2) and [1, 1, 16384, 512] (the 1024 px VAE's mid-block
+   attention, compared at batch 1: the plain version's scores take 1 GiB
+   a head); B and C at both transformer levels; D, with the same checks
+   as 7c, at every GroupNorm shape of the request that no 512 px request
+   has: the UNet's [8, 128^2, 320/640/960], [8, 64^2, 1280/1920] and
+   [8, 32^2, 2560] with SiLU and its transformer norms [8, 64^2, 640] and
+   [8, 32^2, 1280] without, the 1024 px VAE's [4, 1024^2, 128],
+   [4, 1024^2, 256] and [4, 512^2, 512] with SiLU and its mid-block
+   attention norm [4, 128^2, 512] without;
 8. head dims outside the built set: A, A with lse, E and F at D = 16, 96,
    144 and 192 (zero-padded by the wrappers to 48, 128, 160, 512; causal
    at 144 and 192) against their plain versions;
@@ -81,6 +105,7 @@ The line before the last is one JSON object with the kernels' records; the
 last line is {"ok": true, "device": {...}}.
 """
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -95,6 +120,12 @@ SEED = 0
 REQUESTS = (1, 2, 4)            # batch sizes of the three txt2img requests
 FUSED_REQUESTS = (1, 4)         # and of the fused UNet's
 STEPS, GUIDANCE, SIZE = 20, 7.5, 512
+SDXL_REQUESTS, SDXL_SIZE = (1, 4), 1024
+# an SDXL request's launches, by its configs: 70 transformer blocks a UNet
+# call (each one A, B and C), 46 GroupNorms a call, STEPS calls; then the
+# VAE decode's mid-block attention (A) and 30 GroupNorms
+SDXL_LAUNCHES = {'flash_attention': 70 * STEPS + 1, 'geglu_dense': 70 * STEPS,
+                 'fused_dense': 70 * STEPS, 'group_norm_silu': 46 * STEPS + 30}
 PROMPT = 'a photo of a cat sitting on a wooden table, highly detailed'
 NEGATIVE = 'blurry, low quality'
 # kernel vs plain on the card: both bf16 with fp32 accumulation, each
@@ -162,6 +193,7 @@ TRAIN_KERNELS = TXT2IMG_KERNELS + ('flash_attention_lse', 'flash_attention_bwd_d
                                    'flash_attention_bwd_dkv')
 FUSED_KERNELS = ('ln_qkv', 'ln_geglu', 'ln_dense', 'conv3x3', 'flash_attention',
                  'fused_dense', 'group_norm_silu')
+FUSED_ONLY = ('ln_qkv', 'ln_geglu', 'ln_dense', 'conv3x3')
 
 
 def counters():
@@ -542,6 +574,12 @@ TOL = {'atol': ATOL, 'rtol': RTOL}
 # (S, C) of the UNet's transformer levels: 64x64, 32x32, 16x16 and the 8x8 mid block
 FFN_LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 O_TOL = {**TOL, 'o_rel_l2': O_REL_L2}          # kernel A's o
+# SDXL's batch-4 shapes (a UNet batch of 8): self-attention at levels 1
+# and 2 (D = 64) and the 1024 px VAE's mid-block attention, compared at
+# batch 1; (S, C) of the two transformer levels (D's: time_kernels.py's
+# SDXL_GN_SHAPES)
+SDXL_ATTN_SHAPES = ((8, 10, 4096, 64), (8, 20, 1024, 64), (1, 1, 16384, 512))
+SDXL_FFN_LEVELS = ((4096, 640), (1024, 1280))
 
 
 def gn_checks(B, S, C, args):
@@ -573,12 +611,12 @@ def kernel_phase(launches):
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
     from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_dense,
                                               geglu_dense_plain)
-    from hcpdiff_tpu_torch.tools.time_kernels import GN_SHAPES
+    from hcpdiff_tpu_torch.tools.time_kernels import GN_SHAPES, SDXL_GN_SHAPES
     F = torch.nn.functional
     gen = torch.Generator(device='cuda').manual_seed(SEED + 2)
     rn = _rn_on(gen)
 
-    def gn_case(B, S, C, silu):
+    def gn_case(B, S, C, silu, prefix=''):
         """D at one GroupNorm shape of a batch-4 request, with bf16 scale
         and bias as the model holds them (the VAE's norms at batch 4 take
         eps 1e-6); without SiLU the yardstick is F.group_norm on the same
@@ -590,23 +628,23 @@ def kernel_phase(launches):
         gn_checks(B, S, C, args)
         library = None if silu else (
             lambda: F.group_norm(x.transpose(1, 2), 32, sc, bi, eps))
-        return (f'x [{B}, {S}, {C}]{" silu" if silu else " no silu"}', args,
+        return (f'{prefix}x [{B}, {S}, {C}]{" silu" if silu else " no silu"}', args,
                 group_norm_work(B, S, C, silu), library)
 
-    def attn(s):
+    def attn(s, prefix=''):
         q, k, v = rn(*s), rn(*s), rn(*s)
-        return (f'q/k/v {list(s)}', [q, k, v], attention_work(*s),
+        return (f'{prefix}q/k/v {list(s)}', [q, k, v], attention_work(*s),
                 lambda: F.scaled_dot_product_attention(q, k, v))
 
-    def ffn(kind, M, K, rows):
+    def ffn(kind, M, K, rows, prefix=''):
         """B, or C with the block residual, at one transformer level;
         F.linear times the product alone (linear_ms)."""
         x, w, b = rn(M, K), rn(rows, K, scale=K ** -0.5), rn(rows)
         if kind == 'B':
-            return (f'x [{M}, {K}], w [{rows}, {K}]', [x, w, b],
+            return (f'{prefix}x [{M}, {K}], w [{rows}, {K}]', [x, w, b],
                     gemm_work(M, K, rows, rows // 2, bias=rows), None,
                     {'linear_ms': lambda: F.linear(x, w, b)})
-        return (f'x [{M}, {K}], w [{rows}, {K}], res', [x, w, b, rn(M, rows)],
+        return (f'{prefix}x [{M}, {K}], w [{rows}, {K}], res', [x, w, b, rn(M, rows)],
                 gemm_work(M, K, rows, rows, bias=rows, res=True), None,
                 {'linear_ms': lambda: F.linear(x, w, b)})
 
@@ -615,23 +653,28 @@ def kernel_phase(launches):
         'flash_attention': (
             CSRC + 'flash_attention.cu', [FA + '379', FA + '226'],
             flash_attention, attention_plain, _within_rel, O_TOL,
-            [attn(s) for s in ((4, 8, 4096, 40), (4, 8, 1024, 80), (2, 1, 4096, 512))]),
+            [attn(s) for s in ((4, 8, 4096, 40), (4, 8, 1024, 80), (2, 1, 4096, 512))]
+            + [attn(s, 'sdxl ') for s in SDXL_ATTN_SHAPES]),
         'geglu_dense': (
             CSRC + 'gemm_wgmma.cu', [MM + '301'], geglu_dense, geglu_dense_plain, _within, TOL,
-            [ffn('B', 8 * S, C, 8 * C) for S, C in FFN_LEVELS] + [ffn('B', 16384, 320, 2560)]),
+            [ffn('B', 8 * S, C, 8 * C) for S, C in FFN_LEVELS] + [ffn('B', 16384, 320, 2560)]
+            + [ffn('B', 8 * S, C, 8 * C, 'sdxl ') for S, C in SDXL_FFN_LEVELS]),
         'fused_dense': (
             CSRC + 'gemm_wgmma.cu', [MM + '87', MM + '66'], fused_dense, fused_dense_plain,
             _within, TOL,
             [ffn('C', 8 * S, 4 * C, C) for S, C in FFN_LEVELS] + [ffn('C', 1024, 5120, 1280)]
             + [('x [32768, 320], w [320, 320] (proj_in, no res)', [x_in, w_in, b_in],
-                gemm_work(32768, 320, 320, 320, bias=320), lambda: F.linear(x_in, w_in, b_in))]),
+                gemm_work(32768, 320, 320, 320, bias=320), lambda: F.linear(x_in, w_in, b_in))]
+            + [ffn('C', 8 * S, 4 * C, C, 'sdxl ') for S, C in SDXL_FFN_LEVELS]),
         'group_norm_silu': (
             CSRC + 'groupnorm.cu', [GN + '22', GN + '177', GN + '204'],
             group_norm_silu, group_norm_silu_plain, _within, TOL,
-            [gn_case(*shape) for shape in GN_SHAPES]),
+            [gn_case(*shape) for shape in GN_SHAPES]
+            + [gn_case(*shape, 'sdxl ') for shape in SDXL_GN_SHAPES]),
     }
     return _run_cases(cases, launches['txt2img'],
-                      {'train': launches['train'], 'fused': launches['fused']})
+                      {'train': launches['train'], 'fused': launches['fused'],
+                       'sdxl': launches['sdxl']})
 
 
 def _library_attention(q, k, v, do, scale, causal):
@@ -1034,30 +1077,101 @@ def fp32_phase(records, device):
         check(err <= MODEL_REL_TOL, f'{what}: rel err {err} > {MODEL_REL_TOL}')
 
 
-def answer_requests(pipe, batches, what):
-    """Time txt2img requests at 512 px, 20 DPM++ 2M steps; check images."""
+def answer_requests(pipe, batches, what, size=SIZE):
+    """Time txt2img requests at `size` px, 20 DPM++ 2M steps; check images."""
     for i, batch in enumerate(batches):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        images = pipe.txt2img(PROMPT, NEGATIVE, width=SIZE, height=SIZE, num_steps=STEPS,
+        images = pipe.txt2img(PROMPT, NEGATIVE, width=size, height=size, num_steps=STEPS,
                               guidance_scale=GUIDANCE, sampler='dpm++_2m', seed=SEED + i,
                               batch_size=batch)
         seconds = time.perf_counter() - t0
-        log(f'{what} {i}: txt2img {SIZE}x{SIZE} batch {batch}, {STEPS} DPM++ 2M steps, '
+        log(f'{what} {i}: txt2img {size}x{size} batch {batch}, {STEPS} DPM++ 2M steps, '
             f'guidance {GUIDANCE}: {seconds:.3f} s ({seconds / batch:.3f} s/image), '
             f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
             f'image mean {images.mean():.4f} std {images.std():.4f}')
-        check(images.shape == (batch, SIZE, SIZE, 3), f'image shape {images.shape}')
+        check(images.shape == (batch, size, size, 3), f'image shape {images.shape}')
         check(bool(torch.isfinite(torch.from_numpy(images)).all()), 'non-finite image')
         check(images.min() >= 0.0 and images.max() <= 1.0, 'image outside [0, 1]')
 
 
-def warm_up(pipe, batches):
+def warm_up(pipe, batches, size=SIZE):
     """A 2-step request at each batch size (cuDNN algorithm choice, lazy
     module loading, allocator), not counted or timed."""
     for batch in batches:
-        pipe.txt2img(PROMPT, NEGATIVE, width=SIZE, height=SIZE, num_steps=2,
+        pipe.txt2img(PROMPT, NEGATIVE, width=size, height=size, num_steps=2,
                      guidance_scale=GUIDANCE, seed=SEED, batch_size=batch)
+
+
+def gib(module) -> float:
+    return sum(p.numel() * p.element_size() for p in module.parameters()) / 2**30
+
+
+def sdxl_phase(device):
+    """SDXL txt2img at 1024 px, batch 1 and 4; returns the requests' launch
+    counts and the pipeline."""
+    from hcpdiff_tpu_torch.infer.pipeline import DiffusionPipeline
+    from hcpdiff_tpu_torch.tools.random_sdxl import build_sdxl
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    unet, vae, te = build_sdxl(device, SEED)
+    pipe = DiffusionPipeline(unet, vae, te)
+    log(f'model build seconds (SDXL full width and depth, bf16, seed {SEED}): '
+        f'{time.perf_counter() - t0:.2f}; weights GiB: unet {gib(unet):.3f}, vae {gib(vae):.3f}, '
+        f'clip-L {gib(te.fe1.model):.3f}, bigG {gib(te.fe2.model):.3f}; build peak '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    warm_up(pipe, SDXL_REQUESTS, SDXL_SIZE)
+    zero_counters()
+    answer_requests(pipe, SDXL_REQUESTS, 'sdxl request', SDXL_SIZE)
+    launches = read_counters('the SDXL requests', TXT2IMG_KERNELS, absent=FUSED_ONLY)
+    expected = {k: n * len(SDXL_REQUESTS) for k, n in SDXL_LAUNCHES.items()}
+    log(f'SDXL launches against the configs\' reckoning: '
+        + ', '.join(f'{k} {launches[k]} (reckoned {n})' for k, n in expected.items()))
+    check(all(launches[k] == n for k, n in expected.items()),
+          f'SDXL launch counts {launches} are not the reckoned {expected}')
+    return launches, pipe
+
+
+@torch.inference_mode()
+def sdxl_reference_phase(pipe, device):
+    """Card (bf16, kernels) vs CPU fp32 (plain versions) on the same
+    weights: the SDXL text frontend at full width, and the SDXL UNet at
+    full width with one transformer block a level on a [2, 64, 64, 4]
+    latent, so that level 1 (S = 1024) runs kernel A."""
+    from hcpdiff_tpu_torch.models.compose.sdxl_te import SDXLTextEncoderFrontend
+    from hcpdiff_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+    from hcpdiff_tpu_torch.tools.random_sdxl import build_model
+    te = pipe.te
+    te_cpu = SDXLTextEncoderFrontend(te.tokenizer, cpu_fp32(te.fe1.model),
+                                     cpu_fp32(te.fe2.model))
+    ctx, pooled = te.encode([NEGATIVE, PROMPT])
+    ctx_cpu, pooled_cpu = te_cpu.encode([NEGATIVE, PROMPT])
+    del te_cpu
+    errs = {'sdxl text frontend hidden': rel_err(ctx, ctx_cpu),
+            'sdxl text frontend pooled': rel_err(pooled, pooled_cpu)}
+    cfg = dataclasses.replace(UNetConfig.sdxl(), transformer_layers_per_block=(1, 1, 1))
+    unet = build_model(UNet2DCondition, cfg, device,
+                       torch.Generator(device=device).manual_seed(SEED + 13))
+    unet_cpu = cpu_fp32(unet)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    lat = torch.randn(2, 64, 64, 4, generator=gen)
+    t = torch.tensor([801, 301])
+    tids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024], [768, 1024, 64, 0, 1024, 1024]])
+    zero_counters()
+    out = unet(lat.to(device), t.to(device), ctx, pooled_text_emb=pooled,
+               time_ids=tids.to(device))
+    read_counters('the SDXL UNet (one block a level) on the card', TXT2IMG_KERNELS,
+                  absent=FUSED_ONLY)
+    t0 = time.perf_counter()
+    ref = unet_cpu(lat, t, ctx.float().cpu(), pooled_text_emb=pooled.float().cpu(),
+                   time_ids=tids)
+    log(f'SDXL UNet (one block a level) on the CPU in fp32: {time.perf_counter() - t0:.2f} s')
+    errs['sdxl unet (1, 1, 1)'] = rel_err(out, ref)
+    del unet, unet_cpu
+    for name, err in errs.items():
+        log(f'reference {name}: card bf16 vs cpu fp32 rel L2 err {err:.3e} '
+            f'(limit {MODEL_REL_TOL})')
+        check(err <= MODEL_REL_TOL, f'{name} rel err {err} > {MODEL_REL_TOL}')
 
 
 def main() -> int:
@@ -1096,6 +1210,10 @@ def main() -> int:
 
     reference_phase(pipe, fused_pipe.unet, device)
     del fused_pipe
+    sdxl_launches, sdxl_pipe = sdxl_phase(device)
+    sdxl_reference_phase(sdxl_pipe, device)
+    del sdxl_pipe
+    torch.cuda.empty_cache()
     # fp32 products on the card (the B and C backwards, the LoRA merge)
     # run in full fp32, as the JAX package computes them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1107,7 +1225,7 @@ def main() -> int:
                    'fused gradient check')
     torch.cuda.empty_cache()
     records = kernel_phase({'txt2img': launches, 'train': train_launches,
-                            'fused': fused_launches})
+                            'fused': fused_launches, 'sdxl': sdxl_launches})
     records += train_kernel_phase(train_launches)
     records = add_classic_shapes(records, classic_kernel_phase())
     records += fused_kernel_phase(fused_launches)

@@ -1,8 +1,11 @@
-"""CLIP text encoder in PyTorch (counterpart of ``hcpdiff_tpu/models/clip.py``).
+"""CLIP text encoder (SD1.5 CLIP-L, SD2.x OpenCLIP-H, SDXL bigG) in PyTorch
+(counterpart of ``hcpdiff_tpu/models/clip.py``).
 
 Module and parameter names are the JAX tree's (``layers_0.self_attn.q_proj``,
 ``token_embedding`` ...). The causal self-attention over 77 tokens runs the
-plain attention path, as XLA ran it for the JAX model.
+plain attention path, as XLA ran it for the JAX model. With
+``projection_dim`` set (SDXL's second encoder) the pooled EOS row goes
+through a bias-free ``text_projection``.
 """
 from __future__ import annotations
 
@@ -28,10 +31,23 @@ class CLIPTextConfig:
     layer_norm_eps: float = 1e-5
     eos_token_id: int = 49407
     bos_token_id: int = 49406
+    projection_dim: Optional[int] = None   # set for SDXL's second encoder
 
     @classmethod
     def sd15(cls) -> 'CLIPTextConfig':
         return cls()
+
+    @classmethod
+    def sd2(cls) -> 'CLIPTextConfig':
+        return cls(hidden_size=1024, intermediate_size=4096,
+                   num_hidden_layers=23, num_attention_heads=16,
+                   hidden_act='gelu')
+
+    @classmethod
+    def sdxl_big_g(cls) -> 'CLIPTextConfig':
+        return cls(hidden_size=1280, intermediate_size=5120,
+                   num_hidden_layers=32, num_attention_heads=20,
+                   hidden_act='gelu', projection_dim=1280)
 
     @classmethod
     def tiny(cls, **kw) -> 'CLIPTextConfig':
@@ -96,6 +112,8 @@ class CLIPTextModel(nn.Module):
         for i in range(c.num_hidden_layers):
             setattr(self, f'layers_{i}', CLIPLayer(c))
         self.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        if c.projection_dim is not None:
+            self.text_projection = nn.Linear(c.hidden_size, c.projection_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor,
                 embedding_multiplier: Optional[torch.Tensor] = None
@@ -118,4 +136,6 @@ class CLIPTextModel(nn.Module):
 
         eos_pos = (input_ids == c.eos_token_id).int().argmax(dim=-1)
         pooled = last[torch.arange(B, device=last.device), eos_pos]
+        if c.projection_dim is not None:
+            pooled = self.text_projection(pooled)
         return last, pooled, tuple(hidden_states)

@@ -1,0 +1,73 @@
+"""SDXL's dual text encoder (counterpart of
+``hcpdiff_tpu/models/compose/sdxl_te.py``, which imports JAX and so is
+ported rather than imported).
+
+Both encoders read the same token ids; their hidden states are joined on
+the feature axis (768 + 1280 = 2048, SDXL's ``cross_attention_dim``) and
+the pooled embedding is the second encoder's projected EOS row. SDXL's
+convention is the penultimate layer (``clip_skip=1``) without the final
+LayerNorm.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...utils.clip_tokenizer import CLIPTokenizer
+from ..clip import CLIPTextModel
+from ..text_frontend import TextEncoderFrontend
+
+
+class SDXLTokenizer:
+    """The two encoders' tokenizers, driven with the same text; the second
+    defaults to the first (both are CLIP BPE with one vocabulary)."""
+
+    def __init__(self, tokenizer_l: CLIPTokenizer, tokenizer_g: Optional[CLIPTokenizer] = None):
+        self.tokenizer_l = tokenizer_l
+        self.tokenizer_g = tokenizer_g or tokenizer_l
+
+    def __getattr__(self, name):
+        return getattr(self.tokenizer_l, name)
+
+
+class SDXLTextEncoderFrontend:
+    """Encode once per encoder (the penultimate layer, no final norm, one
+    window repeat); join the hidden states; pooled from the second."""
+
+    def __init__(self, tokenizer, te1: CLIPTextModel, te2: CLIPTextModel):
+        tk = tokenizer if isinstance(tokenizer, SDXLTokenizer) else SDXLTokenizer(tokenizer)
+        self.tokenizer = tk
+        self.fe1 = TextEncoderFrontend(tk.tokenizer_l, te1, clip_skip=1, clip_final_norm=False)
+        self.fe2 = TextEncoderFrontend(tk.tokenizer_g, te2, clip_skip=1, clip_final_norm=False)
+
+    def tokenize_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        return self.fe1.tokenize_batch(texts)
+
+    def encode(self, texts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(hidden [B, S, D1 + D2], pooled [B, projection_dim])."""
+        ids, mult = self.tokenize_batch(texts)
+        device = self.fe1.model.token_embedding.device
+        ids, mult = torch.from_numpy(ids).to(device), torch.from_numpy(mult).to(device)
+        h1, _ = self.fe1.encode_ids(ids, mult)
+        h2, pooled = self.fe2.encode_ids(ids, mult)
+        return torch.cat([h1, h2], dim=-1), pooled
+
+
+def split_sdxl_embedding(vectors: np.ndarray, dim_l: int = 768) -> Dict[str, np.ndarray]:
+    """Split a joined SDXL embedding [n, 768 + 1280] into per-encoder tables."""
+    return {'clip_L': vectors[:, :dim_l], 'clip_bigG': vectors[:, dim_l:]}
+
+
+def concat_sdxl_embedding(parts: Dict[str, np.ndarray]) -> np.ndarray:
+    return np.concatenate([parts['clip_L'], parts['clip_bigG']], axis=-1)
+
+
+def make_sdxl_time_ids(original_size=(1024, 1024), crop_coord=(0, 0),
+                       target_size=(1024, 1024)) -> np.ndarray:
+    """[h_orig, w_orig, h_crop, w_crop, h_tgt, w_tgt] conditioning vector,
+    from (width, height)-ordered sizes and an (x, y) crop."""
+    return np.asarray([original_size[1], original_size[0],
+                       crop_coord[1], crop_coord[0],
+                       target_size[1], target_size[0]], np.float32)

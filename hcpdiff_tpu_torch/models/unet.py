@@ -1,4 +1,4 @@
-"""UNet2DCondition for SD1.5 in PyTorch (counterpart of
+"""UNet2DCondition for SD1.5, SD2.1 and SDXL in PyTorch (counterpart of
 ``hcpdiff_tpu/models/unet.py``).
 
 Module and parameter names are the JAX tree's paths (``down_0_res_0.norm1``,
@@ -26,6 +26,11 @@ For training, ``remat=True`` recomputes each ResnetBlock2D and
 Transformer2D in the backward (``torch.utils.checkpoint``), the JAX
 package's whole-block ``HCP_REMAT_POLICY=full``; and ``forward`` may run
 under ``torch.func.functional_call`` with merged LoRA weights.
+
+SDXL's ``addition_embed_type='text_time'`` adds an embedding of the
+pooled text embedding and the six ``time_ids`` (original size, crop,
+target size) to the time embedding, through its own two-layer MLP
+(``add_embedding_linear_1/2``), in fp32 as the time MLP.
 """
 from __future__ import annotations
 
@@ -56,10 +61,29 @@ class UNetConfig:
     num_heads: Tuple[int, ...] = (8, 8, 8, 8)
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
+    addition_embed_type: Optional[str] = None       # 'text_time' for SDXL
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
+    mid_cross_attn: bool = True
 
     @classmethod
     def sd15(cls) -> 'UNetConfig':
         return cls()
+
+    @classmethod
+    def sd21(cls) -> 'UNetConfig':
+        return cls(cross_attention_dim=1024, num_heads=(5, 10, 20, 20))
+
+    @classmethod
+    def sdxl(cls) -> 'UNetConfig':
+        return cls(block_out_channels=(320, 640, 1280),
+                   down_block_types=('DownBlock2D', 'CrossAttnDownBlock2D', 'CrossAttnDownBlock2D'),
+                   up_block_types=('CrossAttnUpBlock2D', 'CrossAttnUpBlock2D', 'UpBlock2D'),
+                   transformer_layers_per_block=(1, 2, 10),
+                   num_heads=(5, 10, 20),
+                   cross_attention_dim=2048,
+                   addition_embed_type='text_time',
+                   projection_class_embeddings_input_dim=2816)
 
     @classmethod
     def tiny(cls, cross_attention_dim: int = 32, **kw) -> 'UNetConfig':
@@ -71,6 +95,22 @@ class UNetConfig:
                     num_heads=(2, 4),
                     cross_attention_dim=cross_attention_dim,
                     norm_num_groups=8)
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def tiny_sdxl(cls, **kw) -> 'UNetConfig':
+        base = dict(block_out_channels=(32, 64),
+                    down_block_types=('DownBlock2D', 'CrossAttnDownBlock2D'),
+                    up_block_types=('CrossAttnUpBlock2D', 'UpBlock2D'),
+                    layers_per_block=1,
+                    transformer_layers_per_block=(1, 1),
+                    num_heads=(2, 4),
+                    cross_attention_dim=32,
+                    norm_num_groups=8,
+                    addition_embed_type='text_time',
+                    addition_time_embed_dim=8,
+                    projection_class_embeddings_input_dim=8 * 6 + 32)
         base.update(kw)
         return cls(**base)
 
@@ -257,6 +297,11 @@ class UNet2DCondition(nn.Module):
         n = len(c.block_out_channels)
         self.time_embedding_linear_1 = nn.Linear(ch0, tdim)
         self.time_embedding_linear_2 = nn.Linear(tdim, tdim)
+        if c.addition_embed_type == 'text_time':
+            self.add_embedding_linear_1 = nn.Linear(c.projection_class_embeddings_input_dim, tdim)
+            self.add_embedding_linear_2 = nn.Linear(tdim, tdim)
+        elif c.addition_embed_type is not None:
+            raise ValueError(f'addition_embed_type {c.addition_embed_type!r} is not supported')
         self.conv_in = _conv3(c.in_channels, ch0)
 
         def tfm(channels, level):
@@ -280,7 +325,8 @@ class UNet2DCondition(nn.Module):
 
         mid_c = c.block_out_channels[-1]
         self.mid_res_0 = ResnetBlock2D(cur, mid_c, c.norm_num_groups, tdim, fused)
-        self.mid_attn = tfm(mid_c, n - 1)
+        if c.mid_cross_attn:
+            self.mid_attn = tfm(mid_c, n - 1)
         self.mid_res_1 = ResnetBlock2D(mid_c, mid_c, c.norm_num_groups, tdim, fused)
         cur = mid_c
 
@@ -301,12 +347,14 @@ class UNet2DCondition(nn.Module):
         self.conv_out = _conv3(cur, c.out_channels)
 
     def to_compute_dtype(self, dtype: torch.dtype) -> 'UNet2DCondition':
-        """Cast every weight to ``dtype`` except the time-embedding MLP's,
-        which the model runs in fp32 whatever the weights' dtype (as the
-        JAX model keeps it), so they stay fp32."""
+        """Cast every weight to ``dtype`` except the time-embedding MLP's and
+        (text_time) the add-embedding MLP's, which the model runs in fp32
+        whatever the weights' dtype (as the JAX model keeps them), so they
+        stay fp32."""
         self.to(dtype)
-        self.time_embedding_linear_1.float()
-        self.time_embedding_linear_2.float()
+        for name, m in self.named_children():
+            if name.startswith(('time_embedding_linear_', 'add_embedding_linear_')):
+                m.float()
         return self
 
     def _block(self, name: str, *args) -> torch.Tensor:
@@ -323,21 +371,35 @@ class UNet2DCondition(nn.Module):
                           use_reentrant=False)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                pooled_text_emb: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """sample [B, H, W, C] NHWC, timesteps [B] (or a scalar),
-        encoder_hidden_states [B, S, D]; returns fp32 NHWC."""
+        encoder_hidden_states [B, S, D]; under text_time also
+        pooled_text_emb [B, P] and time_ids [B, 6]; returns fp32 NHWC."""
         c = self.cfg
         dtype = self.conv_in.weight.dtype
         B = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(B)
-        # the time-embedding MLP runs in fp32 whatever the weights' dtype,
-        # as the JAX model runs it; its output is cast after the MLP
-        lin1, lin2 = self.time_embedding_linear_1, self.time_embedding_linear_2
-        temb = timestep_embedding(timesteps, c.block_out_channels[0])
-        temb = F.linear(temb, lin1.weight.float(), lin1.bias.float())
-        temb = F.linear(F.silu(temb), lin2.weight.float(), lin2.bias.float()).to(dtype)
+
+        def mlp(x, lin1, lin2):
+            x = F.linear(x, lin1.weight.float(), lin1.bias.float())
+            return F.linear(F.silu(x), lin2.weight.float(), lin2.bias.float())
+
+        # the time-embedding MLP (and SDXL's add-embedding MLP, added to
+        # it) runs in fp32 whatever the weights' dtype, as the JAX model
+        # runs it; the sum is cast after the MLPs
+        temb = mlp(timestep_embedding(timesteps, c.block_out_channels[0]),
+                   self.time_embedding_linear_1, self.time_embedding_linear_2)
+        if c.addition_embed_type == 'text_time':
+            if pooled_text_emb is None or time_ids is None:
+                raise ValueError('a text_time UNet needs pooled_text_emb and time_ids')
+            t_emb = timestep_embedding(time_ids.reshape(-1), c.addition_time_embed_dim)
+            add = torch.cat([pooled_text_emb.float(), t_emb.reshape(B, -1)], dim=-1)
+            temb = temb + mlp(add, self.add_embedding_linear_1, self.add_embedding_linear_2)
+        temb = temb.to(dtype)
         ctx = encoder_hidden_states.to(dtype)
 
         x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
@@ -354,7 +416,8 @@ class UNet2DCondition(nn.Module):
                 skips.append(x)
 
         x = self._block('mid_res_0', x, temb)
-        x = self._block('mid_attn', x, ctx)
+        if c.mid_cross_attn:
+            x = self._block('mid_attn', x, ctx)
         x = self._block('mid_res_1', x, temb)
 
         for bi, btype in enumerate(c.up_block_types):

@@ -36,6 +36,11 @@ class VAEConfig:
         return cls()
 
     @classmethod
+    def sdxl(cls) -> 'VAEConfig':
+        """SDXL's VAE: the SD architecture with its own latent scale."""
+        return cls(scaling_factor=0.13025)
+
+    @classmethod
     def tiny(cls, **kw) -> 'VAEConfig':
         base = dict(block_out_channels=(16, 32), layers_per_block=1,
                     norm_num_groups=4)

@@ -1,12 +1,14 @@
 """Where a txt2img request's time goes on the card, for the default and the
 fused-sublayer UNet.
 
-    python -m hcpdiff_tpu_torch.tools.profile_txt2img [--batch 1 4] [--out FILE]
+    python -m hcpdiff_tpu_torch.tools.profile_txt2img [--model sd15|sdxl] [--batch 1 4]
+        [--out FILE]
 
-Builds SD1.5 at full width in bf16 from a seed (as chip_smoke.py does),
-warms both pipelines up, then for each batch size times unprofiled
-512x512, 20-step DPM++ 2M requests in turns (default, fused, fused,
-default) and profiles one request of each with ``torch.profiler``. It
+Builds SD1.5 (512x512, the default and the fused-sublayer UNet) or SDXL
+(1024x1024, the default UNet only) at full width in bf16 from a seed (as
+chip_smoke.py does), warms the pipelines up, then for each batch size
+times unprofiled 20-step DPM++ 2M requests in turns (default, fused,
+fused, default) and profiles one request of each with ``torch.profiler``. It
 prints, per configuration, the request seconds, the kernel time by family
 (ms and launches per request), the calls of kernel D's wrapper in the
 profiled request, and the device's idle share (1 - kernel time / the
@@ -25,6 +27,7 @@ import torch
 from ..infer.pipeline import DiffusionPipeline
 from ..ops.groupnorm import group_norm_silu
 from .random_sd15 import build_sd15, fused_copy
+from .random_sdxl import build_sdxl
 
 PROMPT = 'a photo of a cat sitting on a wooden table, highly detailed'
 NEGATIVE = 'blurry, low quality'
@@ -60,26 +63,33 @@ def family(name: str) -> str:
     return 'other'
 
 
-def build(device, seed: int):
+# --model: its image size
+MODELS = {'sd15': 512, 'sdxl': 1024}
+
+
+def build(model: str, device, seed: int):
+    if model == 'sdxl':
+        unet, vae, te = build_sdxl(device, seed)
+        return {'default': DiffusionPipeline(unet, vae, te)}
     unet, vae, te = build_sd15(device, seed)
     return {'default': DiffusionPipeline(unet, vae, te),
             'fused': DiffusionPipeline(fused_copy(unet, device), vae, te)}
 
 
-def request(pipe, batch: int, steps: int = 20):
+def request(pipe, batch: int, size: int, steps: int = 20):
     t0 = time.perf_counter()
-    pipe.txt2img(PROMPT, NEGATIVE, width=512, height=512, num_steps=steps, guidance_scale=7.5,
-                 sampler='dpm++_2m', seed=0, batch_size=batch)
+    pipe.txt2img(PROMPT, NEGATIVE, width=size, height=size, num_steps=steps,
+                 guidance_scale=7.5, sampler='dpm++_2m', seed=0, batch_size=batch)
     return time.perf_counter() - t0
 
 
-def kernel_breakdown(pipe, batch: int):
+def kernel_breakdown(pipe, batch: int, size: int):
     """Kernel time (ms) and launches by family over one profiled request,
     the top kernels, and the calls of kernel D's wrapper in that request."""
     from torch.profiler import ProfilerActivity, profile
     before = group_norm_silu.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        request(pipe, batch)
+        request(pipe, batch, size)
         torch.cuda.synchronize()
     d_calls = group_norm_silu.launches - before
     fams, names = {}, []
@@ -99,6 +109,7 @@ def kernel_breakdown(pipe, batch: int):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--model', choices=sorted(MODELS), default='sd15')
     ap.add_argument('--batch', type=int, nargs='+', default=[1, 4])
     ap.add_argument('--repeats', type=int, default=3)
     ap.add_argument('--seed', type=int, default=0)
@@ -107,18 +118,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit('profile_txt2img: needs a CUDA card')
     device = torch.device('cuda', 0)
-    pipes = build(device, args.seed)
+    size = MODELS[args.model]
+    pipes = build(args.model, device, args.seed)
     for pipe in pipes.values():
         for batch in args.batch:
-            request(pipe, batch, steps=2)
-    result = {'card': torch.cuda.get_device_name(0), 'configs': {}}
+            request(pipe, batch, size, steps=2)
+    result = {'card': torch.cuda.get_device_name(0), 'model': args.model, 'size': size,
+              'configs': {}}
     for batch in args.batch:
         secs = {name: [] for name in pipes}
         for _ in range(args.repeats):
-            for name in ('default', 'fused', 'fused', 'default'):
-                secs[name].append(request(pipes[name], batch))
+            for name in list(pipes) + list(pipes)[::-1]:
+                secs[name].append(request(pipes[name], batch, size))
         for name, pipe in pipes.items():
-            fams, top, d_calls = kernel_breakdown(pipe, batch)
+            fams, top, d_calls = kernel_breakdown(pipe, batch, size)
             median = statistics.median(secs[name])
             kernel_ms = sum(f['ms'] for f in fams.values())
             rec = {'request_s': secs[name], 'median_s': median, 'kernel_ms': kernel_ms,
@@ -128,7 +141,7 @@ def main() -> int:
                    'families': dict(sorted(fams.items(), key=lambda kv: -kv[1]['ms'])),
                    'top_kernels': top}
             result['configs'][f'{name} batch {batch}'] = rec
-            print(f'== {name} batch {batch}: requests {[round(s, 4) for s in secs[name]]} s, '
+            print(f'== {args.model} {name} batch {batch}: requests {[round(s, 4) for s in secs[name]]} s, '
                   f'median {median:.4f} s; kernel time {kernel_ms:.1f} ms, '
                   f'{rec["launches"]} launches ({d_calls} group_norm_silu calls), '
                   f'idle {rec["idle_share"]:.1%}')

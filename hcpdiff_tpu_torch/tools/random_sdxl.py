@@ -1,0 +1,49 @@
+"""SDXL at full width and depth with seeded random weights, for the runs on
+the card (chip_smoke.py, ``profile_txt2img --model sdxl``), beside
+``random_sd15.py``: the repo ships no checkpoint and no CLIP vocabulary, so
+weights follow the flax initializers (``models/layers.py:init_flax_like``)
+and text goes through the byte-level tiny tokenizer, with both encoders'
+BOS/EOS ids set to its own.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models.clip import CLIPTextConfig, CLIPTextModel
+from ..models.compose.sdxl_te import SDXLTextEncoderFrontend
+from ..models.layers import init_flax_like
+from ..models.unet import UNet2DCondition, UNetConfig
+from ..models.vae import AutoencoderKL, VAEConfig
+from ..utils.clip_tokenizer import CLIPTokenizer
+
+
+def clip_configs():
+    """The byte-level tiny tokenizer, and CLIP-L (``sd15``) and bigG
+    (``sdxl_big_g``) with its BOS/EOS ids."""
+    tok = CLIPTokenizer.tiny()
+    ids = dict(bos_token_id=tok.bos_token_id, eos_token_id=tok.eos_token_id)
+    return tok, (dataclasses.replace(CLIPTextConfig.sd15(), **ids),
+                 dataclasses.replace(CLIPTextConfig.sdxl_big_g(), **ids))
+
+
+def build_model(cls, cfg, device, gen: torch.Generator):
+    """One model from the flax-like init on ``device``, then bf16 (a UNet
+    through ``to_compute_dtype``, which keeps its fp32 MLPs), channels_last
+    and eval mode; the fp32 init is freed before the next model is made."""
+    with device:
+        m = init_flax_like(cls(cfg), gen)
+    m = m.to_compute_dtype(torch.bfloat16) if cls is UNet2DCondition else m.to(torch.bfloat16)
+    return m.to(memory_format=torch.channels_last).eval()
+
+
+def build_sdxl(device, seed: int):
+    """(unet, vae, SDXL text frontend): UNetConfig.sdxl(), VAEConfig.sdxl()
+    and CLIP-L + bigG, on ``device``."""
+    tok, (cfg_l, cfg_g) = clip_configs()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    unet = build_model(UNet2DCondition, UNetConfig.sdxl(), device, gen)
+    vae = build_model(AutoencoderKL, VAEConfig.sdxl(), device, gen)
+    te1, te2 = (build_model(CLIPTextModel, c, device, gen) for c in (cfg_l, cfg_g))
+    return unet, vae, SDXLTextEncoderFrontend(tok, te1, te2)

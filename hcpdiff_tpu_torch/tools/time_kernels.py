@@ -3,8 +3,10 @@ E and F also at the classic route's head dims, causal and not, in bf16,
 for one checkout, to compare two versions on one card. B, C, G, H and I
 are timed at every transformer level of a batch-4 request, beside
 F.linear on the same products (labels "F.linear ..."), and D at every
-GroupNorm shape of a batch-4 request (GN_SHAPES), with bf16 scale and
-bias as the model holds them, beside F.group_norm where there is no SiLU.
+GroupNorm shape of a batch-4 request (GN_SHAPES) and of a batch-4 SDXL
+request that the 512 px one lacks (SDXL_GN_SHAPES, labelled sdxl), with
+bf16 scale and bias as the model holds them, beside F.group_norm where
+there is no SiLU.
 
     python hcpdiff_tpu_torch/tools/time_kernels.py [--tree DIR] > result.json
 
@@ -50,6 +52,15 @@ GN_VAE = ((4096, 512), (16384, 512), (65536, 512), (65536, 256), (262144, 256),
           (262144, 128))
 GN_SHAPES = ([(8, S, C, True) for S, C in GN_UNET] + [(4, S, C, True) for S, C in GN_VAE]
              + [(8, S, C, False) for S, C in FFN_LEVELS] + [(4, 4096, 512, False)])
+# the same for a batch-4 SDXL request at 1024 px, where no 512 px request
+# has the shape: the UNet's resblocks at 128x128, 64x64 and 32x32 (with
+# the skip concatenations) and its transformer norms at 64x64 and 32x32;
+# the VAE decoder's resblocks up to 1024x1024 and its mid-block attention
+SDXL_GN_SHAPES = ((8, 16384, 320, True), (8, 16384, 640, True), (8, 16384, 960, True),
+                  (8, 4096, 1280, True), (8, 4096, 1920, True), (8, 1024, 2560, True),
+                  (8, 4096, 640, False), (8, 1024, 1280, False),
+                  (4, 1024 * 1024, 128, True), (4, 1024 * 1024, 256, True),
+                  (4, 512 * 512, 512, True), (4, 16384, 512, False))
 
 
 def _time_ms(fn):
@@ -159,13 +170,14 @@ def _cases(gen):
     args = (rn(32768, 320), rn(320, 320, scale=320 ** -0.5), rn(320))
     cases['C x [32768, 320]'] = lambda args=args: mm.fused_dense(*args)
     cases['F.linear C x [32768, 320]'] = lambda args=args: linear(*args)
-    for B, S, C, silu in GN_SHAPES:
+    for (B, S, C, silu), sdxl in ([(s, '') for s in GN_SHAPES]
+                                  + [(s, 'sdxl ') for s in SDXL_GN_SHAPES]):
         x = rn(B, S, C, scale=3.0) + 1.0
         sc, bi = rn(C, scale=0.2) + 1.0, rn(C)
-        cases[f'D [{B}, {S}, {C}]{"" if silu else " no silu"}'] = (
+        cases[f'{sdxl}D [{B}, {S}, {C}]{"" if silu else " no silu"}'] = (
             lambda args=(x, sc, bi, 32, 1e-5, silu): group_norm_silu(*args))
         if not silu:
-            cases[f'F.group_norm [{B}, {S}, {C}]'] = (
+            cases[f'{sdxl}F.group_norm [{B}, {S}, {C}]'] = (
                 lambda x=x, sc=sc, bi=bi: torch.nn.functional.group_norm(
                     x.transpose(1, 2), 32, sc, bi, 1e-5))
     # G, H and I at every transformer level of a batch-4 request (x [8S, C];

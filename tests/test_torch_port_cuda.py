@@ -835,6 +835,31 @@ def test_tiny_unet_at_32x32_on_the_card(gen, fused, dtype):
     assert _rel_l2(out, ref) <= MODEL_REL_TOL
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_tiny_sdxl_unet_on_the_card(gen, dtype):
+    """The tiny text_time UNet at a 64x64 latent, whose level-1
+    self-attention (S = 1024, D = 16) runs kernel A, with pooled and
+    time_ids inputs, against the same weights in fp32 on the CPU."""
+    cfg = UNetConfig.tiny_sdxl()
+    cpu = init_flax_like(UNet2DCondition(cfg), torch.Generator().manual_seed(4))
+    card = UNet2DCondition(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to('cuda').to_compute_dtype(dtype).to(memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(5)
+    x, ctx = torch.randn(2, 64, 64, 4, generator=g), torch.randn(2, 77, 32, generator=g)
+    pooled = torch.randn(2, 32, generator=g)
+    time_ids = torch.tensor([[512.0, 512, 0, 0, 512, 512], [768, 640, 16, 32, 512, 512]])
+    t = torch.tensor([300, 20])
+    before = (flash_attention.launches, geglu_dense.launches, group_norm_silu.launches)
+    with torch.no_grad():
+        out = card(x.cuda(), t.cuda(), ctx.cuda(), pooled_text_emb=pooled.cuda(),
+                   time_ids=time_ids.cuda())
+        ref = cpu(x, t, ctx, pooled_text_emb=pooled, time_ids=time_ids)
+    after = (flash_attention.launches, geglu_dense.launches, group_norm_silu.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert _rel_l2(out, ref) <= MODEL_REL_TOL
+
+
 def test_tiny_vae_decode_fp32_on_the_card(gen):
     """The tiny VAE decode in fp32 on the card (its mid attention, S =
     1024, D = 32, runs kernel A zero-padded to D = 48) against the CPU."""

@@ -43,6 +43,14 @@ UNET_SHAPES = {(4096, 320): 'resident', (4096, 640): 're-read', (4096, 960): 're
                (64, 1280): 'resident', (64, 2560): 'resident'}
 VAE_SHAPES = {(4096, 512): 'resident', (16384, 512): 're-read', (65536, 512): 're-read',
               (65536, 256): 're-read', (262144, 256): 're-read', (262144, 128): 're-read'}
+# the same for SDXL at 1024 px (128x128 latent; UNet channels 320, 640,
+# 1280 and their skip concatenations) and its VAE decoder (128x128 up to
+# 1024x1024): x up to 2^30 elements, 33 blocks a sample at batch 4
+SDXL_UNET_SHAPES = ((16384, 320), (16384, 640), (16384, 960), (4096, 320), (4096, 640),
+                    (4096, 960), (4096, 1280), (4096, 1920), (1024, 640), (1024, 1280),
+                    (1024, 1920), (1024, 2560))
+SDXL_VAE_SHAPES = ((16384, 512), (65536, 512), (262144, 512), (262144, 256), (1048576, 256),
+                   (1048576, 128))
 BATCHES = (1, 2, 4)
 
 
@@ -93,6 +101,8 @@ def _cases():
             for b in BATCHES:
                 cases.append((factor * b, S, C, 32, regime if b == 4 else None))
     cases += [(B, S, C, G, None) for B, S, C, G in TINY_SHAPES]
+    for shapes, factor in ((SDXL_UNET_SHAPES, 2), (SDXL_VAE_SHAPES, 1)):
+        cases += [(factor * b, S, C, 32, None) for S, C in shapes for b in BATCHES]
     return cases
 
 
@@ -179,6 +189,19 @@ def test_plan_uses_the_card():
 def test_plan_rejects_what_the_kernel_does_not_take(B, S, C, G):
     with pytest.raises(ValueError):
         gn.gn_plan(B, S, C, 2, G)
+
+
+def test_timed_shapes_cover_the_sdxl_request():
+    """chip_smoke.py and tools/time_kernels.py hold D at every GroupNorm
+    shape of a batch-4 SDXL request: GN_SHAPES where a 512 px request has
+    the shape, SDXL_GN_SHAPES (no shape twice) where it has not."""
+    timed = set(tk.GN_SHAPES) | set(tk.SDXL_GN_SHAPES)
+    needed = ({(8, S, C, True) for S, C in SDXL_UNET_SHAPES}
+              | {(4, S, C, True) for S, C in SDXL_VAE_SHAPES}
+              | {(8, 4096, 640, False), (8, 1024, 1280, False), (4, 16384, 512, False)})
+    assert needed <= timed
+    assert not set(tk.SDXL_GN_SHAPES) & set(tk.GN_SHAPES)
+    assert set(tk.SDXL_GN_SHAPES) <= needed
 
 
 @pytest.mark.parametrize('B,S,C,silu', tk.GN_SHAPES)
