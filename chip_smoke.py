@@ -34,6 +34,21 @@ package is missing. Phases, each fatal on failure:
    level (transformer_layers_per_block (1, 1, 1)) on a [2, 64, 64, 4]
    latent (S = 1024 at level 1, so A runs) against the same weights in
    fp32 on the CPU;
+4d. the config-driven entry point (python -m hcpdiff_tpu_torch.visualizer):
+   write SD1.5 at full width as a diffusers-layout directory (F16
+   safetensors, tools/random_diffusers.py, seed SEED) into a temporary
+   directory, load it with build_models on the card in bf16 and check
+   every tensor equals the seeded original rounded to fp16 (then cast to
+   the loaded dtype); answer cfgs/infer/text2img.yaml through main()
+   (batch 4, 512 px, 20 DPM++ 2M steps, CFG 7.5, bf16, seed 1): A-D launch
+   as often as an SD1.5 request does (sd15_launches), four PNGs and four
+   YAMLs are written and the PNGs read back equal the images, and the
+   final latents equal DiffusionPipeline.txt2img's on the same modules;
+   euler_a.yaml twice (bitwise equal); img2img.yaml and inpaint.yaml on
+   512x512 PNGs written here, whose VAE encode runs A at [1, 1, 4096, 512]
+   and D at the encoder's 22 GroupNorm shapes (forward hooks), with the
+   encode held against the CPU in fp32 at 256 px; each request's seconds
+   and peak memory printed;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -49,14 +64,15 @@ package is missing. Phases, each fatal on failure:
    remat UNet (kernels G-J's autograd wiring);
 7. hold each kernel against its plain version on the card at the paths'
    shapes (A with its lse, E and F at the training shapes, G-J at the
-   fused path's) and time both, and the one PyTorch call that computes
-   the same function where there is one (library_ms, a yardstick the port
-   never calls); each record has its bound (bound_ms: the larger of the
-   bytes it must move over 3.35 TB/s and its operations over 989 TFLOP/s
-   bf16, or 67 TFLOP/s fp32 outside the tensor cores); B and C (with the
-   block residual) at every transformer level of a batch-4 request and at
-   the 64x64 (B) and 16x16 (C, a split grid) levels of the batch-2
-   requests this script drives, and G, H and I at every transformer level
+   fused path's; A and D also at the VAE encoder's batch-1 shapes of an
+   img2img request, labelled enc) and time both, and the one PyTorch call
+   that computes the same function where there is one (library_ms, a
+   yardstick the port never calls); each record has its bound (bound_ms:
+   the larger of the bytes it must move over 3.35 TB/s and its operations
+   over 989 TFLOP/s bf16, or 67 TFLOP/s fp32 outside the tensor cores); B
+   and C (with the block residual) at every transformer level of a batch-4
+   request and at the 64x64 (B) and 16x16 (C, a split grid) levels of
+   the batch-2 requests this script drives, and G, H and I at every transformer level
    of a batch-4 request (each also launched twice, bitwise equal, and its
    plan logged), each beside F.linear on the same product (linear_ms: the
    product alone, since no single call computes B, C with a residual, or
@@ -110,8 +126,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -126,6 +144,23 @@ SDXL_REQUESTS, SDXL_SIZE = (1, 4), 1024
 # VAE decode's mid-block attention (A) and 30 GroupNorms
 SDXL_LAUNCHES = {'flash_attention': 70 * STEPS + 1, 'geglu_dense': 70 * STEPS,
                  'fused_dense': 70 * STEPS, 'group_norm_silu': 46 * STEPS + 30}
+# the VAE encode of img2img/inpaint: its mid-block attention and 22 GroupNorms
+ENCODE_LAUNCHES = {'flash_attention': 1, 'group_norm_silu': 22}
+
+
+def sd15_launches(steps, encode=False):
+    """An SD1.5 512 px request's launches, by its configs: 10
+    self-attentions at S >= 1024 (A), 16 transformer blocks (B, C) and 61
+    GroupNorms (D) a UNet call, `steps` calls, then the VAE decode's
+    mid-block attention and 30 GroupNorms (and the encode's, if asked)."""
+    out = {'flash_attention': 10 * steps + 1, 'geglu_dense': 16 * steps,
+           'fused_dense': 16 * steps, 'group_norm_silu': 61 * steps + 30}
+    if encode:
+        out = {k: n + ENCODE_LAUNCHES.get(k, 0) for k, n in out.items()}
+    return out
+
+
+VIS_SEED = 1
 PROMPT = 'a photo of a cat sitting on a wooden table, highly detailed'
 NEGATIVE = 'blurry, low quality'
 # kernel vs plain on the card: both bf16 with fp32 accumulation, each
@@ -611,19 +646,19 @@ def kernel_phase(launches):
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
     from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_dense,
                                               geglu_dense_plain)
-    from hcpdiff_tpu_torch.tools.time_kernels import GN_SHAPES, SDXL_GN_SHAPES
+    from hcpdiff_tpu_torch.tools.time_kernels import ENC_GN_SHAPES, GN_SHAPES, SDXL_GN_SHAPES
     F = torch.nn.functional
     gen = torch.Generator(device='cuda').manual_seed(SEED + 2)
     rn = _rn_on(gen)
 
-    def gn_case(B, S, C, silu, prefix=''):
+    def gn_case(B, S, C, silu, prefix='', eps=None):
         """D at one GroupNorm shape of a batch-4 request, with bf16 scale
         and bias as the model holds them (the VAE's norms at batch 4 take
         eps 1e-6); without SiLU the yardstick is F.group_norm on the same
         tensor viewed as [B, C, S]."""
         x = rn(B, S, C, scale=3.0) + 1.0
         sc, bi = rn(C, scale=0.2) + 1.0, rn(C)
-        eps = 1e-6 if B == 4 else 1e-5
+        eps = eps or (1e-6 if B == 4 else 1e-5)
         args = [x, sc, bi, 32, eps, silu]
         gn_checks(B, S, C, args)
         library = None if silu else (
@@ -654,7 +689,8 @@ def kernel_phase(launches):
             CSRC + 'flash_attention.cu', [FA + '379', FA + '226'],
             flash_attention, attention_plain, _within_rel, O_TOL,
             [attn(s) for s in ((4, 8, 4096, 40), (4, 8, 1024, 80), (2, 1, 4096, 512))]
-            + [attn(s, 'sdxl ') for s in SDXL_ATTN_SHAPES]),
+            + [attn(s, 'sdxl ') for s in SDXL_ATTN_SHAPES]
+            + [attn((1, 1, 4096, 512), 'enc ')]),
         'geglu_dense': (
             CSRC + 'gemm_wgmma.cu', [MM + '301'], geglu_dense, geglu_dense_plain, _within, TOL,
             [ffn('B', 8 * S, C, 8 * C) for S, C in FFN_LEVELS] + [ffn('B', 16384, 320, 2560)]
@@ -670,11 +706,12 @@ def kernel_phase(launches):
             CSRC + 'groupnorm.cu', [GN + '22', GN + '177', GN + '204'],
             group_norm_silu, group_norm_silu_plain, _within, TOL,
             [gn_case(*shape) for shape in GN_SHAPES]
-            + [gn_case(*shape, 'sdxl ') for shape in SDXL_GN_SHAPES]),
+            + [gn_case(*shape, 'sdxl ') for shape in SDXL_GN_SHAPES]
+            + [gn_case(*shape, 'enc ', eps=1e-6) for shape in ENC_GN_SHAPES]),
     }
     return _run_cases(cases, launches['txt2img'],
                       {'train': launches['train'], 'fused': launches['fused'],
-                       'sdxl': launches['sdxl']})
+                       'sdxl': launches['sdxl'], 'visualizer': launches['visualizer']})
 
 
 def _library_attention(q, k, v, do, scale, causal):
@@ -1107,6 +1144,13 @@ def gib(module) -> float:
     return sum(p.numel() * p.element_size() for p in module.parameters()) / 2**30
 
 
+def _check_launches(launches, expected, what):
+    log(f'{what} launches against the configs\' reckoning: '
+        + ', '.join(f'{k} {launches[k]} (reckoned {n})' for k, n in expected.items()))
+    check(all(launches[k] == n for k, n in expected.items()),
+          f'{what}: launch counts {launches} are not the reckoned {expected}')
+
+
 def sdxl_phase(device):
     """SDXL txt2img at 1024 px, batch 1 and 4; returns the requests' launch
     counts and the pipeline."""
@@ -1124,11 +1168,8 @@ def sdxl_phase(device):
     zero_counters()
     answer_requests(pipe, SDXL_REQUESTS, 'sdxl request', SDXL_SIZE)
     launches = read_counters('the SDXL requests', TXT2IMG_KERNELS, absent=FUSED_ONLY)
-    expected = {k: n * len(SDXL_REQUESTS) for k, n in SDXL_LAUNCHES.items()}
-    log(f'SDXL launches against the configs\' reckoning: '
-        + ', '.join(f'{k} {launches[k]} (reckoned {n})' for k, n in expected.items()))
-    check(all(launches[k] == n for k, n in expected.items()),
-          f'SDXL launch counts {launches} are not the reckoned {expected}')
+    _check_launches(launches, {k: n * len(SDXL_REQUESTS) for k, n in SDXL_LAUNCHES.items()},
+                    'the SDXL requests')
     return launches, pipe
 
 
@@ -1174,6 +1215,198 @@ def sdxl_reference_phase(pipe, device):
         check(err <= MODEL_REL_TOL, f'{name} rel err {err} > {MODEL_REL_TOL}')
 
 
+def _cli(model_dir, out_dir, cfg, *extra):
+    """One request through the entry point a user runs:
+    python -m hcpdiff_tpu_torch.visualizer --cfg cfgs/infer/<cfg> ...
+    Returns the Visualizer, the images and the request's seconds."""
+    from hcpdiff_tpu_torch.infer.visualizer import main
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    viser, images = main(['--cfg', f'cfgs/infer/{cfg}', f'pretrained_model={model_dir}',
+                          f'output_dir={out_dir}', f'interface.0.save_root={out_dir}',
+                          f'seed={VIS_SEED}', *extra])
+    seconds = time.perf_counter() - t0
+    log(f'visualizer {" ".join((cfg,) + extra)}: {seconds:.3f} s (main(): directory load '
+        f'and PNG/YAML writes included), images {list(images.shape)}, peak '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; image mean {images.mean():.4f} '
+        f'std {images.std():.4f}')
+    check(bool(torch.isfinite(torch.from_numpy(images)).all()) and images.min() >= 0.0
+          and images.max() <= 1.0, f'{cfg}: images not finite in [0, 1]')
+    return viser, images, seconds
+
+
+def _check_written(out_dir, images, what):
+    """The interface's files: {n}-img.png and {n}-img.yaml for each image,
+    the PNGs equal to the images x 255 as uint8."""
+    from hcpdiff_tpu_torch.utils.images import read_png
+    n = images.shape[0]
+    names = sorted(os.listdir(out_dir))
+    want = sorted([f'{i}-img.png' for i in range(n)] + [f'{i}-img.yaml' for i in range(n)])
+    check(names == want, f'{what}: wrote {names}, not {want}')
+    expect = (images.clip(0, 1) * 255).astype('uint8')
+    for i in range(n):
+        png = read_png(os.path.join(out_dir, f'{i}-img.png'))
+        check((png == expect[i]).all(), f'{what}: {i}-img.png differs from the image')
+    log(f'{what}: {n} PNGs and {n} YAMLs written; the PNGs read back equal the images')
+
+
+@torch.inference_mode()
+def _encode_check(viser, device):
+    """The VAE encode of a 512 px image on the card: kernel A once, at the
+    mid-block's [1, 1, 4096, 512], and kernel D at the encoder's 22
+    GroupNorm shapes (forward hooks), nothing else; then the encode at
+    256 px (S = 1024 at the mid block, so A runs) against the CPU in fp32."""
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    from hcpdiff_tpu_torch.tools.time_kernels import ENC_GN_SHAPES
+    vae = viser.pipe.vae
+    seen, attn = [], []
+    hooks = [m.register_forward_hook(
+        lambda m, args, out: seen.append((args[0].shape[2] * args[0].shape[3],
+                                          args[0].shape[1], m.fused_silu)))
+        for m in vae.encoder.modules() if isinstance(m, GroupNorm)]
+    hooks.append(vae.encoder.mid_attn.register_forward_hook(
+        lambda m, args, out: attn.append(list(args[0].shape))))
+    gen = torch.Generator().manual_seed(SEED + 21)
+    img = torch.rand(1, SIZE, SIZE, 3, generator=gen) * 2 - 1
+    try:
+        zero_counters()
+        lat = viser.pipe.encode(img)
+        torch.cuda.synchronize()
+        launches = read_counters('the VAE encode (512 px)', ('flash_attention', 'group_norm_silu'),
+                                 absent=('geglu_dense', 'fused_dense') + FUSED_ONLY)
+    finally:
+        for h in hooks:
+            h.remove()
+    check(lat.shape == (1, SIZE // 8, SIZE // 8, 4), f'encode latent shape {lat.shape}')
+    check(attn == [[1, 512, 64, 64]], f'encoder mid-block attention inputs {attn}')
+    check(len(seen) == ENCODE_LAUNCHES['group_norm_silu']
+          and set(seen) == {(S, C, silu) for _, S, C, silu in ENC_GN_SHAPES},
+          f'encoder GroupNorm shapes {seen}')
+    _check_launches(launches, ENCODE_LAUNCHES, 'the VAE encode')
+    log(f'VAE encode: A at [1, 1, 4096, 512] once, D at {len(seen)} GroupNorms: '
+        + ', '.join(f'[1, {S}, {C}]{"" if silu else " no silu"}' for S, C, silu in seen))
+    small = img[:, ::2, ::2].contiguous()
+    vae_cpu = cpu_fp32(vae)
+    err = rel_err(vae.encode(small.to(device))[0], vae_cpu.encode(small)[0])
+    del vae_cpu
+    log(f'reference vae_encode (256 px): card bf16 vs cpu fp32 rel L2 err {err:.3e} '
+        f'(limit {MODEL_REL_TOL})')
+    check(err <= MODEL_REL_TOL, f'vae_encode rel err {err} > {MODEL_REL_TOL}')
+
+
+def visualizer_phase(device):
+    """The config-driven entry point on a diffusers-layout SD1.5 directory;
+    returns the launch counts of its requests."""
+    from hcpdiff_tpu_torch.models.factory import build_models
+    from hcpdiff_tpu_torch.models.unet import UNet2DCondition
+    from hcpdiff_tpu_torch.tools.random_diffusers import write_dir
+    from hcpdiff_tpu_torch.tools.random_sd15 import sd15_modules
+    from hcpdiff_tpu_torch.utils.images import write_png
+    tmp = tempfile.mkdtemp(prefix='hcp_visualizer_')
+    try:
+        model_dir = os.path.join(tmp, 'sd15')
+        t0 = time.perf_counter()
+        write_dir(model_dir, 'sd15', SEED, torch.float16, device)
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(model_dir)
+                   for f in fs)
+        log(f'diffusers-layout SD1.5 directory (F16, seed {SEED}) written in '
+            f'{time.perf_counter() - t0:.2f} s: {size / 2**30:.3f} GiB')
+        t0 = time.perf_counter()
+        world = build_models(model_dir, torch.bfloat16, device)
+        log(f'build_models (bf16, cuda): {time.perf_counter() - t0:.2f} s')
+        n = 0
+        with torch.no_grad():
+            for key, orig in zip(('unet', 'vae', 'te'), sd15_modules(device, SEED)):
+                loaded = world[key].state_dict()
+                ref = orig.state_dict()
+                check(loaded.keys() == ref.keys(), f'{key}: loaded names differ')
+                for name, t in ref.items():
+                    fp32 = key == 'te' or (key == 'unet'
+                                           and name.startswith(UNet2DCondition.FP32_CHILDREN))
+                    want = t.half().to(torch.float32 if fp32 else torch.bfloat16)
+                    check(torch.equal(loaded[name], want),
+                          f'{key}.{name} is not the seeded original rounded to fp16')
+                n += len(ref)
+                del orig, ref
+        log(f'build_models: all {n} tensors equal the seeded originals rounded to fp16 '
+            f'(UNet and VAE bf16, the UNet\'s time MLP and CLIP fp32)')
+        del world
+        torch.cuda.empty_cache()
+
+        zero_counters()
+        viser, images, seconds = _cli(model_dir, os.path.join(tmp, 't2i'), 'text2img.yaml')
+        launches = read_counters('the visualizer text2img request', TXT2IMG_KERNELS,
+                                 absent=FUSED_ONLY)
+        _check_launches(launches, sd15_launches(STEPS), 'the visualizer text2img request')
+        check(images.shape == (4, SIZE, SIZE, 3), f'text2img images {images.shape}')
+        _check_written(os.path.join(tmp, 't2i'), images, 'text2img')
+        c = viser.cfgs
+        ref = viser.pipe.txt2img(c.prompt, c.neg_prompt, width=SIZE, height=SIZE,
+                                 num_steps=STEPS, guidance_scale=GUIDANCE, sampler='dpm++_2m',
+                                 seed=VIS_SEED, batch_size=4, return_latents=True)
+        diff = float((ref - viser.last_latents).abs().max())
+        log(f'text2img latents vs DiffusionPipeline.txt2img on the same modules: '
+            f'max abs diff {diff}')
+        check(torch.equal(ref, viser.last_latents), 'the CLI\'s latents differ from txt2img\'s')
+        total = dict(launches)
+
+        def add(counts):
+            for k, v in counts.items():
+                total[k] += v
+
+        t0 = time.perf_counter()
+        again = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+        alone = time.perf_counter() - t0
+        check((again == images).all(), 'a second text2img request differs')
+        log(f'text2img request on the loaded Visualizer (vis_images: no load, no writes): '
+            f'{alone:.3f} s for 4 images at 512 px')
+        requests = {'text2img': seconds, 'text2img request alone': alone}
+        runs = []
+        for i in range(2):
+            zero_counters()
+            viser, images, seconds = _cli(model_dir, os.path.join(tmp, f'euler_a_{i}'),
+                                          'euler_a.yaml')
+            check(viser.cfgs.infer_args.sampler == 'euler_a', 'euler_a.yaml maps to euler_a')
+            launches = read_counters(f'the visualizer euler_a request {i}', TXT2IMG_KERNELS,
+                                     absent=FUSED_ONLY)
+            _check_launches(launches, sd15_launches(STEPS), 'the euler_a request')
+            add(launches)
+            runs.append(images)
+            requests[f'euler_a {i}'] = seconds
+        check((runs[0] == runs[1]).all(), 'euler_a.yaml is not deterministic for a seed')
+        log('euler_a: two requests at one seed give equal images')
+
+        gen = torch.Generator().manual_seed(SEED + 22)
+        init = (torch.rand(SIZE, SIZE, 3, generator=gen) * 255).to(torch.uint8).numpy()
+        mask = torch.zeros(SIZE, SIZE, dtype=torch.uint8)
+        mask[:, SIZE // 2:] = 255
+        write_png(os.path.join(tmp, 'init.png'), init)
+        write_png(os.path.join(tmp, 'mask.png'), mask.numpy())
+        _encode_check(viser, device)
+        steps = 30 - (30 - int(30 * 0.75))     # the configs' inference_steps and strength
+        for cfg in ('img2img.yaml', 'inpaint.yaml'):
+            zero_counters()
+            viser, images, seconds = _cli(
+                model_dir, os.path.join(tmp, cfg), cfg, f'init_image={os.path.join(tmp, "init.png")}',
+                f'mask_image={os.path.join(tmp, "mask.png")}')
+            launches = read_counters(f'the visualizer {cfg} request', TXT2IMG_KERNELS,
+                                     absent=FUSED_ONLY)
+            _check_launches(launches, sd15_launches(steps, encode=True),
+                                 f'the {cfg} request')
+            check(images.shape == (1, SIZE, SIZE, 3), f'{cfg} images {images.shape}')
+            _check_written(os.path.join(tmp, cfg), images, cfg)
+            add(launches)
+            requests[cfg] = seconds
+        log('visualizer seconds (main() unless marked alone): '
+            + ', '.join(f'{k} {v:.3f}' for k, v in requests.items())
+            + f'; card: {gpu_name_and_power_limit()}')
+        del viser
+        torch.cuda.empty_cache()
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs one GPU', file=sys.stderr)
@@ -1214,6 +1447,7 @@ def main() -> int:
     sdxl_reference_phase(sdxl_pipe, device)
     del sdxl_pipe
     torch.cuda.empty_cache()
+    visualizer_launches = visualizer_phase(device)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
     # run in full fp32, as the JAX package computes them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1225,7 +1459,8 @@ def main() -> int:
                    'fused gradient check')
     torch.cuda.empty_cache()
     records = kernel_phase({'txt2img': launches, 'train': train_launches,
-                            'fused': fused_launches, 'sdxl': sdxl_launches})
+                            'fused': fused_launches, 'sdxl': sdxl_launches,
+                            'visualizer': visualizer_launches})
     records += train_kernel_phase(train_launches)
     records = add_classic_shapes(records, classic_kernel_phase())
     records += fused_kernel_phase(fused_launches)

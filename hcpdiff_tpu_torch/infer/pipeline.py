@@ -1,5 +1,5 @@
-"""Inference pipeline: the CFG denoise loop and txt2img (counterpart of
-``hcpdiff_tpu/infer/pipeline.py``).
+"""Inference pipeline: the CFG denoise loop, txt2img, img2img, inpaint and
+the VAE codecs (counterpart of ``hcpdiff_tpu/infer/pipeline.py``).
 
 The JAX package compiles the whole loop into one ``lax.scan``; here it is
 an eager Python loop of UNet calls and sampler steps, with classifier-free
@@ -7,11 +7,15 @@ guidance run as one doubled batch (negative prompts first). Latents are
 fp32 NHWC tensors on the models' device. When the UNet's
 ``addition_embed_type`` is ``'text_time'`` (SDXL) every UNet call also
 takes the pooled text embedding and the size/crop ``time_ids``,
-CFG-doubled as the context.
+CFG-doubled as the context. All random numbers (initial latents, the
+img2img noise, the stochastic samplers' noise) come from one CPU
+``torch.Generator`` seeded with the request's seed, so one seed gives one
+image on any device; they differ from the JAX package's ``jax.random``
+draws.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,20 +28,24 @@ from ..models.vae import AutoencoderKL
 
 
 class DenoiseLoop:
-    """CFG denoise loop for one sampler setting."""
+    """CFG denoise loop for one sampler setting. ``unet`` is the UNet or
+    any callable ``(x, t, ctx, **extra_cond) -> out`` (the 9-channel
+    inpaint UNet's channel join)."""
 
-    def __init__(self, unet: UNet2DCondition, sampler: BaseSampler, return_x0: bool = False):
+    def __init__(self, unet: Callable, sampler: BaseSampler, return_x0: bool = False):
         self.unet = unet
         self.sampler = sampler
         self.return_x0 = return_x0
 
     def step(self, i: int, latents: torch.Tensor, state, ctx: torch.Tensor,
              guidance_scale: float, cfg_batch: bool = True,
-             extra_cond: Optional[Dict[str, torch.Tensor]] = None):
+             extra_cond: Optional[Dict[str, torch.Tensor]] = None,
+             generator: Optional[torch.Generator] = None):
         """One step: (latents, state) -> (latents, state, x0 prediction).
         ``ctx`` is [2B, S, D] (negative then positive) when ``cfg_batch``;
         ``extra_cond`` holds further UNet keyword arguments, CFG-doubled
-        as ``ctx`` (SDXL's pooled_text_emb and time_ids)."""
+        as ``ctx`` (SDXL's pooled_text_emb and time_ids); ``generator``
+        feeds a stochastic sampler's noise."""
         sampler = self.sampler
         x_in = sampler.scale_model_input(state, latents, i)
         if cfg_batch:
@@ -47,30 +55,39 @@ class DenoiseLoop:
         if cfg_batch:
             e_neg, e_pos = out.chunk(2)
             out = e_neg + guidance_scale * (e_pos - e_neg)
-        return sampler.step(state, out, i, latents)
+        return sampler.step(state, out, i, latents, generator)
 
     @torch.inference_mode()
     def __call__(self, latents: torch.Tensor, ctx: torch.Tensor, guidance_scale: float,
-                 cfg_batch: bool = True, extra_cond: Optional[Dict[str, torch.Tensor]] = None
+                 cfg_batch: bool = True, extra_cond: Optional[Dict[str, torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns the final latents and, when ``return_x0``, the x0
-        prediction of every step stacked as [steps, B, h, w, C]."""
+        prediction of every step stacked as [steps, B, h, w, C]. The
+        latents are scaled by the sampler's ``init_noise_sigma`` first."""
         latents = latents.float() * self.sampler.init_noise_sigma
         state = self.sampler.init_state(latents.shape)
         x0s = []
         for i in range(self.sampler.num_steps):
             latents, state, x0 = self.step(i, latents, state, ctx, guidance_scale, cfg_batch,
-                                           extra_cond)
+                                           extra_cond, generator)
             if self.return_x0:
                 x0s.append(x0)
         return latents, (torch.stack(x0s) if x0s else None)
 
 
+def _batch(prompt, negative_prompt, batch_size: int) -> Tuple[list, list]:
+    prompts = [prompt] * batch_size if isinstance(prompt, str) else list(prompt)
+    negs = ([negative_prompt] * len(prompts) if isinstance(negative_prompt, str)
+            else list(negative_prompt))
+    return prompts, negs
+
+
 class DiffusionPipeline:
-    """txt2img over (unet, vae, text frontend). The frontend's ``encode``
-    returns (hidden, pooled): ``models.text_frontend.TextEncoderFrontend``,
-    or, for a ``text_time`` UNet, SDXL's
-    ``models.compose.sdxl_te.SDXLTextEncoderFrontend``."""
+    """txt2img, img2img and inpaint over (unet, vae, text frontend). The
+    frontend's ``encode`` returns (hidden, pooled):
+    ``models.text_frontend.TextEncoderFrontend``, or, for a ``text_time``
+    UNet, SDXL's ``models.compose.sdxl_te.SDXLTextEncoderFrontend``."""
 
     def __init__(self, unet: UNet2DCondition, vae: AutoencoderKL, te_frontend,
                  schedule: Optional[NoiseSchedule] = None):
@@ -80,46 +97,142 @@ class DiffusionPipeline:
         self.te = te_frontend
         self.schedule = schedule or NoiseSchedule.make()
 
+    @property
+    def device(self) -> torch.device:
+        return next(self.unet.parameters()).device
+
+    @property
+    def vae_scale(self) -> int:
+        return 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+
     def encode_prompts(self, prompts: Sequence[str], negative_prompts: Sequence[str]):
         """One text-encoder pass for negative + positive prompts."""
         return self.te.encode(list(negative_prompts) + list(prompts))
+
+    def _extra_cond(self, pooled: torch.Tensor, rows: int, width: int, height: int):
+        """A text_time UNet's conditioning for ``rows`` UNet rows; None for
+        other UNets."""
+        if not self.text_time:
+            return None
+        tid = torch.from_numpy(make_sdxl_time_ids((width, height), (0, 0), (width, height)))
+        return {'pooled_text_emb': pooled, 'time_ids': tid.to(self.device).repeat(rows, 1)}
 
     @torch.inference_mode()
     def txt2img(self, prompt, negative_prompt='', width: int = 512, height: int = 512,
                 num_steps: int = 20, guidance_scale: float = 7.5, sampler: str = 'dpm++_2m',
                 seed: int = 0, batch_size: int = 1, sampler_kwargs: Optional[dict] = None,
-                return_latents: bool = False):
+                return_latents: bool = False, return_x0_history: bool = False):
         """Returns images as a float32 numpy array [B, height, width, 3] in
-        [0, 1], or the final latents when ``return_latents``. The initial
-        noise is drawn on the CPU from ``seed``, so it does not depend on
-        the device. For a ``text_time`` UNet every UNet call also gets the
-        pooled embeddings and ``time_ids = [height, width, 0, 0, height,
-        width]``, in the context's rows."""
-        prompts = [prompt] * batch_size if isinstance(prompt, str) else list(prompt)
-        negs = ([negative_prompt] * len(prompts) if isinstance(negative_prompt, str)
-                else list(negative_prompt))
+        [0, 1], or the final latents when ``return_latents``; with
+        ``return_x0_history`` a pair whose second item is every step's x0
+        prediction [steps, B, h, w, C]. The initial noise is drawn on the
+        CPU from ``seed``, so it does not depend on the device. For a
+        ``text_time`` UNet every UNet call also gets the pooled embeddings
+        and ``time_ids = [height, width, 0, 0, height, width]``, in the
+        context's rows."""
+        prompts, negs = _batch(prompt, negative_prompt, batch_size)
         B = len(prompts)
         use_cfg = float(guidance_scale) > 1.0
         ctx, pooled = self.encode_prompts(prompts, negs if use_cfg else [])
-        device = next(self.unet.parameters()).device
-        extra_cond = None
-        if self.text_time:
-            tid = torch.from_numpy(make_sdxl_time_ids((width, height), (0, 0),
-                                                      (width, height))).to(device)
-            extra_cond = {'pooled_text_emb': pooled, 'time_ids': tid.repeat(ctx.shape[0], 1)}
-        vae_scale = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        extra_cond = self._extra_cond(pooled, ctx.shape[0], width, height)
         gen = torch.Generator().manual_seed(int(seed))
-        latents = torch.randn((B, height // vae_scale, width // vae_scale,
+        latents = torch.randn((B, height // self.vae_scale, width // self.vae_scale,
                                self.vae.cfg.latent_channels), generator=gen)
         loop = DenoiseLoop(self.unet, make_sampler(sampler, self.schedule, num_steps,
-                                                   **(sampler_kwargs or {})))
-        latents, _ = loop(latents.to(device), ctx, float(guidance_scale), cfg_batch=use_cfg,
-                          extra_cond=extra_cond)
-        if return_latents:
-            return latents
-        return self.decode(latents)
+                                                   **(sampler_kwargs or {})),
+                           return_x0=return_x0_history)
+        latents, x0s = loop(latents.to(self.device), ctx, float(guidance_scale),
+                            cfg_batch=use_cfg, extra_cond=extra_cond, generator=gen)
+        out = latents if return_latents else self.decode(latents)
+        return (out, x0s) if return_x0_history else out
+
+    @torch.inference_mode()
+    def img2img(self, init_latents: torch.Tensor, prompt, negative_prompt='',
+                strength: float = 0.75, num_steps: int = 20, guidance_scale: float = 7.5,
+                sampler: str = 'dpm++_2m', seed: int = 0, return_latents: bool = False,
+                sampler_kwargs: Optional[dict] = None, noise: Optional[torch.Tensor] = None):
+        """``init_latents``: [B, h, w, C] scaled latents (``encode`` makes
+        them). The plan is cut at ``t_start = steps - int(steps * strength)``
+        (``slice_for_partial``), the latents are noised to the cut's first
+        timestep with ``noise`` (drawn from ``seed`` when None) and the
+        partial loop runs with CFG. No further scaling: the loop's
+        ``init_noise_sigma`` is the VP to k-space change of variables."""
+        init_latents = torch.as_tensor(init_latents).to(self.device, torch.float32)
+        B, h, w, _ = init_latents.shape
+        prompts, negs = _batch(prompt, negative_prompt, B)
+        ctx, pooled = self.encode_prompts(prompts, negs)
+        extra_cond = self._extra_cond(pooled, ctx.shape[0], w * self.vae_scale,
+                                      h * self.vae_scale)
+        t_start = max(num_steps - int(num_steps * strength), 0)
+        sampler_obj = make_sampler(sampler, self.schedule, num_steps, **(sampler_kwargs or {}))
+        t0 = sampler_obj.slice_for_partial(t_start)
+        gen = torch.Generator().manual_seed(int(seed))
+        if noise is None:
+            noise = torch.randn(tuple(init_latents.shape), generator=gen)
+        noised = self.schedule.add_noise(init_latents, noise.to(init_latents),
+                                         torch.full((B,), t0, dtype=torch.long))
+        latents, _ = DenoiseLoop(self.unet, sampler_obj)(noised, ctx, float(guidance_scale),
+                                                         extra_cond=extra_cond, generator=gen)
+        return latents if return_latents else self.decode(latents)
+
+    @torch.inference_mode()
+    def inpaint(self, init_latents: torch.Tensor, mask_latent: torch.Tensor, prompt,
+                negative_prompt='', strength: float = 0.75, inpaint_model: bool = False,
+                num_steps: int = 20, guidance_scale: float = 7.5, sampler: str = 'dpm++_2m',
+                seed: int = 0, sampler_kwargs: Optional[dict] = None,
+                noise: Optional[torch.Tensor] = None) -> np.ndarray:
+        """Inpainting; ``mask_latent`` [B, h, w, 1], 1 = the region to paint.
+
+        - ``inpaint_model``: a 9-channel inpaint UNet runs the whole plan
+          from noise (``noise``, drawn from ``seed`` when None) with
+          [mask, masked latents] joined to its input channels, CFG-doubled;
+          ``strength`` and ``sampler_kwargs`` are not used, as in the JAX
+          package;
+        - otherwise: img2img on the full latents (``noise`` is its noise),
+          then the kept region is blended back before decoding."""
+        init_latents = torch.as_tensor(init_latents).to(self.device, torch.float32)
+        mask_latent = torch.as_tensor(mask_latent).to(self.device, torch.float32)
+        if not inpaint_model:
+            out = self.img2img(init_latents, prompt, negative_prompt, strength=strength,
+                               num_steps=num_steps, guidance_scale=guidance_scale,
+                               sampler=sampler, seed=seed, return_latents=True,
+                               sampler_kwargs=sampler_kwargs, noise=noise)
+            return self.decode(mask_latent * out + (1 - mask_latent) * init_latents)
+        B = init_latents.shape[0]
+        extra = torch.cat([mask_latent, init_latents * (1 - mask_latent)], dim=-1)
+        extra2 = torch.cat([extra, extra])                   # CFG-doubled
+
+        def unet_with_cond(x, t, ctx, **e):
+            n = extra2 if x.shape[0] == 2 * B else extra
+            return self.unet(torch.cat([x, n.to(x.dtype)], dim=-1), t, ctx, **e)
+
+        prompts, negs = _batch(prompt, negative_prompt, B)
+        ctx, pooled = self.encode_prompts(prompts, negs)
+        h, w = init_latents.shape[1:3]
+        extra_cond = self._extra_cond(pooled, ctx.shape[0], w * self.vae_scale,
+                                      h * self.vae_scale)
+        gen = torch.Generator().manual_seed(int(seed))
+        if noise is None:
+            noise = torch.randn(tuple(init_latents.shape), generator=gen)
+        loop = DenoiseLoop(unet_with_cond, make_sampler(sampler, self.schedule, num_steps))
+        out, _ = loop(noise.to(init_latents), ctx, float(guidance_scale),
+                      extra_cond=extra_cond, generator=gen)
+        return self.decode(out)
 
     @torch.inference_mode()
     def decode(self, latents: torch.Tensor) -> np.ndarray:
         img = self.vae.decode(latents / self.vae.cfg.scaling_factor)
         return (img * 0.5 + 0.5).clamp(0, 1).cpu().numpy()
+
+    @torch.inference_mode()
+    def encode(self, images, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images [B, H, W, 3] in [-1, 1] -> scaled latents [B, H/8, W/8, C]
+        on the VAE's device: the posterior's mean, or a sample of it drawn
+        on the CPU from ``generator``."""
+        images = torch.as_tensor(images).to(self.device)
+        mean, logvar = self.vae.encode(images)
+        z = mean
+        if generator is not None:
+            eps = torch.randn(tuple(mean.shape), generator=generator).to(mean.device)
+            z = mean + torch.exp(0.5 * logvar) * eps
+        return z * self.vae.cfg.scaling_factor

@@ -287,6 +287,10 @@ class Upsample2D(nn.Module):
 
 
 class UNet2DCondition(nn.Module):
+    # children the model runs in fp32 whatever its dtype (the time and add
+    # embedding MLPs); ``to_compute_dtype`` and the checkpoint loader keep them fp32
+    FP32_CHILDREN = ('time_embedding_linear_', 'add_embedding_linear_')
+
     def __init__(self, cfg: UNetConfig, remat: bool = False, fused_sublayers: bool = False):
         super().__init__()
         self.cfg = c = cfg
@@ -353,7 +357,7 @@ class UNet2DCondition(nn.Module):
         stay fp32."""
         self.to(dtype)
         for name, m in self.named_children():
-            if name.startswith(('time_embedding_linear_', 'add_embedding_linear_')):
+            if name.startswith(self.FP32_CHILDREN):
                 m.float()
         return self
 

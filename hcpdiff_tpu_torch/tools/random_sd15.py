@@ -26,19 +26,23 @@ def clip_config():
                                     eos_token_id=tok.eos_token_id)
 
 
-def build_sd15(device, seed: int):
-    """(unet, vae, text frontend): UNetConfig.sd15(), VAEConfig.sd() and
-    CLIP, bf16, channels_last, in eval mode, on ``device``."""
-    tok, clip_cfg = clip_config()
+def sd15_modules(device, seed: int):
+    """The fp32 modules UNetConfig.sd15(), VAEConfig.sd() and CLIP, each
+    made from one generator seeded with ``seed`` on ``device``, yielded in
+    that order, one at a time."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    models = []
     for cls, cfg in ((UNet2DCondition, UNetConfig.sd15()), (AutoencoderKL, VAEConfig.sd()),
-                     (CLIPTextModel, clip_cfg)):
+                     (CLIPTextModel, clip_config()[1])):
         with device:
-            m = init_flax_like(cls(cfg), gen).to(torch.bfloat16)
-        models.append(m.to(memory_format=torch.channels_last).eval())
-    unet, vae, clip = models
-    return unet, vae, TextEncoderFrontend(tok, clip)
+            yield init_flax_like(cls(cfg), gen)
+
+
+def build_sd15(device, seed: int):
+    """(unet, vae, text frontend): ``sd15_modules`` in bf16, channels_last,
+    in eval mode, on ``device``."""
+    unet, vae, clip = (m.to(torch.bfloat16).to(memory_format=torch.channels_last).eval()
+                       for m in sd15_modules(device, seed))
+    return unet, vae, TextEncoderFrontend(clip_config()[0], clip)
 
 
 def fused_copy(unet: UNet2DCondition, device) -> UNet2DCondition:

@@ -28,22 +28,35 @@ def clip_configs():
                  dataclasses.replace(CLIPTextConfig.sdxl_big_g(), **ids))
 
 
-def build_model(cls, cfg, device, gen: torch.Generator):
-    """One model from the flax-like init on ``device``, then bf16 (a UNet
-    through ``to_compute_dtype``, which keeps its fp32 MLPs), channels_last
-    and eval mode; the fp32 init is freed before the next model is made."""
-    with device:
-        m = init_flax_like(cls(cfg), gen)
-    m = m.to_compute_dtype(torch.bfloat16) if cls is UNet2DCondition else m.to(torch.bfloat16)
+def to_bf16(m):
+    """bf16 (a UNet through ``to_compute_dtype``, which keeps its fp32
+    MLPs), channels_last and eval mode."""
+    m = m.to_compute_dtype(torch.bfloat16) if isinstance(m, UNet2DCondition) else m.to(
+        torch.bfloat16)
     return m.to(memory_format=torch.channels_last).eval()
 
 
-def build_sdxl(device, seed: int):
-    """(unet, vae, SDXL text frontend): UNetConfig.sdxl(), VAEConfig.sdxl()
-    and CLIP-L + bigG, on ``device``."""
-    tok, (cfg_l, cfg_g) = clip_configs()
+def build_model(cls, cfg, device, gen: torch.Generator):
+    """One model from the flax-like init on ``device``, then ``to_bf16``;
+    the fp32 init is freed before the next model is made."""
+    with device:
+        return to_bf16(init_flax_like(cls(cfg), gen))
+
+
+def sdxl_modules(device, seed: int):
+    """The fp32 modules UNetConfig.sdxl(), VAEConfig.sdxl(), CLIP-L and
+    bigG, each made from one generator seeded with ``seed`` on ``device``,
+    yielded in that order, one at a time."""
+    _, (cfg_l, cfg_g) = clip_configs()
     gen = torch.Generator(device=device).manual_seed(seed)
-    unet = build_model(UNet2DCondition, UNetConfig.sdxl(), device, gen)
-    vae = build_model(AutoencoderKL, VAEConfig.sdxl(), device, gen)
-    te1, te2 = (build_model(CLIPTextModel, c, device, gen) for c in (cfg_l, cfg_g))
-    return unet, vae, SDXLTextEncoderFrontend(tok, te1, te2)
+    for cls, cfg in ((UNet2DCondition, UNetConfig.sdxl()), (AutoencoderKL, VAEConfig.sdxl()),
+                     (CLIPTextModel, cfg_l), (CLIPTextModel, cfg_g)):
+        with device:
+            yield init_flax_like(cls(cfg), gen)
+
+
+def build_sdxl(device, seed: int):
+    """(unet, vae, SDXL text frontend): ``sdxl_modules`` through
+    ``to_bf16``, on ``device``."""
+    unet, vae, te1, te2 = (to_bf16(m) for m in sdxl_modules(device, seed))
+    return unet, vae, SDXLTextEncoderFrontend(clip_configs()[0], te1, te2)

@@ -3,8 +3,10 @@ E and F also at the classic route's head dims, causal and not, in bf16,
 for one checkout, to compare two versions on one card. B, C, G, H and I
 are timed at every transformer level of a batch-4 request, beside
 F.linear on the same products (labels "F.linear ..."), and D at every
-GroupNorm shape of a batch-4 request (GN_SHAPES) and of a batch-4 SDXL
-request that the 512 px one lacks (SDXL_GN_SHAPES, labelled sdxl), with
+GroupNorm shape of a batch-4 request (GN_SHAPES), of a batch-4 SDXL
+request that the 512 px one lacks (SDXL_GN_SHAPES, labelled sdxl) and of
+the VAE encode of an img2img request (ENC_GN_SHAPES, labelled enc, with A
+at its mid-block's [1, 1, 4096, 512]), with
 bf16 scale and bias as the model holds them, beside F.group_norm where
 there is no SiLU.
 
@@ -61,6 +63,12 @@ SDXL_GN_SHAPES = ((8, 16384, 320, True), (8, 16384, 640, True), (8, 16384, 960, 
                   (8, 4096, 640, False), (8, 1024, 1280, False),
                   (4, 1024 * 1024, 128, True), (4, 1024 * 1024, 256, True),
                   (4, 512 * 512, 512, True), (4, 16384, 512, False))
+# the VAE encoder's GroupNorms on one 512 px image (img2img and inpaint),
+# labelled enc: its resblocks at 512, 256, 128 and 64 px (with SiLU) and
+# its mid-block attention (without)
+ENC_GN_SHAPES = ((1, 512 * 512, 128, True), (1, 256 * 256, 128, True),
+                 (1, 256 * 256, 256, True), (1, 128 * 128, 256, True),
+                 (1, 128 * 128, 512, True), (1, 4096, 512, True), (1, 4096, 512, False))
 
 
 def _time_ms(fn):
@@ -126,9 +134,10 @@ def _cases(gen):
         return (torch.randn(*shape, device='cuda', generator=gen) * scale).to(torch.bfloat16)
 
     cases = {}
-    for shape in ((4, 8, 4096, 40), (4, 8, 1024, 80), (2, 1, 4096, 512)):
+    for shape, enc in (((4, 8, 4096, 40), ''), ((4, 8, 1024, 80), ''), ((2, 1, 4096, 512), ''),
+                       ((1, 1, 4096, 512), 'enc ')):
         q, k, v = rn(*shape), rn(*shape), rn(*shape)
-        cases[f'A {list(shape)}'] = lambda q=q, k=k, v=v: fa.flash_attention(q, k, v)
+        cases[f'{enc}A {list(shape)}'] = lambda q=q, k=k, v=v: fa.flash_attention(q, k, v)
     for shape in ((8, 8, 4096, 40), (8, 8, 1024, 80)):
         q, k, v, do = (rn(*shape) for _ in range(4))
         sc = shape[-1] ** -0.5
@@ -171,7 +180,8 @@ def _cases(gen):
     cases['C x [32768, 320]'] = lambda args=args: mm.fused_dense(*args)
     cases['F.linear C x [32768, 320]'] = lambda args=args: linear(*args)
     for (B, S, C, silu), sdxl in ([(s, '') for s in GN_SHAPES]
-                                  + [(s, 'sdxl ') for s in SDXL_GN_SHAPES]):
+                                  + [(s, 'sdxl ') for s in SDXL_GN_SHAPES]
+                                  + [(s, 'enc ') for s in ENC_GN_SHAPES]):
         x = rn(B, S, C, scale=3.0) + 1.0
         sc, bi = rn(C, scale=0.2) + 1.0, rn(C)
         cases[f'{sdxl}D [{B}, {S}, {C}]{"" if silu else " no silu"}'] = (

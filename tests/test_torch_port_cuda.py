@@ -871,3 +871,38 @@ def test_tiny_vae_decode_fp32_on_the_card(gen):
         out, ref = card.decode(z.cuda()), cpu.decode(z)
     assert flash_attention.launches > before
     assert _rel_l2(out, ref) <= MODEL_REL_TOL
+
+
+def test_visualizer_request_on_the_card(gen, tmp_path):
+    """A tiny diffusers-layout directory (F16) loaded on the card and one
+    text2img request through the config-driven entry point (bf16, 64 px:
+    a 32x32 latent, so the UNet's level 0 and the VAE's mid block run
+    kernel A); kernels A-D launch and the PNGs and YAMLs are written."""
+    import os
+
+    import numpy as np
+
+    from hcpdiff_tpu_torch.infer.visualizer import main
+    from hcpdiff_tpu_torch.models.factory import build_models
+    from hcpdiff_tpu_torch.tools.random_diffusers import write_module
+    from hcpdiff_tpu_torch.utils.images import read_png
+    world = build_models('tiny', torch.float32, 'cpu', seed=2)
+    for sub, key in (('unet', 'unet'), ('vae', 'vae'), ('text_encoder', 'te')):
+        write_module(world[key], str(tmp_path / 'model' / sub), torch.float16)
+    kernels = (flash_attention, geglu_dense, fused_dense, group_norm_silu)
+    before = [k.launches for k in kernels]
+    cfg = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       'cfgs', 'infer', 'text2img.yaml')
+    out = tmp_path / 'out'
+    viser, images = main(['--cfg', cfg, f'pretrained_model={tmp_path / "model"}',
+                          f'interface.0.save_root={out}', 'seed=3', 'bs=2',
+                          'infer_args.width=64', 'infer_args.height=64',
+                          'infer_args.inference_steps=2'])
+    assert viser.device.type == 'cuda' and viser.dtype == torch.bfloat16
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert images.shape == (2, 64, 64, 3) and np.isfinite(images).all()
+    assert images.min() >= 0 and images.max() <= 1
+    for i in range(2):
+        png = read_png(str(out / f'{i}-img.png'))
+        assert (png == (images[i].clip(0, 1) * 255).astype(np.uint8)).all()
+        assert (out / f'{i}-img.yaml').exists()

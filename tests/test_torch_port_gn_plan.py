@@ -7,8 +7,9 @@ The kernel's limits are data in the CUDA source: its HCP_GN_LIMITS table,
 read here and held to the plan's GN_LIMITS and to the card's shared memory.
 
 Shapes: every GroupNorm of SD1.5's UNet (batch 2, 4 and 8: a 512 px request
-of batch 1, 2 and 4 under CFG) and VAE decoder (batch 1, 2 and 4), in bf16
-and fp32, and those of the tiny UNet and VAE, recorded by running them.
+of batch 1, 2 and 4 under CFG), VAE decoder (batch 1, 2 and 4) and VAE
+encoder (batch 1), in bf16 and fp32, and those of the tiny UNet and VAE,
+recorded by running them.
 The kernel's chunk and slot schedule (pass 1 fills the slots in order,
 pass 2 takes the chunks still held first and reloads the others) is
 replayed here for every plan. Also the plans ``tools/time_plans.py`` times
@@ -103,6 +104,8 @@ def _cases():
     cases += [(B, S, C, G, None) for B, S, C, G in TINY_SHAPES]
     for shapes, factor in ((SDXL_UNET_SHAPES, 2), (SDXL_VAE_SHAPES, 1)):
         cases += [(factor * b, S, C, 32, None) for S, C in shapes for b in BATCHES]
+    # the VAE encoder's, on the one image of an img2img or inpaint request
+    cases += [(B, S, C, 32, None) for B, S, C in dict.fromkeys(s[:3] for s in tk.ENC_GN_SHAPES)]
     return cases
 
 

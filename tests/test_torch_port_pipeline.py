@@ -50,8 +50,8 @@ def test_dpmpp_2m_plan_matches_jax(kw):
 
 
 def test_make_sampler_rejects_unported():
-    with pytest.raises(NotImplementedError, match='euler'):
-        tsamplers.make_sampler('euler', TSchedule.make(), 10)
+    with pytest.raises(NotImplementedError, match='pndm'):
+        tsamplers.make_sampler('pndm', TSchedule.make(), 10)
 
 
 @pytest.fixture(scope='module')
