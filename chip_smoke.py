@@ -49,6 +49,22 @@ package is missing. Phases, each fatal on failure:
    and D at the encoder's 22 GroupNorm shapes (forward hooks), with the
    encode held against the CPU in fp32 at 256 px; each request's seconds
    and peak memory printed;
+4e. the training entry point (python -m hcpdiff_tpu_torch.train) on the
+   same directory: lora_conventional.yaml through main() on 16 seeded PNGs
+   (10 at 640x640, 6 at 768x512) with step_size 64 (a 512x512 and a 640x448
+   bucket), batch 4, UNet LoRA r8 + CLIP LoRA r4, bf16, remat, the latent
+   cache, 12 steps saving at 6 and 12: losses finite, the four checkpoint
+   files written and unet-12/text_encoder-12 loading back equal to the final
+   pack, every LoRA up factor moved, launches of A (with lse), E, F, B, C and
+   D equal to the reckoning from the steps' buckets and the latent cache's
+   encodes (trainer_reckoning); the directory-load and latent-cache
+   seconds, the median and spread of steps 2-12, samples/s and peak memory
+   printed; then a run resumed (train.resume.auto) from a copy stopped at
+   step 6 must equal the uninterrupted one bitwise (the relative
+   differences are printed), and 3 steps of fine-tuning.yaml (every UNet
+   weight an fp32 master under AdamW) must give finite losses and move
+   every weight tensor; the run's kernel shapes join the kernel records
+   (labelled trainer, launches_trainer);
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -872,6 +888,91 @@ def add_classic_shapes(records, classic):
     return out
 
 
+def trainer_kernel_phase(shapes):
+    """A (the latent cache's VAE encode), A with its lse, E, F, B, C and D
+    at the trainer run's shapes (labelled trainer): {wrapper name:
+    per-shape records}, to add to the wrappers' own records."""
+    from hcpdiff_tpu_torch.ops import flash_attention as fa
+    from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
+    from hcpdiff_tpu_torch.ops.matmul import (fused_dense, fused_dense_plain, geglu_dense,
+                                              geglu_dense_plain)
+    F = torch.nn.functional
+    rn = _rn_on(torch.Generator(device='cuda').manual_seed(SEED + 31))
+    per = {name: [] for name in TRAINER_KERNELS}
+    for shape in shapes['attn']:
+        label = f'trainer q/k/v/dO {list(shape)}'
+        q, k, v, do = (rn(*shape) for _ in range(4))
+        scale = shape[-1] ** -0.5
+        lib_fwd, lib_bwd = _library_attention(q, k, v, do, scale, False)
+        per['flash_attention_lse'].append(_measure(
+            label, lambda q, k, v: fa.flash_attention_lse(q, k, v, scale),
+            lambda q, k, v: (fa.attention_plain(q, k, v, scale),
+                             fa.attention_lse_plain(q, k, scale)),
+            [q, k, v], _within_rel, 'flash_attention_lse', attention_work(*shape, lse=True),
+            lib_fwd))
+        o, lse = fa.flash_attention_lse(q, k, v, scale)
+        args = [q, k, v, lse, do, fa.attention_delta(o, do), scale]
+        for name, kernel, plain, dkv in (
+                ('flash_attention_bwd_dq', fa.flash_attention_bwd_dq, fa.flash_bwd_dq_plain,
+                 False),
+                ('flash_attention_bwd_dkv', fa.flash_attention_bwd_dkv, fa.flash_bwd_dkv_plain,
+                 True)):
+            per[name].append(_measure(label, kernel, plain, args, _within_grad, name,
+                                      attention_bwd_work(*shape, dkv), lib_bwd))
+        del q, k, v, do, o, lse, args
+        torch.cuda.empty_cache()
+    with torch.inference_mode():
+        for shape in shapes['enc_attn']:
+            q, k, v = rn(*shape), rn(*shape), rn(*shape)
+            per['flash_attention'].append(_measure(
+                f'trainer enc q/k/v {list(shape)}', fa.flash_attention, fa.attention_plain,
+                [q, k, v], _within_rel, 'flash_attention', attention_work(*shape),
+                lambda: F.scaled_dot_product_attention(q, k, v)))
+        for M, C in shapes['ffn']:
+            x, w, b = rn(M, C), rn(8 * C, C, scale=C ** -0.5), rn(8 * C)
+            per['geglu_dense'].append(_measure(
+                f'trainer x [{M}, {C}], w [{8 * C}, {C}]', geglu_dense, geglu_dense_plain,
+                [x, w, b], _within, 'geglu_dense', gemm_work(M, C, 8 * C, 4 * C, bias=8 * C),
+                None, {'linear_ms': lambda: F.linear(x, w, b)}))
+            x, w, b = rn(M, 4 * C), rn(C, 4 * C, scale=(4 * C) ** -0.5), rn(C)
+            per['fused_dense'].append(_measure(
+                f'trainer x [{M}, {4 * C}], w [{C}, {4 * C}], res', fused_dense,
+                fused_dense_plain, [x, w, b, rn(M, C)], _within, 'fused_dense',
+                gemm_work(M, 4 * C, C, C, bias=C, res=True), None,
+                {'linear_ms': lambda: F.linear(x, w, b)}))
+        for B, S, C, silu in shapes['gn']:
+            x = rn(B, S, C, scale=3.0) + 1.0
+            sc, bi = rn(C, scale=0.2) + 1.0, rn(C)
+            args = [x, sc, bi, 32, 1e-5, silu]
+            gn_checks(B, S, C, args)
+            per['group_norm_silu'].append(_measure(
+                f'trainer x [{B}, {S}, {C}]{" silu" if silu else " no silu"}', group_norm_silu,
+                group_norm_silu_plain, args, _within, 'group_norm_silu',
+                group_norm_work(B, S, C, silu),
+                None if silu else lambda: F.group_norm(x.transpose(1, 2), 32, sc, bi, 1e-5)))
+            del x, args
+            torch.cuda.empty_cache()
+    return per
+
+
+def add_trainer_shapes(records, per, launches):
+    """Each record with the trainer run's shapes added and its launches in
+    that run (``launches_trainer``)."""
+    out = []
+    for rec in records:
+        name = rec['name']
+        if per.get(name):
+            keep = {k: v for k, v in rec.items() if k not in (
+                'name', 'route', 'source', 'replaces', 'also_replaces', 'launches',
+                'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'library_shapes', 'tolerance', 'shapes')}
+            rec = _record(name, rec['source'], [rec['replaces'], *rec['also_replaces']],
+                          rec['launches'], rec['shapes'] + per[name], rec['tolerance'], **keep)
+        rec['launches_trainer'] = launches.get(name, 0)
+        out.append(rec)
+    return out
+
+
 # kernel J at the UNet's other levels (size, Cin, Cout): the 8x8 and
 # 16x16 convs, most of whose grids the plan splits over K, and one conv
 # each at 32x32 and 64x64
@@ -1294,117 +1395,384 @@ def _encode_check(viser, device):
     check(err <= MODEL_REL_TOL, f'vae_encode rel err {err} > {MODEL_REL_TOL}')
 
 
-def visualizer_phase(device):
+def write_model_dir(device, tmp):
+    """The seeded SD1.5 directory (F16) the visualizer and trainer phases load."""
+    from hcpdiff_tpu_torch.tools.random_diffusers import write_dir
+    model_dir = os.path.join(tmp, 'sd15')
+    t0 = time.perf_counter()
+    write_dir(model_dir, 'sd15', SEED, torch.float16, device)
+    size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(model_dir)
+               for f in fs)
+    log(f'diffusers-layout SD1.5 directory (F16, seed {SEED}) written in '
+        f'{time.perf_counter() - t0:.2f} s: {size / 2**30:.3f} GiB')
+    return model_dir
+
+
+def visualizer_phase(device, model_dir, tmp):
     """The config-driven entry point on a diffusers-layout SD1.5 directory;
     returns the launch counts of its requests."""
     from hcpdiff_tpu_torch.models.factory import build_models
     from hcpdiff_tpu_torch.models.unet import UNet2DCondition
-    from hcpdiff_tpu_torch.tools.random_diffusers import write_dir
     from hcpdiff_tpu_torch.tools.random_sd15 import sd15_modules
     from hcpdiff_tpu_torch.utils.images import write_png
-    tmp = tempfile.mkdtemp(prefix='hcp_visualizer_')
-    try:
-        model_dir = os.path.join(tmp, 'sd15')
-        t0 = time.perf_counter()
-        write_dir(model_dir, 'sd15', SEED, torch.float16, device)
-        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(model_dir)
-                   for f in fs)
-        log(f'diffusers-layout SD1.5 directory (F16, seed {SEED}) written in '
-            f'{time.perf_counter() - t0:.2f} s: {size / 2**30:.3f} GiB')
-        t0 = time.perf_counter()
-        world = build_models(model_dir, torch.bfloat16, device)
-        log(f'build_models (bf16, cuda): {time.perf_counter() - t0:.2f} s')
-        n = 0
-        with torch.no_grad():
-            for key, orig in zip(('unet', 'vae', 'te'), sd15_modules(device, SEED)):
-                loaded = world[key].state_dict()
-                ref = orig.state_dict()
-                check(loaded.keys() == ref.keys(), f'{key}: loaded names differ')
-                for name, t in ref.items():
-                    fp32 = key == 'te' or (key == 'unet'
-                                           and name.startswith(UNet2DCondition.FP32_CHILDREN))
-                    want = t.half().to(torch.float32 if fp32 else torch.bfloat16)
-                    check(torch.equal(loaded[name], want),
-                          f'{key}.{name} is not the seeded original rounded to fp16')
-                n += len(ref)
-                del orig, ref
-        log(f'build_models: all {n} tensors equal the seeded originals rounded to fp16 '
-            f'(UNet and VAE bf16, the UNet\'s time MLP and CLIP fp32)')
-        del world
-        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    world = build_models(model_dir, torch.bfloat16, device)
+    log(f'build_models (bf16, cuda): {time.perf_counter() - t0:.2f} s')
+    n = 0
+    with torch.no_grad():
+        for key, orig in zip(('unet', 'vae', 'te'), sd15_modules(device, SEED)):
+            loaded = world[key].state_dict()
+            ref = orig.state_dict()
+            check(loaded.keys() == ref.keys(), f'{key}: loaded names differ')
+            for name, t in ref.items():
+                fp32 = key == 'te' or (key == 'unet'
+                                       and name.startswith(UNet2DCondition.FP32_CHILDREN))
+                want = t.half().to(torch.float32 if fp32 else torch.bfloat16)
+                check(torch.equal(loaded[name], want),
+                      f'{key}.{name} is not the seeded original rounded to fp16')
+            n += len(ref)
+            del orig, ref
+    log(f'build_models: all {n} tensors equal the seeded originals rounded to fp16 '
+        f'(UNet and VAE bf16, the UNet\'s time MLP and CLIP fp32)')
+    del world
+    torch.cuda.empty_cache()
 
+    zero_counters()
+    viser, images, seconds = _cli(model_dir, os.path.join(tmp, 't2i'), 'text2img.yaml')
+    launches = read_counters('the visualizer text2img request', TXT2IMG_KERNELS,
+                             absent=FUSED_ONLY)
+    _check_launches(launches, sd15_launches(STEPS), 'the visualizer text2img request')
+    check(images.shape == (4, SIZE, SIZE, 3), f'text2img images {images.shape}')
+    _check_written(os.path.join(tmp, 't2i'), images, 'text2img')
+    c = viser.cfgs
+    ref = viser.pipe.txt2img(c.prompt, c.neg_prompt, width=SIZE, height=SIZE,
+                             num_steps=STEPS, guidance_scale=GUIDANCE, sampler='dpm++_2m',
+                             seed=VIS_SEED, batch_size=4, return_latents=True)
+    diff = float((ref - viser.last_latents).abs().max())
+    log(f'text2img latents vs DiffusionPipeline.txt2img on the same modules: '
+        f'max abs diff {diff}')
+    check(torch.equal(ref, viser.last_latents), 'the CLI\'s latents differ from txt2img\'s')
+    total = dict(launches)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    t0 = time.perf_counter()
+    again = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+    alone = time.perf_counter() - t0
+    check((again == images).all(), 'a second text2img request differs')
+    log(f'text2img request on the loaded Visualizer (vis_images: no load, no writes): '
+        f'{alone:.3f} s for 4 images at 512 px')
+    requests = {'text2img': seconds, 'text2img request alone': alone}
+    runs = []
+    for i in range(2):
         zero_counters()
-        viser, images, seconds = _cli(model_dir, os.path.join(tmp, 't2i'), 'text2img.yaml')
-        launches = read_counters('the visualizer text2img request', TXT2IMG_KERNELS,
+        viser, images, seconds = _cli(model_dir, os.path.join(tmp, f'euler_a_{i}'),
+                                      'euler_a.yaml')
+        check(viser.cfgs.infer_args.sampler == 'euler_a', 'euler_a.yaml maps to euler_a')
+        launches = read_counters(f'the visualizer euler_a request {i}', TXT2IMG_KERNELS,
                                  absent=FUSED_ONLY)
-        _check_launches(launches, sd15_launches(STEPS), 'the visualizer text2img request')
-        check(images.shape == (4, SIZE, SIZE, 3), f'text2img images {images.shape}')
-        _check_written(os.path.join(tmp, 't2i'), images, 'text2img')
-        c = viser.cfgs
-        ref = viser.pipe.txt2img(c.prompt, c.neg_prompt, width=SIZE, height=SIZE,
-                                 num_steps=STEPS, guidance_scale=GUIDANCE, sampler='dpm++_2m',
-                                 seed=VIS_SEED, batch_size=4, return_latents=True)
-        diff = float((ref - viser.last_latents).abs().max())
-        log(f'text2img latents vs DiffusionPipeline.txt2img on the same modules: '
-            f'max abs diff {diff}')
-        check(torch.equal(ref, viser.last_latents), 'the CLI\'s latents differ from txt2img\'s')
-        total = dict(launches)
+        _check_launches(launches, sd15_launches(STEPS), 'the euler_a request')
+        add(launches)
+        runs.append(images)
+        requests[f'euler_a {i}'] = seconds
+    check((runs[0] == runs[1]).all(), 'euler_a.yaml is not deterministic for a seed')
+    log('euler_a: two requests at one seed give equal images')
 
-        def add(counts):
-            for k, v in counts.items():
-                total[k] += v
+    gen = torch.Generator().manual_seed(SEED + 22)
+    init = (torch.rand(SIZE, SIZE, 3, generator=gen) * 255).to(torch.uint8).numpy()
+    mask = torch.zeros(SIZE, SIZE, dtype=torch.uint8)
+    mask[:, SIZE // 2:] = 255
+    write_png(os.path.join(tmp, 'init.png'), init)
+    write_png(os.path.join(tmp, 'mask.png'), mask.numpy())
+    _encode_check(viser, device)
+    steps = 30 - (30 - int(30 * 0.75))     # the configs' inference_steps and strength
+    for cfg in ('img2img.yaml', 'inpaint.yaml'):
+        zero_counters()
+        viser, images, seconds = _cli(
+            model_dir, os.path.join(tmp, cfg), cfg, f'init_image={os.path.join(tmp, "init.png")}',
+            f'mask_image={os.path.join(tmp, "mask.png")}')
+        launches = read_counters(f'the visualizer {cfg} request', TXT2IMG_KERNELS,
+                                 absent=FUSED_ONLY)
+        _check_launches(launches, sd15_launches(steps, encode=True),
+                             f'the {cfg} request')
+        check(images.shape == (1, SIZE, SIZE, 3), f'{cfg} images {images.shape}')
+        _check_written(os.path.join(tmp, cfg), images, cfg)
+        add(launches)
+        requests[cfg] = seconds
+    log('visualizer seconds (main() unless marked alone): '
+        + ', '.join(f'{k} {v:.3f}' for k, v in requests.items())
+        + f'; card: {gpu_name_and_power_limit()}')
+    del viser
+    torch.cuda.empty_cache()
+    return total
 
-        t0 = time.perf_counter()
-        again = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
-        alone = time.perf_counter() - t0
-        check((again == images).all(), 'a second text2img request differs')
-        log(f'text2img request on the loaded Visualizer (vis_images: no load, no writes): '
-            f'{alone:.3f} s for 4 images at 512 px')
-        requests = {'text2img': seconds, 'text2img request alone': alone}
-        runs = []
-        for i in range(2):
-            zero_counters()
-            viser, images, seconds = _cli(model_dir, os.path.join(tmp, f'euler_a_{i}'),
-                                          'euler_a.yaml')
-            check(viser.cfgs.infer_args.sampler == 'euler_a', 'euler_a.yaml maps to euler_a')
-            launches = read_counters(f'the visualizer euler_a request {i}', TXT2IMG_KERNELS,
-                                     absent=FUSED_ONLY)
-            _check_launches(launches, sd15_launches(STEPS), 'the euler_a request')
-            add(launches)
-            runs.append(images)
-            requests[f'euler_a {i}'] = seconds
-        check((runs[0] == runs[1]).all(), 'euler_a.yaml is not deterministic for a seed')
-        log('euler_a: two requests at one seed give equal images')
 
-        gen = torch.Generator().manual_seed(SEED + 22)
-        init = (torch.rand(SIZE, SIZE, 3, generator=gen) * 255).to(torch.uint8).numpy()
-        mask = torch.zeros(SIZE, SIZE, dtype=torch.uint8)
-        mask[:, SIZE // 2:] = 255
-        write_png(os.path.join(tmp, 'init.png'), init)
-        write_png(os.path.join(tmp, 'mask.png'), mask.numpy())
-        _encode_check(viser, device)
-        steps = 30 - (30 - int(30 * 0.75))     # the configs' inference_steps and strength
-        for cfg in ('img2img.yaml', 'inpaint.yaml'):
-            zero_counters()
-            viser, images, seconds = _cli(
-                model_dir, os.path.join(tmp, cfg), cfg, f'init_image={os.path.join(tmp, "init.png")}',
-                f'mask_image={os.path.join(tmp, "mask.png")}')
-            launches = read_counters(f'the visualizer {cfg} request', TXT2IMG_KERNELS,
-                                     absent=FUSED_ONLY)
-            _check_launches(launches, sd15_launches(steps, encode=True),
-                                 f'the {cfg} request')
-            check(images.shape == (1, SIZE, SIZE, 3), f'{cfg} images {images.shape}')
-            _check_written(os.path.join(tmp, cfg), images, cfg)
-            add(launches)
-            requests[cfg] = seconds
-        log('visualizer seconds (main() unless marked alone): '
-            + ', '.join(f'{k} {v:.3f}' for k, v in requests.items())
-            + f'; card: {gpu_name_and_power_limit()}')
-        del viser
-        torch.cuda.empty_cache()
-        return total
+# the trainer phase: lora_conventional.yaml through the training entry
+# point on the visualizer phase's SD1.5 directory and 16 seeded PNGs, 10
+# square and 6 at 3:2, which step_size 64 puts in 512x512 and 640x448
+# buckets (latents 64x64 and 80x56: S = 4096 and 4480 at level 0, where A
+# runs, and 1024 and 1120 at level 1, where 1120 % 128 != 0 takes the plain
+# attention by the dispatch rule)
+TRAINER_IMAGES = ((640, 640),) * 10 + ((768, 512),) * 6
+TRAINER_STEPS, TRAINER_SAVE, FT_STEPS = 12, 6, 3
+TRAINER_KERNELS = ('flash_attention', 'flash_attention_lse', 'flash_attention_bwd_dq',
+                   'flash_attention_bwd_dkv', 'geglu_dense', 'fused_dense', 'group_norm_silu')
+
+
+def flash_route(S):
+    """The dispatch rule (ops/attention.py) for a self-attention of S tokens."""
+    from hcpdiff_tpu_torch.ops.attention import takes_kernel
+    return takes_kernel(S, S, 64)
+
+
+def transformer_levels(cfg):
+    """The level of each Transformer2D in the UNet's order, with its depth."""
+    n, tl = len(cfg.block_out_channels), cfg.transformer_layers_per_block
+    out = [(b, tl[b]) for b, t in enumerate(cfg.down_block_types)
+           if t == 'CrossAttnDownBlock2D' for _ in range(cfg.layers_per_block)]
+    out += [(n - 1, tl[n - 1])] if cfg.mid_cross_attn else []
+    out += [(n - 1 - b, tl[n - 1 - b]) for b, t in enumerate(cfg.up_block_types)
+            if t == 'CrossAttnUpBlock2D' for _ in range(cfg.layers_per_block + 1)]
+    return out
+
+
+def trainer_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms):
+    """The launches lora_conventional.yaml's run must make, from the UNet's
+    config, each step's latent shape and the latent cache's encode calls.
+    A step is one UNet call under remat: every block runs forward and again
+    in the backward, except the first resblock, whose output needs no
+    gradient (its input and weights carry none, and the first LoRA is in
+    the transformer after it), so autograd never recomputes it. So per
+    step: A with its lse twice and E and F once per self-attention whose S
+    the kernel takes; B and C twice per transformer block; D twice per
+    GroupNorm of the resblocks and transformers, less the first
+    resblock's two, plus the output norm once. Per encode call: A once
+    where the VAE mid block's S (the latent's) is taken, and the encoder's
+    ``enc_norms`` GroupNorms (22 in SD's VAE)."""
+    n = len(cfg.block_out_channels)
+    levels = transformer_levels(cfg)
+    n_res = n * cfg.layers_per_block + 2 + n * (cfg.layers_per_block + 1)
+    depth = sum(d for _, d in levels)
+    out = dict.fromkeys(TRAINER_KERNELS, 0)
+    for shapes in step_shapes:
+        for _, h, w, _ in shapes:
+            flash = sum(d for lvl, d in levels if flash_route((h >> lvl) * (w >> lvl)))
+            out['flash_attention'] += 2 * flash
+            out['flash_attention_lse'] += 2 * flash
+            out['flash_attention_bwd_dq'] += flash
+            out['flash_attention_bwd_dkv'] += flash
+            out['geglu_dense'] += 2 * depth
+            out['fused_dense'] += 2 * depth
+            out['group_norm_silu'] += 2 * (2 * n_res + len(levels)) - 2 + 1
+    for _, (w, h) in encodes:
+        out['flash_attention'] += int(flash_route((h // vae_scale) * (w // vae_scale)))
+        out['group_norm_silu'] += enc_norms
+    return out
+
+
+def write_dataset(root):
+    """TRAINER_IMAGES as seeded PNGs with their captions in captions.json."""
+    import numpy as np
+    from hcpdiff_tpu_torch.utils.images import write_png
+    os.makedirs(root)
+    rng = np.random.default_rng(SEED + 30)
+    captions = {}
+    for i, (w, h) in enumerate(TRAINER_IMAGES):
+        write_png(os.path.join(root, f'img_{i:02d}.png'),
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        captions[f'img_{i:02d}'] = f'a photo of a cat, picture {i}'
+    with open(os.path.join(root, 'captions.json'), 'w') as f:
+        json.dump(captions, f)
+
+
+def train_args(cfg, model_dir, exp_dir, imgs, *extra):
+    """The command line of one run of the entry point a user runs:
+    python -m hcpdiff_tpu_torch.train --cfg cfgs/train/examples/<cfg> ..."""
+    src = 'data.dataset1.source.data_source1'
+    return ['--cfg', f'cfgs/train/examples/{cfg}',
+            f'model.pretrained_model_name_or_path={model_dir}', f'exp_dir={exp_dir}',
+            f'{src}.img_root={imgs}', f'{src}.caption_file={imgs}/captions.json',
+            'data.dataset1.bucket.step_size=64', 'logger.0.log_step=1', *extra]
+
+
+def _train_cli(*args):
+    from hcpdiff_tpu_torch.trainer.trainer import main
+    return main(train_args(*args))
+
+
+def _trainer_shapes(trainer):
+    """The kernels' shapes on the run's path, for the kernel records: the
+    self-attention (B, H, S, D) A, E and F take at each bucket, the VAE
+    encoder's mid-block attention of each encode call, the transformer
+    levels' B and C products, and every GroupNorm (B, S, C, silu) of one
+    UNet call at each bucket and of each encode call (forward hooks)."""
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    cfg, ds = trainer.unet.cfg, trainer.datasets[0]
+    buckets = sorted({shape for shapes in trainer.step_shapes for shape in shapes})
+    attn, ffn = set(), set()
+    for B, h, w, _ in buckets:
+        for lvl, _ in transformer_levels(cfg):
+            S, C = (h >> lvl) * (w >> lvl), cfg.block_out_channels[lvl]
+            ffn.add((B * S, C))
+            if flash_route(S):
+                attn.add((B, cfg.num_heads[lvl], S, C // cfg.num_heads[lvl]))
+    f = 2 ** (len(trainer.vae.cfg.block_out_channels) - 1)
+    enc_attn = sorted({(n, 1, (h // f) * (w // f), trainer.vae.cfg.block_out_channels[-1])
+                       for n, (w, h) in ds.encodes if flash_route((h // f) * (w // f))})
+    seen = set()
+    hooks = [m.register_forward_hook(lambda m, a, o: seen.add(
+        (a[0].shape[0], a[0].shape[2] * a[0].shape[3], a[0].shape[1], m.fused_silu)))
+        for m in list(trainer.unet.modules()) + list(trainer.vae.encoder.modules())
+        if isinstance(m, GroupNorm)]
+    dev = trainer.device
+    try:
+        with torch.no_grad():
+            ctx = torch.zeros(1, 77, cfg.cross_attention_dim, device=dev)
+            for B, h, w, c in buckets:
+                trainer.unet(torch.zeros(B, h, w, c, device=dev), torch.tensor([500] * B,
+                                                                                device=dev),
+                             ctx.expand(B, -1, -1))
+            for n, (w, h) in sorted(set(ds.encodes)):
+                trainer.vae.encode(torch.zeros(n, h, w, 3, device=dev, dtype=trainer.dtype))
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for hk in hooks:
+            hk.remove()
+    return {'attn': sorted(attn), 'enc_attn': enc_attn, 'ffn': sorted(ffn),
+            'gn': sorted(seen)}
+
+
+def trainer_phase(device, model_dir, tmp):
+    """lora_conventional.yaml through main() at SD1.5 full width, 512 px,
+    batch 4 (UNet LoRA rank 8, CLIP LoRA rank 4, constant_with_warmup,
+    AdamW, clip 1.0, the latent cache, remat), 12 steps; its resume from
+    the step-6 state; 3 steps of fine-tuning.yaml. Returns the run's
+    launch counts and the shapes its kernels took."""
+    import numpy as np
+    from hcpdiff_tpu_torch.ckpt.diffusers_layout import to_port, unet_key_map
+    from hcpdiff_tpu_torch.models.factory import load_state_dict
+    from hcpdiff_tpu_torch.trainer.step import pack_leaves
+    imgs = os.path.join(tmp, 'train_imgs')
+    write_dataset(imgs)
+    exp = os.path.join(tmp, 'exp')
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    trainer = _train_cli('lora_conventional.yaml', model_dir, exp, imgs,
+                         f'train.train_steps={TRAINER_STEPS}', f'train.save_step={TRAINER_SAVE}')
+    seconds = time.perf_counter() - t0
+    launches = read_counters('the trainer run (lora_conventional.yaml)', TRAINER_KERNELS,
+                             absent=FUSED_ONLY)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ds = trainer.datasets[0]
+    buckets = sorted({s for shapes in trainer.step_shapes for s in shapes})
+    log(f'trainer: main() {seconds:.3f} s: directory load {trainer.seconds["model load"]:.3f} s, '
+        f'latent cache {trainer.seconds["latent cache"]:.3f} s ({len(ds._latent_cache)} latents '
+        f'in {len(ds.encodes)} VAE calls {ds.encodes}); buckets {ds.bucket.used_sizes()}, '
+        f'steps\' latents {[s[0] for s in trainer.step_shapes]}; peak {peak:.2f} GiB')
+    check(trainer.dtype == torch.bfloat16 and trainer.unet.remat, 'the run is bf16 with remat')
+    check(len(trainer.history) == TRAINER_STEPS
+          and all(math.isfinite(x) for x in trainer.history),
+          f'trainer losses {trainer.history}')
+    check(buckets == [(4, 56, 80, 4), (4, 64, 64, 4)], f'trainer buckets {buckets}')
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    vae = trainer.vae
+    _check_launches(launches, trainer_reckoning(
+        trainer.unet.cfg, trainer.step_shapes, ds.encodes,
+        2 ** (len(vae.cfg.block_out_channels) - 1),
+        sum(isinstance(m, GroupNorm) for m in vae.encoder.modules())), 'the trainer run')
+    steps = np.diff(trainer.step_ends)                     # steps 2..12
+    med = float(np.median(steps))
+    log(f'trainer timed steps 2-{TRAINER_STEPS} (batch 4, 512 px and 640x448, LoRA UNet r8 + '
+        f'CLIP r4, remat): median {med:.4f} s/step, min {steps.min():.4f}, max '
+        f'{steps.max():.4f}, all {[round(float(x), 4) for x in steps]}; '
+        f'{4 / med:.3f} samples/s; losses {[round(x, 5) for x in trainer.history]}; '
+        f'card: {gpu_name_and_power_limit()}')
+    ckpts = sorted(os.listdir(os.path.join(exp, 'ckpts')))
+    want = sorted(f'{m}-{s}.safetensors' for m in ('unet', 'text_encoder')
+                  for s in (TRAINER_SAVE, TRAINER_STEPS))
+    check(ckpts == want, f'trainer checkpoints {ckpts}')
+    pack = trainer.state.pack
+    for name, key, alias in (('unet', 'lora_unet', 'unet'), ('text_encoder', 'lora_te', 'te')):
+        loaded = trainer.ckpt_manager.load_ckpt(
+            os.path.join(exp, 'ckpts', f'{name}-{TRAINER_STEPS}.safetensors'),
+            aliases=trainer.aliases[alias])['lora']
+        check(sorted(loaded) == sorted(pack[key]) and all(
+            torch.equal(a.cpu(), b.detach().cpu())
+            for a, b in zip(pack_leaves(loaded), pack_leaves(pack[key]))),
+            f'{name}-{TRAINER_STEPS} does not load back as the final {key}')
+        zero = [p for p, e in pack[key].items() if not bool(e['up'].any())]
+        check(not zero, f'{key} up factors still zero: {zero[:3]}')
+    log(f'trainer: {want} written; unet-{TRAINER_STEPS} and text_encoder-{TRAINER_STEPS} load '
+        f'back through load_ckpt equal to the final pack; every LoRA up factor moved '
+        f'({len(pack["lora_unet"])} UNet and {len(pack["lora_te"])} CLIP layers)')
+    shapes = _trainer_shapes(trainer)
+    final = [t.detach().clone() for t in pack_leaves(pack)]
+    history = list(trainer.history)
+    del trainer, pack
+    torch.cuda.empty_cache()
+
+    # (c) resume from a copy of the run stopped at step 6
+    cut = os.path.join(tmp, 'exp_cut')
+    shutil.copytree(exp, cut)
+    os.remove(os.path.join(cut, 'state', f'state_{TRAINER_STEPS}.pt'))
+    for m in ('unet', 'text_encoder'):
+        os.remove(os.path.join(cut, 'ckpts', f'{m}-{TRAINER_STEPS}.safetensors'))
+    rest = _train_cli('lora_conventional.yaml', model_dir, cut, imgs,
+                      f'train.train_steps={TRAINER_STEPS}', f'train.save_step={TRAINER_SAVE}',
+                      'train.resume.auto=true')
+    check(rest.start_step == TRAINER_SAVE, f'resumed at step {rest.start_step}')
+    resumed = [t.detach() for t in pack_leaves(rest.state.pack)]
+    bitwise = rest.history == history[TRAINER_SAVE:] and all(
+        torch.equal(a, b) for a, b in zip(resumed, final))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(rest.history, history[TRAINER_SAVE:]))
+    lora_err = {f: float(torch.cat([a.flatten() - b.flatten() for a, b, k in zip(
+        resumed, final, _leaf_kinds(rest.state.pack)) if k == f]).norm() / torch.cat(
+        [b.flatten() for b, k in zip(final, _leaf_kinds(rest.state.pack)) if k == f]).norm())
+        for f in ('down', 'up')}
+    want = [round(x, 5) for x in history[TRAINER_SAVE:]]
+    log(f'trainer resume from step {TRAINER_SAVE}: steps {TRAINER_SAVE + 1}-{TRAINER_STEPS} '
+        f'losses {[round(x, 5) for x in rest.history]} against {want}; bitwise equal (losses '
+        f'and final LoRA): {bitwise}; max rel loss diff {loss_err:.3e}, LoRA rel L2 diff '
+        f'{lora_err} (diagnostics only: the check is bitwise)')
+    check(bitwise, f'the resumed run differs from the uninterrupted one: max rel loss diff '
+          f'{loss_err}, LoRA rel L2 diff {lora_err}')
+    del rest, resumed, final
+    torch.cuda.empty_cache()
+
+    # (d) fine-tuning.yaml: every UNet weight trainable (fp32 master, AdamW)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ft = _train_cli('fine-tuning.yaml', model_dir, os.path.join(tmp, 'exp_ft'), imgs,
+                    f'train.train_steps={FT_STEPS}', f'train.save_step={FT_STEPS}')
+    seconds = time.perf_counter() - t0
+    sub = ft.state.pack['unet_ft']
+    n_params = sum(t.numel() for t in sub.values())
+    check(len(sub) == len(list(ft.unet.parameters())), 'fine-tuning trains every UNet weight')
+    check(len(ft.history) == FT_STEPS and all(math.isfinite(x) for x in ft.history),
+          f'fine-tuning losses {ft.history}')
+    orig = to_port(load_state_dict(os.path.join(model_dir, 'unet')), unet_key_map(ft.unet.cfg),
+                   model_dir)
+    moved = sum(int(not torch.equal(t.detach().cpu(), orig[n].float())) for n, t in sub.items())
+    log(f'trainer fine-tuning.yaml: {FT_STEPS} steps, {len(sub)} tensors / {n_params} weights '
+        f'trainable, losses {[round(x, 5) for x in ft.history]}, {moved} of {len(sub)} tensors '
+        f'moved from the directory\'s; main() {seconds:.3f} s, step seconds '
+        f'{[round(float(x), 4) for x in np.diff(ft.step_ends)]}, peak '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    check(moved == len(sub), f'fine-tuning moved {moved} of {len(sub)} tensors')
+    del ft, sub, orig
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def _leaf_kinds(pack):
+    """The factor name ('down', 'up', 'alpha') of each leaf, in pack_leaves order."""
+    out = []
+    for key in sorted(pack):
+        for path in sorted(pack[key]):
+            out += sorted(pack[key][path])
+    return out
 
 
 def main() -> int:
@@ -1447,7 +1815,13 @@ def main() -> int:
     sdxl_reference_phase(sdxl_pipe, device)
     del sdxl_pipe
     torch.cuda.empty_cache()
-    visualizer_launches = visualizer_phase(device)
+    tmp = tempfile.mkdtemp(prefix='hcp_smoke_')
+    try:
+        model_dir = write_model_dir(device, tmp)
+        visualizer_launches = visualizer_phase(device, model_dir, tmp)
+        trainer_launches, trainer_shapes = trainer_phase(device, model_dir, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
     # run in full fp32, as the JAX package computes them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1464,6 +1838,8 @@ def main() -> int:
     records += train_kernel_phase(train_launches)
     records = add_classic_shapes(records, classic_kernel_phase())
     records += fused_kernel_phase(fused_launches)
+    records = add_trainer_shapes(records, trainer_kernel_phase(trainer_shapes),
+                                 trainer_launches)
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

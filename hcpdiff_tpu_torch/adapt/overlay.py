@@ -146,3 +146,20 @@ def merge_overlays(params: Mapping[str, torch.Tensor], overlays: Sequence[PathDi
             w = merged[name]
             merged[name] = w + lora_delta(entry, tuple(w.shape), sc.get(path, 1.0)).to(w.dtype)
     return merged
+
+
+def trainable_mask(module: nn.Module, train_patterns: Sequence[str],
+                   aliases: Optional[Dict[str, str]] = None) -> List[str]:
+    """The parameter names a layer-wise fine-tune trains (the config's
+    ``unet:``/``text_encoder:`` ``layers``): every parameter of the
+    Linear/Conv2d modules the patterns select, as the JAX package's
+    ``trainable_mask`` selects them; the pattern ``''`` selects every
+    parameter of the model, as the configs document it (the JAX
+    ``trainable_mask`` selects nothing for it)."""
+    if isinstance(train_patterns, str):
+        train_patterns = [train_patterns]
+    names = [n for n, _ in module.named_parameters()]
+    if '' in train_patterns:
+        return names
+    selected = set(get_match_layers(train_patterns, module_paths(module), aliases))
+    return [n for n in names if n.rsplit('.', 1)[0] in selected]

@@ -11,7 +11,9 @@ becomes a state dict by joining the path with dots and converting each leaf:
 
 One function serves the UNet, the VAE and CLIP; ``load_params`` loads the
 result strictly, so a missing or unexpected name raises.
-``lora_overlay_from_params`` turns a JAX LoRA overlay into the port's.
+``lora_overlay_from_params`` turns a JAX LoRA overlay into the port's, and
+``params_from_state_dict`` a (subset of a) state dict back into the JAX
+tree's names and layouts, as the trainer saves a fine-tuned subset.
 """
 from __future__ import annotations
 
@@ -44,9 +46,31 @@ def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
                 walk(value, f'{prefix}{key}.')
             else:
                 name, arr = _leaf(key, np.asarray(value, dtype=np.float32))
-                out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
+                out[prefix + name] = torch.from_numpy(np.array(arr, order='C'))
 
     walk(params, '')
+    return out
+
+
+def params_from_state_dict(state: Mapping[str, torch.Tensor], module: nn.Module) -> Dict:
+    """{port name: tensor} -> the JAX param tree ({path part: ... {leaf:
+    tensor}}): a Linear/Conv2d ``weight`` becomes ``kernel`` ([in, out],
+    HWIO), a norm's ``weight`` ``scale``; other names are kept."""
+    out: Dict = {}
+    for name, value in state.items():
+        path, leaf = name.rpartition('.')[::2]
+        value = value.detach()
+        if leaf == 'weight':
+            owner = module.get_submodule(path)
+            if isinstance(owner, (nn.Linear, nn.Conv2d)):
+                leaf, value = 'kernel', (value.permute(2, 3, 1, 0) if value.dim() == 4
+                                         else value.t())
+            else:
+                leaf = 'scale'
+        node = out
+        for part in path.split('.') if path else []:
+            node = node.setdefault(part, {})
+        node[leaf] = value.contiguous()
     return out
 
 

@@ -11,10 +11,11 @@ rather than imported).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..utils.clip_tokenizer import CLIPTokenizer
 from .clip import CLIPTextModel
@@ -122,27 +123,39 @@ class TextEncoderFrontend:
         return (np.stack([e.input_ids for e in enc]),
                 np.stack([e.token_mult for e in enc]))
 
-    def _final_norm(self, x: torch.Tensor) -> torch.Tensor:
+    def _final_norm(self, x: torch.Tensor, params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Only the final LayerNorm, in fp32 (clip_skip with final norm)."""
         ln = self.model.final_layer_norm
-        y = torch.nn.functional.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                                           ln.bias.float(), ln.eps)
+        w = params.get('final_layer_norm.weight', ln.weight)
+        b = params.get('final_layer_norm.bias', ln.bias)
+        y = torch.nn.functional.layer_norm(x.float(), ln.normalized_shape, w.float(), b.float(),
+                                           ln.eps)
         return y.to(x.dtype)
 
-    @torch.no_grad()
-    def encode_ids(self, input_ids: torch.Tensor, token_mult: Optional[torch.Tensor] = None
+    def encode_ids(self, input_ids: torch.Tensor, token_mult: Optional[torch.Tensor] = None,
+                   params: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, n_repeats*L] ids -> (hidden [B, n_repeats*(L-2)+2, D], pooled [B, ...])."""
+        """[B, n_repeats*L] ids -> (hidden [B, n_repeats*(L-2)+2, D], pooled [B, ...]).
+        Under ``no_grad``, unless ``params`` ({name: tensor}, in place of
+        the model's own: the trainer's text-encoder LoRA or fine-tune)
+        are given, whose gradients then flow."""
+        if params is None:
+            with torch.no_grad():
+                return self._encode(input_ids, token_mult, {})
+        return self._encode(input_ids, token_mult, params)
+
+    def _encode(self, input_ids, token_mult, params):
         B = input_ids.shape[0]
         L = self.tokenizer.model_max_length
         R = self.n_repeats
         ids = input_ids.reshape(B * R, L)
         mult = token_mult.reshape(B * R, L) if token_mult is not None else None
-        last, pooled, hs = self.model(ids, embedding_multiplier=mult)
+        last, pooled, hs = functional_call(self.model, dict(params), (ids,),
+                                           {'embedding_multiplier': mult})
         if self.clip_skip > 0:
             h = hs[-(self.clip_skip + 1)]
             if self.clip_final_norm:
-                h = self._final_norm(h)
+                h = self._final_norm(h, params)
         else:
             h = last
         D = h.shape[-1]

@@ -25,10 +25,15 @@ from .flash_attention import attention_plain, flash_attention
 FLASH_MIN_SEQ = 1024
 
 
+def takes_kernel(Sq: int, Sk: int, D: int) -> bool:
+    """The dispatch rule: does attention of Sq queries over Sk keys at head
+    dim D run kernel A?"""
+    return Sq >= FLASH_MIN_SEQ and Sq % 128 == 0 and Sk == Sq and D <= 512
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
               scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention on [B, H, S, D] tensors."""
-    Sq, Sk, D = q.shape[-2], k.shape[-2], q.shape[-1]
-    if Sq >= FLASH_MIN_SEQ and Sq % 128 == 0 and Sk == Sq and D <= 512:
+    if takes_kernel(q.shape[-2], k.shape[-2], q.shape[-1]):
         return flash_attention(q, k, v, scale, causal)
     return attention_plain(q, k, v, scale, causal)

@@ -30,6 +30,26 @@ BWD_FAMILIES = (('flash_bwd_dq', 'E flash_attention_bwd_dq'),
                 ('flash_bwd_dkv', 'F flash_attention_bwd_dkv'))
 
 
+def kernel_families(prof, steps: int = 1) -> dict:
+    """{family: {'ms', 'launches'}} of a ``torch.profiler`` run's device
+    kernels, divided by ``steps``; the families of
+    ``profile_txt2img.FAMILIES`` and E and F by name."""
+    from hcpdiff_tpu_torch.tools.profile_txt2img import FAMILIES
+    families = BWD_FAMILIES + tuple(FAMILIES)
+    fams = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, 'self_device_time_total', None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = next((f for key, f in families if key.lower() in ev.key.lower()), 'other')
+        rec = fams.setdefault(fam, {'ms': 0.0, 'launches': 0})
+        rec['ms'] += us / 1e3 / steps
+        rec['launches'] += ev.count / steps
+    return fams
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--tree', default=str(REPO))
@@ -42,7 +62,6 @@ def main() -> int:
     sys.path[:0] = [str(tree), str(REPO)]
     import chip_smoke as cs
     from hcpdiff_tpu_torch.ops import _build
-    from hcpdiff_tpu_torch.tools.profile_txt2img import FAMILIES
     from hcpdiff_tpu_torch.tools.random_sd15 import clip_config
     from hcpdiff_tpu_torch.trainer.optimizers import make_optimizer
     from hcpdiff_tpu_torch.trainer.step import init_train_state
@@ -77,18 +96,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         one_step()
         torch.cuda.synchronize()
-    families = BWD_FAMILIES + tuple(FAMILIES)
-    fams = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        fam = next((f for key, f in families if key.lower() in ev.key.lower()), 'other')
-        rec = fams.setdefault(fam, {'ms': 0.0, 'launches': 0})
-        rec['ms'] += us / 1e3
-        rec['launches'] += ev.count
+    fams = kernel_families(prof)
     median = statistics.median(secs)
     kernel_ms = sum(f['ms'] for f in fams.values())
     result = {'tree': args.tree, 'card': torch.cuda.get_device_name(0), 'step_s': secs,

@@ -1,18 +1,27 @@
 """Effective model weights from (frozen base, trainable pack) (counterpart of
 ``hcpdiff_tpu/trainer/assemble.py``).
 
-The pack is a dict of adaptation trees; this slice trains ``lora_unet``
-(``{path: {down, up, alpha}}``, see ``adapt/overlay.py``). The frozen UNet
-is split in two: a module whose weights are in the compute dtype (bf16 on
-the card), and fp32 copies of the weights that LoRA merges into. LoRA
-merges in fp32 and each merged weight is cast to the compute dtype at
-use, which gives the JAX package's numbers (fp32 frozen params, bf16
-compute): a bf16 copy of a weight that carries no LoRA equals casting it
-at each use.
+The pack is a dict of adaptation trees:
+
+    'unet_ft' / 'te_ft'      {state-dict name: weight} (layer-wise fine-tune)
+    'lora_unet' / 'lora_te'  LoRA overlays {path: {down, up, alpha}}
+                             (``adapt/overlay.py``)
+
+``assemble`` (UNet) and ``assemble_te`` give the weights that differ from
+the model's own: the frozen base (no gradient), overlaid by the ft subset,
+plus each LoRA delta times its scale. Gradients flow only into the pack.
+The JAX package's nested-tree ``merge_subset``/``extract_subset`` are
+dict operations on these flat names (``base_weights`` takes a subset).
+A frozen model is split in two: its module, whose weights are in the
+compute dtype (bf16 on the card), and fp32 copies of the weights that
+LoRA merges into (``base_weights``). LoRA merges in fp32 and each merged
+weight is cast to the compute dtype at use, which gives the JAX package's
+numbers (fp32 frozen params, bf16 compute): a bf16 copy of a weight that
+carries no LoRA equals casting it at each use.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import torch
 import torch.nn as nn
@@ -20,41 +29,71 @@ from torch.func import functional_call
 
 from ..adapt.overlay import merge_overlays
 
-PORTED_PACK_KEYS = ('lora_unet',)
+PORTED_PACK_KEYS = ('lora_unet', 'unet_ft', 'lora_te', 'te_ft')
+
+
+def base_weights(module: nn.Module, names: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """fp32 copies of ``module``'s parameters by name. Take them before the
+    module is cast to the compute dtype."""
+    params = dict(module.named_parameters())
+    return {n: params[n].detach().float().clone() for n in names}
 
 
 def lora_base_weights(unet: nn.Module, overlay: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """fp32 copies of the weights ``overlay`` merges into, by state-dict
-    name. Take them before the module is cast to the compute dtype."""
-    return {f'{path}.weight': unet.get_submodule(path).weight.detach().float().clone()
-            for path in overlay}
+    name."""
+    return base_weights(unet, [f'{path}.weight' for path in overlay])
+
+
+def _assemble(frozen: Mapping[str, torch.Tensor], pack: Mapping[str, Any], lora_key: str,
+              ft_key: str, lora_scales) -> Dict[str, torch.Tensor]:
+    unported = set(pack) - set(PORTED_PACK_KEYS)
+    if unported:
+        raise NotImplementedError(f'pack keys {sorted(unported)} are not ported yet')
+    ft = dict(pack.get(ft_key) or {})
+    lora = pack.get(lora_key) or {}
+    base = {f'{p}.weight': frozen[f'{p}.weight'].detach() for p in lora
+            if f'{p}.weight' not in ft}
+    return merge_overlays({**ft, **base}, [lora], [(lora_scales or {}).get(lora_key, {})])
 
 
 def assemble(frozen_unet: Mapping[str, torch.Tensor], pack: Mapping[str, Any],
              lora_scales: Optional[Mapping[str, Mapping[str, float]]] = None
              ) -> Dict[str, torch.Tensor]:
-    """-> {state-dict name: merged fp32 weight} for the UNet: the frozen
-    base (no gradient) plus the ``lora_unet`` delta. Gradients flow only
-    into the pack."""
-    unported = set(pack) - set(PORTED_PACK_KEYS)
-    if unported:
-        raise NotImplementedError(f'pack keys {sorted(unported)} are not ported yet')
-    base = {k: v.detach() for k, v in frozen_unet.items()}
-    lora = pack.get('lora_unet')
-    if not lora:
-        return {}
-    scales = (lora_scales or {}).get('lora_unet', {})
-    merged = merge_overlays(base, [lora], [scales])
-    return {f'{path}.weight': merged[f'{path}.weight'] for path in lora}
+    """-> {state-dict name: weight} for the UNet: ``unet_ft`` over the
+    frozen base, plus the ``lora_unet`` delta."""
+    return _assemble(frozen_unet, pack, 'lora_unet', 'unet_ft', lora_scales)
+
+
+def assemble_te(frozen_te: Mapping[str, torch.Tensor], pack: Mapping[str, Any],
+                lora_scales: Optional[Mapping[str, Mapping[str, float]]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The same for the text encoder: ``te_ft`` and ``lora_te``."""
+    return _assemble(frozen_te, pack, 'lora_te', 'te_ft', lora_scales)
+
+
+def _casting(module: nn.Module) -> Callable:
+    dtypes = {name: p.dtype for name, p in module.named_parameters()}
+    return lambda params: {k: v.to(dtypes[k]) for k, v in params.items()}
 
 
 def make_unet_apply(unet: nn.Module) -> Callable:
     """``unet_apply(params, x, t, ctx)``: run ``unet`` with ``params``
     (state-dict name -> tensor) in place of its own, each cast to the dtype
     of the parameter it replaces."""
-    dtypes = {name: p.dtype for name, p in unet.named_parameters()}
+    cast = _casting(unet)
 
     def apply(params: Mapping[str, torch.Tensor], x, t, ctx):
-        return functional_call(unet, {k: v.to(dtypes[k]) for k, v in params.items()},
-                               (x, t, ctx))
+        return functional_call(unet, cast(params), (x, t, ctx))
+    return apply
+
+
+def make_te_apply(frontend) -> Callable:
+    """``te_apply(params, input_ids, token_mult) -> (ctx, pooled)``: the
+    text frontend's encode (windows, ``clip_skip``, final norm) with
+    ``params`` in place of its CLIP model's own, gradients flowing."""
+    cast = _casting(frontend.model)
+
+    def apply(params: Mapping[str, torch.Tensor], input_ids, token_mult=None):
+        return frontend.encode_ids(input_ids, token_mult, params=cast(params))
     return apply

@@ -2,14 +2,18 @@
 
 ``build_train_step(...)`` returns ``train_step(state, frozen, batch,
 generator)``: noise and timesteps drawn from an explicit
-``torch.Generator``, the frozen text encoder under ``no_grad``, the LoRA
-merge and UNet forward, the loss, its gradient with respect to the pack,
-gradient accumulation as a loop over microbatches, the optimizer step
-(after optax-style global-norm clipping) and the EMA. The JAX step is a
-pure function; here the optimizer updates the pack's tensors in place, so
-the returned state is the one passed in, advanced one step.
+``torch.Generator``, the text encoder (under ``no_grad`` while the pack
+trains nothing of it, else with its assembled weights and their
+gradient), the UNet's assembled weights and forward, the loss, its
+gradient with respect to the pack, gradient accumulation as a loop over
+microbatches, the learning rates of the pack's groups from their
+schedules, the optimizer step (after optax-style global-norm clipping)
+and the EMA. The JAX step is a pure function; here the optimizer updates
+the pack's tensors in place, so the returned state is the one passed in,
+advanced one step.
 
-Ported: the single-branch (non-DreamArtist) step, ``grad_accum``, EMA,
+Ported: the single-branch (non-DreamArtist) step over ``lora_unet``,
+``unet_ft``, ``lora_te`` and ``te_ft``, ``grad_accum``, EMA,
 ``min_timestep``/``max_timestep``, the three prediction types (through
 ``NoiseSchedule.target``), ``att_mask`` and ``loss_weight``, and the
 metrics ``loss`` and ``grad_norm``. Not yet: DreamArtist, pyramid noise,
@@ -24,7 +28,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..diffusion.schedules import NoiseSchedule
-from .assemble import assemble
+from .assemble import assemble, assemble_te
 from .optimizers import Optimizer, clip_by_global_norm_, global_norm
 
 
@@ -45,6 +49,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer      # bound to the pack's leaves
     clip_norm: Optional[float]
     ema: Optional[Dict[str, Any]]
+    schedules: Optional[List[Callable[[int], float]]] = None   # lr of each param group
 
 
 def pack_leaves(tree: Mapping[str, Any]) -> List[torch.Tensor]:
@@ -56,31 +61,44 @@ def pack_leaves(tree: Mapping[str, Any]) -> List[torch.Tensor]:
     return out
 
 
-def init_train_state(pack: Dict[str, Any], optimizer: Optimizer,
-                     use_ema: bool = False) -> TrainState:
+def init_train_state(pack: Dict[str, Any], optimizer: Optimizer, use_ema: bool = False,
+                     schedules: Optional[Mapping[str, Callable[[int], float]]] = None
+                     ) -> TrainState:
     """Marks every leaf of ``pack`` trainable and binds the optimizer to
-    them; the EMA starts as a copy of the pack."""
+    them; the EMA starts as a copy of the pack. ``schedules`` ({pack key:
+    count -> lr}) gives each pack key a parameter group of its own whose
+    lr follows its schedule; without it one group takes the optimizer's lr."""
     leaves = pack_leaves(pack)
     for t in leaves:
         t.requires_grad_(True)
+    params, group_schedules = leaves, None
+    if schedules is not None:
+        keys = sorted(pack)
+        params = [{'params': pack_leaves({k: pack[k]}), 'lr': schedules[k](0)} for k in keys]
+        group_schedules = [schedules[k] for k in keys]
 
     def copy(tree):
         return {k: copy(v) if isinstance(v, Mapping) else v.detach().clone()
                 for k, v in tree.items()}
-    return TrainState(step=0, pack=pack, optimizer=optimizer.init(leaves),
-                      clip_norm=optimizer.clip_norm, ema=copy(pack) if use_ema else None)
+    return TrainState(step=0, pack=pack, optimizer=optimizer.init(params),
+                      clip_norm=optimizer.clip_norm, ema=copy(pack) if use_ema else None,
+                      schedules=group_schedules)
 
 
 def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseSchedule,
                      criterion, cfg: StepConfig,
-                     lora_scales: Optional[Dict[str, Dict[str, float]]] = None):
+                     lora_scales: Optional[Dict[str, Dict[str, float]]] = None,
+                     te_apply: Optional[Callable] = None):
     """Returns ``train_step(state, frozen, batch, generator=None, draws=None)``.
 
     unet_apply(params, x, t, ctx) -> prediction; ``params`` are the merged
     weights by state-dict name (``trainer/assemble.py:make_unet_apply``).
-    te_encode(input_ids, token_mult) -> (ctx, pooled), run under no_grad.
-    frozen: {'unet': {state-dict name: fp32 base weight}} for the weights
-    the pack's LoRA merges into.
+    te_encode(input_ids, token_mult) -> (ctx, pooled), run under no_grad
+    while the pack holds no text-encoder key; te_apply(params,
+    input_ids, token_mult) (``make_te_apply``) runs it with the assembled
+    weights otherwise.
+    frozen: {'unet': ..., 'te': ...}, each {state-dict name: fp32 base
+    weight} for the weights the pack's LoRA merges into.
     batch: {'latents': [B, h, w, 4], 'input_ids': [B, S], 'token_mult',
     'att_mask' [B, h, w], 'loss_weight' [] or [B] optional}; with
     grad_accum > 1 every entry has a leading [grad_accum] axis.
@@ -96,9 +114,13 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
         latents = batch['latents']
         noisy = schedule.add_noise(latents, noise, t)
         target = schedule.target(latents, noise, t)
-        with torch.no_grad():
-            ctx, _ = te_encode(batch['input_ids'], batch.get('token_mult'))
-        pred = unet_apply(assemble(frozen['unet'], pack, lora_scales), noisy, t, ctx)
+        te_params = assemble_te(frozen.get('te', {}), pack, lora_scales)
+        if te_params:
+            ctx, _ = te_apply(te_params, batch['input_ids'], batch.get('token_mult'))
+        else:
+            with torch.no_grad():
+                ctx, _ = te_encode(batch['input_ids'], batch.get('token_mult'))
+        pred = unet_apply(assemble(frozen.get('unet', {}), pack, lora_scales), noisy, t, ctx)
         loss = criterion(pred, target, t)
         if batch.get('att_mask') is not None:
             loss = loss * batch['att_mask'][..., None]
@@ -147,6 +169,8 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
             clip_by_global_norm_(grads, state.clip_norm)
         for p, g in zip(leaves, grads):
             p.grad = g
+        for group, lr in zip(state.optimizer.param_groups, state.schedules or ()):
+            group['lr'] = lr(state.step)      # optax: the count before this update
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         state.step += 1

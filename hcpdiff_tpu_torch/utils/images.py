@@ -138,31 +138,38 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
-def _weights(in_size: int, out_size: int) -> Tuple[np.ndarray, int, int]:
-    """Pillow's fixed-point weights as a dense [out, in] int64 matrix, and
-    the first and one past the last input index any output reads."""
+def _taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's fixed-point weights as taps: for each output index, the
+    input indices its window reads and their int64 weights, [out, K] each
+    (a window shorter than K is padded with weight 0)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 2.0 * filterscale
-    mat = np.zeros((out_size, in_size), np.int64)
-    lo, hi = in_size, 0
+    rows = []
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
         ws = [_bicubic((x + xmin - center + 0.5) / filterscale) for x in range(xmax - xmin)]
         total = sum(ws)
-        for x, wv in enumerate(ws):
-            wv = wv / total if total != 0.0 else wv
-            mat[xx, xmin + x] = int((-0.5 if wv < 0 else 0.5) + wv * (1 << _PRECISION_BITS))
-        lo, hi = min(lo, xmin), max(hi, xmax)
-    return mat, lo, hi
+        rows.append((xmin, [int((-0.5 if wv < 0 else 0.5) + wv * (1 << _PRECISION_BITS))
+                            for wv in ((w / total if total != 0.0 else w) for w in ws)]))
+    K = max(len(ws) for _, ws in rows)
+    idx = np.zeros((out_size, K), np.int64)
+    wts = np.zeros((out_size, K), np.int64)
+    for xx, (xmin, ws) in enumerate(rows):
+        idx[xx, :len(ws)] = np.arange(xmin, xmin + len(ws))
+        wts[xx, :len(ws)] = ws
+    return idx, wts
 
 
-def _apply(mat: np.ndarray, arr: np.ndarray, axis: int) -> np.ndarray:
-    acc = np.tensordot(mat, arr.astype(np.int64), axes=([1], [axis]))
-    acc = np.moveaxis(acc, 0, axis) + (1 << (_PRECISION_BITS - 1))
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+def _apply(idx: np.ndarray, wts: np.ndarray, arr: np.ndarray, axis: int) -> np.ndarray:
+    a = np.moveaxis(arr, axis, 0)
+    shape = (-1,) + (1,) * (a.ndim - 1)
+    acc = np.full((idx.shape[0],) + a.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
+    for k in range(idx.shape[1]):
+        acc += wts[:, k].reshape(shape) * a[idx[:, k]]
+    return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
 
 
 def resize_bicubic(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -175,13 +182,10 @@ def resize_bicubic(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     h_in, w_in = arr.shape[:2]
     if (w_out, h_out) == (w_in, h_in):
         return arr.copy()
-    wv, y_lo, y_hi = _weights(h_in, h_out)
-    if w_out != w_in:
-        wh, _, _ = _weights(w_in, w_out)
-        arr = _apply(wh, arr[y_lo:y_hi], 1)   # rows no output reads are skipped
-        wv = wv[:, y_lo:y_hi]
+    if w_out != w_in:                      # the horizontal pass first, as Pillow
+        arr = _apply(*_taps(w_in, w_out), arr, 1)
     if h_out != h_in:
-        arr = _apply(wv, arr, 0)
+        arr = _apply(*_taps(h_in, h_out), arr, 0)
     return arr
 
 

@@ -906,3 +906,65 @@ def test_visualizer_request_on_the_card(gen, tmp_path):
         png = read_png(str(out / f'{i}-img.png'))
         assert (png == (images[i].clip(0, 1) * 255).astype(np.uint8)).all()
         assert (out / f'{i}-img.yaml').exists()
+
+
+def _trainer_run(tmp_path, size, steps):
+    """lora_conventional.yaml (UNet + CLIP LoRA, AdamW, remat, the latent
+    cache) through main() on the card in bf16, on the tiny world and four
+    seeded PNGs at ``size`` (w, h) in a fixed bucket of that size."""
+    import json
+    import os
+
+    import numpy as np
+
+    from hcpdiff_tpu_torch.trainer.trainer import main
+    from hcpdiff_tpu_torch.utils.images import write_png
+    rng = np.random.default_rng(6)
+    imgs = tmp_path / 'imgs'
+    imgs.mkdir()
+    for i in range(4):
+        write_png(str(imgs / f'{i}.png'), rng.integers(0, 256, size[::-1] + (3,), np.uint8))
+    with open(imgs / 'captions.json', 'w') as f:
+        json.dump({str(i): f'a photo of cat {i}' for i in range(4)}, f)
+    cfg = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       'cfgs', 'train', 'examples', 'lora_conventional.yaml')
+    src = 'data.dataset1.source.data_source1'
+    return main(['--cfg', cfg, 'model.pretrained_model_name_or_path=tiny',
+                 f'exp_dir={tmp_path / "exp"}', f'{src}.img_root={imgs}',
+                 f'{src}.caption_file={imgs / "captions.json"}', 'data.dataset1.batch_size=2',
+                 'data.dataset1.bucket._target_=FixedBucket',
+                 f'data.dataset1.bucket.target_size=[{size[0]}, {size[1]}]',
+                 f'train.train_steps={steps}', f'train.save_step={steps}',
+                 'logger.0.log_step=1'])
+
+
+def test_tiny_trainer_on_the_card(gen, tmp_path):
+    """Two steps of the config-driven trainer at 64 px (a 32x32 latent: the
+    UNet's level-0 self-attention, S = 1024, and the VAE encoder's mid
+    block run kernel A): kernels A (with lse), E, F, B, C and D launch,
+    the losses are finite and both LoRA files are written."""
+    import numpy as np
+    kernels = (flash_attention, fa.flash_attention_lse, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, geglu_dense, fused_dense, group_norm_silu)
+    before = [k.launches for k in kernels]
+    trainer = _trainer_run(tmp_path, (64, 64), 2)
+    assert trainer.device.type == 'cuda' and trainer.dtype == torch.bfloat16
+    assert [k.launches > b for k, b in zip(kernels, before)] == [True] * len(kernels)
+    assert len(trainer.history) == 2 and np.isfinite(trainer.history).all()
+    assert sorted(p.name for p in (tmp_path / 'exp' / 'ckpts').iterdir()) == [
+        'text_encoder-2.safetensors', 'unet-2.safetensors']
+    up = next(iter(trainer.state.pack['lora_unet'].values()))['up']
+    assert bool(up.detach().abs().sum() > 0)
+
+
+def test_trainer_bucket_off_the_kernel_route(gen, tmp_path):
+    """A 80x56 bucket: latents 40x28, so level 0's S = 1120 >= 1024 but
+    S % 128 != 0, and the shared dispatch rule sends it to the plain
+    attention (no A, E or F launch in training; the latent cache's VAE
+    mid block at the same S takes the plain route too); B, C and D run."""
+    kernels = (flash_attention, fa.flash_attention_bwd_dq, geglu_dense, fused_dense,
+               group_norm_silu)
+    before = [k.launches for k in kernels]
+    trainer = _trainer_run(tmp_path, (80, 56), 1)
+    assert trainer.step_shapes == [[(2, 28, 40, 4)]]
+    assert [k.launches > b for k, b in zip(kernels, before)] == [False, False, True, True, True]
