@@ -65,6 +65,21 @@ package is missing. Phases, each fatal on failure:
    weight an fp32 master under AdamW) must give finite losses and move
    every weight tensor; the run's kernel shapes join the kernel records
    (labelled trainer, launches_trainer);
+4f. the server (python -m hcpdiff_tpu_torch.server's InferenceServer and
+   handler, 127.0.0.1 on an ephemeral port, a reload token) on the same
+   directory and the trainer's unet-12/text_encoder-12 LoRAs at alpha 0.8
+   (cfgs/infer/text2img_lora.yaml, bf16, 512 px): merge-at-load seconds
+   and peak memory, precompile, /health, three /txt2img requests (batch
+   4, 1, 4; launches as reckoned; the first response's PNGs bitwise the
+   uint8 of vis_images at its seed), every merged UNet (bf16) and CLIP
+   (fp32) weight against an fp64 merge of the files on the CPU, /reload
+   without the token (403), then with it: alpha 0.4 (no directory read,
+   the same modules, latents bitwise a fresh Visualizer's), save_model
+   (its load with no merge block gives those latents bitwise), a large
+   seeded LoRA (the image moves), a branch: n LoRA (DreamArtist: each
+   step's UNet launches doubled, batch 1 and 4 timed) and an emb_dir
+   word (the CLIP input rows at its ids are the file's vectors); the
+   phase's launches join the kernel records (launches_server);
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -164,13 +179,16 @@ SDXL_LAUNCHES = {'flash_attention': 70 * STEPS + 1, 'geglu_dense': 70 * STEPS,
 ENCODE_LAUNCHES = {'flash_attention': 1, 'group_norm_silu': 22}
 
 
-def sd15_launches(steps, encode=False):
+def sd15_launches(steps, encode=False, unet_calls=1, decode=True):
     """An SD1.5 512 px request's launches, by its configs: 10
     self-attentions at S >= 1024 (A), 16 transformer blocks (B, C) and 61
-    GroupNorms (D) a UNet call, `steps` calls, then the VAE decode's
-    mid-block attention and 30 GroupNorms (and the encode's, if asked)."""
-    out = {'flash_attention': 10 * steps + 1, 'geglu_dense': 16 * steps,
-           'fused_dense': 16 * steps, 'group_norm_silu': 61 * steps + 30}
+    GroupNorms (D) a UNet call, `unet_calls` calls a step (2 with
+    DreamArtist's negative branch), `steps` steps, then the VAE decode's
+    mid-block attention and 30 GroupNorms (unless the request returns
+    latents), and the encode's, if asked."""
+    n = steps * unet_calls
+    out = {'flash_attention': 10 * n + int(decode), 'geglu_dense': 16 * n,
+           'fused_dense': 16 * n, 'group_norm_silu': 61 * n + 30 * int(decode)}
     if encode:
         out = {k: n + ENCODE_LAUNCHES.get(k, 0) for k, n in out.items()}
     return out
@@ -727,7 +745,8 @@ def kernel_phase(launches):
     }
     return _run_cases(cases, launches['txt2img'],
                       {'train': launches['train'], 'fused': launches['fused'],
-                       'sdxl': launches['sdxl'], 'visualizer': launches['visualizer']})
+                       'sdxl': launches['sdxl'], 'visualizer': launches['visualizer'],
+                       'server': launches['server']})
 
 
 def _library_attention(q, k, v, do, scale, causal):
@@ -1766,6 +1785,355 @@ def trainer_phase(device, model_dir, tmp):
     return launches, shapes
 
 
+# the server phase: python -m hcpdiff_tpu_torch.server's parts on the
+# trainer phase's LoRAs over the same directory
+SERVER_TOKEN = 'smoke-reload-token'
+SERVER_REQUESTS = (4, 1, 4)       # batch sizes of the served requests
+SERVER_SEED = 11
+# the card's merge (fp32, then cast) against the fp64 merge of the files:
+# a bf16 weight within half a bf16 ulp (2^-8 relative) plus fp32 rounding,
+# an fp32 one within 1e-6 relative
+MERGE_BF16_RTOL, MERGE_FP32_RTOL, MERGE_ATOL_REL = 2.0 ** -8, 1e-6, 1e-6
+EMB_WORD = 'hcpsmoke'
+
+
+def _http(port, method, path, body=None, token=None):
+    """(status, JSON body) of one request to the server on this host."""
+    import http.client
+    c = http.client.HTTPConnection('127.0.0.1', port, timeout=600)
+    try:
+        c.request(method, path, body=None if body is None else json.dumps(body),
+                  headers={'X-Auth-Token': token} if token else {})
+        r = c.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        c.close()
+
+
+def _served_images(out):
+    import base64
+    import numpy as np
+    from hcpdiff_tpu_torch.utils.images import decode_png
+    return np.stack([decode_png(base64.b64decode(b)) for b in out['images']])
+
+
+def _uint8(images):
+    import numpy as np
+    return (np.clip(images, 0, 1) * 255).astype(np.uint8)
+
+
+@torch.no_grad()
+def _check_merge(world, model_dir, files, alpha):
+    """Every weight of every LoRA'd layer on the card against base + alpha
+    * delta computed on the CPU in fp64 from the directory and the files
+    (the UNet's in bf16, CLIP's in fp32), and every other weight equal to
+    the directory's, cast as the loader casts it."""
+    from hcpdiff_tpu_torch.ckpt.diffusers_layout import (clip_canonical, clip_key_map, to_port,
+                                                         unet_key_map)
+    from hcpdiff_tpu_torch.ckpt.manager import CkptManagerSafe
+    from hcpdiff_tpu_torch.models.factory import load_state_dict
+    out = {}
+    for key, sub, rtol in (('unet', 'unet', MERGE_BF16_RTOL), ('te', 'text_encoder',
+                                                                MERGE_FP32_RTOL)):
+        module = world[key]
+        sd = load_state_dict(os.path.join(model_dir, sub))
+        base = (to_port(sd, unet_key_map(module.cfg), sub) if key == 'unet'
+                else to_port(clip_canonical(sd), clip_key_map(module.cfg), sub))
+        overlay = CkptManagerSafe().load_ckpt(files[key], aliases=world['aliases'][key])['lora']
+        held = module.state_dict()
+        worst, n_rounded = 0.0, 0
+        for path, e in overlay.items():
+            name = f'{path}.weight'
+            w = base[name].double()
+            delta = ((e['up'].double() @ e['down'].double()) * (e['alpha'].double()
+                                                               / e['down'].shape[0]) * alpha)
+            ref = w + delta.reshape(w.shape)
+            got = held[name].double().cpu()
+            err = (got - ref).abs()
+            lim = rtol * ref.abs() + MERGE_ATOL_REL * float(ref.abs().max())
+            worst = max(worst, float((err / lim).max()))
+            check(bool((err <= lim).all()), f'merged {key} {name}: max err {float(err.max())}')
+            n_rounded += int(torch.equal(held[name].cpu(), ref.to(held[name].dtype)))
+        names = {f'{p}.weight' for p in overlay}
+        same = all(torch.equal(held[n].cpu(), base[n].to(held[n].dtype)) for n in held
+                   if n not in names)
+        check(same, f'{key}: a weight no LoRA touches differs from the directory\'s')
+        out[key] = (len(overlay), n_rounded, worst)
+        log(f'server merge check {key} (alpha {alpha}): {len(overlay)} LoRA\'d layers within '
+            f'{rtol:.3g} relative of the fp64 merge (worst at {worst:.3f} of the limit), '
+            f'{n_rounded} bitwise equal to it rounded to {held[name].dtype}; the other '
+            f'{len(held) - len(names)} tensors equal the directory\'s')
+    return out
+
+
+def _big_lora(world, path, seed):
+    """A seeded UNet LoRA (rank 8 on LORA_PATTERNS' layers) with large up
+    factors, written by the port's save_model_with_lora: an effect that
+    shows in the images."""
+    from hcpdiff_tpu_torch.adapt.overlay import make_lora_overlay
+    from hcpdiff_tpu_torch.ckpt.manager import CkptManagerSafe
+    from hcpdiff_tpu_torch.models.unet import UNet2DCondition
+    with torch.device('meta'):                  # the module tree and shapes only
+        unet = UNet2DCondition(world['unet'].cfg)
+    gen = torch.Generator().manual_seed(seed)
+    ov, _ = make_lora_overlay(gen, unet, [{'layers': LORA_PATTERNS, 'rank': 8}])
+    for e in ov.values():
+        e['up'] = torch.randn(e['up'].shape, generator=gen) * 0.5
+    CkptManagerSafe().save_model_with_lora(path, unet, lora_overlay=ov,
+                                           aliases=world['aliases']['unet'])
+    return path
+
+
+def server_phase(device, model_dir, tmp):
+    """python -m hcpdiff_tpu_torch.server's parts at SD1.5 full width, 512
+    px, bf16 on the trainer phase's unet-12/text_encoder-12 LoRAs at alpha
+    0.8 (text2img_lora.yaml): merge at load, precompile, /health, served
+    requests (PNGs bitwise vis_images', launches as reckoned, merged weights
+    against the fp64 merge), /reload without and with the token, a reload
+    of the recipe against a fresh Visualizer, save_model and its load, a
+    large seeded LoRA, DreamArtist's negative branch and an emb_dir word.
+    Returns the phase's launch counts."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    import numpy as np
+    from hcpdiff_tpu_torch.ckpt.formats import save_webui_embedding
+    from hcpdiff_tpu_torch.config import load, to_plain
+    from hcpdiff_tpu_torch.infer.visualizer import Visualizer
+    from hcpdiff_tpu_torch.models import factory
+    from hcpdiff_tpu_torch.server import InferenceServer, make_handler, png_b64
+    ckpts = os.path.join(tmp, 'exp', 'ckpts')
+    files = {'unet': os.path.join(ckpts, f'unet-{TRAINER_STEPS}.safetensors'),
+             'te': os.path.join(ckpts, f'text_encoder-{TRAINER_STEPS}.safetensors')}
+    out_dir, emb_dir = os.path.join(tmp, 'server_out'), os.path.join(tmp, 'embs')
+    over = [f'pretrained_model={model_dir}', f'output_dir={out_dir}',
+            f'interface.0.save_root={out_dir}', f'seed={SERVER_SEED}', 'bs=4', 'emb_dir=null',
+            f'merge.group1.lora.0.path={files["unet"]}',
+            f'merge.group2.lora.0.path={files["te"]}']
+    cfgs = load('cfgs/infer/text2img_lora.yaml', over)
+    total = {name: 0 for name in counters()}
+
+    def segment(what, expect=None, kernels=TXT2IMG_KERNELS):
+        launches = read_counters(what, kernels, absent=FUSED_ONLY)
+        if expect is not None:
+            _check_launches(launches, expect, what)
+        for k, v in launches.items():
+            total[k] += v
+        zero_counters()
+        return launches
+
+    reads = []
+    load_state_dict = factory.load_state_dict
+
+    def counted(path):
+        reads.append(path)
+        return load_state_dict(path)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    factory.load_state_dict = counted
+    t0 = time.perf_counter()
+    try:
+        srv = InferenceServer(cfgs, reload_token=SERVER_TOKEN)
+    finally:
+        factory.load_state_dict = load_state_dict
+    build_s = time.perf_counter() - t0
+    viser = srv.viser
+    world = viser.world
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'server start: InferenceServer {build_s:.3f} s ({len(reads)} weight directories read; '
+        f'merge at load {viser.merge_seconds:.3f} s: {len(viser._written["unet"])} UNet and '
+        f'{len(viser._written["te"])} CLIP tensors merged); peak {peak:.2f} GiB, held '
+        f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB (the fp32 base kept on the card); '
+        f'card: {gpu_name_and_power_limit()}')
+    check(len(reads) == 3, f'the start read {len(reads)} weight directories, not 3')
+    httpd = ThreadingHTTPServer(('127.0.0.1', 0), make_handler(srv))
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        srv.precompile()
+        log(f'server precompile (the config\'s setting, batch 4): '
+            f'{time.perf_counter() - t0:.3f} s')
+        segment('the server precompile', sd15_launches(STEPS, decode=False))
+
+        status, health = _http(port, 'GET', '/health')
+        log(f'server /health: {status} {health}')
+        check(status == 200 and health == {'status': 'ok', 'backend': 'cuda', 'devices': 1,
+                                           'device_name': torch.cuda.get_device_name(0)},
+              f'/health answered {status} {health}')
+
+        def request(bs, seed, prompt=PROMPT):
+            body = {'prompt': prompt, 'negative_prompt': NEGATIVE, 'width': SIZE,
+                    'height': SIZE, 'steps': STEPS, 'cfg_scale': GUIDANCE, 'seed': seed,
+                    'sampler': 'dpm++_2m', 'bs': bs}
+            t0 = time.perf_counter()
+            status, out = _http(port, 'POST', '/txt2img', body)
+            seconds = time.perf_counter() - t0
+            check(status == 200 and out.get('seed') == seed and len(out['images']) == bs,
+                  f'/txt2img answered {status}: {str(out)[:300]}')
+            images = _served_images(out)
+            check(images.shape == (bs, SIZE, SIZE, 3), f'served images {images.shape}')
+            return images, seconds
+
+        served, plain_s = [], {}
+        for i, bs in enumerate(SERVER_REQUESTS):
+            images, seconds = request(bs, SERVER_SEED + i)
+            served.append(images)
+            plain_s.setdefault(bs, []).append(seconds)
+            log(f'server /txt2img {i}: batch {bs}, {SIZE} px, {STEPS} DPM++ 2M steps: '
+                f'{seconds:.3f} s (HTTP, PNG and base64 included)')
+        segment('the served requests', {k: n * len(SERVER_REQUESTS)
+                                        for k, n in sd15_launches(STEPS).items()})
+        t0 = time.perf_counter()
+        imgs = viser.vis_images(PROMPT, NEGATIVE, width=SIZE, height=SIZE,
+                                inference_steps=STEPS, guidance_scale=GUIDANCE,
+                                sampler='dpm++_2m', seed=SERVER_SEED, bs=SERVER_REQUESTS[0])
+        alone_s = time.perf_counter() - t0
+        segment('vis_images at the first request\'s seed', sd15_launches(STEPS))
+        t0 = time.perf_counter()
+        encoded = [png_b64(i) for i in imgs]
+        png_s = time.perf_counter() - t0
+        check(np.array_equal(served[0], _uint8(imgs)),
+              'the first served PNGs differ from vis_images\' uint8 at the same seed')
+        log(f'server: the first response\'s PNGs (read_png\'s decoder) are bitwise the uint8 '
+            f'of vis_images at the same seed; that vis_images call on the main thread '
+            f'{alone_s:.3f} s, its {len(encoded)} PNGs and base64 {png_s:.3f} s '
+            f'({sum(map(len, encoded)) / 2**20:.2f} MiB of base64)')
+        _check_merge(world, model_dir, files, 0.8)
+
+        status, _ = _http(port, 'POST', '/reload', to_plain(cfgs))
+        check(status == 403, f'/reload without the token answered {status}')
+        log('server /reload without X-Auth-Token: 403')
+
+        def reload(what, new):
+            reads.clear()
+            factory.load_state_dict = counted
+            t0 = time.perf_counter()
+            try:
+                status, out = _http(port, 'POST', '/reload', new, SERVER_TOKEN)
+            finally:
+                factory.load_state_dict = load_state_dict
+            seconds = time.perf_counter() - t0
+            check(status == 200 and out == {'reloaded': True, 'full_rebuild': False},
+                  f'/reload ({what}) answered {status} {out}')
+            check(not reads, f'/reload ({what}) read {reads}')
+            check(viser.world['unet'] is world['unet'] and viser.world['te'] is world['te'],
+                  f'/reload ({what}) replaced the modules')
+            log(f'server /reload ({what}): {seconds:.3f} s (merge {viser.merge_seconds:.3f} s), '
+                f'no directory read, the same module objects')
+            return seconds
+
+        def with_merge(unet_loras, alpha, **top):
+            new = to_plain(cfgs)
+            new['merge']['group1']['lora'] = unet_loras
+            new['merge']['group2']['lora'][0]['alpha'] = alpha
+            new.update(top)
+            return new
+
+        base_lora = [{'path': files['unet'], 'alpha': 0.4}]
+        reload('alpha 0.4', with_merge(base_lora, 0.4))
+        request(4, SERVER_SEED)
+        latents = viser.last_latents.clone()
+        segment('a request at alpha 0.4', sd15_launches(STEPS))
+        _check_merge(world, model_dir, files, 0.4)
+        fresh_over = over + ['merge.group1.lora.0.alpha=0.4', 'merge.group2.lora.0.alpha=0.4']
+        t0 = time.perf_counter()
+        fresh = Visualizer(load('cfgs/infer/text2img_lora.yaml', fresh_over))
+        fresh_s = time.perf_counter() - t0
+        fresh.vis_images(PROMPT, NEGATIVE, width=SIZE, height=SIZE, inference_steps=STEPS,
+                         guidance_scale=GUIDANCE, sampler='dpm++_2m', seed=SERVER_SEED, bs=4)
+        segment('a fresh Visualizer\'s request at alpha 0.4', sd15_launches(STEPS))
+        check(torch.equal(fresh.last_latents, latents),
+              'the reloaded recipe\'s latents differ from a fresh Visualizer\'s')
+        log(f'server: latents after the reload to alpha 0.4 equal a fresh Visualizer\'s at '
+            f'alpha 0.4 bitwise (its build {fresh_s:.3f} s)')
+        del fresh
+        torch.cuda.empty_cache()
+
+        saved = os.path.join(tmp, 'saved_model')
+        t0 = time.perf_counter()
+        viser.save_model(saved)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(saved)
+                   for f in fs)
+        t0 = time.perf_counter()
+        loaded = Visualizer(load('cfgs/infer/text2img.yaml', [
+            f'pretrained_model={saved}', f'output_dir={out_dir}',
+            f'interface.0.save_root={out_dir}', 'emb_dir=null']))
+        load_s = time.perf_counter() - t0
+        check(not loaded.cfgs.get('merge'), 'the saved model loads with no merge block')
+        loaded.vis_images(PROMPT, NEGATIVE, width=SIZE, height=SIZE, inference_steps=STEPS,
+                          guidance_scale=GUIDANCE, sampler='dpm++_2m', seed=SERVER_SEED, bs=4)
+        segment('the saved model\'s request', sd15_launches(STEPS))
+        check(torch.equal(loaded.last_latents, latents),
+              'the saved model\'s latents differ from the merged request\'s')
+        log(f'server save_model: {save_s:.3f} s, {size / 2**30:.3f} GiB '
+            f'({sorted(os.listdir(saved))}); loaded with no merge block in {load_s:.3f} s, its '
+            f'latents equal the merged request\'s bitwise')
+        del loaded
+        shutil.rmtree(saved)
+        torch.cuda.empty_cache()
+
+        big = _big_lora(world, os.path.join(tmp, 'big_lora.safetensors'), SEED + 30)
+        reload('a large seeded LoRA', with_merge(base_lora + [{'path': big, 'alpha': 1.0}], 0.4))
+        moved, _ = request(1, SERVER_SEED + 1)
+        segment('a request with the large LoRA', sd15_launches(STEPS))
+        diff = float(np.abs(moved.astype(np.float32) - served[1].astype(np.float32)).mean())
+        log(f'server: the large seeded LoRA moves the batch-1 image by {diff:.2f} of 255 '
+            f'on average')
+        check(diff > 1.0, f'the large LoRA moved the image by only {diff} of 255')
+
+        neg = _big_lora(world, os.path.join(tmp, 'neg_lora.safetensors'), SEED + 32)
+        reload('a branch: n LoRA', with_merge(
+            base_lora + [{'path': neg, 'alpha': 0.65, 'branch': 'n'}], 0.4))
+        check(viser.pipe.unet_params_neg is not None, 'no negative branch after the reload')
+        n_neg = len(viser.pipe.unet_params_neg)
+        da_s = {}
+        for bs in (1, 4):
+            images, da_s[bs] = request(bs, SERVER_SEED + 5)
+            segment(f'a DreamArtist request at batch {bs}', sd15_launches(STEPS, unet_calls=2))
+        log(f'server DreamArtist (negative branch over {n_neg} tensors): batch 1 '
+            f'{da_s[1]:.3f} s, batch 4 {da_s[4]:.3f} s; plain batch 1 '
+            f'{min(plain_s[1]):.3f} s, batch 4 {min(plain_s[4]):.3f} s; UNet launches twice '
+            f'a plain request\'s a step')
+
+        os.makedirs(emb_dir)
+        vecs = torch.randn(2, world['te_cfg'].hidden_size,
+                           generator=torch.Generator().manual_seed(SEED + 40)) * 0.02
+        save_webui_embedding(os.path.join(emb_dir, f'{EMB_WORD}.pt'), vecs.numpy(), EMB_WORD)
+        reload('emb_dir', with_merge(base_lora, 0.4, emb_dir=emb_dir))
+        seen = []
+        hook = world['te'].register_forward_pre_hook(
+            lambda m, args, kw: seen.append((args[0], kw.get('emb_ext'))), with_kwargs=True)
+        try:
+            images, emb_s = request(1, SERVER_SEED + 6, f'a photo of {EMB_WORD} cat')
+        finally:
+            hook.remove()
+        segment('a request with an emb_dir word', sd15_launches(STEPS))
+        ids = viser.tokenizer.added_tokens[EMB_WORD]
+        V = world['te_cfg'].vocab_size
+        check(ids == [V, V + 1], f'{EMB_WORD} ids {ids}')
+        input_ids, emb_ext = seen[0]
+        where = torch.isin(input_ids, torch.tensor(ids, device=input_ids.device))
+        rows = world['te'].embed_tokens(input_ids, emb_ext)[where]
+        check(int(where.sum()) == 2 and torch.equal(rows.cpu(), vecs),
+              'the CLIP input rows at the word\'s ids are not the file\'s vectors')
+        log(f'server emb_dir: {EMB_WORD} -> ids {ids}; the CLIP input rows there equal the '
+            f'file\'s 2 vectors; the request ({emb_s:.3f} s) gave finite images')
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), 'the server thread did not stop')
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'server phase peak {peak:.2f} GiB; launches {total}; card: {gpu_name_and_power_limit()}')
+    del srv, viser, world
+    torch.cuda.empty_cache()
+    return total
+
+
 def _leaf_kinds(pack):
     """The factor name ('down', 'up', 'alpha') of each leaf, in pack_leaves order."""
     out = []
@@ -1820,6 +2188,7 @@ def main() -> int:
         model_dir = write_model_dir(device, tmp)
         visualizer_launches = visualizer_phase(device, model_dir, tmp)
         trainer_launches, trainer_shapes = trainer_phase(device, model_dir, tmp)
+        server_launches = server_phase(device, model_dir, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -1834,7 +2203,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     records = kernel_phase({'txt2img': launches, 'train': train_launches,
                             'fused': fused_launches, 'sdxl': sdxl_launches,
-                            'visualizer': visualizer_launches})
+                            'visualizer': visualizer_launches, 'server': server_launches})
     records += train_kernel_phase(train_launches)
     records = add_classic_shapes(records, classic_kernel_phase())
     records += fused_kernel_phase(fused_launches)

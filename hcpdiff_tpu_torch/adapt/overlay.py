@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 import re
+import warnings
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -137,15 +138,77 @@ def merge_overlays(params: Mapping[str, torch.Tensor], overlays: Sequence[PathDi
     """W_eff = W + sum_i delta W_i. ``params`` maps state-dict names
     (``'<path>.weight'``) to base weights; returns a new dict with every
     overlaid weight replaced by its merged value (in the base weight's
-    dtype). Overlays stacked on one layer sum."""
+    dtype). Overlays stacked on one layer sum. An entry's ``bias`` (the
+    pre-0.9 reference LoRA layers' up-projection bias) adds
+    ``bias * alpha / rank * scale`` to the host's ``'<path>.bias'``; a
+    host without one raises (``attach_host_biases`` gives it one, as the
+    Visualizer does after rebuilding the UNet with ``qkv_bias``)."""
     merged = dict(params)
     scales = scales or [{}] * len(overlays)
     for ov, sc in zip(overlays, scales):
         for path, entry in ov.items():
             name = f'{path}.weight'
             w = merged[name]
-            merged[name] = w + lora_delta(entry, tuple(w.shape), sc.get(path, 1.0)).to(w.dtype)
+            s = sc.get(path, 1.0)
+            merged[name] = w + lora_delta(entry, tuple(w.shape), s).to(w.dtype)
+            if 'bias' in entry:
+                b = merged.get(f'{path}.bias')
+                if b is None:
+                    raise ValueError(
+                        f'LoRA at {path!r} has a bias but the host layer is bias-free; '
+                        'attach_host_biases() gives it one (after rebuilding the UNet with '
+                        'UNetConfig(qkv_bias=True)), strip_overlay_bias() drops it')
+                db = entry['bias'] * (entry['alpha'] / entry['down'].shape[0]) * s
+                merged[f'{path}.bias'] = b + db.to(b)
     return merged
+
+
+def collapse_overlay(params: Mapping[str, torch.Tensor], overlay: PathDict,
+                     scales: Optional[Mapping[str, float]] = None) -> Dict[str, torch.Tensor]:
+    """Fold one overlay's deltas into the base weights for good."""
+    return merge_overlays(params, [overlay], [scales or {}])
+
+
+def overlay_bias_paths(overlays: Sequence[PathDict], params: Mapping[str, torch.Tensor]
+                       ) -> List[str]:
+    """Paths where an overlay carries a bias delta but ``params`` has a
+    weight and no bias (pre-0.9 biased LoRAs on SD's bias-free attention
+    projections)."""
+    out: List[str] = []
+    for ov in overlays:
+        for path, entry in ov.items():
+            if ('bias' in entry and f'{path}.weight' in params
+                    and f'{path}.bias' not in params and path not in out):
+                out.append(path)
+    return out
+
+
+def attach_host_biases(params: Mapping[str, torch.Tensor], paths: Iterable[str]
+                       ) -> Dict[str, torch.Tensor]:
+    """A copy of ``params`` with a zero ``'<path>.bias'`` (the weight's
+    out-features, dtype and device) at each path that has none: the
+    reference creates the host bias when it folds a biased LoRA into a
+    bias-free layer."""
+    out = dict(params)
+    for path in paths:
+        w = out[f'{path}.weight']
+        out.setdefault(f'{path}.bias', torch.zeros(w.shape[0], dtype=w.dtype, device=w.device))
+    return out
+
+
+def strip_overlay_bias(overlay: PathDict) -> PathDict:
+    """The overlay without its bias deltas (the weight deltas kept), for
+    bias-free hosts; warns with the paths it stripped."""
+    out, dropped = {}, []
+    for path, entry in overlay.items():
+        if 'bias' in entry:
+            entry = {k: v for k, v in entry.items() if k != 'bias'}
+            dropped.append(path)
+        out[path] = entry
+    if dropped:
+        warnings.warn(f'stripped LoRA bias deltas at {len(dropped)} layers ({dropped[:3]}...): '
+                      'bias-free hosts cannot hold them', stacklevel=2)
+    return out
 
 
 def trainable_mask(module: nn.Module, train_patterns: Sequence[str],

@@ -14,13 +14,20 @@ so loading is a renaming. Two layout rules remain, as in ``bridge.py``:
   ``CkptManagerDiffusers.save_pipeline`` does.
 
 ``to_port`` is strict: a diffusers key that no entry of the map takes
-raises, except transformers' ``position_ids`` buffers.
+raises, except transformers' ``position_ids`` buffers. ``write_module``
+writes one submodel directory (``config.json`` and safetensors weights)
+from a port module: the writer behind ``tools/random_diffusers.py`` and
+``CkptManagerDiffusers.save_pipeline``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+import json
+import os
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+
+from . import safetensors_io
 
 KeyMap = List[Tuple[str, str, str]]
 
@@ -257,3 +264,71 @@ def clip_alias_map(cfg) -> Dict[str, str]:
         out[f'{fb}.fc1'] = f'{tb}.mlp.fc1'
         out[f'{fb}.fc2'] = f'{tb}.mlp.fc2'
     return out
+
+
+def unet_config(cfg) -> Dict:
+    """A UNetConfig as diffusers' ``config.json`` (``qkv_bias``, the port's
+    biased q/k/v for pre-0.9 LoRAs, only where set)."""
+    out = {'_class_name': 'UNet2DConditionModel', 'in_channels': cfg.in_channels,
+           'out_channels': cfg.out_channels, 'block_out_channels': list(cfg.block_out_channels),
+           'down_block_types': list(cfg.down_block_types),
+           'up_block_types': list(cfg.up_block_types), 'layers_per_block': cfg.layers_per_block,
+           'transformer_layers_per_block': list(cfg.transformer_layers_per_block),
+           'attention_head_dim': list(cfg.num_heads),
+           'cross_attention_dim': cfg.cross_attention_dim,
+           'norm_num_groups': cfg.norm_num_groups,
+           'addition_embed_type': cfg.addition_embed_type,
+           'addition_time_embed_dim': cfg.addition_time_embed_dim,
+           'projection_class_embeddings_input_dim': cfg.projection_class_embeddings_input_dim,
+           'use_linear_projection': False}
+    if cfg.qkv_bias:
+        out['qkv_bias'] = True
+    return out
+
+
+def vae_config(cfg) -> Dict:
+    return {'_class_name': 'AutoencoderKL', 'in_channels': cfg.in_channels,
+            'out_channels': cfg.out_channels, 'latent_channels': cfg.latent_channels,
+            'block_out_channels': list(cfg.block_out_channels),
+            'layers_per_block': cfg.layers_per_block, 'norm_num_groups': cfg.norm_num_groups,
+            'scaling_factor': cfg.scaling_factor}
+
+
+def clip_config_json(cfg) -> Dict:
+    arch = 'CLIPTextModelWithProjection' if cfg.projection_dim else 'CLIPTextModel'
+    return {'architectures': [arch], 'vocab_size': cfg.vocab_size,
+            'hidden_size': cfg.hidden_size, 'intermediate_size': cfg.intermediate_size,
+            'num_hidden_layers': cfg.num_hidden_layers,
+            'num_attention_heads': cfg.num_attention_heads,
+            'max_position_embeddings': cfg.max_position_embeddings,
+            'hidden_act': cfg.hidden_act, 'layer_norm_eps': cfg.layer_norm_eps,
+            'eos_token_id': cfg.eos_token_id, 'bos_token_id': cfg.bos_token_id,
+            'projection_dim': cfg.projection_dim}
+
+
+def write_module(module: torch.nn.Module, sub_dir: str, dtype: Optional[torch.dtype] = None,
+                 state: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+    """One submodel directory: config.json and the module's weights, each in
+    ``dtype`` (None: the dtype it has); ``state`` ({name: tensor}) replaces
+    some of the module's own (merged weights held beside it)."""
+    from ..models.clip import CLIPTextModel
+    from ..models.unet import UNet2DCondition
+    from ..models.vae import AutoencoderKL
+    cfg = module.cfg
+    if isinstance(module, UNet2DCondition):
+        config, key_map, fname = unet_config(cfg), unet_key_map(cfg), \
+            'diffusion_pytorch_model.safetensors'
+    elif isinstance(module, AutoencoderKL):
+        config, key_map, fname = vae_config(cfg), vae_key_map(cfg), \
+            'diffusion_pytorch_model.safetensors'
+    elif isinstance(module, CLIPTextModel):
+        config, key_map, fname = clip_config_json(cfg), clip_key_map(cfg), 'model.safetensors'
+    else:
+        raise TypeError(f'no diffusers layout for {type(module).__name__}')
+    os.makedirs(sub_dir, exist_ok=True)
+    with open(os.path.join(sub_dir, 'config.json'), 'w') as f:
+        json.dump(config, f, indent=2)
+    sd = {**module.state_dict(), **(state or {})}
+    sd = {k: v.detach().to('cpu', dtype or v.dtype) for k, v in sd.items()}
+    safetensors_io.save_file(from_port(sd, key_map, sub_dir), os.path.join(sub_dir, fname),
+                             metadata={'format': 'pt'})

@@ -72,6 +72,8 @@ def lora_overlay_to_state(overlay: Mapping[str, Mapping[str, torch.Tensor]],
         sd[f'{host}{PLACEHOLDER}layer.W_down'] = down.contiguous()
         sd[f'{host}{PLACEHOLDER}layer.W_up'] = up.contiguous()
         sd[f'{host}{PLACEHOLDER}alpha'] = entry['alpha'].detach().float().cpu().reshape(())
+        if 'bias' in entry:
+            sd[f'{host}{PLACEHOLDER}layer.bias'] = entry['bias'].detach().float().cpu()
     return sd
 
 
@@ -79,10 +81,9 @@ def lora_state_to_overlay(sd: Mapping[str, torch.Tensor],
                           aliases: Optional[Dict[str, str]] = None
                           ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Inverse of ``lora_overlay_to_state``; ``aliases`` = {path: alias}
-    (reversed here). Takes the current layout (``layer.W_down``/``W_up``)
-    and the pre-0.9 one (``layer.lora_down.weight``/``lora_up.weight``),
-    whose tensors are laid out alike. A LoRA ``bias`` is not ported and
-    raises."""
+    (reversed here). Takes the current layout (``layer.W_down``/``W_up``/
+    ``layer.bias``) and the pre-0.9 one (``layer.lora_down.weight``/
+    ``lora_up.weight``/``lora_up.bias``), whose tensors are laid out alike."""
     rev = {v: k for k, v in (aliases or {}).items()}
     overlay: Dict[str, Dict[str, torch.Tensor]] = {}
     for key, v in sd.items():
@@ -98,8 +99,7 @@ def lora_state_to_overlay(sd: Mapping[str, torch.Tensor],
         elif param.endswith('alpha'):
             e['alpha'] = v.reshape(())
         elif param.endswith('bias'):
-            raise NotImplementedError(f'{key}: LoRA bias deltas (pre-0.9 layers) are not ported '
-                                      'to the PyTorch package yet (ROADMAP.md queue 1 item 5)')
+            e['bias'] = v.reshape(-1)
     for e in overlay.values():
         e.setdefault('alpha', torch.tensor(1.0))
     return overlay

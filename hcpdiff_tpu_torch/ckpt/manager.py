@@ -8,7 +8,9 @@ base_ema, lora, lora_ema}``, whose files each package loads:
 
 ``base`` is a fine-tuned subset saved in the JAX tree's names and layouts
 (``base:down_0_res_0:conv1:kernel``, HWIO), ``lora`` the ``.___.`` LoRA
-state through the alias map. In place of the JAX package's
+state through the alias map; ``auto_manager`` picks the backend by the
+file's extension. ``CkptManagerDiffusers.save_pipeline`` writes whole
+modules as a diffusers-layout directory. In place of the JAX package's
 ``OrbaxCkptManager`` (the port reads and writes no orbax directory),
 ``StateManager`` keeps the trainer's full state for ``resume.auto``.
 """
@@ -23,6 +25,7 @@ import torch.nn as nn
 
 from . import safetensors_io
 from .bridge import params_from_state_dict, state_dict_from_params
+from .diffusers_layout import write_module
 from .formats import (fold_dict, lora_overlay_to_state, lora_state_to_overlay,
                       save_webui_embedding, unfold_dict)
 
@@ -109,6 +112,32 @@ class CkptManagerPKL(CkptManagerBase):
 
     def _read(self, path):
         return torch.load(path, map_location='cpu', weights_only=True)
+
+
+class CkptManagerDiffusers(CkptManagerSafe):
+    """A model as a diffusers-layout directory (``unet/``, ``vae/``,
+    ``text_encoder/``[, ``text_encoder_2/``][, ``tokenizer/``]), which
+    ``models/factory.py:build_models`` and the JAX package's load."""
+
+    def save_pipeline(self, out_dir: str, unet: nn.Module, vae: Optional[nn.Module] = None,
+                      te: Optional[nn.Module] = None, te2: Optional[nn.Module] = None,
+                      tokenizer=None, states: Optional[Mapping[str, Mapping]] = None) -> None:
+        """Each module's weights in the dtype they are held in; ``states``
+        ({'unet'/'vae'/'te'/'te2': {name: tensor}}) replaces some of them,
+        e.g. merged weights kept beside a module."""
+        states = states or {}
+        for sub, key, module in (('unet', 'unet', unet), ('vae', 'vae', vae),
+                                 ('text_encoder', 'te', te), ('text_encoder_2', 'te2', te2)):
+            if module is not None:
+                write_module(module, os.path.join(out_dir, sub), state=states.get(key))
+        if tokenizer is not None:
+            tokenizer.save_pretrained(os.path.join(out_dir, 'tokenizer'))
+
+
+def auto_manager(path_or_ext: str) -> CkptManagerBase:
+    """The manager a file's extension names: safetensors, else the pickle."""
+    ext = os.path.splitext(path_or_ext)[1] or path_or_ext
+    return CkptManagerSafe() if 'safetensors' in ext else CkptManagerPKL()
 
 
 class StateManager:

@@ -12,6 +12,13 @@ img2img noise, the stochastic samplers' noise) come from one CPU
 ``torch.Generator`` seeded with the request's seed, so one seed gives one
 image on any device; they differ from the JAX package's ``jax.random``
 draws.
+
+DreamArtist's negative branch (``DiffusionPipeline.unet_params_neg``, a
+dict of the weights that differ from the UNet's own) runs the txt2img
+loop's negative half through ``torch.func.functional_call`` with those
+weights and the positive half with the UNet's: two UNet calls of batch B
+a step in place of one of 2B. ``emb_ext`` (prompt-tuning rows) reaches
+the text encoders.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from torch.func import functional_call
+
 from ..diffusion.samplers import BaseSampler, make_sampler
 from ..diffusion.schedules import NoiseSchedule
 from ..models.compose.sdxl_te import make_sdxl_time_ids
@@ -27,15 +36,26 @@ from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 
 
+def _half(extra_cond: Optional[Dict[str, torch.Tensor]], B: int, idx: int):
+    """One CFG half of CFG-doubled conditioning: the tensors of 2B rows
+    split, the rest as they are."""
+    return {k: (v.chunk(2)[idx] if torch.is_tensor(v) and v.dim() > 0 and v.shape[0] == 2 * B
+                else v) for k, v in (extra_cond or {}).items()}
+
+
 class DenoiseLoop:
     """CFG denoise loop for one sampler setting. ``unet`` is the UNet or
     any callable ``(x, t, ctx, **extra_cond) -> out`` (the 9-channel
-    inpaint UNet's channel join)."""
+    inpaint UNet's channel join); ``unet_neg``, a callable alike, runs the
+    negative half of a CFG step (DreamArtist's negative branch) while
+    ``unet`` runs the positive half."""
 
-    def __init__(self, unet: Callable, sampler: BaseSampler, return_x0: bool = False):
+    def __init__(self, unet: Callable, sampler: BaseSampler, return_x0: bool = False,
+                 unet_neg: Optional[Callable] = None):
         self.unet = unet
         self.sampler = sampler
         self.return_x0 = return_x0
+        self.unet_neg = unet_neg
 
     def step(self, i: int, latents: torch.Tensor, state, ctx: torch.Tensor,
              guidance_scale: float, cfg_batch: bool = True,
@@ -48,9 +68,18 @@ class DenoiseLoop:
         feeds a stochastic sampler's noise."""
         sampler = self.sampler
         x_in = sampler.scale_model_input(state, latents, i)
+        B = x_in.shape[0]
+        ts = int(sampler.timesteps[i])
+        if cfg_batch and self.unet_neg is not None:
+            ctx_n, ctx_p = ctx.chunk(2)
+            t = torch.full((B,), ts, device=latents.device)
+            e_neg = self.unet_neg(x_in, t, ctx_n, **_half(extra_cond, B, 0))
+            e_pos = self.unet(x_in, t, ctx_p, **_half(extra_cond, B, 1))
+            out = e_neg + guidance_scale * (e_pos - e_neg)
+            return sampler.step(state, out, i, latents, generator)
         if cfg_batch:
             x_in = torch.cat([x_in, x_in])
-        t = torch.full((x_in.shape[0],), int(sampler.timesteps[i]), device=latents.device)
+        t = torch.full((x_in.shape[0],), ts, device=latents.device)
         out = self.unet(x_in, t, ctx, **(extra_cond or {}))
         if cfg_batch:
             e_neg, e_pos = out.chunk(2)
@@ -96,6 +125,15 @@ class DiffusionPipeline:
         self.vae = vae
         self.te = te_frontend
         self.schedule = schedule or NoiseSchedule.make()
+        # DreamArtist's negative branch: {state-dict name: tensor} in place
+        # of the UNet's own for the negative half of txt2img's CFG
+        self.unet_params_neg: Optional[Dict[str, torch.Tensor]] = None
+
+    def _unet_neg(self) -> Optional[Callable]:
+        if self.unet_params_neg is None:
+            return None
+        return lambda x, t, ctx, **e: functional_call(self.unet, self.unet_params_neg,
+                                                      (x, t, ctx), e)
 
     @property
     def device(self) -> torch.device:
@@ -105,9 +143,10 @@ class DiffusionPipeline:
     def vae_scale(self) -> int:
         return 2 ** (len(self.vae.cfg.block_out_channels) - 1)
 
-    def encode_prompts(self, prompts: Sequence[str], negative_prompts: Sequence[str]):
+    def encode_prompts(self, prompts: Sequence[str], negative_prompts: Sequence[str],
+                       emb_ext=None):
         """One text-encoder pass for negative + positive prompts."""
-        return self.te.encode(list(negative_prompts) + list(prompts))
+        return self.te.encode(list(negative_prompts) + list(prompts), emb_ext=emb_ext)
 
     def _extra_cond(self, pooled: torch.Tensor, rows: int, width: int, height: int):
         """A text_time UNet's conditioning for ``rows`` UNet rows; None for
@@ -121,7 +160,8 @@ class DiffusionPipeline:
     def txt2img(self, prompt, negative_prompt='', width: int = 512, height: int = 512,
                 num_steps: int = 20, guidance_scale: float = 7.5, sampler: str = 'dpm++_2m',
                 seed: int = 0, batch_size: int = 1, sampler_kwargs: Optional[dict] = None,
-                return_latents: bool = False, return_x0_history: bool = False):
+                return_latents: bool = False, return_x0_history: bool = False,
+                emb_ext=None):
         """Returns images as a float32 numpy array [B, height, width, 3] in
         [0, 1], or the final latents when ``return_latents``; with
         ``return_x0_history`` a pair whose second item is every step's x0
@@ -129,18 +169,19 @@ class DiffusionPipeline:
         CPU from ``seed``, so it does not depend on the device. For a
         ``text_time`` UNet every UNet call also gets the pooled embeddings
         and ``time_ids = [height, width, 0, 0, height, width]``, in the
-        context's rows."""
+        context's rows. CFG runs whenever ``guidance_scale`` > 1 or a
+        negative branch is set."""
         prompts, negs = _batch(prompt, negative_prompt, batch_size)
         B = len(prompts)
-        use_cfg = float(guidance_scale) > 1.0
-        ctx, pooled = self.encode_prompts(prompts, negs if use_cfg else [])
+        use_cfg = float(guidance_scale) > 1.0 or self.unet_params_neg is not None
+        ctx, pooled = self.encode_prompts(prompts, negs if use_cfg else [], emb_ext)
         extra_cond = self._extra_cond(pooled, ctx.shape[0], width, height)
         gen = torch.Generator().manual_seed(int(seed))
         latents = torch.randn((B, height // self.vae_scale, width // self.vae_scale,
                                self.vae.cfg.latent_channels), generator=gen)
         loop = DenoiseLoop(self.unet, make_sampler(sampler, self.schedule, num_steps,
                                                    **(sampler_kwargs or {})),
-                           return_x0=return_x0_history)
+                           return_x0=return_x0_history, unet_neg=self._unet_neg())
         latents, x0s = loop(latents.to(self.device), ctx, float(guidance_scale),
                             cfg_batch=use_cfg, extra_cond=extra_cond, generator=gen)
         out = latents if return_latents else self.decode(latents)
@@ -150,17 +191,19 @@ class DiffusionPipeline:
     def img2img(self, init_latents: torch.Tensor, prompt, negative_prompt='',
                 strength: float = 0.75, num_steps: int = 20, guidance_scale: float = 7.5,
                 sampler: str = 'dpm++_2m', seed: int = 0, return_latents: bool = False,
-                sampler_kwargs: Optional[dict] = None, noise: Optional[torch.Tensor] = None):
+                sampler_kwargs: Optional[dict] = None, noise: Optional[torch.Tensor] = None,
+                emb_ext=None):
         """``init_latents``: [B, h, w, C] scaled latents (``encode`` makes
         them). The plan is cut at ``t_start = steps - int(steps * strength)``
         (``slice_for_partial``), the latents are noised to the cut's first
         timestep with ``noise`` (drawn from ``seed`` when None) and the
-        partial loop runs with CFG. No further scaling: the loop's
-        ``init_noise_sigma`` is the VP to k-space change of variables."""
+        partial loop runs with CFG (without a negative branch, as in the JAX
+        package). No further scaling: the loop's ``init_noise_sigma`` is
+        the VP to k-space change of variables."""
         init_latents = torch.as_tensor(init_latents).to(self.device, torch.float32)
         B, h, w, _ = init_latents.shape
         prompts, negs = _batch(prompt, negative_prompt, B)
-        ctx, pooled = self.encode_prompts(prompts, negs)
+        ctx, pooled = self.encode_prompts(prompts, negs, emb_ext)
         extra_cond = self._extra_cond(pooled, ctx.shape[0], w * self.vae_scale,
                                       h * self.vae_scale)
         t_start = max(num_steps - int(num_steps * strength), 0)
@@ -180,7 +223,7 @@ class DiffusionPipeline:
                 negative_prompt='', strength: float = 0.75, inpaint_model: bool = False,
                 num_steps: int = 20, guidance_scale: float = 7.5, sampler: str = 'dpm++_2m',
                 seed: int = 0, sampler_kwargs: Optional[dict] = None,
-                noise: Optional[torch.Tensor] = None) -> np.ndarray:
+                noise: Optional[torch.Tensor] = None, emb_ext=None) -> np.ndarray:
         """Inpainting; ``mask_latent`` [B, h, w, 1], 1 = the region to paint.
 
         - ``inpaint_model``: a 9-channel inpaint UNet runs the whole plan
@@ -196,7 +239,7 @@ class DiffusionPipeline:
             out = self.img2img(init_latents, prompt, negative_prompt, strength=strength,
                                num_steps=num_steps, guidance_scale=guidance_scale,
                                sampler=sampler, seed=seed, return_latents=True,
-                               sampler_kwargs=sampler_kwargs, noise=noise)
+                               sampler_kwargs=sampler_kwargs, noise=noise, emb_ext=emb_ext)
             return self.decode(mask_latent * out + (1 - mask_latent) * init_latents)
         B = init_latents.shape[0]
         extra = torch.cat([mask_latent, init_latents * (1 - mask_latent)], dim=-1)
@@ -207,7 +250,7 @@ class DiffusionPipeline:
             return self.unet(torch.cat([x, n.to(x.dtype)], dim=-1), t, ctx, **e)
 
         prompts, negs = _batch(prompt, negative_prompt, B)
-        ctx, pooled = self.encode_prompts(prompts, negs)
+        ctx, pooled = self.encode_prompts(prompts, negs, emb_ext)
         h, w = init_latents.shape[1:3]
         extra_cond = self._extra_cond(pooled, ctx.shape[0], w * self.vae_scale,
                                       h * self.vae_scale)

@@ -98,9 +98,11 @@ class CLIPLayer(nn.Module):
 class CLIPTextModel(nn.Module):
     """``forward`` returns (last_hidden, pooled, all_hidden_states tuple).
 
-    ``embedding_multiplier``: optional [B, S] per-token scale (word attention
-    weighting); the scaled rows are renormalised to keep the sequence's mean
-    absolute value, as the JAX model does.
+    ``emb_ext``: optional [n, D] rows of prompt-tuning words; an id at or
+    above ``vocab_size`` takes row ``id - vocab_size`` of it
+    (``embed_tokens``). ``embedding_multiplier``: optional [B, S] per-token
+    scale (word attention weighting); the scaled rows are renormalised to
+    keep the sequence's mean absolute value, as the JAX model does.
     """
 
     def __init__(self, cfg: CLIPTextConfig):
@@ -115,12 +117,25 @@ class CLIPTextModel(nn.Module):
         if c.projection_dim is not None:
             self.text_projection = nn.Linear(c.hidden_size, c.projection_dim, bias=False)
 
+    def embed_tokens(self, input_ids: torch.Tensor, emb_ext: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """fp32 rows of the token table, or of ``emb_ext`` for ids at or
+        above ``vocab_size`` (ids out of either range are clamped into it,
+        as the JAX model clamps them)."""
+        V = self.cfg.vocab_size
+        x = self.token_embedding[input_ids.clamp(0, V - 1)].float()
+        if emb_ext is not None and emb_ext.shape[0] > 0:
+            ext = emb_ext.to(x)[(input_ids - V).clamp(0, emb_ext.shape[0] - 1)]
+            x = torch.where((input_ids < V)[..., None], x, ext)
+        return x
+
     def forward(self, input_ids: torch.Tensor,
-                embedding_multiplier: Optional[torch.Tensor] = None
+                embedding_multiplier: Optional[torch.Tensor] = None,
+                emb_ext: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
         c = self.cfg
         B, S = input_ids.shape
-        x = self.token_embedding[input_ids.clamp(0, c.vocab_size - 1)].float()
+        x = self.embed_tokens(input_ids, emb_ext)
         if embedding_multiplier is not None:
             mean_pre = x.abs().mean(dim=(1, 2), keepdim=True)
             x = x * embedding_multiplier[..., None].float()

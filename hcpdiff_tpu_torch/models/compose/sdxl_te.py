@@ -45,13 +45,17 @@ class SDXLTextEncoderFrontend:
     def tokenize_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         return self.fe1.tokenize_batch(texts)
 
-    def encode(self, texts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(hidden [B, S, D1 + D2], pooled [B, projection_dim])."""
+    def encode(self, texts: Sequence[str], emb_ext: Optional[Dict[str, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(hidden [B, S, D1 + D2], pooled [B, projection_dim]); ``emb_ext``:
+        each encoder's prompt-tuning rows, ``{'clip_L', 'clip_bigG'}``
+        (``split_sdxl_embedding``)."""
+        ext = emb_ext or {}
         ids, mult = self.tokenize_batch(texts)
         device = self.fe1.model.token_embedding.device
         ids, mult = torch.from_numpy(ids).to(device), torch.from_numpy(mult).to(device)
-        h1, _ = self.fe1.encode_ids(ids, mult)
-        h2, pooled = self.fe2.encode_ids(ids, mult)
+        h1, _ = self.fe1.encode_ids(ids, mult, emb_ext=ext.get('clip_L'))
+        h2, pooled = self.fe2.encode_ids(ids, mult, emb_ext=ext.get('clip_bigG'))
         return torch.cat([h1, h2], dim=-1), pooled
 
 

@@ -10,7 +10,9 @@ modules built on the meta device, so no random init runs. The UNet and VAE
 take ``dtype`` (the UNet's time and add-embedding MLPs stay fp32, as
 ``UNet2DCondition.to_compute_dtype`` keeps them), the text encoders stay
 fp32, as in the JAX factory. The repo ships no CLIP vocabulary: a
-directory without ``tokenizer/`` gets ``CLIPTokenizer.tiny()``, as there.
+directory without ``tokenizer/`` gets ``CLIPTokenizer.tiny()``, as there;
+unlike there, the ids of words added to it start past the text
+encoder's table (they would be table rows otherwise).
 """
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ def unet_cfg_from_json(d: dict) -> UNetConfig:
         addition_time_embed_dim=d.get('addition_time_embed_dim', 256),
         projection_class_embeddings_input_dim=d.get(
             'projection_class_embeddings_input_dim', 2816),
+        qkv_bias=bool(d.get('qkv_bias', False)),
     )
 
 
@@ -197,6 +200,10 @@ def build_models(pretrained: Optional[str], dtype: torch.dtype = torch.bfloat16,
         tok_dir = os.path.join(pretrained, 'tokenizer')
         tokenizer = (CLIPTokenizer.from_pretrained(tok_dir) if os.path.isdir(tok_dir)
                      else CLIPTokenizer.tiny())
+        # the ids of added words (emb_dir embeddings) start past the
+        # encoder's table, which the byte-level fallback's vocabulary is
+        # smaller than
+        tokenizer.vocab_size = max(tokenizer.vocab_size, te.cfg.vocab_size)
         out.update(unet=unet, unet_cfg=unet.cfg, vae=vae, vae_cfg=vae.cfg, te=te,
                    te_cfg=te.cfg, tokenizer=tokenizer)
         if out['sdxl']:

@@ -133,25 +133,27 @@ class TextEncoderFrontend:
         return y.to(x.dtype)
 
     def encode_ids(self, input_ids: torch.Tensor, token_mult: Optional[torch.Tensor] = None,
-                   params: Optional[Mapping[str, torch.Tensor]] = None
+                   params: Optional[Mapping[str, torch.Tensor]] = None,
+                   emb_ext: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, n_repeats*L] ids -> (hidden [B, n_repeats*(L-2)+2, D], pooled [B, ...]).
         Under ``no_grad``, unless ``params`` ({name: tensor}, in place of
         the model's own: the trainer's text-encoder LoRA or fine-tune)
-        are given, whose gradients then flow."""
+        are given, whose gradients then flow. ``emb_ext``: the rows of
+        ids past the vocabulary (``CLIPTextModel.embed_tokens``)."""
         if params is None:
             with torch.no_grad():
-                return self._encode(input_ids, token_mult, {})
-        return self._encode(input_ids, token_mult, params)
+                return self._encode(input_ids, token_mult, {}, emb_ext)
+        return self._encode(input_ids, token_mult, params, emb_ext)
 
-    def _encode(self, input_ids, token_mult, params):
+    def _encode(self, input_ids, token_mult, params, emb_ext=None):
         B = input_ids.shape[0]
         L = self.tokenizer.model_max_length
         R = self.n_repeats
         ids = input_ids.reshape(B * R, L)
         mult = token_mult.reshape(B * R, L) if token_mult is not None else None
         last, pooled, hs = functional_call(self.model, dict(params), (ids,),
-                                           {'embedding_multiplier': mult})
+                                           {'embedding_multiplier': mult, 'emb_ext': emb_ext})
         if self.clip_skip > 0:
             h = hs[-(self.clip_skip + 1)]
             if self.clip_final_norm:
@@ -167,7 +169,9 @@ class TextEncoderFrontend:
                                 h[:, -1, L - 1:]], dim=1)
         return merged, pooled.reshape(B, R, -1)[:, 0]
 
-    def encode(self, texts: Sequence[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, texts: Sequence[str], emb_ext: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         ids, mult = self.tokenize_batch(texts)
         device = self.model.token_embedding.device
-        return self.encode_ids(torch.from_numpy(ids).to(device), torch.from_numpy(mult).to(device))
+        return self.encode_ids(torch.from_numpy(ids).to(device), torch.from_numpy(mult).to(device),
+                               emb_ext=emb_ext)

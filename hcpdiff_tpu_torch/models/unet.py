@@ -65,6 +65,9 @@ class UNetConfig:
     addition_time_embed_dim: int = 256
     projection_class_embeddings_input_dim: int = 2816
     mid_cross_attn: bool = True
+    # to_q/to_k/to_v with biases: the host a pre-0.9 biased LoRA merges
+    # into (the Visualizer rebuilds the UNet with it)
+    qkv_bias: bool = False
 
     @classmethod
     def sd15(cls) -> 'UNetConfig':
@@ -153,13 +156,14 @@ class ResnetBlock2D(nn.Module):
 class CrossAttention(nn.Module):
     """to_q/to_k/to_v/to_out naming mirrors diffusers, as in the JAX model."""
 
-    def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None):
+    def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None,
+                 qkv_bias: bool = False):
         super().__init__()
         ctx_dim = query_dim if context_dim is None else context_dim
         self.heads = heads
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(ctx_dim, query_dim, bias=False)
-        self.to_v = nn.Linear(ctx_dim, query_dim, bias=False)
+        self.to_q = nn.Linear(query_dim, query_dim, bias=qkv_bias)
+        self.to_k = nn.Linear(ctx_dim, query_dim, bias=qkv_bias)
+        self.to_v = nn.Linear(ctx_dim, query_dim, bias=qkv_bias)
         self.to_out = nn.Linear(query_dim, query_dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
@@ -214,14 +218,17 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, context_dim: int, fused: bool = False):
+    def __init__(self, dim: int, heads: int, context_dim: int, fused: bool = False,
+                 qkv_bias: bool = False):
         super().__init__()
-        self.fused = fused
+        # kernels G and I compute bias-free q/k/v: a biased block takes the
+        # unfused sublayers, as the JAX block does (unet.py:513)
+        self.fused = fused and not qkv_bias
         # flax nn.LayerNorm's default epsilon
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn1 = CrossAttention(dim, heads)
+        self.attn1 = CrossAttention(dim, heads, qkv_bias=qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn2 = CrossAttention(dim, heads, context_dim)
+        self.attn2 = CrossAttention(dim, heads, context_dim, qkv_bias=qkv_bias)
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = GEGLUFeedForward(dim)
 
@@ -237,7 +244,7 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
-                 groups: int, fused: bool = False):
+                 groups: int, fused: bool = False, qkv_bias: bool = False):
         super().__init__()
         self.depth = depth
         self.fused = fused
@@ -245,7 +252,7 @@ class Transformer2D(nn.Module):
         self.proj_in = nn.Linear(channels, channels)
         for i in range(depth):
             setattr(self, f'transformer_blocks_{i}',
-                    BasicTransformerBlock(channels, heads, context_dim, fused))
+                    BasicTransformerBlock(channels, heads, context_dim, fused, qkv_bias))
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
@@ -311,7 +318,7 @@ class UNet2DCondition(nn.Module):
         def tfm(channels, level):
             return Transformer2D(channels, c.num_heads[level],
                                  c.transformer_layers_per_block[level],
-                                 c.cross_attention_dim, c.norm_num_groups, fused)
+                                 c.cross_attention_dim, c.norm_num_groups, fused, c.qkv_bias)
 
         skip_ch = [ch0]
         cur = ch0

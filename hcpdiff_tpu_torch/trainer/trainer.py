@@ -9,7 +9,8 @@ the trainable pack (LoRA on the UNet and the text encoder, layer-wise
 fine-tuning) -> per-group optimizer and lr schedules -> the train step ->
 the loop, which logs, saves reference-format checkpoints
 (``ckpts/unet-<step>.safetensors``, ``text_encoder-<step>...``) and the
-full state (``state/``, for ``train.resume.auto``).
+full state (``state/``, for ``train.resume.auto``); ``save_merged``
+exports the merged weights as a diffusers-layout directory.
 
 It runs on the card unless the config says ``device: cpu``; with no card
 it raises. ``mixed_precision`` fp16, bf16 or unset compute in bf16, fp32
@@ -27,7 +28,7 @@ embeddings (TI, DreamArtist, CustomDiffusion), DreamArtist's negative
 branch and ``cfg_scale``, SDXL training, pyramid noise, the previewer,
 the optimizers other than AdamW/Adam/SGD, TensorBoard/W&B loggers (item
 6); v-prediction training (SD2.x, item 3); ControlNet plugins and data
-(item 7); fsdp, ZeRO and multi-host (item 8); ``save_merged`` (item 5).
+(item 7); fsdp, ZeRO and multi-host (item 8).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from ..adapt.overlay import make_lora_overlay, trainable_mask
-from ..ckpt.manager import CkptManagerPKL, CkptManagerSafe, StateManager
+from ..ckpt.manager import CkptManagerDiffusers, CkptManagerPKL, CkptManagerSafe, StateManager
 from ..config import Cfg, instantiate, load, save_config
 from ..config.legacy import TrainCFGConverter
 from ..data.buckets import FixedBucket, LongEdgeBucket, RatioBucket, SizeBucket
@@ -54,7 +55,8 @@ from ..diffusion.schedules import NoiseSchedule
 from ..loggers import build_loggers
 from ..models.factory import build_models
 from ..models.text_frontend import TextEncoderFrontend
-from .assemble import base_weights, lora_base_weights, make_te_apply, make_unet_apply
+from .assemble import (assemble, assemble_te, base_weights, lora_base_weights, make_te_apply,
+                       make_unet_apply)
 from .optimizers import make_optimizer, make_schedule, resolve_optimizer
 from .preemption import PreemptionGuard, resolve_preemption_cfg
 from .step import StepConfig, build_train_step, init_train_state, pack_leaves
@@ -580,7 +582,18 @@ class Trainer:
         self.loggers.info(f'saved ckpt @ step {step}')
 
     def save_merged(self, out_dir: str):
-        raise _unported('save_merged (a diffusers-layout export of the merged weights)', 5)
+        """The trained pack (ft subsets and LoRA deltas) folded into the base
+        weights, with the VAE and text encoder, as a diffusers-layout
+        directory (the training side of ``Visualizer.save_model``). Merged
+        weights are written in fp32 (``assemble`` merges there), the rest
+        in the dtype the trainer holds them in."""
+        pack = self.state.pack
+        with torch.no_grad():
+            states = {'unet': assemble(self.frozen['unet'], pack, self.lora_scales),
+                      'te': assemble_te(self.frozen['te'], pack, self.lora_scales)}
+        CkptManagerDiffusers().save_pipeline(out_dir, self.unet, self.vae, self.te,
+                                             tokenizer=self.frontend.tokenizer, states=states)
+        self.loggers.info(f'exported the merged pipeline to {out_dir}')
 
 
 def main(argv=None) -> Trainer:

@@ -82,6 +82,16 @@ class CLIPTokenizer:
                   if l and not l.startswith('#') and len(l.split()) == 2]
         return cls(vocab, merges, **kw)
 
+    def save_pretrained(self, path: str) -> None:
+        """Write ``vocab.json`` and ``merges.txt``, which ``from_pretrained``
+        reads, into ``path`` (added words are not written)."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, 'vocab.json'), 'w', encoding='utf-8') as f:
+            json.dump(self.encoder, f, ensure_ascii=False)
+        merges = sorted(self.bpe_ranks, key=self.bpe_ranks.get)
+        with open(os.path.join(path, 'merges.txt'), 'w', encoding='utf-8') as f:
+            f.write('#version: 0.2\n' + ''.join(f'{a} {b}\n' for a, b in merges))
+
     @classmethod
     def tiny(cls, words: Sequence[str] = (), model_max_length: int = 77) -> 'CLIPTokenizer':
         """Build a tiny character-level tokenizer for tests."""

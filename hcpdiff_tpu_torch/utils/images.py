@@ -3,9 +3,11 @@
 bicubic resampling for 8-bit images, and ``to_model_input`` (counterpart of
 ``hcpdiff_tpu/data/utils.py:to_model_input``).
 
-- ``write_png``: 8-bit L, RGB or RGBA, filter 0 on every row;
-- ``read_png``: 8-bit L, RGB or RGBA, not interlaced, filters 0-4 (what
-  Pillow and other writers choose row by row);
+- ``write_png``/``encode_png`` (to a file, to bytes): 8-bit L, RGB or
+  RGBA, filter 0 on every row;
+- ``read_png``/``decode_png`` (from a file, from bytes): 8-bit L, RGB or
+  RGBA, not interlaced, filters 0-4 (what Pillow and other writers choose
+  row by row);
 - ``resize_bicubic``: ``PIL.Image.resize(size, Image.BICUBIC)`` on an
   8-bit L or RGB array, bit for bit: Pillow's separable filter (Keys
   cubic, a = -0.5, its support widened by the scale when shrinking), its
@@ -33,9 +35,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack('>I', zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image: np.ndarray) -> None:
-    """Write a uint8 array [H, W] (L), [H, W, 1], [H, W, 3] (RGB) or
-    [H, W, 4] (RGBA) as a PNG."""
+def encode_png(image: np.ndarray) -> bytes:
+    """A uint8 array [H, W] (L), [H, W, 1], [H, W, 3] (RGB) or [H, W, 4]
+    (RGBA) as the bytes of a PNG file."""
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
         raise ValueError(f'write_png takes uint8 images, not {arr.dtype}')
@@ -46,9 +48,14 @@ def write_png(path: str, image: np.ndarray) -> None:
     h, w, c = arr.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
     ihdr = struct.pack('>IIBBBBB', w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b'IHDR', ihdr)
+            + _chunk(b'IDAT', zlib.compress(rows.tobytes(), 6)) + _chunk(b'IEND', b''))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write ``encode_png(image)`` to ``path``."""
     with open(path, 'wb') as f:
-        f.write(PNG_SIGNATURE + _chunk(b'IHDR', ihdr)
-                + _chunk(b'IDAT', zlib.compress(rows.tobytes(), 6)) + _chunk(b'IEND', b''))
+        f.write(encode_png(image))
 
 
 def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
@@ -86,9 +93,14 @@ class UnsupportedPNG(ValueError):
 
 
 def read_png(path: str) -> np.ndarray:
-    """A PNG as uint8 [H, W] (L) or [H, W, 3/4] (RGB/RGBA)."""
+    """A PNG file as uint8 [H, W] (L) or [H, W, 3/4] (RGB/RGBA)."""
     with open(path, 'rb') as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = 'PNG data') -> np.ndarray:
+    """The bytes of a PNG file as ``read_png`` returns it; ``path`` names
+    the data in errors."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f'{path} is not a PNG file')
     pos, idat, header = len(PNG_SIGNATURE), [], None

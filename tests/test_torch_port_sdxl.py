@@ -295,7 +295,7 @@ CONFIGS = [('unet', n) for n in ('sd15', 'sd21', 'sdxl', 'tiny', 'tiny_sdxl')] +
 PACKAGES = {'unet': (junet.UNetConfig, tunet.UNetConfig),
             'clip': (jclip.CLIPTextConfig, tclip.CLIPTextConfig),
             'vae': (jvae.VAEConfig, tvae.VAEConfig)}
-JAX_ONLY = {'unet': {'qkv_bias': False, 'tp': 1, 'tp_axis': 'model'}}
+JAX_ONLY = {'unet': {'tp': 1, 'tp_axis': 'model'}}
 
 
 @pytest.mark.parametrize('family,name', CONFIGS, ids=[f'{f}.{n}' for f, n in CONFIGS])

@@ -13,8 +13,10 @@ tiny widths in fp32 on the CPU:
   noised latents (the packages draw different noise from one seed;
   atol 1e-3, the repo's loop bound);
 - ``Visualizer``/``main`` on ``device: cpu``: PNG and YAML outputs, the
-  scheduler mapping, the features that raise, no card, and no JAX,
-  ``hcpdiff_tpu`` or ``diffusers`` import;
+  scheduler mapping, the features that raise (a ``merge`` group's plugin
+  entries among them; the merge recipes, ``emb_dir`` and ``save_model``
+  are held to the JAX package in ``test_torch_port_serving.py``), no card,
+  and no JAX, ``hcpdiff_tpu`` or ``diffusers`` import;
 - the PNG reader and writer and the bicubic resize against Pillow.
 """
 import dataclasses
@@ -531,16 +533,11 @@ def test_img2img_and_inpaint_requests(dirs, tmp_path, mode, size):
 
 
 def _refusals(tmp_path):
-    emb = tmp_path / 'embs'
-    emb.mkdir()
-    (emb / 'style.pt').write_bytes(b'')
     return {
-        'merge': ['merge.group1.type=unet'],
-        'emb_dir': [f'emb_dir={emb}'],
+        'merge': ['merge.group1.type=unet', 'merge.group1.plugin.cn1.path=controlnet.safetensors'],
         'deep_cache': ['infer_args.deep_cache_interval=2'],
         'controlnet': ['ex_input.cond.image=cond.png'],
         'attention_mask': ['encoder_attention_mask=true'],
-        'save_model': ['save_model.path=models/merged'],
         'anim_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.DiskAnimInterface'],
         'webui_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.WebUIInterface'],
         'other_interface': ['interface.0._target_=my.Interface'],
@@ -549,9 +546,9 @@ def _refusals(tmp_path):
     }
 
 
-@pytest.mark.parametrize('what', ['merge', 'emb_dir', 'deep_cache', 'controlnet',
-                                  'attention_mask', 'save_model', 'anim_interface',
-                                  'webui_interface', 'other_interface', 'jpeg', 'sampler'])
+@pytest.mark.parametrize('what', ['merge', 'deep_cache', 'controlnet', 'attention_mask',
+                                  'anim_interface', 'webui_interface', 'other_interface', 'jpeg',
+                                  'sampler'])
 def test_unported_features_raise(dirs, tmp_path, what):
     with pytest.raises(NotImplementedError, match='not ported|PNG only'):
         _run(dirs, tmp_path, 'text2img.yaml', *_refusals(tmp_path)[what])
