@@ -80,6 +80,35 @@ package is missing. Phases, each fatal on failure:
    step's UNet launches doubled, batch 1 and 4 timed) and an emb_dir
    word (the CLIP input rows at its ids are the file's vectors); the
    phase's launches join the kernel records (launches_server);
+4g. the rest of the train step: cfgs/train/examples/lora_sdxl.yaml through
+   the config loader and Trainer(cfgs, world=...) on tools/random_sdxl.py's
+   seeded SDXL world at full width and depth (fp32 frozen, bf16 compute,
+   remat; UNet LoRA r8, CLIP-L and bigG LoRA r4), 4 PNGs at 1024 px and 2
+   at 1216x832 (a 1024x1024 and a 1216x832 bucket), batch 1, crop-info
+   time_ids, the latent cache, 6 steps saving at 6: losses finite, every
+   up factor of lora_unet, lora_te and lora_te2 moved but those of CLIP-L's
+   top layer (above clip_skip 1; the pooled embedding is bigG's), which no
+   gradient reaches and which must stay zero, unet-6,
+   text_encoder-6 and text_encoder_2-6 written and loading back equal to
+   the pack, launches of A (with lse), E, F, B, C and D equal to the
+   reckoning (E and F at D = 64 at both transformer levels of the 1024 px
+   bucket); the median and spread of the step seconds, samples/s and peak
+   memory printed; then DreamArtist++.yaml through main() on the 4d
+   directory and the 4e PNGs, its words pt-dog1 and pt-dog1-neg made by
+   tools/create_embedding.py: 4 steps at batch 1 with cfg_scale
+   '1.0-3.0:cos', losses finite, both branches' up factors and both words'
+   rows moved, B and C launching twice a plain step's (the reckoning with
+   two UNet calls a step), and pt-dog1-4.pt / pt-dog1-neg-4.pt loading
+   back equal to the pack's rows; the SDXL run's shapes join the kernel
+   records (labelled trainer_sdxl: A with lse, E and F at [1, 10, 4096,
+   64] and [1, 20, 1024, 64], B, C and D at levels 1 and 2;
+   launches_trainer_sdxl, launches_trainer_sdxl_step_1024 (the counters
+   read around the run's first 1024 px step; every step's counts are held
+   to the reckoning for its shape) and launches_trainer_da); after phase
+   6, the SDXL UNet at full width with one transformer block a level holds
+   one step's LoRA gradients (card, bf16, remat) against the CPU (fp32) on
+   a [2, 64, 64, 4] latent (A with lse, E and F at D = 64), within phase
+   6's tolerance;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -907,9 +936,9 @@ def add_classic_shapes(records, classic):
     return out
 
 
-def trainer_kernel_phase(shapes):
+def trainer_kernel_phase(shapes, tag='trainer'):
     """A (the latent cache's VAE encode), A with its lse, E, F, B, C and D
-    at the trainer run's shapes (labelled trainer): {wrapper name:
+    at a trainer run's shapes (labelled ``tag``): {wrapper name:
     per-shape records}, to add to the wrappers' own records."""
     from hcpdiff_tpu_torch.ops import flash_attention as fa
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_plain
@@ -919,7 +948,7 @@ def trainer_kernel_phase(shapes):
     rn = _rn_on(torch.Generator(device='cuda').manual_seed(SEED + 31))
     per = {name: [] for name in TRAINER_KERNELS}
     for shape in shapes['attn']:
-        label = f'trainer q/k/v/dO {list(shape)}'
+        label = f'{tag} q/k/v/dO {list(shape)}'
         q, k, v, do = (rn(*shape) for _ in range(4))
         scale = shape[-1] ** -0.5
         lib_fwd, lib_bwd = _library_attention(q, k, v, do, scale, False)
@@ -944,18 +973,18 @@ def trainer_kernel_phase(shapes):
         for shape in shapes['enc_attn']:
             q, k, v = rn(*shape), rn(*shape), rn(*shape)
             per['flash_attention'].append(_measure(
-                f'trainer enc q/k/v {list(shape)}', fa.flash_attention, fa.attention_plain,
+                f'{tag} enc q/k/v {list(shape)}', fa.flash_attention, fa.attention_plain,
                 [q, k, v], _within_rel, 'flash_attention', attention_work(*shape),
                 lambda: F.scaled_dot_product_attention(q, k, v)))
         for M, C in shapes['ffn']:
             x, w, b = rn(M, C), rn(8 * C, C, scale=C ** -0.5), rn(8 * C)
             per['geglu_dense'].append(_measure(
-                f'trainer x [{M}, {C}], w [{8 * C}, {C}]', geglu_dense, geglu_dense_plain,
+                f'{tag} x [{M}, {C}], w [{8 * C}, {C}]', geglu_dense, geglu_dense_plain,
                 [x, w, b], _within, 'geglu_dense', gemm_work(M, C, 8 * C, 4 * C, bias=8 * C),
                 None, {'linear_ms': lambda: F.linear(x, w, b)}))
             x, w, b = rn(M, 4 * C), rn(C, 4 * C, scale=(4 * C) ** -0.5), rn(C)
             per['fused_dense'].append(_measure(
-                f'trainer x [{M}, {4 * C}], w [{C}, {4 * C}], res', fused_dense,
+                f'{tag} x [{M}, {4 * C}], w [{C}, {4 * C}], res', fused_dense,
                 fused_dense_plain, [x, w, b, rn(M, C)], _within, 'fused_dense',
                 gemm_work(M, 4 * C, C, C, bias=C, res=True), None,
                 {'linear_ms': lambda: F.linear(x, w, b)}))
@@ -965,7 +994,7 @@ def trainer_kernel_phase(shapes):
             args = [x, sc, bi, 32, 1e-5, silu]
             gn_checks(B, S, C, args)
             per['group_norm_silu'].append(_measure(
-                f'trainer x [{B}, {S}, {C}]{" silu" if silu else " no silu"}', group_norm_silu,
+                f'{tag} x [{B}, {S}, {C}]{" silu" if silu else " no silu"}', group_norm_silu,
                 group_norm_silu_plain, args, _within, 'group_norm_silu',
                 group_norm_work(B, S, C, silu),
                 None if silu else lambda: F.group_norm(x.transpose(1, 2), 32, sc, bi, 1e-5)))
@@ -974,9 +1003,10 @@ def trainer_kernel_phase(shapes):
     return per
 
 
-def add_trainer_shapes(records, per, launches):
-    """Each record with the trainer run's shapes added and its launches in
-    that run (``launches_trainer``)."""
+def add_trainer_shapes(records, per, launches, tag='trainer', **more):
+    """Each record with a trainer run's shapes added and its launches in
+    that run (``launches_<tag>``; ``more``: {key: launches} of other
+    counts to keep beside them)."""
     out = []
     for rec in records:
         name = rec['name']
@@ -987,7 +1017,9 @@ def add_trainer_shapes(records, per, launches):
                 'library_shapes', 'tolerance', 'shapes')}
             rec = _record(name, rec['source'], [rec['replaces'], *rec['also_replaces']],
                           rec['launches'], rec['shapes'] + per[name], rec['tolerance'], **keep)
-        rec['launches_trainer'] = launches.get(name, 0)
+        rec[f'launches_{tag}'] = launches.get(name, 0)
+        for key, counts in more.items():
+            rec[key] = counts.get(name, 0)
         out.append(rec)
     return out
 
@@ -1557,19 +1589,26 @@ def transformer_levels(cfg):
     return out
 
 
-def trainer_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms):
-    """The launches lora_conventional.yaml's run must make, from the UNet's
-    config, each step's latent shape and the latent cache's encode calls.
-    A step is one UNet call under remat: every block runs forward and again
-    in the backward, except the first resblock, whose output needs no
-    gradient (its input and weights carry none, and the first LoRA is in
-    the transformer after it), so autograd never recomputes it. So per
-    step: A with its lse twice and E and F once per self-attention whose S
-    the kernel takes; B and C twice per transformer block; D twice per
-    GroupNorm of the resblocks and transformers, less the first
-    resblock's two, plus the output norm once. Per encode call: A once
-    where the VAE mid block's S (the latent's) is taken, and the encoder's
-    ``enc_norms`` GroupNorms (22 in SD's VAE)."""
+def trainer_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms, unet_calls=1,
+                      grad_temb=False, first_dq=True):
+    """The launches a config's run must make, from the UNet's config, each
+    step's latent shape and the latent cache's encode calls. A step is
+    ``unet_calls`` UNet calls (DreamArtist's two branches: 2) under remat:
+    every block runs forward and again in the backward, except the first
+    resblock when its inputs carry no gradient (SD's: its input and
+    weights carry none, and the first LoRA is in the transformer after
+    it), so autograd never recomputes it; with ``grad_temb`` (SDXL with a
+    LoRA in the second text encoder: the pooled embedding, and so the
+    time embedding every resblock takes, carries one) it is recomputed
+    too. So per call: A with its lse twice and E and F once per
+    self-attention whose S the kernel takes, E one fewer where the first
+    transformer's queries carry no gradient (``first_dq`` False: no LoRA
+    on its to_q, as in DreamArtist++.yaml); B and C twice per transformer
+    block; D twice per GroupNorm of the resblocks and transformers (less
+    the first resblock's two unless ``grad_temb``), plus the output norm
+    once. Per encode call: A once where the VAE mid block's S (the
+    latent's) is taken, and the encoder's ``enc_norms`` GroupNorms (22 in
+    SD's VAE)."""
     n = len(cfg.block_out_channels)
     levels = transformer_levels(cfg)
     n_res = n * cfg.layers_per_block + 2 + n * (cfg.layers_per_block + 1)
@@ -1578,27 +1617,29 @@ def trainer_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms):
     for shapes in step_shapes:
         for _, h, w, _ in shapes:
             flash = sum(d for lvl, d in levels if flash_route((h >> lvl) * (w >> lvl)))
-            out['flash_attention'] += 2 * flash
-            out['flash_attention_lse'] += 2 * flash
-            out['flash_attention_bwd_dq'] += flash
-            out['flash_attention_bwd_dkv'] += flash
-            out['geglu_dense'] += 2 * depth
-            out['fused_dense'] += 2 * depth
-            out['group_norm_silu'] += 2 * (2 * n_res + len(levels)) - 2 + 1
+            first = levels[0][0]
+            no_dq = int(not first_dq and flash_route((h >> first) * (w >> first)))
+            for name, count in (('flash_attention', 2 * flash), ('flash_attention_lse', 2 * flash),
+                                ('flash_attention_bwd_dq', flash - no_dq),
+                                ('flash_attention_bwd_dkv', flash), ('geglu_dense', 2 * depth),
+                                ('fused_dense', 2 * depth),
+                                ('group_norm_silu', 2 * (2 * n_res + len(levels))
+                                 - (0 if grad_temb else 2) + 1)):
+                out[name] += unet_calls * count
     for _, (w, h) in encodes:
         out['flash_attention'] += int(flash_route((h // vae_scale) * (w // vae_scale)))
         out['group_norm_silu'] += enc_norms
     return out
 
 
-def write_dataset(root):
-    """TRAINER_IMAGES as seeded PNGs with their captions in captions.json."""
+def write_dataset(root, sizes=TRAINER_IMAGES, seed=SEED + 30):
+    """Seeded PNGs of ``sizes`` (w, h) with their captions in captions.json."""
     import numpy as np
     from hcpdiff_tpu_torch.utils.images import write_png
     os.makedirs(root)
-    rng = np.random.default_rng(SEED + 30)
+    rng = np.random.default_rng(seed)
     captions = {}
-    for i, (w, h) in enumerate(TRAINER_IMAGES):
+    for i, (w, h) in enumerate(sizes):
         write_png(os.path.join(root, f'img_{i:02d}.png'),
                   rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
         captions[f'img_{i:02d}'] = f'a photo of a cat, picture {i}'
@@ -1650,9 +1691,12 @@ def _trainer_shapes(trainer):
         with torch.no_grad():
             ctx = torch.zeros(1, 77, cfg.cross_attention_dim, device=dev)
             for B, h, w, c in buckets:
+                extra = ({'pooled_text_emb': torch.zeros(B, trainer.te2.cfg.projection_dim,
+                                                         device=dev),
+                          'time_ids': torch.zeros(B, 6, device=dev)} if trainer.sdxl else {})
                 trainer.unet(torch.zeros(B, h, w, c, device=dev), torch.tensor([500] * B,
                                                                                 device=dev),
-                             ctx.expand(B, -1, -1))
+                             ctx.expand(B, -1, -1), **extra)
             for n, (w, h) in sorted(set(ds.encodes)):
                 trainer.vae.encode(torch.zeros(n, h, w, 3, device=dev, dtype=trainer.dtype))
     finally:
@@ -2134,6 +2178,279 @@ def server_phase(device, model_dir, tmp):
     return total
 
 
+# phase 4g: the rest of the train step. lora_sdxl.yaml on the seeded
+# full-width SDXL world: 4 square PNGs at 1024 px and 2 at 1216x832, which
+# step_size 64 puts in a 1024x1024 bucket (latent 128x128: S = 4096 at
+# level 1 and 1024 at level 2, both on kernel A's route at D = 64) and a
+# 1216x832 one (S = 3952 and 988: the plain attention)
+SDXL_TRAIN_IMAGES = ((1024, 1024),) * 4 + ((1216, 832),) * 2
+SDXL_TRAIN_STEPS = 6
+SDXL_TRAIN_BUCKETS = [(1, 104, 152, 4), (1, 128, 128, 4)]
+# the SDXL gradient check: one transformer block a level, a 64x64 latent
+# (S = 1024 at level 1: A with lse, E and F at D = 64)
+SDXL_GRAD_LATENT = 64
+DA_STEPS = 4
+DA_WORDS = (('pt-dog1', 'a photo of dog'), ('pt-dog1-neg', 'blurry, low quality'))
+
+
+def _loads_back(trainer, exp, step, parts):
+    """Each part's ckpts/<name>-<step>.safetensors loads back through
+    load_ckpt equal to the final pack's LoRA (fatal otherwise)."""
+    from hcpdiff_tpu_torch.trainer.step import pack_leaves
+    names = {'unet': 'unet', 'te': 'text_encoder', 'te2': 'text_encoder_2'}
+    pack = trainer.state.pack
+    for part in parts:
+        key = f'lora_{part}'
+        loaded = trainer.ckpt_manager.load_ckpt(
+            os.path.join(exp, 'ckpts', f'{names[part]}-{step}.safetensors'),
+            aliases=trainer.aliases[part])['lora']
+        check(sorted(loaded) == sorted(pack[key]) and all(
+            torch.equal(a.cpu(), b.detach().cpu())
+            for a, b in zip(pack_leaves(loaded), pack_leaves(pack[key]))),
+            f'{names[part]}-{step} does not load back as the final {key}')
+
+
+def _ups_moved(pack, keys, unused=()):
+    """Every LoRA up factor of ``keys`` left zero, except those of the
+    layers ``unused`` (path prefixes), which must not have."""
+    for key in keys:
+        idle = {p for p in pack[key] if p.startswith(tuple(unused))}
+        zero = {p for p, e in pack[key].items() if not bool(e['up'].any())}
+        check(zero == idle, f'{key} up factors still zero: {sorted(zero - idle)[:3]}; moved '
+              f'where no gradient reaches: {sorted(idle - zero)[:3]}')
+
+
+def sdxl_trainer_phase(device, tmp):
+    """cfgs/train/examples/lora_sdxl.yaml through the port's config loader
+    and Trainer(cfgs, world=...) on tools/random_sdxl.py's seeded SDXL
+    world at full width and depth (UNet LoRA r8, CLIP-L and bigG LoRA r4,
+    bf16, remat, the latent cache, crop-info time_ids, batch 1), 6 steps
+    saving at 6. Returns the run's launches, those of its first 1024 px
+    step (the counters read around each step) and the shapes its kernels
+    took."""
+    import numpy as np
+    from hcpdiff_tpu_torch.config import load
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    from hcpdiff_tpu_torch.tools.random_sdxl import sdxl_world
+    from hcpdiff_tpu_torch.trainer.trainer import Trainer
+    imgs, exp = os.path.join(tmp, 'sdxl_imgs'), os.path.join(tmp, 'exp_sdxl')
+    write_dataset(imgs, SDXL_TRAIN_IMAGES, SEED + 50)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    world = sdxl_world(device, SEED)
+    build_s = time.perf_counter() - t0
+    src = 'data.dataset1.source.data_source1'
+    cfgs = load('cfgs/train/examples/lora_sdxl.yaml', [
+        f'exp_dir={exp}', f'{src}.img_root={imgs}', f'{src}.caption_file={imgs}/captions.json',
+        'data.dataset1.bucket.step_size=64', 'logger.0.log_step=1',
+        f'train.train_steps={SDXL_TRAIN_STEPS}', f'train.save_step={SDXL_TRAIN_STEPS}'])
+    zero_counters()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfgs, world=world)
+    step_fn, per_step = trainer._train_step, []
+
+    def counted_step(state, frozen, batch, *args, **kw):
+        before = {name: fn.launches for name, fn in counters().items()}
+        out = step_fn(state, frozen, batch, *args, **kw)
+        per_step.append((tuple(batch['latents'].shape), {
+            name: fn.launches - before[name] for name, fn in counters().items()}))
+        return out
+    trainer._train_step = counted_step
+    try:
+        trainer.train()
+    finally:
+        trainer.loggers.close()
+    seconds = time.perf_counter() - t0
+    launches = read_counters('the SDXL trainer run (lora_sdxl.yaml)', TRAINER_KERNELS,
+                             absent=FUSED_ONLY)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ds = trainer.datasets[0]
+    buckets = sorted({s for shapes in trainer.step_shapes for s in shapes})
+    log(f'sdxl trainer: world build {build_s:.3f} s; Trainer build and train {seconds:.3f} s: '
+        f'latent cache {trainer.seconds["latent cache"]:.3f} s ({len(ds._latent_cache)} latents '
+        f'in {len(ds.encodes)} VAE calls {ds.encodes}); steps\' latents '
+        f'{[s[0] for s in trainer.step_shapes]}; peak {peak:.2f} GiB')
+    check(trainer.sdxl and trainer.dtype == torch.bfloat16 and trainer.unet.remat
+          and ds.with_crop_info, 'the SDXL run is bf16 with remat and crop-info time_ids')
+    check(len(trainer.history) == SDXL_TRAIN_STEPS
+          and all(math.isfinite(x) for x in trainer.history),
+          f'sdxl trainer losses {trainer.history}')
+    check(buckets == SDXL_TRAIN_BUCKETS, f'sdxl trainer buckets {buckets}')
+    enc_norms = sum(isinstance(m, GroupNorm) for m in trainer.vae.encoder.modules())
+    vae_scale = 2 ** (len(trainer.vae.cfg.block_out_channels) - 1)
+    _check_launches(launches, trainer_reckoning(trainer.unet.cfg, trainer.step_shapes,
+                                                ds.encodes, vae_scale, enc_norms,
+                                                grad_temb=True), 'the SDXL trainer run')
+    check([shape for shape, _ in per_step] == [s[0] for s in trainer.step_shapes],
+          'the SDXL run\'s counted steps are its steps')
+    for i, (shape, counts) in enumerate(per_step):
+        _check_launches(counts, trainer_reckoning(trainer.unet.cfg, [[shape]], [], vae_scale,
+                                                  enc_norms, grad_temb=True),
+                        f'the SDXL trainer\'s step {i + 1} at {shape}')
+    step_1024 = next(c for shape, c in per_step if shape == SDXL_TRAIN_BUCKETS[1])
+    steps = np.diff(trainer.step_ends)
+    med = float(np.median(steps))
+    log(f'sdxl trainer timed steps 2-{SDXL_TRAIN_STEPS} (batch 1, 1024 px and 1216x832, LoRA '
+        f'UNet r8 + CLIP-L/bigG r4, remat): median {med:.4f} s/step, min {steps.min():.4f}, '
+        f'max {steps.max():.4f}, all {[round(float(x), 4) for x in steps]}; {1 / med:.3f} '
+        f'samples/s; a 1024 px step launches {step_1024}; losses '
+        f'{[round(x, 5) for x in trainer.history]}; card: {gpu_name_and_power_limit()}')
+    ckpts = sorted(os.listdir(os.path.join(exp, 'ckpts')))
+    want = sorted(f'{m}-{SDXL_TRAIN_STEPS}.safetensors'
+                  for m in ('unet', 'text_encoder', 'text_encoder_2'))
+    check(ckpts == want, f'sdxl trainer checkpoints {ckpts}')
+    _loads_back(trainer, exp, SDXL_TRAIN_STEPS, ('unet', 'te', 'te2'))
+    # CLIP-L gives only its hidden states clip_skip layers from the top (the
+    # pooled embedding is bigG's), so no gradient reaches the layers above
+    n, skip = trainer.te.cfg.num_hidden_layers, trainer.frontend.fe1.clip_skip
+    unused = [f'layers_{i}.' for i in range(n - skip, n)]
+    _ups_moved(trainer.state.pack, ('lora_unet', 'lora_te2'))
+    _ups_moved(trainer.state.pack, ('lora_te',), unused)
+    log(f'sdxl trainer: {want} written and loading back equal to the final pack; every LoRA '
+        f'up factor moved ({len(trainer.pack["lora_unet"])} UNet, {len(trainer.pack["lora_te"])} '
+        f'CLIP-L and {len(trainer.pack["lora_te2"])} bigG layers) but CLIP-L\'s {unused}, above '
+        f'the layer its hidden states come from, which stayed zero')
+    shapes = _trainer_shapes(trainer)
+    level12 = {(h >> 1) * (w >> 1) for _, h, w, _ in SDXL_TRAIN_BUCKETS[1:]} | {
+        (h >> 2) * (w >> 2) for _, h, w, _ in SDXL_TRAIN_BUCKETS[1:]}
+    shapes = {'attn': shapes['attn'], 'enc_attn': [],
+              'ffn': [(M, C) for M, C in shapes['ffn'] if M in level12],
+              'gn': [g for g in shapes['gn'] if g[1] in level12]}
+    del trainer, world, ds
+    torch.cuda.empty_cache()
+    return launches, step_1024, shapes
+
+
+def sdxl_gradient_phase(device):
+    """One step's UNet LoRA gradients on the card (bf16, kernels, remat)
+    against fp32 on the CPU (plain versions), on the SDXL UNet at full
+    width with one transformer block a level, a [2, 64, 64, 4] latent
+    (S = 1024 at level 1, so A with its lse, E and F run at D = 64), fixed
+    noise, t, context, pooled embedding and time_ids, and up factors set to
+    small random values first."""
+    from hcpdiff_tpu_torch.adapt.overlay import make_lora_overlay
+    from hcpdiff_tpu_torch.diffusion.losses import MinSNRLoss
+    from hcpdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from hcpdiff_tpu_torch.models.layers import init_flax_like
+    from hcpdiff_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+    from hcpdiff_tpu_torch.trainer.assemble import assemble, lora_base_weights, make_unet_apply
+    cfg = dataclasses.replace(UNetConfig.sdxl(), transformer_layers_per_block=(1, 1, 1))
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    with device:
+        unet = init_flax_like(UNet2DCondition(cfg, remat=True), gen)
+        overlay, scales = make_lora_overlay(gen, unet, [{'layers': LORA_PATTERNS, 'rank': 8}])
+    unet_cpu = copy.deepcopy(unet).cpu()
+    unet_cpu.remat = False      # remat gives the same gradients (CPU tests)
+    frozen = {'card': lora_base_weights(unet, overlay),
+              'cpu': lora_base_weights(unet_cpu, overlay)}
+    unet.to_compute_dtype(torch.bfloat16).to(memory_format=torch.channels_last)
+    for m in (unet, unet_cpu):
+        m.requires_grad_(False)
+    cpu_gen = torch.Generator().manual_seed(SEED + 16)
+    for e in overlay.values():
+        e['up'].detach().copy_(torch.randn(e['up'].shape, generator=cpu_gen) * 1e-2)
+    L = SDXL_GRAD_LATENT
+    lat, noise = (torch.randn(2, L, L, 4, generator=cpu_gen) for _ in range(2))
+    ctx = torch.randn(2, 77, cfg.cross_attention_dim, generator=cpu_gen)
+    pooled = torch.randn(2, cfg.projection_class_embeddings_input_dim
+                         - 6 * cfg.addition_time_embed_dim, generator=cpu_gen)
+    tids = torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024], [768, 1024, 64, 0, 1024, 1024]])
+    t = torch.tensor([801, 301])
+    schedule = NoiseSchedule.make()
+    criterion = MinSNRLoss(schedule, gamma=1.0)
+    factors = [(p, k) for p in overlay for k in ('down', 'up')]
+    grads = {}
+    for side, dev, um in (('card', device, unet), ('cpu', torch.device('cpu'), unet_cpu)):
+        pack = {'lora_unet': {p: {k: v.detach().to(dev).requires_grad_(True)
+                                  for k, v in e.items()} for p, e in overlay.items()}}
+        zero_counters()
+        t0 = time.perf_counter()
+        x = lat.to(dev)
+        pred = make_unet_apply(um)(assemble(frozen[side], pack, {'lora_unet': scales}),
+                                   schedule.add_noise(x, noise.to(dev), t.to(dev)), t.to(dev),
+                                   ctx.to(dev), pooled_text_emb=pooled.to(dev),
+                                   time_ids=tids.to(dev))
+        loss = criterion(pred, noise.to(dev), t.to(dev)).mean()
+        g = torch.autograd.grad(loss, [pack['lora_unet'][p][k] for p, k in factors])
+        grads[side] = {k: torch.cat([gi.float().cpu().flatten()
+                                     for gi, (_, kk) in zip(g, factors) if kk == k])
+                       for k in ('down', 'up')}
+        log(f'sdxl gradient check {side}: loss {float(loss.detach()):.6f} '
+            f'({time.perf_counter() - t0:.2f} s)')
+        if side == 'card':
+            read_counters('the SDXL gradient check on the card', TRAINER_KERNELS,
+                          absent=FUSED_ONLY)
+    for factor in ('down', 'up'):
+        card, cpu = grads['card'][factor], grads['cpu'][factor]
+        err = float((card - cpu).norm() / cpu.norm())
+        log(f'sdxl gradient check: LoRA {factor} gradients ({len(overlay)} layers), card bf16 '
+            f'vs cpu fp32 rel L2 err {err:.3e} (limit {GRAD_REL_TOL}; |grad| '
+            f'{float(cpu.norm()):.4e})')
+        check(err <= GRAD_REL_TOL, f'sdxl gradient check: LoRA {factor} rel err {err} > '
+              f'{GRAD_REL_TOL}')
+    del unet, unet_cpu, frozen, overlay
+    torch.cuda.empty_cache()
+
+
+def dreamartist_phase(device, model_dir, tmp):
+    """DreamArtist++.yaml through main() on the SD1.5 directory and the
+    trainer phase's PNGs (512 px and 640x448 buckets, batch 1,
+    cfg_scale '1.0-3.0:cos', both LoRA branches on the UNet and CLIP), its
+    words pt-dog1 and pt-dog1-neg made first by tools/create_embedding.py
+    from the directory's text encoder; 4 steps. Returns the run's
+    launches."""
+    from hcpdiff_tpu_torch.ckpt.formats import load_webui_embedding
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    from hcpdiff_tpu_torch.tools.create_embedding import main as create_embedding
+    emb_dir, exp = os.path.join(tmp, 'da_embs'), os.path.join(tmp, 'exp_da')
+    files = {w: create_embedding([model_dir, w, '2', '--init_text', text, '--root', emb_dir])
+             for w, text in DA_WORDS}
+    zero_counters()
+    t0 = time.perf_counter()
+    da = _train_cli('DreamArtist++.yaml', model_dir, exp, os.path.join(tmp, 'train_imgs'),
+                    f'train.train_steps={DA_STEPS}', f'train.save_step={DA_STEPS}',
+                    f'tokenizer_pt.emb_dir={emb_dir}')
+    seconds = time.perf_counter() - t0
+    launches = read_counters('the DreamArtist++ run', TRAINER_KERNELS, absent=FUSED_ONLY)
+    check(da.dream_artist and da.datasets[0].bs == 1, 'DreamArtist++ runs both branches at '
+          'batch 1')
+    check(len(da.history) == DA_STEPS and all(math.isfinite(x) for x in da.history),
+          f'DreamArtist++ losses {da.history}')
+    pack = da.state.pack
+    _ups_moved(pack, ('lora_unet', 'lora_unet_neg', 'lora_te', 'lora_te_neg'))
+    for word, path in files.items():
+        sl = da.emb_slices[word]
+        start = torch.from_numpy(load_webui_embedding(path)[1])
+        check(not torch.equal(pack['emb'][sl].detach().cpu(), start),
+              f'the rows of {word} did not move')
+        saved = os.path.join(exp, 'ckpts', f'{word}-{DA_STEPS}.pt')
+        name, vecs = load_webui_embedding(saved)
+        check(name == word and torch.equal(torch.from_numpy(vecs),
+                                           pack['emb'][sl].detach().cpu()),
+              f'{saved} does not load back as the pack\'s rows of {word}')
+    ds, vae = da.datasets[0], da.vae
+    args = (da.unet.cfg, da.step_shapes, ds.encodes, 2 ** (len(vae.cfg.block_out_channels) - 1),
+            sum(isinstance(m, GroupNorm) for m in vae.encoder.modules()))
+    want = trainer_reckoning(*args, unet_calls=2, first_dq=False)
+    plain = trainer_reckoning(*args[:2], [], *args[3:], first_dq=False)
+    _check_launches(launches, want, 'the DreamArtist++ run')
+    check(all(launches[k] == 2 * plain[k] for k in ('geglu_dense', 'fused_dense')),
+          'DreamArtist++ steps do not run the UNet twice')
+    import numpy as np
+    steps = np.diff(da.step_ends)
+    log(f'DreamArtist++ (cfg_scale {da.cfgs["train"]["cfg_scale"]}, batch 1, '
+        f'{len(pack["lora_unet"])} + {len(pack["lora_unet_neg"])} UNet and '
+        f'{len(pack["lora_te"])} + {len(pack["lora_te_neg"])} CLIP LoRA layers, words '
+        f'{sorted(files)}): main() {seconds:.3f} s, steps\' latents '
+        f'{[s[0] for s in da.step_shapes]}, step seconds {[round(float(x), 4) for x in steps]}, '
+        f'losses {[round(x, 5) for x in da.history]}; every up factor of both branches and '
+        f'both words\' rows moved; the saved words load back equal to the pack; B and C '
+        f'launch twice a plain step\'s ({plain["geglu_dense"]} over these steps)')
+    del da, pack
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaf_kinds(pack):
     """The factor name ('down', 'up', 'alpha') of each leaf, in pack_leaves order."""
     out = []
@@ -2189,6 +2506,8 @@ def main() -> int:
         visualizer_launches = visualizer_phase(device, model_dir, tmp)
         trainer_launches, trainer_shapes = trainer_phase(device, model_dir, tmp)
         server_launches = server_phase(device, model_dir, tmp)
+        sdxl_train_launches, sdxl_step, sdxl_train_shapes = sdxl_trainer_phase(device, tmp)
+        da_launches = dreamartist_phase(device, model_dir, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -2201,6 +2520,7 @@ def main() -> int:
     gradient_phase(device, build_training(device, clip_config()[1], fused=True),
                    'fused gradient check')
     torch.cuda.empty_cache()
+    sdxl_gradient_phase(device)
     records = kernel_phase({'txt2img': launches, 'train': train_launches,
                             'fused': fused_launches, 'sdxl': sdxl_launches,
                             'visualizer': visualizer_launches, 'server': server_launches})
@@ -2209,6 +2529,10 @@ def main() -> int:
     records += fused_kernel_phase(fused_launches)
     records = add_trainer_shapes(records, trainer_kernel_phase(trainer_shapes),
                                  trainer_launches)
+    records = add_trainer_shapes(records, trainer_kernel_phase(sdxl_train_shapes, 'trainer_sdxl'),
+                                 sdxl_train_launches, 'trainer_sdxl',
+                                 launches_trainer_sdxl_step_1024=sdxl_step,
+                                 launches_trainer_da=da_launches)
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

@@ -11,7 +11,9 @@ framework classes without long import paths. The shipped configs name the
 JAX package's classes (``hcpdiff_tpu.infer.interfaces.DiskInterface``):
 a leading ``hcpdiff_tpu.`` is rewritten to ``hcpdiff_tpu_torch.``, and a
 target that does not exist there raises rather than importing the JAX
-package. JAX itself is never imported through a config string.
+package. The reference's own paths (``hcpdiff.data.TextImagePairDataset``)
+are read in ``hcpdiff_tpu_torch/compat.py``, as the JAX package reads them
+in its ``compat``. JAX itself is never imported through a config string.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from .node import Cfg
 
 _REGISTRY: Dict[str, Any] = {}
 
-# the JAX package's module paths -> the port's
-_PORT_PREFIX = ('hcpdiff_tpu.', 'hcpdiff_tpu_torch.')
+# the JAX package's module paths and the reference's -> the port's
+_PREFIXES = (('hcpdiff_tpu.', 'hcpdiff_tpu_torch.'), ('hcpdiff.', 'hcpdiff_tpu_torch.compat.'))
 # top-level packages a config string may not import
 _REFUSED = ('jax', 'jaxlib', 'flax', 'optax', 'orbax')
 
@@ -44,9 +46,10 @@ def locate(path: str) -> Any:
     """Import ``pkg.mod.Class`` (or registry short name) and return the object."""
     if path in _REGISTRY:
         return _REGISTRY[path]
-    old, new = _PORT_PREFIX
-    if path.startswith(old):
-        path = new + path[len(old):]
+    for old, new in _PREFIXES:
+        if path.startswith(old):
+            path = new + path[len(old):]
+            break
     if path.split('.')[0] in _REFUSED:
         raise ImportError(f'the PyTorch port does not import {path!r}')
     parts = path.split('.')

@@ -15,9 +15,12 @@ stay numpy until the trainer moves them to the device.
 - ``DataGroup`` zips several datasets (DreamBooth's instance and class
   images), one batch of each a step, on a prefetch thread.
 
-Not ported: DreamArtist's [neg, pos] prompt layout, ControlNet condition
-images and SDXL crop-info ``time_ids`` (the trainer refuses their
-configs, ROADMAP.md queue 1 items 6 and 7).
+- DreamArtist's collate lays the prompts out [neg..., pos...] (a prompt
+  without a pair is doubled); ``with_crop_info`` adds SDXL's crop-info
+  ``time_ids`` [B, 6] (``CropInfoPairDataset``).
+
+Not ported: ControlNet condition images (the trainer refuses their
+configs, ROADMAP.md queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ class TextImagePairDataset:
     def __init__(self, source: DataSource, bucket: Optional[BaseBucket] = None,
                  frontend=None, vae_scale: int = 8,
                  cache_latents: bool = False, cache_dir: Optional[str] = None,
-                 loss_weight: float = 1.0):
+                 loss_weight: float = 1.0, dream_artist: bool = False,
+                 with_crop_info: bool = False):
         self.source = source
         self.bucket = FixedBucket(512) if bucket is None else bucket
         self.frontend = frontend
@@ -47,7 +51,10 @@ class TextImagePairDataset:
         self.want_cache = cache_latents
         self.cache_dir = cache_dir
         self.loss_weight = float(loss_weight)
-        self._latent_cache: Dict[Any, np.ndarray] = {}
+        self.dream_artist = dream_artist
+        self.with_crop_info = with_crop_info
+        # (i, size) -> (latent, the crop's geometry; None when read from disk)
+        self._latent_cache: Dict[Any, Tuple[np.ndarray, Optional[dict]]] = {}
         self.files: List[Tuple[str, Dict[str, Any]]] = []
         self.encodes: List[Tuple[int, Tuple[int, int]]] = []   # (images, size) of each call
 
@@ -80,15 +87,15 @@ class TextImagePairDataset:
                 chunk = list(dict.fromkeys(int(i) for i in chunk))
                 if not chunk:
                     continue
-                imgs = [self._load_image(i, size, rng=None)[0] for i in chunk]
+                imgs, metas = zip(*[self._load_image(i, size, rng=None) for i in chunk])
                 lat = np.asarray(encode_fn(np.stack(imgs)))
                 self.encodes.append((len(chunk), size))
-                for i, l in zip(chunk, lat):
-                    self._latent_cache[(i, size)] = l
+                for i, l, ci in zip(chunk, lat, metas):
+                    self._latent_cache[(i, size)] = (l, ci)
         if self.cache_dir:
             os.makedirs(self.cache_dir, exist_ok=True)
             np.savez(os.path.join(self.cache_dir, f'latents_{self._cache_key()}.npz'),
-                     **{f'{i}_{s[0]}x{s[1]}': v for (i, s), v in self._latent_cache.items()})
+                     **{f'{i}_{s[0]}x{s[1]}': v[0] for (i, s), v in self._latent_cache.items()})
 
     def load_latent_cache(self) -> bool:
         if not self.cache_dir:
@@ -100,7 +107,7 @@ class TextImagePairDataset:
         for k in z.files:
             i, wh = k.rsplit('_', 1)
             w, h = wh.split('x')
-            self._latent_cache[(int(i), (int(w), int(h)))] = z[k]
+            self._latent_cache[(int(i), (int(w), int(h)))] = (z[k], None)
         return True
 
     # ---- item assembly ----
@@ -117,16 +124,18 @@ class TextImagePairDataset:
         w, h = size
         lw, lh = w // self.vae_scale, h // self.vae_scale
 
-        latents, images, prompts, att_masks = [], [], [], []
+        latents, images, prompts, att_masks, crop_infos = [], [], [], [], []
         for i in idx:
             i = int(i)
             path, meta = self.files[i]
             src = meta.get('source', self.source)
             cached = self._latent_cache.get((i, size))
             if cached is not None:
-                latents.append(cached)
+                latents.append(cached[0])
+                crop_info = cached[1]
             else:
-                images.append(self._load_image(i, size, rng)[0])
+                img, crop_info = self._load_image(i, size, rng)
+                images.append(img)
             if hasattr(src, 'make_prompt'):
                 pr = (src.make_prompt(path, rng) if 'class_word' not in meta
                       else src.make_prompt(path, rng, meta.get('class_word')))
@@ -137,6 +146,12 @@ class TextImagePairDataset:
                 am = src.get_att_map(path)
                 if am is not None:
                     att_masks.append(src.att_map_to_weight(resize_bicubic(am, (lw, lh))))
+            if self.with_crop_info:
+                # [h_orig, w_orig, crop_y, crop_x, h, w]; a latent loaded
+                # from a disk cache has no geometry: uncropped at the target
+                crop_infos.append([crop_info['original_size'][1], crop_info['original_size'][0],
+                                   crop_info['crop_coord'][1], crop_info['crop_coord'][0], h, w]
+                                  if crop_info is not None else [h, w, 0, 0, h, w])
 
         batch: Dict[str, Any] = {'loss_weight': np.float32(self.loss_weight)}
         if latents and not images:
@@ -144,13 +159,28 @@ class TextImagePairDataset:
         elif images:
             batch['images'] = np.stack(images)
         if self.frontend is not None:
-            flat = [p if isinstance(p, str) else p[-1] for p in prompts]
-            batch['input_ids'], batch['token_mult'] = self.frontend.tokenize_batch(flat)
+            if self.dream_artist:
+                # the step splits the ids into [neg..., pos...] halves
+                pairs = [p if isinstance(p, (list, tuple)) else (p, p) for p in prompts]
+                texts = [p[0] for p in pairs] + [p[1] for p in pairs]
+            else:
+                texts = [p if isinstance(p, str) else p[-1] for p in prompts]
+            batch['input_ids'], batch['token_mult'] = self.frontend.tokenize_batch(texts)
         else:
             batch['prompts'] = prompts
         if att_masks:
             batch['att_mask'] = np.stack(att_masks).astype(np.float32)
+        if crop_infos:
+            batch['time_ids'] = np.asarray(crop_infos, np.float32)
         return batch
+
+
+class CropInfoPairDataset(TextImagePairDataset):
+    """SDXL's dataset: ``with_crop_info`` on by default."""
+
+    def __init__(self, *a, **kw):
+        kw.setdefault('with_crop_info', True)
+        super().__init__(*a, **kw)
 
 
 class CycleData:

@@ -3,14 +3,18 @@
 The beta and alpha-cumprod tables are fp32 numpy arrays: the samplers read
 them on the host. The training side (``add_noise``, ``get_velocity``,
 ``target``) gathers per-sample rows of them onto the latents' device.
+``pyramid_noise`` is the multi-scale noise of ``PyramidNoiseScheduler``
+configs, split into its normal draws (``pyramid_draws``) and their sum
+(``pyramid_combine``), so a test can feed the JAX package's draws.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +87,43 @@ def _rescale_zero_terminal_snr(acp: np.ndarray) -> Tuple[np.ndarray, np.ndarray]
     acp2 = s ** 2
     alphas = np.concatenate([acp2[:1], acp2[1:] / acp2[:-1]])
     return acp2, 1.0 - alphas
+
+
+def pyramid_sizes(shape: Sequence[int], levels: int = 6) -> List[Tuple[int, ...]]:
+    """The shape of each level's draw for NHWC ``shape``: the full shape,
+    then (B, H / 2^i, W / 2^i, C) down to the first 1x1 level."""
+    B, H, W, C = shape
+    out = [tuple(shape)]
+    for i in range(1, levels):
+        h, w = max(1, H // 2 ** i), max(1, W // 2 ** i)
+        out.append((B, h, w, C))
+        if h == 1 and w == 1:
+            break
+    return out
+
+
+def pyramid_draws(generator: torch.Generator, shape: Sequence[int], levels: int = 6,
+                  device: Optional[torch.device] = None) -> List[torch.Tensor]:
+    """One standard normal draw a level (``pyramid_sizes``), fp32."""
+    dev = device if device is not None else generator.device
+    return [torch.randn(s, generator=generator, device=dev) for s in pyramid_sizes(shape, levels)]
+
+
+def pyramid_combine(draws: Sequence[torch.Tensor], discount: float = 0.9) -> torch.Tensor:
+    """The first draw plus discount^i times each coarser one, upsampled
+    bilinearly (half-pixel centres, edges clamped: ``jax.image.resize``'s
+    bilinear upsampling), divided by the sum's standard deviation (over
+    every element, ddof 0): the JAX package's ``pyramid_noise``."""
+    noise = draws[0]
+    B, H, W, C = noise.shape
+    for i, n in enumerate(draws[1:], start=1):
+        up = F.interpolate(n.permute(0, 3, 1, 2), size=(H, W), mode='bilinear',
+                           align_corners=False).permute(0, 2, 3, 1)
+        noise = noise + (discount ** i) * up
+    return noise / noise.std(unbiased=False)
+
+
+def pyramid_noise(generator: torch.Generator, shape: Sequence[int], discount: float = 0.9,
+                  levels: int = 6, device: Optional[torch.device] = None) -> torch.Tensor:
+    """Multi-scale (pyramid) noise of NHWC ``shape``."""
+    return pyramid_combine(pyramid_draws(generator, shape, levels, device), discount)

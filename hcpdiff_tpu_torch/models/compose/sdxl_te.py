@@ -33,30 +33,46 @@ class SDXLTokenizer:
 
 
 class SDXLTextEncoderFrontend:
-    """Encode once per encoder (the penultimate layer, no final norm, one
-    window repeat); join the hidden states; pooled from the second."""
+    """Encode once per encoder (by default the penultimate layer, no final
+    norm, one window repeat); join the hidden states; pooled from the
+    second."""
 
-    def __init__(self, tokenizer, te1: CLIPTextModel, te2: CLIPTextModel):
+    def __init__(self, tokenizer, te1: CLIPTextModel, te2: CLIPTextModel, n_repeats: int = 1,
+                 clip_skip: int = 1, clip_final_norm: bool = False):
         tk = tokenizer if isinstance(tokenizer, SDXLTokenizer) else SDXLTokenizer(tokenizer)
         self.tokenizer = tk
-        self.fe1 = TextEncoderFrontend(tk.tokenizer_l, te1, clip_skip=1, clip_final_norm=False)
-        self.fe2 = TextEncoderFrontend(tk.tokenizer_g, te2, clip_skip=1, clip_final_norm=False)
+        self.fe1 = TextEncoderFrontend(tk.tokenizer_l, te1, n_repeats, clip_skip, clip_final_norm)
+        self.fe2 = TextEncoderFrontend(tk.tokenizer_g, te2, n_repeats, clip_skip, clip_final_norm)
 
     def tokenize_batch(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         return self.fe1.tokenize_batch(texts)
+
+    def encode_ids(self, input_ids: torch.Tensor, token_mult: Optional[torch.Tensor] = None,
+                   params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                   emb_ext: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The JAX ``encode_ids_dual``: (hidden [B, S, D1 + D2], pooled).
+        Under ``no_grad`` unless ``params`` ({'te': {...}, 'te2': {...}},
+        each in place of its encoder's own weights, as
+        ``TextEncoderFrontend.encode_ids`` takes them) are given; then the
+        gradients flow into them and into ``emb_ext``'s tables."""
+        ext = emb_ext or {}
+        p = params if params is not None else {'te': None, 'te2': None}
+        h1, _ = self.fe1.encode_ids(input_ids, token_mult, params=p.get('te'),
+                                    emb_ext=ext.get('clip_L'))
+        h2, pooled = self.fe2.encode_ids(input_ids, token_mult, params=p.get('te2'),
+                                         emb_ext=ext.get('clip_bigG'))
+        return torch.cat([h1, h2], dim=-1), pooled
 
     def encode(self, texts: Sequence[str], emb_ext: Optional[Dict[str, torch.Tensor]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(hidden [B, S, D1 + D2], pooled [B, projection_dim]); ``emb_ext``:
         each encoder's prompt-tuning rows, ``{'clip_L', 'clip_bigG'}``
         (``split_sdxl_embedding``)."""
-        ext = emb_ext or {}
         ids, mult = self.tokenize_batch(texts)
         device = self.fe1.model.token_embedding.device
-        ids, mult = torch.from_numpy(ids).to(device), torch.from_numpy(mult).to(device)
-        h1, _ = self.fe1.encode_ids(ids, mult, emb_ext=ext.get('clip_L'))
-        h2, pooled = self.fe2.encode_ids(ids, mult, emb_ext=ext.get('clip_bigG'))
-        return torch.cat([h1, h2], dim=-1), pooled
+        return self.encode_ids(torch.from_numpy(ids).to(device), torch.from_numpy(mult).to(device),
+                               emb_ext=emb_ext)
 
 
 def split_sdxl_embedding(vectors: np.ndarray, dim_l: int = 768) -> Dict[str, np.ndarray]:

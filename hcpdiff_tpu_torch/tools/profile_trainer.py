@@ -1,12 +1,15 @@
 """Where a step of the config-driven trainer's time goes on the card.
 
-    python -m hcpdiff_tpu_torch.tools.profile_trainer [--steps 6] [--out FILE]
+    python -m hcpdiff_tpu_torch.tools.profile_trainer [--model sd15|sdxl] [--steps 6]
+        [--out FILE]
 
 Runs chip_smoke.py's trainer phase set-up (the seeded SD1.5 directory in
 F16, its 16 seeded PNGs in a 512x512 and a 640x448 bucket,
 ``cfgs/train/examples/lora_conventional.yaml`` at batch 4 with the latent
-cache and remat) through ``Trainer``: 4 warm-up steps, then ``--steps``
-steps under ``torch.profiler``. Prints each profiled step's seconds (host
+cache and remat; ``--model sdxl``: phase 4g's ``lora_sdxl.yaml`` at batch 1
+on ``tools/random_sdxl.py:sdxl_world``, with 1024 px PNGs only, so every
+step is a 1024x1024 one) through ``Trainer``: 4 warm-up steps, then
+``--steps`` steps under ``torch.profiler``. Prints each profiled step's seconds (host
 clock, each ending when its loss reaches the host; the first profiled
 step has no start mark), the kernel time by family (ms and launches a
 step) and the device's idle share (1 - kernel time a step / the median
@@ -32,6 +35,7 @@ WARM_UP = 4
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--model', choices=('sd15', 'sdxl'), default='sd15')
     ap.add_argument('--steps', type=int, default=6)
     ap.add_argument('--out', default=None)
     args = ap.parse_args()
@@ -50,11 +54,21 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix='hcp_profile_trainer_')
     try:
         model_dir, imgs = os.path.join(tmp, 'sd15'), os.path.join(tmp, 'imgs')
-        write_dir(model_dir, 'sd15', cs.SEED, torch.float16, torch.device('cuda', 0))
-        cs.write_dataset(imgs)
-        argv = cs.train_args('lora_conventional.yaml', model_dir, os.path.join(tmp, 'exp'),
-                             imgs, 'train.save_step=1000')
-        trainer = Trainer(load(argv[1], argv[2:]))
+        device = torch.device('cuda', 0)
+        if args.model == 'sdxl':
+            from hcpdiff_tpu_torch.tools.random_sdxl import sdxl_world
+            cs.write_dataset(imgs, ((1024, 1024),) * 4, cs.SEED + 50)
+            src = 'data.dataset1.source.data_source1'
+            trainer = Trainer(load('cfgs/train/examples/lora_sdxl.yaml', [
+                f'exp_dir={os.path.join(tmp, "exp")}', f'{src}.img_root={imgs}',
+                f'{src}.caption_file={imgs}/captions.json', 'data.dataset1.bucket.step_size=64',
+                'train.save_step=1000']), world=sdxl_world(device, cs.SEED))
+        else:
+            write_dir(model_dir, 'sd15', cs.SEED, torch.float16, device)
+            cs.write_dataset(imgs)
+            argv = cs.train_args('lora_conventional.yaml', model_dir, os.path.join(tmp, 'exp'),
+                                 imgs, 'train.save_step=1000')
+            trainer = Trainer(load(argv[1], argv[2:]))
         trainer.train_steps = WARM_UP
         trainer.train()
         trainer.start_step, trainer.train_steps = WARM_UP, WARM_UP + args.steps

@@ -3,7 +3,8 @@ the card (chip_smoke.py, ``profile_txt2img --model sdxl``), beside
 ``random_sd15.py``: the repo ships no checkpoint and no CLIP vocabulary, so
 weights follow the flax initializers (``models/layers.py:init_flax_like``)
 and text goes through the byte-level tiny tokenizer, with both encoders'
-BOS/EOS ids set to its own.
+BOS/EOS ids set to its own. ``sdxl_world`` gives the fp32 modules as a
+``build_models`` world, which ``Trainer(cfgs, world=...)`` trains.
 """
 from __future__ import annotations
 
@@ -60,3 +61,19 @@ def build_sdxl(device, seed: int):
     ``to_bf16``, on ``device``."""
     unet, vae, te1, te2 = (to_bf16(m) for m in sdxl_modules(device, seed))
     return unet, vae, SDXLTextEncoderFrontend(clip_configs()[0], te1, te2)
+
+
+def sdxl_world(device, seed: int) -> dict:
+    """``sdxl_modules`` (fp32, channels_last, eval mode) as the world
+    ``models/factory.py:build_models`` returns for an SDXL directory: the
+    tiny tokenizer, its ``vocab_size`` lifted to the encoders' table (added
+    words' ids start past it), the configs and the alias maps."""
+    from ..ckpt.diffusers_layout import clip_alias_map, unet_alias_map, vae_alias_map
+    tok = clip_configs()[0]
+    unet, vae, te, te2 = (m.to(memory_format=torch.channels_last).eval()
+                          for m in sdxl_modules(device, seed))
+    tok.vocab_size = max(tok.vocab_size, te.cfg.vocab_size)
+    return {'sdxl': True, 'unet': unet, 'unet_cfg': unet.cfg, 'vae': vae, 'vae_cfg': vae.cfg,
+            'te': te, 'te_cfg': te.cfg, 'te2': te2, 'te2_cfg': te2.cfg, 'tokenizer': tok,
+            'aliases': {'unet': unet_alias_map(unet.cfg), 'te': clip_alias_map(te.cfg),
+                        'te2': clip_alias_map(te2.cfg), 'vae': vae_alias_map(vae.cfg)}}

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -189,6 +189,18 @@ def make_optimizer(name_or_fn='adamw', lr: float = 1e-5, clip_norm: Optional[flo
                    **kw) -> Optimizer:
     fn = OPTIMIZERS[name_or_fn] if isinstance(name_or_fn, str) else name_or_fn
     return Optimizer(fn(lr, **kw), clip_norm)
+
+
+def make_pt_optimizer(ocfg, scfg, lr: float, steps: int, clip_norm: Optional[float]
+                      ) -> Tuple[Optimizer, Schedule]:
+    """The prompt-embedding optimizer (the JAX trainer's ``tx_pt``): the
+    ``optimizer_pt`` node's class and kwargs, ``lr`` (the largest of the
+    words' lrs) under the ``scheduler_pt`` node's schedule, and its own
+    global-norm clip."""
+    fn, kw = resolve_optimizer(ocfg)
+    schedule = make_schedule(scfg.get('name', 'constant'), lr, int(scfg.get('num_warmup_steps', 0)),
+                             int(scfg.get('num_training_steps', steps)))
+    return make_optimizer(fn, lr=0.0, clip_norm=clip_norm, **kw), schedule
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -4,13 +4,18 @@
 
 Lifecycle, as in the JAX package: config -> exp_dir and its frozen
 ``cfg.yaml`` -> loggers -> models (a diffusers-layout directory,
-``models/factory.py``) -> datasets and buckets (and the latent cache) ->
-the trainable pack (LoRA on the UNet and the text encoder, layer-wise
-fine-tuning) -> per-group optimizer and lr schedules -> the train step ->
-the loop, which logs, saves reference-format checkpoints
-(``ckpts/unet-<step>.safetensors``, ``text_encoder-<step>...``) and the
-full state (``state/``, for ``train.resume.auto``); ``save_merged``
-exports the merged weights as a diffusers-layout directory.
+``models/factory.py``; SDXL with its second text encoder) -> prompt-tuning
+words (``tokenizer_pt.emb_dir``'s ``.pt`` files) -> datasets and buckets
+(and the latent cache; DreamArtist's [neg, pos] prompts, SDXL's crop-info
+``time_ids``) -> the trainable pack (LoRA on the UNet and the text
+encoders, DreamArtist's negative branch, layer-wise fine-tuning, the
+words' rows) -> per-group optimizer and lr schedules, and the
+prompt-embedding optimizer -> the train step -> the loop, which logs,
+saves reference-format checkpoints (``ckpts/unet-<step>.safetensors``,
+``text_encoder-<step>...``, ``text_encoder_2-<step>...``, ``<word>-<step>.pt``)
+and the full state (``state/``, for ``train.resume.auto``);
+``save_merged`` exports the merged weights as a diffusers-layout
+directory.
 
 It runs on the card unless the config says ``device: cpu``; with no card
 it raises. ``mixed_precision`` fp16, bf16 or unset compute in bf16, fp32
@@ -22,13 +27,17 @@ Noise and timesteps come from one ``torch.Generator`` on the device,
 seeded from ``seed``; the data order and crops from the JAX package's
 numpy seeds.
 
+Added words get ids past the text encoder's table (the factory's
+convention, PR 15's at inference): their rows are ``pack['emb']`` (SDXL: one
+table an encoder, split from the files' joined [n, 768 + 1280] vectors),
+all of them updated by the prompt-embedding optimizer when
+``tokenizer_pt.train`` names any, as in the JAX package.
+
 What the JAX Trainer does beyond this raises ``NotImplementedError``
-naming its ROADMAP.md queue 1 item, never ignored: prompt-tuning
-embeddings (TI, DreamArtist, CustomDiffusion), DreamArtist's negative
-branch and ``cfg_scale``, SDXL training, pyramid noise, the previewer,
-the optimizers other than AdamW/Adam/SGD, TensorBoard/W&B loggers (item
-6); v-prediction training (SD2.x, item 3); ControlNet plugins and data
-(item 7); fsdp, ZeRO and multi-host (item 8).
+naming its ROADMAP.md queue 1 item, never ignored: the previewer, the
+optimizers other than AdamW/Adam/SGD, TensorBoard/W&B loggers (item 6);
+v-prediction training (SD2.x, item 3); ControlNet plugins and data (item
+7); fsdp, ZeRO and multi-host (item 8).
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import numpy as np
 import torch
 
 from ..adapt.overlay import make_lora_overlay, trainable_mask
+from ..ckpt.formats import load_webui_embedding
 from ..ckpt.manager import CkptManagerDiffusers, CkptManagerPKL, CkptManagerSafe, StateManager
 from ..config import Cfg, instantiate, load, save_config
 from ..config.legacy import TrainCFGConverter
@@ -53,11 +63,14 @@ from ..data.transforms import Compose, TemplateFill
 from ..diffusion.losses import LOSSES
 from ..diffusion.schedules import NoiseSchedule
 from ..loggers import build_loggers
+from ..models.compose.sdxl_te import (SDXLTextEncoderFrontend, concat_sdxl_embedding,
+                                      split_sdxl_embedding)
 from ..models.factory import build_models
 from ..models.text_frontend import TextEncoderFrontend
+from ..utils.cfg_parse import get_cfg_range
 from .assemble import (assemble, assemble_te, base_weights, lora_base_weights, make_te_apply,
                        make_unet_apply)
-from .optimizers import make_optimizer, make_schedule, resolve_optimizer
+from .optimizers import make_optimizer, make_pt_optimizer, make_schedule, resolve_optimizer
 from .preemption import PreemptionGuard, resolve_preemption_cfg
 from .step import StepConfig, build_train_step, init_train_state, pack_leaves
 
@@ -73,19 +86,7 @@ def _unported(what: str, item: int) -> NotImplementedError:
 def refuse_unported(cfgs: Cfg) -> None:
     """Raise on every feature of the JAX Trainer's configs that the port
     does not train yet, before anything is built."""
-    pt = cfgs.get('tokenizer_pt') or {}
-    if pt.get('train'):
-        raise _unported('training prompt-tuning embeddings (tokenizer_pt.train: Textual '
-                        'Inversion, DreamArtist, CustomDiffusion)', 6)
-    emb_dir = pt.get('emb_dir')
-    if emb_dir and os.path.isdir(emb_dir) and any(f.endswith('.pt') for f in os.listdir(emb_dir)):
-        raise _unported(f'loading embeddings from emb_dir {emb_dir!r}', 6)
-    specs = list(cfgs.get('lora_unet') or []) + list(cfgs.get('lora_text_encoder') or [])
-    if any(sp.get('branch') == 'n' for sp in specs):
-        raise _unported("DreamArtist's negative-branch LoRA (branch: n)", 6)
     tcfg = cfgs.get('train') or {}
-    if str(tcfg.get('cfg_scale', '1.0')) != '1.0':
-        raise _unported(f"DreamArtist's cfg_scale {tcfg.get('cfg_scale')!r}", 6)
     if cfgs.get('plugin_unet') or cfgs.get('plugin_TE'):
         raise _unported('plugins (plugin_unet/plugin_TE: ControlNet)', 7)
     if cfgs.get('previewer'):
@@ -95,20 +96,15 @@ def refuse_unported(cfgs: Cfg) -> None:
         raise _unported('sharded or multi-host training (fsdp, train.zero, multi_host)', 8)
     ns = (cfgs.get('model') or {}).get('noise_scheduler')
     while isinstance(ns, dict):
-        tgt = str(ns.get('_target_', ''))
-        if 'Pyramid' in tgt:
-            raise _unported('pyramid noise (PyramidNoiseScheduler)', 6)
         if ns.get('prediction_type') == 'v_prediction':
             raise _unported('v-prediction training (SD2.x-v: no SD2.1 directory writer yet, so '
                             'no such run has been checked)', 3)
         ns = ns.get('base_scheduler') or ns.get('scheduler')
     for ds in (cfgs.get('data') or {}).values():
-        tgt = str((ds or {}).get('_target_', ''))
-        if 'CropInfo' in tgt or (ds or {}).get('with_crop_info'):
-            raise _unported('SDXL training (CropInfoPairDataset crop conditioning)', 6)
-        if 'Cond' in tgt:
+        if 'Cond' in str((ds or {}).get('_target_', '')):
             raise _unported('ControlNet datasets (TextImageCondPairDataset)', 7)
     resolve_optimizer(tcfg.get('optimizer'))
+    resolve_optimizer(tcfg.get('optimizer_pt'))
 
 
 class Trainer:
@@ -131,6 +127,7 @@ class Trainer:
         tcfg = cfgs.get('train') or Cfg()
         self.grad_accum = int(tcfg.get('gradient_accumulation_steps', 1))
         self.build_model(world)
+        self.make_hooks()
         self.build_dataset()
         self.build_trainables()
         self.build_optimizer_scheduler()
@@ -156,21 +153,27 @@ class Trainer:
             world = build_models(mcfg.get('pretrained_model_name_or_path'), dtype=torch.float32,
                                  device=self.device, seed=self.seed)
         self.seconds = {'model load': time.perf_counter() - t0, 'latent cache': 0.0}
-        if world['sdxl']:
-            raise _unported('SDXL training', 6)
         self.world = world
+        self.sdxl = bool(world['sdxl'])
         self.unet, self.te, self.vae = world['unet'], world['te'], world['vae']
-        for m in (self.unet, self.te, self.vae):
-            m.requires_grad_(False)
+        self.te2 = world.get('te2')
+        for m in (self.unet, self.te, self.vae, self.te2):
+            if m is not None:
+                m.requires_grad_(False)
         self.unet.remat = bool(mcfg.get('gradient_checkpointing', True))
         self.aliases = world['aliases']
 
-        # noise scheduler: ZeroTerminal wrappers and NoiseSchedule/DDPMScheduler kwargs
+        # noise scheduler: Pyramid and ZeroTerminal wrappers and
+        # NoiseSchedule/DDPMScheduler kwargs
         ns = mcfg.get('noise_scheduler')
         sched_kw = {}
+        self.noise_kind, self.pyramid_discount = 'gaussian', 0.9
         while isinstance(ns, dict):
             tgt = str(ns.get('_target_', ''))
-            if 'ZeroTerminal' in tgt:
+            if 'Pyramid' in tgt:
+                self.noise_kind, self.pyramid_discount = 'pyramid', float(ns.get('discount', 0.9))
+                ns = ns.get('base_scheduler') or ns.get('scheduler')
+            elif 'ZeroTerminal' in tgt:
                 sched_kw['zero_terminal_snr'] = True
                 ns = ns.get('base_scheduler') or ns.get('scheduler')
             elif 'NoiseSchedule' in tgt or 'DDPMScheduler' in tgt:
@@ -181,10 +184,39 @@ class Trainer:
             else:
                 ns = None
         self.noise_schedule = NoiseSchedule.make(**sched_kw)
-        self.frontend = TextEncoderFrontend(
-            world['tokenizer'], self.te, n_repeats=int(mcfg.get('tokenizer_repeats', 1)),
-            clip_skip=int(mcfg.get('clip_skip', 0)),
-            clip_final_norm=bool(mcfg.get('clip_final_norm', True)))
+        self.tokenizer = world['tokenizer']
+        text = dict(n_repeats=int(mcfg.get('tokenizer_repeats', 1)))
+        if self.sdxl:
+            # SDXL's convention: the penultimate layer, no final norm
+            self.frontend = SDXLTextEncoderFrontend(
+                self.tokenizer, self.te, self.te2, clip_skip=int(mcfg.get('clip_skip', 1)),
+                clip_final_norm=bool(mcfg.get('clip_final_norm', False)), **text)
+        else:
+            self.frontend = TextEncoderFrontend(
+                self.tokenizer, self.te, clip_skip=int(mcfg.get('clip_skip', 0)),
+                clip_final_norm=bool(mcfg.get('clip_final_norm', True)), **text)
+
+    def make_hooks(self):
+        """Prompt-tuning words: every ``.pt`` file of ``tokenizer_pt.emb_dir``
+        (sorted by file name) registered with the tokenizer, its ids past
+        the encoder's table, its rows in ``emb_rows`` in id order."""
+        pt_cfg = self.cfgs.get('tokenizer_pt') or Cfg()
+        self.train_emb_names = [t['name'] for t in (pt_cfg.get('train') or [])]
+        self.emb_slices: Dict[str, slice] = {}
+        rows = []
+        emb_dir = pt_cfg.get('emb_dir', 'embs/')
+        if emb_dir and os.path.isdir(emb_dir):
+            for f in sorted(os.listdir(emb_dir)):
+                if f.endswith('.pt'):
+                    name, vecs = load_webui_embedding(os.path.join(emb_dir, f))
+                    ids = self.tokenizer.add_word(name, n_vectors=vecs.shape[0])
+                    start = sum(len(r) for r in rows)
+                    if ids[0] != self.te.cfg.vocab_size + start:
+                        raise ValueError(f'word {name!r} took ids {ids}, not the rows after '
+                                         'the loaded words (the tokenizer already held words)')
+                    rows.append(vecs.astype(np.float32))
+                    self.emb_slices[name] = slice(start, start + vecs.shape[0])
+        self.emb_rows = np.concatenate(rows) if rows else None
 
     def build_dataset(self):
         self.vae.to(self.dtype)
@@ -226,10 +258,17 @@ class Trainer:
             raise ValueError('a dataset has no source')
         source = sources[0] if len(sources) == 1 else ComposeDataSource(sources)
         vae_scale = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        # DreamArtist's [neg, pos] prompts whenever a LoRA group of either
+        # model has a negative branch; SDXL's crop-info time_ids
+        da = any(sp.get('branch') == 'n' for sp in list(self.cfgs.get('lora_unet') or [])
+                 + list(self.cfgs.get('lora_text_encoder') or []))
+        with_crop = (bool(ds_cfg.get('with_crop_info', self.sdxl))
+                     or 'CropInfo' in str(ds_cfg.get('_target_', '')))
         ds = TextImagePairDataset(source, self._build_bucket(ds_cfg.get('bucket')),
                                   frontend=self.frontend, vae_scale=vae_scale,
                                   cache_latents=bool(ds_cfg.get('cache_latents', False)),
-                                  loss_weight=float(ds_cfg.get('loss_weight', 1.0)))
+                                  loss_weight=float(ds_cfg.get('loss_weight', 1.0)),
+                                  dream_artist=da, with_crop_info=with_crop)
         ds.build(int(ds_cfg.get('batch_size', 4)))
         ds.bucket.check_sizes(vae_scale * 2 ** (len(self.unet.cfg.block_out_channels) - 1))
         if ds.want_cache:
@@ -289,24 +328,36 @@ class Trainer:
         raise ValueError(f'bucket: unknown _target_ {target!r}; known: RatioBucket.from_files, '
                          'RatioBucket.from_ratios, FixedBucket, SizeBucket, LongEdgeBucket')
 
+    def _models(self):
+        """(config key of its LoRA, of its fine-tune, module, alias, pack
+        suffix) of the UNet and each text encoder; SDXL's second encoder
+        takes the first's specs."""
+        out = [('lora_unet', 'unet', self.unet, 'unet', 'unet'),
+               ('lora_text_encoder', 'text_encoder', self.te, 'te', 'te')]
+        if self.sdxl:
+            out.append(('lora_text_encoder', 'text_encoder', self.te2, 'te2', 'te2'))
+        return out
+
     def build_trainables(self):
-        """The pack (``trainer/assemble.py``) and each group's lr."""
+        """The pack (``trainer/assemble.py``) and each group's lr; the
+        words' rows and their lrs (``pt_lrs``)."""
         cfgs = self.cfgs
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         pack: Dict[str, Any] = {}
         self.lora_scales: Dict[str, Dict[str, float]] = {}
         self.group_lrs: Dict[str, float] = {}
-        for cfg_key, module, alias, key in (('lora_unet', self.unet, 'unet', 'lora_unet'),
-                                            ('lora_text_encoder', self.te, 'te', 'lora_te')):
-            specs = list(cfgs.get(cfg_key) or [])
-            if specs:
-                ov, sc = make_lora_overlay(gen, module, specs, aliases=self.aliases[alias])
-                if ov:
-                    pack[key], self.lora_scales[key] = ov, sc
-                    self.group_lrs[key] = float(specs[0].get('lr', 1e-4))
-        for cfg_key, module, alias, key in (('unet', self.unet, 'unet', 'unet_ft'),
-                                            ('text_encoder', self.te, 'te', 'te_ft')):
-            items = list(cfgs.get(cfg_key) or [])
+        for lora_cfg, _, module, alias, part in self._models():
+            specs = list(cfgs.get(lora_cfg) or [])
+            for suffix, items in (('', [sp for sp in specs if sp.get('branch', 'p') != 'n']),
+                                  ('_neg', [sp for sp in specs if sp.get('branch') == 'n'])):
+                key = f'lora_{part}{suffix}'
+                if items:
+                    ov, sc = make_lora_overlay(gen, module, items, aliases=self.aliases[alias])
+                    if ov:
+                        pack[key], self.lora_scales[key] = ov, sc
+                        self.group_lrs[key] = float(items[0].get('lr', 1e-4))
+        for _, ft_cfg, module, alias, part in self._models():
+            items = list(cfgs.get(ft_cfg) or [])
             if items:
                 pats, lr = [], 1e-6
                 for item in items:
@@ -314,12 +365,22 @@ class Trainer:
                     lr = float(item.get('lr', lr))
                 names = trainable_mask(module, pats, self.aliases[alias])
                 if names:
-                    pack[key] = base_weights(module, names)
-                    self.group_lrs[key] = lr
+                    pack[f'{part}_ft'] = base_weights(module, names)
+                    self.group_lrs[f'{part}_ft'] = lr
+        self.pt_lrs: Dict[str, float] = {}
+        if self.train_emb_names and self.emb_rows is not None:
+            # every loaded word's rows train, under the largest lr (the JAX
+            # package's tx_pt)
+            rows = torch.from_numpy(self.emb_rows).to(self.device)
+            pack['emb'] = ({k: v.contiguous() for k, v in split_sdxl_embedding(
+                rows, dim_l=self.te.cfg.hidden_size).items()} if self.sdxl else rows)
+            for item in (cfgs.get('tokenizer_pt') or {}).get('train'):
+                self.pt_lrs[item['name']] = float(item.get('lr', 3e-3))
         if not pack:
             raise ValueError('the config trains nothing: no lora_unet, lora_text_encoder, unet '
-                             'or text_encoder layers were selected')
+                             'or text_encoder layers or tokenizer_pt words were selected')
         self.pack = pack
+        self.dream_artist = 'lora_unet_neg' in pack or 'lora_te_neg' in pack
 
     def build_optimizer_scheduler(self):
         """One optimizer; each pack key a parameter group with its own lr
@@ -336,6 +397,9 @@ class Trainer:
                                            int(scfg.get('num_training_steps', steps)))
                           for k, lr in self.group_lrs.items()}
         self.optimizer = make_optimizer(opt_fn, lr=0.0, clip_norm=clip or None, **okw)
+        self.optimizer_pt, self.schedule_pt = make_pt_optimizer(
+            tcfg.get('optimizer_pt'), dict(tcfg.get('scheduler_pt') or scfg),
+            max(self.pt_lrs.values(), default=3e-3), steps, clip or None)
 
     def build_ckpt_manager(self):
         kind = self.cfgs.get('ckpt_type', 'safetensors')
@@ -354,8 +418,8 @@ class Trainer:
             return
         self.start_step = int(rcfg.get('start_step', 0))
         cp = rcfg.get('ckpt_path') or {}
-        if cp.get('words') or cp.get('plugin'):
-            raise _unported('resuming embedding words or plugins', 6)
+        if cp.get('plugin'):
+            raise _unported('resuming plugins (ControlNet)', 7)
 
         def load_model(paths, lora_key, ft_key, module, aliases):
             params = dict(module.named_parameters())
@@ -377,6 +441,21 @@ class Trainer:
         load_model(cp.get('unet'), 'lora_unet', 'unet_ft', self.unet, self.aliases['unet'])
         load_model(cp.get('TE') or cp.get('text_encoder'), 'lora_te', 'te_ft', self.te,
                    self.aliases['te'])
+        words = cp.get('words') or {}
+        for name, path in (words.items() if isinstance(words, dict) else words):
+            if name not in self.emb_slices or 'emb' not in self.pack:
+                self.loggers.info(f'resume: word {name!r} is not among the loaded embeddings; '
+                                  'skipped')
+                continue
+            sl = self.emb_slices[name]
+            vecs = torch.from_numpy(load_webui_embedding(path)[1][:sl.stop - sl.start])
+            emb = self.pack['emb']
+            if self.sdxl:
+                # the file holds the joined [n, 768 + 1280] vectors
+                for key, part in split_sdxl_embedding(vecs, self.te.cfg.hidden_size).items():
+                    emb[key][sl.start:sl.start + len(part)].copy_(part)
+            else:
+                emb[sl.start:sl.start + len(vecs)].copy_(vecs)
 
     # ------------------------------------------------------------ steps ----
     def make_train_step(self):
@@ -397,22 +476,31 @@ class Trainer:
                 and self.noise_schedule.prediction_type == 'epsilon'):
             self.noise_schedule = dataclasses.replace(self.noise_schedule,
                                                       prediction_type='sample')
+        lo, hi, ramp = get_cfg_range(str(tcfg.get('cfg_scale', '1.0')))
         step_cfg = StepConfig(grad_accum=self.grad_accum,
                               ema_decay=(float(ema_cfg.get('decay_max', 0.9999))
-                                         if ema_cfg else None))
-        # fp32 copies of the weights LoRA merges into, then the compute dtype
-        self.frozen = {'unet': lora_base_weights(self.unet, self.pack.get('lora_unet', {})),
-                       'te': lora_base_weights(self.te, self.pack.get('lora_te', {}))}
+                                         if ema_cfg else None),
+                              noise_kind=self.noise_kind, pyramid_discount=self.pyramid_discount,
+                              dream_artist=self.dream_artist, da_cfg_low=lo, da_cfg_high=hi,
+                              da_cfg_ramp=ramp)
+        # fp32 copies of the weights LoRA merges into (either branch), then
+        # the compute dtype
+        self.frozen = {part: lora_base_weights(module, {
+            **self.pack.get(f'lora_{part}', {}), **self.pack.get(f'lora_{part}_neg', {})})
+            for _, _, module, _, part in self._models()}
         if str(mcfg.get('frozen_base_dtype', '')).lower() in ('bf16', 'bfloat16'):
             self.frozen = {k: {n: t.to(torch.bfloat16) for n, t in v.items()}
                            for k, v in self.frozen.items()}
-            self.te.to(torch.bfloat16)
+            for te in (self.te, self.te2):
+                if te is not None:
+                    te.to(torch.bfloat16)
         self.unet.to_compute_dtype(self.dtype)
         self._train_step = build_train_step(
             make_unet_apply(self.unet), self.frontend.encode_ids, self.noise_schedule,
             self.criterion, step_cfg, self.lora_scales, te_apply=make_te_apply(self.frontend))
         self.state = init_train_state(self.pack, self.optimizer, use_ema=ema_cfg is not None,
-                                      schedules=self.schedules)
+                                      schedules=self.schedules, optimizer_pt=self.optimizer_pt,
+                                      schedule_pt=self.schedule_pt)
         with torch.no_grad():
             for key, tree in self._resume_ema.items():
                 for dst, src in zip(pack_leaves(self.state.ema[key]), pack_leaves(tree)):
@@ -423,8 +511,9 @@ class Trainer:
 
     # ------------------------------------------------------- full state ----
     def _full_state(self, step: int) -> Dict[str, Any]:
+        opts = {k: getattr(self.state, k) for k in ('optimizer', 'optimizer_pt')}
         return {'step': step, 'pack': self.state.pack, 'ema': self.state.ema,
-                'optimizer': self.state.optimizer.state_dict(),
+                **{k: o.state_dict() for k, o in opts.items() if o is not None},
                 'generator': self.generator.get_state(), 'data': list(self.data_pos),
                 'pending': self.pending}
 
@@ -443,7 +532,9 @@ class Trainer:
         if self.state.ema is not None:
             for dst, src in zip(pack_leaves(self.state.ema), pack_leaves(st['ema'])):
                 dst.copy_(src)
-        self.state.optimizer.load_state_dict(st['optimizer'])
+        for key in ('optimizer', 'optimizer_pt'):
+            if getattr(self.state, key) is not None:
+                getattr(self.state, key).load_state_dict(st[key])
         self.generator.set_state(st['generator'])
         self.data_pos = [tuple(p) for p in st['data']]
         self.pending = [[{k: v.to(self.device) for k, v in b.items()} for b in queue]
@@ -568,17 +659,31 @@ class Trainer:
 
     # ------------------------------------------------------------- save ----
     def save_model(self, step: int):
-        """``ckpts/unet-<step>`` and ``text_encoder-<step>`` in the reference
-        layout (the JAX trainer's keys), and the full state."""
+        """``ckpts/unet-<step>``, ``text_encoder-<step>`` and (SDXL)
+        ``text_encoder_2-<step>`` in the reference layout (the JAX trainer's
+        keys; the negative branch is not saved, as there), ``<word>-<step>.pt``
+        for each trained word (SDXL: the joined vectors), and the full
+        state."""
         self.states.save(step, self._full_state(step))
         pack, ema = self.state.pack, self.state.ema or {}
-        for name, module, ft, lora, alias in (('unet', self.unet, 'unet_ft', 'lora_unet', 'unet'),
-                                              ('text_encoder', self.te, 'te_ft', 'lora_te', 'te')):
+        names = {'unet': 'unet', 'te': 'text_encoder', 'te2': 'text_encoder_2'}
+        for _, _, module, alias, part in self._models():
+            ft, lora = f'{part}_ft', f'lora_{part}'
             if ft in pack or lora in pack:
                 self.ckpt_manager.save_model_with_lora(
-                    os.path.join(self.exp_dir, 'ckpts', f'{name}-{step}{self.ckpt_manager.ext}'),
+                    os.path.join(self.exp_dir, 'ckpts',
+                                 f'{names[part]}-{step}{self.ckpt_manager.ext}'),
                     module, base=pack.get(ft), lora_overlay=pack.get(lora),
                     base_ema=ema.get(ft), lora_ema=ema.get(lora), aliases=self.aliases[alias])
+        if 'emb' in pack:
+            rows = pack['emb']
+            rows = (concat_sdxl_embedding({k: v.detach().cpu().numpy() for k, v in rows.items()})
+                    if self.sdxl else rows.detach().cpu().numpy())
+            for name, sl in self.emb_slices.items():
+                if name in self.train_emb_names:
+                    self.ckpt_manager.save_embedding(
+                        os.path.join(self.exp_dir, 'ckpts', f'{name}-{step}.pt'), rows[sl], name,
+                        step)
         self.loggers.info(f'saved ckpt @ step {step}')
 
     def save_merged(self, out_dir: str):

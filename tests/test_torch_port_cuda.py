@@ -182,6 +182,31 @@ def test_flash_backward_kernels(gen, shape):
         _close_grad(out, ref)
 
 
+@pytest.mark.parametrize('shape', [(1, 10, 4096, 64), (1, 20, 1024, 64)])
+def test_flash_sdxl_training_shapes(gen, shape):
+    """A with lse, E and F at an SDXL LoRA step's self-attention shapes at
+    batch 1 (D = 64: levels 1 and 2 of a 1024 px latent) against the plain
+    forward, lse and backward; one launch of each a call."""
+    B, H, S, D = shape
+    q, k, v, do = (_rn(gen, B, S, H * D).view(B, S, H, D).transpose(1, 2) for _ in range(4))
+    scale = D ** -0.5
+    counters = (fa.flash_attention_lse, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    o, lse = fa.flash_attention_lse(q, k, v, scale)
+    ref = attention_plain(q, k, v, scale)
+    _close(o, ref)
+    assert float((o.float() - ref.float()).norm() / ref.float().norm()) <= O_REL_L2
+    assert float((lse - fa.attention_lse_plain(q, k, scale)).abs().max()) <= LSE_ATOL
+    delta = fa.attention_delta(o, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, lse, do, delta, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale)
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    for out, ref in zip((dq, dk, dv), fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                                         scale)):
+        _close_grad(out, ref)
+        assert _grad_rel_l2(out, ref) <= GRAD_REL_L2
+
+
 @pytest.mark.parametrize('causal', [False, True])
 @pytest.mark.parametrize('S', [1000, 4000])
 @pytest.mark.parametrize('D', fa.PADDED_HEAD_DIMS)
@@ -908,10 +933,11 @@ def test_visualizer_request_on_the_card(gen, tmp_path):
         assert (out / f'{i}-img.yaml').exists()
 
 
-def _trainer_run(tmp_path, size, steps):
+def _trainer_run(tmp_path, size, steps, cfg_name='lora_conventional.yaml', *extra):
     """lora_conventional.yaml (UNet + CLIP LoRA, AdamW, remat, the latent
-    cache) through main() on the card in bf16, on the tiny world and four
-    seeded PNGs at ``size`` (w, h) in a fixed bucket of that size."""
+    cache; or ``cfg_name``) through main() on the card in bf16, on the tiny
+    world and four seeded PNGs at ``size`` (w, h) in a fixed bucket of that
+    size."""
     import json
     import os
 
@@ -921,13 +947,13 @@ def _trainer_run(tmp_path, size, steps):
     from hcpdiff_tpu_torch.utils.images import write_png
     rng = np.random.default_rng(6)
     imgs = tmp_path / 'imgs'
-    imgs.mkdir()
+    imgs.mkdir(parents=True)
     for i in range(4):
         write_png(str(imgs / f'{i}.png'), rng.integers(0, 256, size[::-1] + (3,), np.uint8))
     with open(imgs / 'captions.json', 'w') as f:
         json.dump({str(i): f'a photo of cat {i}' for i in range(4)}, f)
     cfg = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       'cfgs', 'train', 'examples', 'lora_conventional.yaml')
+                       'cfgs', 'train', 'examples', cfg_name)
     src = 'data.dataset1.source.data_source1'
     return main(['--cfg', cfg, 'model.pretrained_model_name_or_path=tiny',
                  f'exp_dir={tmp_path / "exp"}', f'{src}.img_root={imgs}',
@@ -935,7 +961,7 @@ def _trainer_run(tmp_path, size, steps):
                  'data.dataset1.bucket._target_=FixedBucket',
                  f'data.dataset1.bucket.target_size=[{size[0]}, {size[1]}]',
                  f'train.train_steps={steps}', f'train.save_step={steps}',
-                 'logger.0.log_step=1'])
+                 'logger.0.log_step=1', *extra])
 
 
 def test_tiny_trainer_on_the_card(gen, tmp_path):
@@ -968,3 +994,28 @@ def test_trainer_bucket_off_the_kernel_route(gen, tmp_path):
     trainer = _trainer_run(tmp_path, (80, 56), 1)
     assert trainer.step_shapes == [[(2, 28, 40, 4)]]
     assert [k.launches > b for k, b in zip(kernels, before)] == [False, False, True, True, True]
+
+
+def test_dreamartist_step_doubles_the_unet_launches(gen, tmp_path):
+    """One DreamArtist++.yaml step (both LoRA branches and a word pair, the
+    words made by tools/create_embedding.py) at 64 px on the card runs the
+    UNet twice: kernels B and C launch twice as often as in one
+    lora_conventional.yaml step at the same batch; A with lse, E and F
+    launch; the loss is finite."""
+    import numpy as np
+
+    from hcpdiff_tpu_torch.tools.create_embedding import main as create_embedding
+    unet_kernels = (geglu_dense, fused_dense)
+    before = [k.launches for k in unet_kernels]
+    _trainer_run(tmp_path / 'plain', (64, 64), 1)
+    plain = [k.launches - b for k, b in zip(unet_kernels, before)]
+    for word in ('pt-dog1', 'pt-dog1-neg'):
+        create_embedding(['tiny', word, '2', '--root', str(tmp_path / 'embs')])
+    kernels = unet_kernels + (fa.flash_attention_lse, fa.flash_attention_bwd_dq,
+                              fa.flash_attention_bwd_dkv)
+    before = [k.launches for k in kernels]
+    trainer = _trainer_run(tmp_path / 'da', (64, 64), 1, 'DreamArtist++.yaml',
+                           f'tokenizer_pt.emb_dir={tmp_path / "embs"}')
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert trainer.dream_artist and np.isfinite(trainer.history).all()
+    assert launched[:2] == [2 * n for n in plain] and min(launched[2:]) > 0

@@ -271,7 +271,9 @@ def test_latent_cache_file_is_the_jax_one(image_dir, tmp_path):
     assert tds.load_latent_cache()
     assert sorted(tds._latent_cache) == sorted(jds._latent_cache)
     for key, value in jds._latent_cache.items():
-        np.testing.assert_array_equal(tds._latent_cache[key], value)
+        latent, crop_info = tds._latent_cache[key]
+        np.testing.assert_array_equal(latent, value)
+        assert crop_info is None            # a disk cache keeps no crop geometry
     tds.cache_dir = str(tmp_path / 'port')
     tds.cache_all_latents(_encode)
     assert os.listdir(tds.cache_dir) == os.listdir(jds.cache_dir)

@@ -14,12 +14,13 @@ widths in fp32 on the CPU:
   the JAX trainer's and load in the other package's ``load_ckpt``;
 - a run interrupted by SIGTERM and continued by ``resume.auto`` equals
   the uninterrupted run bit for bit (losses, pack, EMA);
-- every ``cfgs/train/examples`` config: the six the port trains run
-  through ``main()`` on the tiny world (paths, steps, device, fp32 and a
-  small bucket overridden; ``lora_conventional.yaml`` in a subprocess
-  that then checks it loaded no ``jax``, ``hcpdiff_tpu``, ``optax``,
-  ``PIL`` or ``yaml`` module), the others raise ``NotImplementedError``
-  naming their ROADMAP item.
+- every ``cfgs/train/examples`` config: the thirteen the port trains run
+  through ``main()`` on the tiny worlds (``tiny_sdxl`` for the SDXL ones;
+  paths, steps, device, fp32 and a small bucket overridden; the words of
+  the prompt-tuning configs made first by ``tools/create_embedding.py``;
+  ``lora_conventional.yaml`` in a subprocess that then checks it loaded
+  no ``jax``, ``hcpdiff_tpu``, ``optax``, ``PIL`` or ``yaml`` module), the
+  others raise ``NotImplementedError`` naming their ROADMAP item.
 """
 import json
 import os
@@ -327,12 +328,22 @@ RUNS = {  # config -> overrides beyond paths, steps and the device
     'fine-tuning.yaml': [],
     'ema.yaml': [],
     'DreamBooth.yaml': ['data.dataset_class.bucket.target_size=32'],
+    'TextualInversion.yaml': [],
+    'CustomDiffusion.yaml': [],
+    'lora_anime_character.yaml': [],
+    'DreamArtist.yaml': [],
+    'DreamArtist++.yaml': [],
+    'lora_sdxl.yaml': ['model.pretrained_model_name_or_path=tiny_sdxl'],
+    'FT_sdxl.yaml': ['model.pretrained_model_name_or_path=tiny_sdxl'],
 }
-REFUSED = {'TextualInversion.yaml': 6, 'DreamArtist.yaml': 6, 'DreamArtist++.yaml': 6,
-           'CustomDiffusion.yaml': 6, 'lora_anime_character.yaml': 6, 'controlnet.yaml': 7,
-           'lora_sdxl.yaml': 6, 'FT_sdxl.yaml': 6, 'FT_sdxl_zero3.yaml': 8,
-           'Lion_optimizer.yaml': 6, 'add_logger_tensorboard_wandb.yaml': 6,
-           'preview_in_training.yaml': 6, 'sd21_vpred.yaml': 3}
+REFUSED = {'controlnet.yaml': 7, 'FT_sdxl_zero3.yaml': 8, 'Lion_optimizer.yaml': 6,
+           'add_logger_tensorboard_wandb.yaml': 6, 'preview_in_training.yaml': 6,
+           'sd21_vpred.yaml': 3}
+# the words each prompt-tuning config trains (made by create_embedding first)
+WORDS_OF = {'TextualInversion.yaml': ['pt-cat1'], 'CustomDiffusion.yaml': ['pt-new1'],
+            'lora_anime_character.yaml': ['pt-char1'],
+            'DreamArtist.yaml': ['pt-catgirl1', 'pt-catgirl1-neg'],
+            'DreamArtist++.yaml': ['pt-dog1', 'pt-dog1-neg']}
 
 
 def _run_args(name, proj, tmp_path):
@@ -341,7 +352,8 @@ def _run_args(name, proj, tmp_path):
     src = 'data.dataset1.source.data_source1'
     args = ['--cfg', str(EXAMPLES / name), 'model.pretrained_model_name_or_path=tiny',
             'device=cpu', 'mixed_precision=fp32', f'exp_dir={tmp_path / "exp"}',
-            'train.train_steps=2', 'train.save_step=2', 'logger.0.log_step=1']
+            'train.train_steps=2', 'train.save_step=2', 'logger.0.log_step=1',
+            f'tokenizer_pt.emb_dir={tmp_path / "embs"}']
     if name == 'DreamBooth.yaml':
         args += [f'{src}.img_root={proj / "instance"}', 'data.dataset1.bucket.target_size=32',
                  f'data.dataset_class.source.data_source1.img_root={proj / "class"}']
@@ -359,12 +371,23 @@ def test_every_example_config_is_run_or_refused():
 
 @pytest.mark.parametrize('name', sorted(set(RUNS) - {'lora_conventional.yaml'}))
 def test_example_config_trains(proj, tmp_path, name):
+    from hcpdiff_tpu_torch.tools.create_embedding import main as create_embedding
+    for word in WORDS_OF.get(name, []):
+        create_embedding(['tiny', word, '2', '--init_text', 'a photo of cat', '--root',
+                          str(tmp_path / 'embs')])
     trainer = main(_run_args(name, proj, tmp_path))
     assert len(trainer.history) == 2 * len(trainer.datasets)
     assert all(np.isfinite(trainer.history))
     ckpts = sorted(os.listdir(tmp_path / 'exp' / 'ckpts'))
-    assert 'unet-2.safetensors' in ckpts
-    if name in ('fine-tuning.yaml', 'ema.yaml', 'DreamBooth.yaml'):     # layers: ['']
+    models = {'unet': 'unet', 'te': 'text_encoder', 'te2': 'text_encoder_2'}
+    assert ckpts == sorted([f'{models[m]}-2.safetensors' for m in models
+                            if f'lora_{m}' in trainer.pack or f'{m}_ft' in trainer.pack]
+                           + [f'{w}-2.pt' for w in WORDS_OF.get(name, [])])
+    assert trainer.sdxl == ('sdxl' in name) and trainer.dream_artist == (name == 'DreamArtist++.yaml')
+    assert ('emb' in trainer.pack) == (name in WORDS_OF)
+    if name == 'lora_sdxl.yaml':
+        assert sorted(trainer.pack) == ['lora_te', 'lora_te2', 'lora_unet']
+    if name in ('fine-tuning.yaml', 'ema.yaml', 'DreamBooth.yaml', 'FT_sdxl.yaml'):  # layers: ['']
         assert len(trainer.pack['unet_ft']) == len(list(trainer.unet.parameters()))
     if name == 'DreamBooth.yaml':
         assert len(trainer.datasets) == 2
