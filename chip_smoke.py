@@ -52,12 +52,14 @@ package is missing. Phases, each fatal on failure:
 4e. the training entry point (python -m hcpdiff_tpu_torch.train) on the
    same directory: lora_conventional.yaml through main() on 16 seeded PNGs
    (10 at 640x640, 6 at 768x512) with step_size 64 (a 512x512 and a 640x448
-   bucket), batch 4, UNet LoRA r8 + CLIP LoRA r4, bf16, remat, the latent
-   cache, 12 steps saving at 6 and 12: losses finite, the four checkpoint
+   bucket), batch 4, UNet LoRA r8 + CLIP LoRA r4, bf16, remat under the
+   default HCP_REMAT_POLICY=flash, the latent cache, 12 steps saving at 6
+   and 12: losses finite, the four checkpoint
    files written and unet-12/text_encoder-12 loading back equal to the final
    pack, every LoRA up factor moved, launches of A (with lse), E, F, B, C and
    D equal to the reckoning from the steps' buckets and the latent cache's
-   encodes (trainer_reckoning); the directory-load and latent-cache
+   encodes (trainer_reckoning: under flash A with its lse once an
+   attention a step, the recompute taking its o and lse); the directory-load and latent-cache
    seconds, the median and spread of steps 2-12, samples/s and peak memory
    printed; then a run resumed (train.resume.auto) from a copy stopped at
    step 6 must equal the uninterrupted one bitwise (the relative
@@ -104,11 +106,43 @@ package is missing. Phases, each fatal on failure:
    64] and [1, 20, 1024, 64], B, C and D at levels 1 and 2;
    launches_trainer_sdxl, launches_trainer_sdxl_step_1024 (the counters
    read around the run's first 1024 px step; every step's counts are held
-   to the reckoning for its shape) and launches_trainer_da); after phase
+   to the reckoning for its shape) and launches_trainer_da); then that
+   1024 px batch's step under HCP_REMAT_POLICY full and flash in turns,
+   three times (A with lse 140 and 70 a step, each held to its reckoning;
+   step seconds and peak memory printed); after phase
    6, the SDXL UNet at full width with one transformer block a level holds
    one step's LoRA gradients (card, bf16, remat) against the CPU (fp32) on
    a [2, 64, 64, 4] latent (A with lse, E and F at D = 64), within phase
    6's tolerance;
+4h. SD2.1 768-v: tools/random_diffusers.py --model sd21 (F16, seed SEED,
+   Linear proj_in/proj_out, use_linear_projection: true) into the
+   temporary directory, loaded in bf16 and held tensor by tensor against
+   the seeded originals; the SD2.1 UNet at full width against fp32 on the
+   CPU on a [2, 32, 32, 4] latent (A at [2, 5, 1024, 64]); a config written
+   there from cfgs/infer/text2img.yaml with new_components.scheduler
+   prediction_type: v_prediction answers 768x768 requests through main()
+   at batch 1 and 4 (20 DPM++ 2M steps, guidance 7.5): images finite in
+   [0, 1], launches as an SD1.5 request's, A's shapes counted through the
+   dispatcher ([2b, 5, 9216, 64] and [2b, 10, 2304, 64] 100 each, the
+   VAE's [b, 1, 9216, 512] once), seconds a request and an image, peak
+   memory; then cfgs/train/examples/sd21_vpred.yaml through the config
+   loader and Trainer on that directory, four 768x768 PNGs (target_area
+   768^2), batch 2, bf16, remat, 6 steps: v-prediction, losses finite,
+   every LoRA up factor moved, launches as reckoned (A with lse, E and F at
+   [2, 5, 9216, 64] and [2, 10, 2304, 64]), step median and spread,
+   samples/s, peak memory; its kernel shapes join the records (labelled
+   sd21, launches_sd21, with launches_sd21_requests and
+   launches_deepcache);
+4i. DeepCache and the encoder mask on the 4d directory: text2img.yaml
+   through main() with infer_args.deep_cache_interval 3, then 2 (512 px,
+   batch 4): launches as reckoned (deepcache_launches: a full UNet call at
+   every Nth step, a reuse call of down level 0 and the last up level at
+   the others, so A 7 x 10 + 13 x 5 in the loop at interval 3), images
+   finite in [0, 1] and not the exact request's; the exact and both
+   DeepCache requests timed in turns on one Visualizer (vis_images); the
+   card's DeepCache loop (bf16) against the CPU's (fp32) on a 32x32
+   latent; one request with encoder_attention_mask: true (launches as an
+   exact request's, images not the unmasked ones);
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -116,12 +150,19 @@ package is missing. Phases, each fatal on failure:
    [64, 64, 4] latents and random input_ids; one warm-up step (after which
    every LoRA up factor must have left zero), then 5 timed steps with the
    launch counters zeroed before and read after (kernels A-F must each
-   launch); seconds per step, samples per second, peak device memory;
+   launch, as trainer_reckoning counts them); seconds per step, samples
+   per second, peak device memory; then steps under HCP_REMAT_POLICY full
+   and flash in turns, five of each (launches as reckoned, seconds and
+   peak memory);
 6. hold one step's LoRA gradients on the card (bf16, kernels) against the
    same weights in fp32 on the CPU (plain versions), on [2, 32, 32, 4]
    latents (S=1024 at level 0, so E and F run), fixed noise and t, and up
-   factors set to small random values first; then again with a fused,
-   remat UNet (kernels G-J's autograd wiring);
+   factors set to small random values first; the card's gradients under
+   HCP_REMAT_POLICY=flash also against those under full (expected equal,
+   POLICY_REL_TOL; the largest difference printed; cuDNN's deterministic
+   algorithms, since the fused UNet's plain J backward otherwise varies
+   from run to run); then again with a fused, remat UNet (kernels G-J's
+   autograd wiring);
 7. hold each kernel against its plain version on the card at the paths'
    shapes (A with its lse, E and F at the training shapes, G-J at the
    fused path's; A and D also at the VAE encoder's batch-1 shapes of an
@@ -180,6 +221,8 @@ package is missing. Phases, each fatal on failure:
 The line before the last is one JSON object with the kernels' records; the
 last line is {"ok": true, "device": {...}}.
 """
+import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -245,6 +288,9 @@ GRAD_ATOL_REL = 1e-2
 GRAD_REL_L2 = 1e-2
 # A's lse vs the plain lse, both fp32
 LSE_ATOL = 1e-3
+# the card's LoRA gradients under the two remat policies: the same kernels
+# on the same inputs, A's o and lse kept or launched again (expected equal)
+POLICY_REL_TOL = 1e-6
 # A's o at every shape, also relative L2 over the whole tensor: at S=4096
 # |o| is ~0.03, so ATOL alone would pass an error of a third of o; rounding
 # o and P to bf16 gives a few 1e-3
@@ -433,12 +479,23 @@ def train_phase(device):
     zero_counters()
     torch.cuda.reset_peak_memory_stats()
     times = [checked_step(f'step {i}') for i in range(TIMED_STEPS)]
-    launches = read_counters('the timed steps (remat runs each forward twice)', TRAIN_KERNELS)
+    launches = read_counters(f'the timed steps (remat, policy {unet.remat_policy})',
+                             TRAIN_KERNELS)
+    shape = (TRAIN_BATCH, TRAIN_LATENT, TRAIN_LATENT, 4)
+    _check_launches(launches, trainer_reckoning(unet.cfg, [[shape]] * TIMED_STEPS, [], 8, 0,
+                                                policy=unet.remat_policy), 'the timed steps')
     per_step = sum(times) / len(times)
     log(f'train timed: {TIMED_STEPS} steps, batch {TRAIN_BATCH}, '
         f'{TRAIN_LATENT * 8}px: {per_step:.4f} s/step '
         f'({TRAIN_BATCH / per_step:.3f} samples/s), steps {[round(t, 4) for t in times]}, '
         f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, frozen, batch, gen)
+        return m['loss']
+    _remat_policy_steps(unet, one_step, lambda policy: trainer_reckoning(
+        unet.cfg, [[shape]], [], 8, 0, policy=policy), f'a {shape} SD1.5 LoRA step', rounds=5)
     del state, batch
     return launches, (unet, te, overlay, scales, frozen, cpu_models)
 
@@ -458,10 +515,21 @@ def gradient_phase(device, training, what='gradient check'):
     t = torch.tensor([801, 301])
     factors = [(p, k) for p in overlay for k in ('down', 'up')]
     grads = {}
+    policy = unet.remat_policy
+    # the fused UNet's J backward is plain torch (cuDNN), whose default
+    # algorithms vary from run to run, so its card gradients differ between
+    # two steps under one policy: deterministic algorithms, so that the
+    # policies are compared alone
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     for side, dev, um, tm, fz in (
             ('card', device, unet, te, frozen),
+            ('card full', device, unet, te, frozen),
             ('cpu', torch.device('cpu'), unet_cpu, te_cpu,
              {'unet': lora_base_weights(unet_cpu, overlay)})):
+        # the card's gradients under the default remat policy (flash: A's
+        # o and lse kept for the backward), then under HCP_REMAT_POLICY=full
+        unet.remat_policy = 'full' if side == 'card full' else policy
         pack = {'lora_unet': {p: {k: v.detach().to(dev).requires_grad_(True)
                                   for k, v in e.items()} for p, e in overlay.items()}}
         batch = {'latents': lat.to(dev), 'input_ids': ids.to(dev)}
@@ -471,6 +539,16 @@ def gradient_phase(device, training, what='gradient check'):
                                      for gi, (_, kk) in zip(g, factors) if kk == k])
                        for k in ('down', 'up')}
         log(f'{what} {side}: loss {float(loss.detach()):.6f}')
+    unet.remat_policy = policy
+    torch.backends.cudnn.deterministic = deterministic
+    for factor in ('down', 'up'):
+        flash, full = grads['card'][factor], grads['card full'][factor]
+        diff = float((flash - full).abs().max())
+        rel = float((flash - full).norm() / full.norm())
+        log(f'{what}: LoRA {factor} gradients on the card under HCP_REMAT_POLICY={policy} vs '
+            f'full: max abs diff {diff:.3e}, rel L2 {rel:.3e} (limit {POLICY_REL_TOL})')
+        check(policy == 'flash' and rel <= POLICY_REL_TOL,
+              f'{what}: LoRA {factor} gradients under {policy} and full differ: rel {rel}')
     for factor in ('down', 'up'):
         card, cpu = grads['card'][factor], grads['cpu'][factor]
         err = float((card - cpu).norm() / cpu.norm())
@@ -1370,11 +1448,13 @@ def sdxl_reference_phase(pipe, device):
 def _cli(model_dir, out_dir, cfg, *extra):
     """One request through the entry point a user runs:
     python -m hcpdiff_tpu_torch.visualizer --cfg cfgs/infer/<cfg> ...
-    Returns the Visualizer, the images and the request's seconds."""
+    (``cfg`` an absolute path: that file). Returns the Visualizer, the
+    images and the request's seconds."""
     from hcpdiff_tpu_torch.infer.visualizer import main
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    viser, images = main(['--cfg', f'cfgs/infer/{cfg}', f'pretrained_model={model_dir}',
+    path = cfg if os.path.isabs(cfg) else f'cfgs/infer/{cfg}'
+    viser, images = main(['--cfg', path, f'pretrained_model={model_dir}',
                           f'output_dir={out_dir}', f'interface.0.save_root={out_dir}',
                           f'seed={VIS_SEED}', *extra])
     seconds = time.perf_counter() - t0
@@ -1459,32 +1539,39 @@ def write_model_dir(device, tmp):
     return model_dir
 
 
+@torch.no_grad()
+def _check_loaded(world, modules, what):
+    """Every tensor build_models loaded (bf16) equals the seeded original
+    ``modules`` (unet, vae, te) rounded to fp16 (F16 files), then cast to
+    the dtype it is held in; fatal otherwise."""
+    from hcpdiff_tpu_torch.models.unet import UNet2DCondition
+    n = 0
+    for key, orig in zip(('unet', 'vae', 'te'), modules):
+        loaded = world[key].state_dict()
+        ref = orig.state_dict()
+        check(loaded.keys() == ref.keys(), f'{what} {key}: loaded names differ')
+        for name, t in ref.items():
+            fp32 = key == 'te' or (key == 'unet'
+                                   and name.startswith(UNet2DCondition.FP32_CHILDREN))
+            want = t.half().to(torch.float32 if fp32 else torch.bfloat16)
+            check(torch.equal(loaded[name], want),
+                  f'{what} {key}.{name} is not the seeded original rounded to fp16')
+        n += len(ref)
+        del orig, ref
+    log(f'build_models ({what}): all {n} tensors equal the seeded originals rounded to fp16 '
+        f'(UNet and VAE bf16, the UNet\'s time MLP and CLIP fp32)')
+
+
 def visualizer_phase(device, model_dir, tmp):
     """The config-driven entry point on a diffusers-layout SD1.5 directory;
     returns the launch counts of its requests."""
     from hcpdiff_tpu_torch.models.factory import build_models
-    from hcpdiff_tpu_torch.models.unet import UNet2DCondition
     from hcpdiff_tpu_torch.tools.random_sd15 import sd15_modules
     from hcpdiff_tpu_torch.utils.images import write_png
     t0 = time.perf_counter()
     world = build_models(model_dir, torch.bfloat16, device)
     log(f'build_models (bf16, cuda): {time.perf_counter() - t0:.2f} s')
-    n = 0
-    with torch.no_grad():
-        for key, orig in zip(('unet', 'vae', 'te'), sd15_modules(device, SEED)):
-            loaded = world[key].state_dict()
-            ref = orig.state_dict()
-            check(loaded.keys() == ref.keys(), f'{key}: loaded names differ')
-            for name, t in ref.items():
-                fp32 = key == 'te' or (key == 'unet'
-                                       and name.startswith(UNet2DCondition.FP32_CHILDREN))
-                want = t.half().to(torch.float32 if fp32 else torch.bfloat16)
-                check(torch.equal(loaded[name], want),
-                      f'{key}.{name} is not the seeded original rounded to fp16')
-            n += len(ref)
-            del orig, ref
-    log(f'build_models: all {n} tensors equal the seeded originals rounded to fp16 '
-        f'(UNet and VAE bf16, the UNet\'s time MLP and CLIP fp32)')
+    _check_loaded(world, sd15_modules(device, SEED), 'SD1.5')
     del world
     torch.cuda.empty_cache()
 
@@ -1590,7 +1677,7 @@ def transformer_levels(cfg):
 
 
 def trainer_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms, unet_calls=1,
-                      grad_temb=False, first_dq=True):
+                      grad_temb=False, first_dq=True, policy='flash'):
     """The launches a config's run must make, from the UNet's config, each
     step's latent shape and the latent cache's encode calls. A step is
     ``unet_calls`` UNet calls (DreamArtist's two branches: 2) under remat:
@@ -1600,8 +1687,11 @@ def trainer_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms, unet_call
     it), so autograd never recomputes it; with ``grad_temb`` (SDXL with a
     LoRA in the second text encoder: the pooled embedding, and so the
     time embedding every resblock takes, carries one) it is recomputed
-    too. So per call: A with its lse twice and E and F once per
-    self-attention whose S the kernel takes, E one fewer where the first
+    too; the recompute takes A's o and lse from the forward under the
+    remat ``policy`` 'flash' (HCP_REMAT_POLICY's default) and launches A
+    again under 'full'. So per call: A with its lse once ('flash') or
+    twice ('full') and E and F once per self-attention whose S the kernel
+    takes, E one fewer where the first
     transformer's queries carry no gradient (``first_dq`` False: no LoRA
     on its to_q, as in DreamArtist++.yaml); B and C twice per transformer
     block; D twice per GroupNorm of the resblocks and transformers (less
@@ -1619,7 +1709,9 @@ def trainer_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms, unet_call
             flash = sum(d for lvl, d in levels if flash_route((h >> lvl) * (w >> lvl)))
             first = levels[0][0]
             no_dq = int(not first_dq and flash_route((h >> first) * (w >> first)))
-            for name, count in (('flash_attention', 2 * flash), ('flash_attention_lse', 2 * flash),
+            runs = {'flash': 1, 'full': 2}[policy]
+            for name, count in (('flash_attention', runs * flash),
+                                ('flash_attention_lse', runs * flash),
                                 ('flash_attention_bwd_dq', flash - no_dq),
                                 ('flash_attention_bwd_dkv', flash), ('geglu_dense', 2 * depth),
                                 ('fused_dense', 2 * depth),
@@ -1734,7 +1826,9 @@ def trainer_phase(device, model_dir, tmp):
         f'latent cache {trainer.seconds["latent cache"]:.3f} s ({len(ds._latent_cache)} latents '
         f'in {len(ds.encodes)} VAE calls {ds.encodes}); buckets {ds.bucket.used_sizes()}, '
         f'steps\' latents {[s[0] for s in trainer.step_shapes]}; peak {peak:.2f} GiB')
-    check(trainer.dtype == torch.bfloat16 and trainer.unet.remat, 'the run is bf16 with remat')
+    check(trainer.dtype == torch.bfloat16 and trainer.unet.remat
+          and trainer.unet.remat_policy == 'flash',
+          'the run is bf16 with remat under the default policy (HCP_REMAT_POLICY=flash)')
     check(len(trainer.history) == TRAINER_STEPS
           and all(math.isfinite(x) for x in trainer.history),
           f'trainer losses {trainer.history}')
@@ -2247,9 +2341,11 @@ def sdxl_trainer_phase(device, tmp):
     zero_counters()
     t0 = time.perf_counter()
     trainer = Trainer(cfgs, world=world)
-    step_fn, per_step = trainer._train_step, []
+    step_fn, per_step, batch_1024 = trainer._train_step, [], []
 
     def counted_step(state, frozen, batch, *args, **kw):
+        if tuple(batch['latents'].shape) == SDXL_TRAIN_BUCKETS[1] and not batch_1024:
+            batch_1024.append(batch)
         before = {name: fn.launches for name, fn in counters().items()}
         out = step_fn(state, frozen, batch, *args, **kw)
         per_step.append((tuple(batch['latents'].shape), {
@@ -2271,7 +2367,9 @@ def sdxl_trainer_phase(device, tmp):
         f'in {len(ds.encodes)} VAE calls {ds.encodes}); steps\' latents '
         f'{[s[0] for s in trainer.step_shapes]}; peak {peak:.2f} GiB')
     check(trainer.sdxl and trainer.dtype == torch.bfloat16 and trainer.unet.remat
-          and ds.with_crop_info, 'the SDXL run is bf16 with remat and crop-info time_ids')
+          and trainer.unet.remat_policy == 'flash' and ds.with_crop_info,
+          'the SDXL run is bf16 with remat under the default policy (HCP_REMAT_POLICY=flash) '
+          'and crop-info time_ids')
     check(len(trainer.history) == SDXL_TRAIN_STEPS
           and all(math.isfinite(x) for x in trainer.history),
           f'sdxl trainer losses {trainer.history}')
@@ -2310,6 +2408,19 @@ def sdxl_trainer_phase(device, tmp):
         f'up factor moved ({len(trainer.pack["lora_unet"])} UNet, {len(trainer.pack["lora_te"])} '
         f'CLIP-L and {len(trainer.pack["lora_te2"])} bigG layers) but CLIP-L\'s {unused}, above '
         f'the layer its hidden states come from, which stayed zero')
+    def sdxl_step():
+        trainer.state, metrics = step_fn(trainer.state, trainer.frozen, batch_1024[0],
+                                         trainer.generator)
+        return metrics['loss']
+    policy_steps = _remat_policy_steps(
+        trainer.unet, sdxl_step, lambda policy: trainer_reckoning(
+            trainer.unet.cfg, [[SDXL_TRAIN_BUCKETS[1]]], [], vae_scale, enc_norms,
+            grad_temb=True, policy=policy), f'a {SDXL_TRAIN_BUCKETS[1]} SDXL LoRA step')
+    check(policy_steps['full']['flash_attention_lse']
+          == 2 * step_1024['flash_attention_lse'] > 0,
+          f'a 1024 px step under HCP_REMAT_POLICY=full launches A with lse '
+          f'{policy_steps["full"]["flash_attention_lse"]} times, not twice the default\'s '
+          f'{step_1024["flash_attention_lse"]}')
     shapes = _trainer_shapes(trainer)
     level12 = {(h >> 1) * (w >> 1) for _, h, w, _ in SDXL_TRAIN_BUCKETS[1:]} | {
         (h >> 2) * (w >> 2) for _, h, w, _ in SDXL_TRAIN_BUCKETS[1:]}
@@ -2319,6 +2430,35 @@ def sdxl_trainer_phase(device, tmp):
     del trainer, world, ds
     torch.cuda.empty_cache()
     return launches, step_1024, shapes
+
+
+def _remat_policy_steps(unet, run_step, reckoning, what, rounds=3):
+    """One LoRA step (``run_step()`` -> its loss) under HCP_REMAT_POLICY full
+    and flash in turns (full, flash, ...), ``rounds`` of each, every step's
+    launches held to ``reckoning(policy)``; prints each policy's step
+    seconds and peak memory and returns the launches of a step under each.
+    The UNet's policy is put back to flash."""
+    seconds, peak, counts = {'flash': [], 'full': []}, {}, {}
+    for policy in ('full', 'flash') * rounds:
+        unet.remat_policy = policy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        loss = float(run_step())                            # waits for the step
+        seconds[policy].append(time.perf_counter() - t0)
+        peak[policy] = max(peak.get(policy, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+        check(math.isfinite(loss), f'{what}: the {policy} step\'s loss {loss}')
+        counts[policy] = {name: fn.launches for name, fn in counters().items()}
+        _check_launches(counts[policy], reckoning(policy),
+                        f'{what} under HCP_REMAT_POLICY={policy}')
+    unet.remat_policy = 'flash'
+    log(f'remat policy, {what}, in turns: ' + '; '.join(
+        f'{p}: step seconds {[round(x, 4) for x in seconds[p]]} (median '
+        f'{sorted(seconds[p])[len(seconds[p]) // 2]:.4f}), peak {peak[p]:.2f} GiB, A with lse '
+        f'{counts[p]["flash_attention_lse"]}' for p in ('flash', 'full'))
+        + f'; card: {gpu_name_and_power_limit()}')
+    return counts
 
 
 def sdxl_gradient_phase(device):
@@ -2451,6 +2591,298 @@ def dreamartist_phase(device, model_dir, tmp):
     return launches
 
 
+# phase 4h, SD2.1 768-v: self-attention at 96x96 (S = 9216, 5 heads) and
+# 48x48 (S = 2304, 10 heads), D = 64 at both, takes A; 24x24 (576) and the
+# 12x12 mid block (144) the plain route; the VAE's mid attention at 96x96
+# is [b, 1, 9216, 512]. So an SD2.1 request launches as an SD1.5 one does
+# (sd15_launches: the same blocks, the same levels on each route).
+SD21_SIZE, SD21_REQUESTS = 768, (1, 4)
+SD21_TRAIN_IMAGES = ((768, 768),) * 4
+SD21_TRAIN_STEPS, SD21_TRAIN_BATCH = 6, 2
+SD21_V_CFG = """_base_:
+  - {base}
+new_components:
+  scheduler:
+    _target_: diffusers.DPMSolverMultistepScheduler
+    prediction_type: v_prediction
+"""
+
+
+def sd21_attention(b, size=SD21_SIZE):
+    """An SD2.1 request's A launches by q's shape at batch b: five
+    self-attentions at each of the two finest levels a UNet call (CFG
+    doubles the batch), STEPS calls, then the VAE decode's mid attention."""
+    s0, s1 = (size // 8) ** 2, (size // 16) ** 2
+    return {(2 * b, 5, s0, 64): 5 * STEPS, (2 * b, 10, s1, 64): 5 * STEPS, (b, 1, s0, 512): 1}
+
+
+@contextlib.contextmanager
+def attention_shapes():
+    """A's calls through the attention dispatcher (ops/attention.py), each
+    counted by its q's shape, while the block runs."""
+    from hcpdiff_tpu_torch.ops import attention as dispatch
+    seen, real = collections.Counter(), dispatch.flash_attention
+
+    def recorded(q, k, v, *args, **kw):
+        seen[tuple(q.shape)] += 1
+        return real(q, k, v, *args, **kw)
+    dispatch.flash_attention = recorded
+    try:
+        yield seen
+    finally:
+        dispatch.flash_attention = real
+
+
+@torch.inference_mode()
+def _sd21_reference(unet):
+    """The SD2.1 UNet at full width (bf16, kernels) against its weights in
+    fp32 on the CPU on a [2, 32, 32, 4] latent: S = 1024 at level 0, so A
+    runs at D = 64 (five times)."""
+    gen = torch.Generator().manual_seed(SEED + 60)
+    lat = torch.randn(2, 32, 32, 4, generator=gen)
+    ctx = torch.randn(2, 77, unet.cfg.cross_attention_dim, generator=gen)
+    t = torch.tensor([801, 301])
+    dev = next(unet.parameters()).device
+    with attention_shapes() as shapes:
+        out = unet(lat.to(dev), t.to(dev), ctx.to(dev))
+    unet_cpu = cpu_fp32(unet)
+    err = rel_err(out, unet_cpu(lat, t, ctx))
+    del unet_cpu
+    log(f'reference sd21 unet: card bf16 vs cpu fp32 rel L2 err {err:.3e} (limit '
+        f'{MODEL_REL_TOL}); A by shape {dict(shapes)}')
+    check(dict(shapes) == {(2, 5, 1024, 64): 5}, f'sd21 reference: A ran at {dict(shapes)}')
+    check(err <= MODEL_REL_TOL, f'sd21 unet rel err {err} > {MODEL_REL_TOL}')
+
+
+def sd21_phase(device, tmp):
+    """SD2.1 768-v: the seeded directory (F16, Linear projections), its
+    bf16 load against the originals, the UNet against the CPU, 768 px
+    v-prediction requests through main() at batch 1 and 4, and
+    sd21_vpred.yaml's LoRA training at 768 px through the config loader and
+    Trainer. Returns the requests' launches, the training run's and the
+    shapes its kernels took."""
+    import numpy as np
+    from hcpdiff_tpu_torch.config import load
+    from hcpdiff_tpu_torch.models.factory import build_models
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    from hcpdiff_tpu_torch.models.unet import UNetConfig
+    from hcpdiff_tpu_torch.tools.random_diffusers import write_dir
+    from hcpdiff_tpu_torch.tools.random_sd21 import sd21_modules
+    from hcpdiff_tpu_torch.trainer.trainer import Trainer
+    model_dir = os.path.join(tmp, 'sd21')
+    t0 = time.perf_counter()
+    write_dir(model_dir, 'sd21', SEED, torch.float16, device)
+    size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(model_dir)
+               for f in fs)
+    with open(os.path.join(model_dir, 'unet', 'config.json')) as f:
+        config = json.load(f)
+    log(f'diffusers-layout SD2.1 directory (F16, seed {SEED}) written in '
+        f'{time.perf_counter() - t0:.2f} s: {size / 2**30:.3f} GiB')
+    check(config['use_linear_projection'] is True
+          and config['attention_head_dim'] == [5, 10, 20, 20]
+          and config['cross_attention_dim'] == 1024, f'the SD2.1 unet config {config}')
+    t0 = time.perf_counter()
+    world = build_models(model_dir, torch.bfloat16, device)
+    log(f'build_models (SD2.1, bf16, cuda): {time.perf_counter() - t0:.2f} s')
+    check(world['unet_cfg'] == UNetConfig.sd21(), f'SD2.1 config read as {world["unet_cfg"]}')
+    _check_loaded(world, sd21_modules(device, SEED), 'SD2.1')
+    _sd21_reference(world['unet'])
+    del world
+    torch.cuda.empty_cache()
+
+    cfg = os.path.join(tmp, 'sd21_v.yaml')
+    with open(cfg, 'w') as f:
+        f.write(SD21_V_CFG.format(base=os.path.abspath('cfgs/infer/text2img.yaml')))
+    total = dict.fromkeys(TXT2IMG_KERNELS, 0)
+    for b in SD21_REQUESTS:
+        zero_counters()
+        with attention_shapes() as shapes:
+            viser, images, seconds = _cli(model_dir, os.path.join(tmp, f'sd21_{b}'), cfg,
+                                          f'bs={b}', f'infer_args.width={SD21_SIZE}',
+                                          f'infer_args.height={SD21_SIZE}')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = read_counters(f'the SD2.1 768 px request at batch {b}', TXT2IMG_KERNELS,
+                                 absent=FUSED_ONLY)
+        _check_launches(launches, sd15_launches(STEPS), f'the SD2.1 request at batch {b}')
+        check(dict(shapes) == sd21_attention(b), f'the SD2.1 request at batch {b} ran A at '
+              f'{dict(shapes)}, not {sd21_attention(b)}')
+        check(viser.schedule.prediction_type == 'v_prediction'
+              and viser.cfgs.infer_args.sampler == 'dpm++_2m',
+              'the SD2.1 request is v-prediction DPM++ 2M')
+        check(images.shape == (b, SD21_SIZE, SD21_SIZE, 3), f'SD2.1 images {images.shape}')
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        c = viser.cfgs
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        again = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+        alone = time.perf_counter() - t0
+        check((again == images).all(), 'a second SD2.1 request differs')
+        log(f'sd21 768 px v-prediction request, batch {b}, {STEPS} DPM++ 2M steps, guidance '
+            f'{GUIDANCE}: main() {seconds:.3f} s (peak {peak:.2f} GiB); alone {alone:.3f} s, '
+            f'{alone / b:.3f} s an image (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} '
+            f'GiB); A by shape {dict(shapes)}; card: {gpu_name_and_power_limit()}')
+        del viser, images, again
+        torch.cuda.empty_cache()
+
+    imgs, exp = os.path.join(tmp, 'sd21_imgs'), os.path.join(tmp, 'exp_sd21')
+    write_dataset(imgs, SD21_TRAIN_IMAGES, SEED + 61)
+    cfgs = load('cfgs/train/examples/sd21_vpred.yaml', train_args(
+        'sd21_vpred.yaml', model_dir, exp, imgs, f'train.train_steps={SD21_TRAIN_STEPS}',
+        f'train.save_step={SD21_TRAIN_STEPS}', f'data.dataset1.batch_size={SD21_TRAIN_BATCH}',
+        f'data.dataset1.bucket.target_area={SD21_SIZE * SD21_SIZE}')[2:])
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfgs)
+    try:
+        trainer.train()
+    finally:
+        trainer.loggers.close()
+    seconds = time.perf_counter() - t0
+    launches = read_counters('the SD2.1 trainer run (sd21_vpred.yaml)', TRAINER_KERNELS,
+                             absent=FUSED_ONLY)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ds = trainer.datasets[0]
+    buckets = sorted({s for shapes in trainer.step_shapes for s in shapes})
+    check(trainer.noise_schedule.prediction_type == 'v_prediction'
+          and trainer.dtype == torch.bfloat16 and trainer.unet.remat
+          and trainer.unet.remat_policy == 'flash',
+          'the SD2.1 run is v-prediction, bf16, remat under HCP_REMAT_POLICY=flash')
+    check(len(trainer.history) == SD21_TRAIN_STEPS
+          and all(math.isfinite(x) for x in trainer.history),
+          f'sd21 trainer losses {trainer.history}')
+    check(buckets == [(SD21_TRAIN_BATCH, 96, 96, 4)], f'sd21 trainer buckets {buckets}')
+    _ups_moved(trainer.state.pack, ('lora_unet', 'lora_te'))
+    vae = trainer.vae
+    _check_launches(launches, trainer_reckoning(
+        trainer.unet.cfg, trainer.step_shapes, ds.encodes,
+        2 ** (len(vae.cfg.block_out_channels) - 1),
+        sum(isinstance(m, GroupNorm) for m in vae.encoder.modules())), 'the SD2.1 trainer run')
+    shapes = _trainer_shapes(trainer)
+    want = [(SD21_TRAIN_BATCH, 5, 9216, 64), (SD21_TRAIN_BATCH, 10, 2304, 64)]
+    check(shapes['attn'] == want, f'the SD2.1 run\'s A/E/F shapes {shapes["attn"]}')
+    steps = np.diff(trainer.step_ends)
+    med = float(np.median(steps))
+    log(f'sd21 trainer (sd21_vpred.yaml, v-prediction, 768 px, batch {SD21_TRAIN_BATCH}, LoRA '
+        f'UNet r8 + CLIP r4, bf16, remat): build and train {seconds:.3f} s, latent cache '
+        f'{trainer.seconds["latent cache"]:.3f} s; steps 2-{SD21_TRAIN_STEPS} median '
+        f'{med:.4f} s/step, min {steps.min():.4f}, max {steps.max():.4f}, all '
+        f'{[round(float(x), 4) for x in steps]}; {SD21_TRAIN_BATCH / med:.3f} samples/s; peak '
+        f'{peak:.2f} GiB; losses {[round(x, 5) for x in trainer.history]}; A/E/F at {want}; '
+        f'card: {gpu_name_and_power_limit()}')
+    shapes = {'attn': shapes['attn'], 'enc_attn': [], 'ffn': [],
+              'gn': [g for g in shapes['gn'] if g[1] == 9216]}
+    del trainer, ds
+    torch.cuda.empty_cache()
+    return total, launches, shapes
+
+
+# phase 4i, DeepCache: a reuse call of the SD1.5 UNet runs down level 0 (2
+# resblocks, 2 transformers) and up level 3 (3 resblocks, 3 transformers),
+# all at 64x64 (S = 4096: A), and the output norm
+DC_REUSE = {'flash_attention': 5, 'geglu_dense': 5, 'fused_dense': 5, 'group_norm_silu': 16}
+DC_INTERVALS, DC_REF_STEPS = (3, 2), 6
+
+
+def deepcache_launches(steps, interval):
+    """A DeepCache request's launches: a full UNet call at every
+    ``interval``th step from step 0 (sd15_launches' counts, the decode
+    included), a reuse call (DC_REUSE) at the others."""
+    full = len(range(0, steps, interval))
+    return {k: n + (steps - full) * DC_REUSE[k] for k, n in sd15_launches(full).items()}
+
+
+@torch.inference_mode()
+def _deepcache_reference(pipe, device):
+    """The card's DeepCache loop (bf16, kernels) against the same loop in
+    fp32 on the CPU: a [1, 32, 32, 4] latent (S = 1024 at level 0, A runs),
+    DC_REF_STEPS DPM++ 2M steps at interval 2."""
+    from hcpdiff_tpu_torch.diffusion.samplers import make_sampler
+    from hcpdiff_tpu_torch.infer.pipeline import DenoiseLoop
+    gen = torch.Generator().manual_seed(SEED + 62)
+    lat = torch.randn(1, 32, 32, 4, generator=gen)
+    ctx, _ = pipe.te.encode([NEGATIVE, PROMPT])
+    out = {}
+    for side, unet, dev in (('card', pipe.unet, device),
+                            ('cpu', cpu_fp32(pipe.unet), torch.device('cpu'))):
+        loop = DenoiseLoop(unet, make_sampler('dpm++_2m', pipe.schedule, DC_REF_STEPS),
+                           deep_cache_interval=2)
+        out[side], _ = loop(lat.to(dev), ctx.float().to(dev), GUIDANCE)
+    err = rel_err(out['card'], out['cpu'])
+    log(f'reference DeepCache loop (interval 2, {DC_REF_STEPS} steps): card bf16 vs cpu fp32 '
+        f'final latents rel L2 err {err:.3e} (limit {MODEL_REL_TOL})')
+    check(err <= MODEL_REL_TOL, f'DeepCache loop rel err {err} > {MODEL_REL_TOL}')
+
+
+def deepcache_phase(device, model_dir, tmp):
+    """text2img.yaml through main() with infer_args.deep_cache_interval 3,
+    then 2 (SD1.5 directory, 512 px, batch 4), launches as reckoned; the
+    seconds of exact and DeepCache requests on one loaded Visualizer, in
+    turns; one request with encoder_attention_mask: true; the DeepCache
+    loop against the CPU. Returns the phase's launches."""
+    total = dict.fromkeys(TXT2IMG_KERNELS, 0)
+    for n in DC_INTERVALS:
+        zero_counters()
+        viser, images, seconds = _cli(model_dir, os.path.join(tmp, f'deepcache_{n}'),
+                                      'text2img.yaml', f'infer_args.deep_cache_interval={n}')
+        launches = read_counters(f'the DeepCache request at interval {n}', TXT2IMG_KERNELS,
+                                 absent=FUSED_ONLY)
+        _check_launches(launches, deepcache_launches(STEPS, n),
+                        f'the DeepCache request at interval {n}')
+        check(images.shape == (4, SIZE, SIZE, 3), f'DeepCache images {images.shape}')
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    c, alone, outs = viser.cfgs, {}, {}
+    for n in (0,) + DC_INTERVALS + (0,) + DC_INTERVALS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[n] = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED, deep_cache_interval=n)
+        alone.setdefault(n, []).append(round(time.perf_counter() - t0, 4))
+    diffs = {n: float(abs(outs[n] - outs[0]).max()) for n in DC_INTERVALS}
+    log(f'DeepCache requests alone (vis_images, 512 px, batch 4, {STEPS} steps; interval 0 '
+        f'is the exact loop), seconds in turns: {alone}; max abs image difference from the '
+        f'exact request {diffs}; card: {gpu_name_and_power_limit()}')
+    check(all(d > 0 for d in diffs.values()), 'a DeepCache request equals the exact one')
+    _deepcache_reference(viser.pipe, device)
+    del viser
+    zero_counters()
+    viser, images, seconds = _cli(model_dir, os.path.join(tmp, 'masked'), 'text2img.yaml',
+                                  'encoder_attention_mask=true')
+    launches = read_counters('the masked request', TXT2IMG_KERNELS, absent=FUSED_ONLY)
+    _check_launches(launches, sd15_launches(STEPS), 'the masked request')
+    diff = float(abs(images - outs[0]).max())
+    log(f'masked request (encoder_attention_mask: true): max abs image difference from the '
+        f'unmasked request {diff}')
+    check(viser.pipe.use_encoder_attention_mask and diff > 0,
+          'the masked request ran without the mask')
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    del viser
+    torch.cuda.empty_cache()
+    return total
+
+
+def sd21_kernel_phase(train_shapes):
+    """A at the batch-4 SD2.1 request's shapes (sd21_attention(4)), and A
+    with its lse, E, F and D at the SD2.1 training run's (D: its GroupNorms
+    at S = 9216), labelled sd21: {wrapper name: per-shape records}."""
+    from hcpdiff_tpu_torch.ops import flash_attention as fa
+    F = torch.nn.functional
+    per = trainer_kernel_phase(train_shapes, 'sd21')
+    rn = _rn_on(torch.Generator(device='cuda').manual_seed(SEED + 63))
+    for shape in sd21_attention(SD21_REQUESTS[-1]):
+        with torch.inference_mode():
+            q, k, v = rn(*shape), rn(*shape), rn(*shape)
+        per['flash_attention'].append(_measure(
+            f'sd21 q/k/v {list(shape)}', fa.flash_attention, fa.attention_plain, [q, k, v],
+            _within_rel, 'flash_attention', attention_work(*shape),
+            lambda: F.scaled_dot_product_attention(q, k, v)))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return per
+
+
 def _leaf_kinds(pack):
     """The factor name ('down', 'up', 'alpha') of each leaf, in pack_leaves order."""
     out = []
@@ -2508,6 +2940,8 @@ def main() -> int:
         server_launches = server_phase(device, model_dir, tmp)
         sdxl_train_launches, sdxl_step, sdxl_train_shapes = sdxl_trainer_phase(device, tmp)
         da_launches = dreamartist_phase(device, model_dir, tmp)
+        sd21_launches, sd21_train_launches, sd21_train_shapes = sd21_phase(device, tmp)
+        dc_launches = deepcache_phase(device, model_dir, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -2533,6 +2967,10 @@ def main() -> int:
                                  sdxl_train_launches, 'trainer_sdxl',
                                  launches_trainer_sdxl_step_1024=sdxl_step,
                                  launches_trainer_da=da_launches)
+    records = add_trainer_shapes(records, sd21_kernel_phase(sd21_train_shapes),
+                                 sd21_train_launches, 'sd21',
+                                 launches_sd21_requests=sd21_launches,
+                                 launches_deepcache=dc_launches)
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

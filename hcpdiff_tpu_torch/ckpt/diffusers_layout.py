@@ -11,7 +11,9 @@ so loading is a renaming. Two layout rules remain, as in ``bridge.py``:
 - ``proj_in``/``proj_out`` are Linear in the port; SD1.5's checkpoints
   hold them as 1x1 convs [out, in, 1, 1] (``linear_or_conv1x1``), SD2.x and
   SDXL's as Linear. ``from_port`` writes 1x1 convs, as the JAX package's
-  ``CkptManagerDiffusers.save_pipeline`` does.
+  ``CkptManagerDiffusers.save_pipeline`` does, or, with
+  ``linear_projection`` (an SD2.1 directory, whose ``config.json`` then
+  says ``use_linear_projection: true``), Linear.
 
 ``to_port`` is strict: a diffusers key that no entry of the map takes
 raises, except transformers' ``position_ids`` buffers. ``write_module``
@@ -217,9 +219,10 @@ def to_port(sd: Mapping[str, torch.Tensor], key_map: KeyMap, what: str
     return out
 
 
-def from_port(sd: Mapping[str, torch.Tensor], key_map: KeyMap, what: str
-              ) -> Dict[str, torch.Tensor]:
-    """The port's keys -> diffusers'; proj_in/proj_out as 1x1 convs."""
+def from_port(sd: Mapping[str, torch.Tensor], key_map: KeyMap, what: str,
+              linear_projection: bool = False) -> Dict[str, torch.Tensor]:
+    """The port's keys -> diffusers'; proj_in/proj_out as 1x1 convs, or as
+    Linear under ``linear_projection``."""
     out: Dict[str, torch.Tensor] = {}
     used = set()
     for tp, fp, kind in key_map:
@@ -233,7 +236,8 @@ def from_port(sd: Mapping[str, torch.Tensor], key_map: KeyMap, what: str
             continue
         used.add(w_key)
         w = sd[w_key]
-        out[tp + '.weight'] = w[:, :, None, None] if kind == 'linear_or_conv1x1' else w
+        conv1x1 = kind == 'linear_or_conv1x1' and not linear_projection
+        out[tp + '.weight'] = w[:, :, None, None] if conv1x1 else w
         if b_key in sd:
             used.add(b_key)
             out[tp + '.bias'] = sd[b_key]
@@ -266,9 +270,10 @@ def clip_alias_map(cfg) -> Dict[str, str]:
     return out
 
 
-def unet_config(cfg) -> Dict:
+def unet_config(cfg, linear_projection: bool = False) -> Dict:
     """A UNetConfig as diffusers' ``config.json`` (``qkv_bias``, the port's
-    biased q/k/v for pre-0.9 LoRAs, only where set)."""
+    biased q/k/v for pre-0.9 LoRAs, only where set); ``attention_head_dim``
+    holds the heads a level, as diffusers reads it."""
     out = {'_class_name': 'UNet2DConditionModel', 'in_channels': cfg.in_channels,
            'out_channels': cfg.out_channels, 'block_out_channels': list(cfg.block_out_channels),
            'down_block_types': list(cfg.down_block_types),
@@ -280,7 +285,7 @@ def unet_config(cfg) -> Dict:
            'addition_embed_type': cfg.addition_embed_type,
            'addition_time_embed_dim': cfg.addition_time_embed_dim,
            'projection_class_embeddings_input_dim': cfg.projection_class_embeddings_input_dim,
-           'use_linear_projection': False}
+           'use_linear_projection': bool(linear_projection)}
     if cfg.qkv_bias:
         out['qkv_bias'] = True
     return out
@@ -307,16 +312,19 @@ def clip_config_json(cfg) -> Dict:
 
 
 def write_module(module: torch.nn.Module, sub_dir: str, dtype: Optional[torch.dtype] = None,
-                 state: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+                 state: Optional[Mapping[str, torch.Tensor]] = None,
+                 linear_projection: bool = False) -> None:
     """One submodel directory: config.json and the module's weights, each in
     ``dtype`` (None: the dtype it has); ``state`` ({name: tensor}) replaces
-    some of the module's own (merged weights held beside it)."""
+    some of the module's own (merged weights held beside it). A UNet's
+    proj_in/proj_out are written as Linear under ``linear_projection``,
+    else as 1x1 convs."""
     from ..models.clip import CLIPTextModel
     from ..models.unet import UNet2DCondition
     from ..models.vae import AutoencoderKL
     cfg = module.cfg
     if isinstance(module, UNet2DCondition):
-        config, key_map, fname = unet_config(cfg), unet_key_map(cfg), \
+        config, key_map, fname = unet_config(cfg, linear_projection), unet_key_map(cfg), \
             'diffusion_pytorch_model.safetensors'
     elif isinstance(module, AutoencoderKL):
         config, key_map, fname = vae_config(cfg), vae_key_map(cfg), \
@@ -330,5 +338,6 @@ def write_module(module: torch.nn.Module, sub_dir: str, dtype: Optional[torch.dt
         json.dump(config, f, indent=2)
     sd = {**module.state_dict(), **(state or {})}
     sd = {k: v.detach().to('cpu', dtype or v.dtype) for k, v in sd.items()}
-    safetensors_io.save_file(from_port(sd, key_map, sub_dir), os.path.join(sub_dir, fname),
+    safetensors_io.save_file(from_port(sd, key_map, sub_dir, linear_projection),
+                             os.path.join(sub_dir, fname),
                              metadata={'format': 'pt'})

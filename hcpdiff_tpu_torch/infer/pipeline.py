@@ -19,6 +19,15 @@ loop's negative half through ``torch.func.functional_call`` with those
 weights and the positive half with the UNet's: two UNet calls of batch B
 a step in place of one of 2B. ``emb_ext`` (prompt-tuning rows) reaches
 the text encoders.
+
+``deep_cache_interval`` N > 1 (txt2img) is DeepCache: at step i a full
+UNet call that also returns the deep feature when i % N == 0, else a call
+that reuses the cached one and runs only the UNet's first down level and
+last up level (the JAX ``lax.cond`` of ``hcpdiff_tpu/infer/pipeline.py``,
+made eager). It changes the output (slightly), and refuses a negative
+branch. ``use_encoder_attention_mask`` gives txt2img's UNet calls the
+prompts' padding mask (``encoder_attention_mask``), CFG-doubled as the
+context, where the text frontend has ``attention_mask``.
 """
 from __future__ import annotations
 
@@ -48,14 +57,36 @@ class DenoiseLoop:
     any callable ``(x, t, ctx, **extra_cond) -> out`` (the 9-channel
     inpaint UNet's channel join); ``unet_neg``, a callable alike, runs the
     negative half of a CFG step (DreamArtist's negative branch) while
-    ``unet`` runs the positive half."""
+    ``unet`` runs the positive half. ``deep_cache_interval`` N > 1: every
+    Nth step (from step 0) is a full UNet call that also returns its deep
+    feature (``return_deep``), the others reuse it (``deep_cache``); the
+    feature is kept in the UNet's compute dtype, as it returns it."""
 
     def __init__(self, unet: Callable, sampler: BaseSampler, return_x0: bool = False,
-                 unet_neg: Optional[Callable] = None):
+                 unet_neg: Optional[Callable] = None, deep_cache_interval: int = 0):
         self.unet = unet
         self.sampler = sampler
         self.return_x0 = return_x0
         self.unet_neg = unet_neg
+        self.deep_cache_interval = int(deep_cache_interval)
+        if self.deep_cache_interval > 1 and unet_neg is not None:
+            raise ValueError('deep_cache_interval is incompatible with the DreamArtist '
+                             'dual-branch loop')
+        self._deep: Optional[torch.Tensor] = None
+
+    def _model(self, i: int, x: torch.Tensor, t: torch.Tensor, ctx: torch.Tensor,
+               extra: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One UNet call of step ``i``: exact, or DeepCache's full or reuse call."""
+        n = self.deep_cache_interval
+        if n <= 1:
+            return self.unet(x, t, ctx, **extra)
+        if i % n == 0:
+            out, self._deep = self.unet(x, t, ctx, return_deep=True, **extra)
+            return out
+        if self._deep is None:
+            raise ValueError(f'DeepCache step {i} has no cached feature: the loop starts '
+                             f'at a step divisible by {n}')
+        return self.unet(x, t, ctx, deep_cache=self._deep, **extra)
 
     def step(self, i: int, latents: torch.Tensor, state, ctx: torch.Tensor,
              guidance_scale: float, cfg_batch: bool = True,
@@ -80,7 +111,7 @@ class DenoiseLoop:
         if cfg_batch:
             x_in = torch.cat([x_in, x_in])
         t = torch.full((x_in.shape[0],), ts, device=latents.device)
-        out = self.unet(x_in, t, ctx, **(extra_cond or {}))
+        out = self._model(i, x_in, t, ctx, extra_cond or {})
         if cfg_batch:
             e_neg, e_pos = out.chunk(2)
             out = e_neg + guidance_scale * (e_pos - e_neg)
@@ -96,12 +127,14 @@ class DenoiseLoop:
         latents are scaled by the sampler's ``init_noise_sigma`` first."""
         latents = latents.float() * self.sampler.init_noise_sigma
         state = self.sampler.init_state(latents.shape)
+        self._deep = None
         x0s = []
         for i in range(self.sampler.num_steps):
             latents, state, x0 = self.step(i, latents, state, ctx, guidance_scale, cfg_batch,
                                            extra_cond, generator)
             if self.return_x0:
                 x0s.append(x0)
+        self._deep = None
         return latents, (torch.stack(x0s) if x0s else None)
 
 
@@ -128,6 +161,8 @@ class DiffusionPipeline:
         # DreamArtist's negative branch: {state-dict name: tensor} in place
         # of the UNet's own for the negative half of txt2img's CFG
         self.unet_params_neg: Optional[Dict[str, torch.Tensor]] = None
+        # txt2img's UNet calls take the prompts' padding mask
+        self.use_encoder_attention_mask = False
 
     def _unet_neg(self) -> Optional[Callable]:
         if self.unet_params_neg is None:
@@ -148,6 +183,14 @@ class DiffusionPipeline:
         """One text-encoder pass for negative + positive prompts."""
         return self.te.encode(list(negative_prompts) + list(prompts), emb_ext=emb_ext)
 
+    def _ctx_mask(self, texts: Sequence[str]) -> Optional[torch.Tensor]:
+        """The padding mask of ``texts`` (in the context's row order) when
+        ``use_encoder_attention_mask`` and the frontend gives one."""
+        if not (self.use_encoder_attention_mask and hasattr(self.te, 'attention_mask')):
+            return None
+        ids, _ = self.te.tokenize_batch(list(texts))
+        return torch.from_numpy(self.te.attention_mask(ids)).to(self.device)
+
     def _extra_cond(self, pooled: torch.Tensor, rows: int, width: int, height: int):
         """A text_time UNet's conditioning for ``rows`` UNet rows; None for
         other UNets."""
@@ -161,7 +204,7 @@ class DiffusionPipeline:
                 num_steps: int = 20, guidance_scale: float = 7.5, sampler: str = 'dpm++_2m',
                 seed: int = 0, batch_size: int = 1, sampler_kwargs: Optional[dict] = None,
                 return_latents: bool = False, return_x0_history: bool = False,
-                emb_ext=None):
+                emb_ext=None, deep_cache_interval: int = 0):
         """Returns images as a float32 numpy array [B, height, width, 3] in
         [0, 1], or the final latents when ``return_latents``; with
         ``return_x0_history`` a pair whose second item is every step's x0
@@ -170,18 +213,24 @@ class DiffusionPipeline:
         ``text_time`` UNet every UNet call also gets the pooled embeddings
         and ``time_ids = [height, width, 0, 0, height, width]``, in the
         context's rows. CFG runs whenever ``guidance_scale`` > 1 or a
-        negative branch is set."""
+        negative branch is set. ``deep_cache_interval`` > 1 runs DeepCache
+        (``DenoiseLoop``)."""
         prompts, negs = _batch(prompt, negative_prompt, batch_size)
         B = len(prompts)
         use_cfg = float(guidance_scale) > 1.0 or self.unet_params_neg is not None
-        ctx, pooled = self.encode_prompts(prompts, negs if use_cfg else [], emb_ext)
+        negs = negs if use_cfg else []
+        ctx, pooled = self.encode_prompts(prompts, negs, emb_ext)
         extra_cond = self._extra_cond(pooled, ctx.shape[0], width, height)
+        mask = self._ctx_mask(negs + prompts)
+        if mask is not None:
+            extra_cond = dict(extra_cond or {}, encoder_attention_mask=mask)
         gen = torch.Generator().manual_seed(int(seed))
         latents = torch.randn((B, height // self.vae_scale, width // self.vae_scale,
                                self.vae.cfg.latent_channels), generator=gen)
         loop = DenoiseLoop(self.unet, make_sampler(sampler, self.schedule, num_steps,
                                                    **(sampler_kwargs or {})),
-                           return_x0=return_x0_history, unet_neg=self._unet_neg())
+                           return_x0=return_x0_history, unet_neg=self._unet_neg(),
+                           deep_cache_interval=deep_cache_interval)
         latents, x0s = loop(latents.to(self.device), ctx, float(guidance_scale),
                             cfg_batch=use_cfg, extra_cond=extra_cond, generator=gen)
         out = latents if return_latents else self.decode(latents)

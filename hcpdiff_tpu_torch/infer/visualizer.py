@@ -28,16 +28,20 @@ written into its module, so a reload of the recipe
 
 The configs' class names (``hcpdiff_tpu.infer.interfaces.DiskInterface``,
 ``diffusers.EulerAncestralDiscreteScheduler``) are read as names, never
-imported. What the JAX Visualizer does beyond this is not ported yet and
-raises ``NotImplementedError`` rather than being ignored: plugins in the
-``merge`` block (ControlNet), DeepCache, ControlNet conditions
-(``ex_input.cond``), ``encoder_attention_mask``, and SDXL text-encoder
-settings other than SDXL's own.
+imported. ``infer_args.deep_cache_interval`` runs txt2img under DeepCache
+(dropped with a warning beside DreamArtist's negative branch or a
+ControlNet condition, as the JAX Visualizer drops it), and
+``encoder_attention_mask: true`` gives the UNet the prompts' padding mask.
+What the JAX Visualizer does beyond this is not ported yet and raises
+``NotImplementedError`` rather than being ignored: plugins in the
+``merge`` block (ControlNet), ControlNet conditions (``ex_input.cond``),
+and SDXL text-encoder settings other than SDXL's own.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import os
 import time
 from typing import Dict, Iterator, List, Mapping, Optional, Tuple
@@ -74,12 +78,8 @@ def _refuse_unported(cfgs: Cfg) -> None:
     for name, group in (cfgs.get('merge') or {}).items():
         if isinstance(group, dict) and name != 'plugin_cfg' and group.get('plugin'):
             raise _unported(f'the plugin entries of merge.{name} (ControlNet)', 7)
-    if (cfgs.get('infer_args') or {}).get('deep_cache_interval'):
-        raise _unported('infer_args.deep_cache_interval (DeepCache)')
     if (cfgs.get('ex_input') or {}).get('cond') is not None:
-        raise _unported('ex_input.cond (ControlNet)')
-    if cfgs.get('encoder_attention_mask'):
-        raise _unported('encoder_attention_mask')
+        raise _unported('ex_input.cond (ControlNet)', 7)
 
 
 def _within(path: str, selected: Optional[set]) -> bool:
@@ -225,6 +225,7 @@ class Visualizer:
                 clip_final_norm=bool(mcfg.get('clip_final_norm', True)))
         self.pipe = DiffusionPipeline(world['unet'], world['vae'], self.frontend,
                                       schedule=self.schedule)
+        self.pipe.use_encoder_attention_mask = bool(cfgs.get('encoder_attention_mask', False))
         self._build_merged()
         self.last_latents: Optional[torch.Tensor] = None
         self._build_interfaces()
@@ -475,11 +476,24 @@ class Visualizer:
                                      **common)
         out = self.pipe.txt2img(prompt, negative_prompt, width=width, height=height,
                                 batch_size=batch_size, return_latents=True,
-                                return_x0_history=want_hist, **common)
+                                return_x0_history=want_hist,
+                                deep_cache_interval=self._deep_cache_interval(ia), **common)
         latents, x0s = out if want_hist else (out, None)
         self.last_latents = latents
         images = self.pipe.decode(latents)
         return (images, x0s) if want_hist else images
+
+    def _deep_cache_interval(self, ia: Mapping) -> int:
+        """``infer_args.deep_cache_interval``, or 0 with a warning where
+        DeepCache cannot run: DreamArtist's negative branch, a ControlNet
+        condition."""
+        n = int(ia.get('deep_cache_interval') or 0)
+        if n and (self.pipe.unet_params_neg is not None
+                  or (self.cfgs.get('ex_input') or {}).get('cond') is not None):
+            logging.getLogger('hcpdiff_tpu_torch').warning(
+                'deep_cache_interval ignored: incompatible with DreamArtist/ControlNet generation')
+            return 0
+        return n
 
     def vis_to_dir(self, prompt=None, negative_prompt=None, num: int = 1, **kw) -> np.ndarray:
         """``num`` requests at seeds ``seed``, ``seed + 1``, ... (a seed

@@ -6,7 +6,9 @@ rather than imported).
   syntax -> (clean_text, per-fragment multipliers);
 - ``TextEncoderFrontend.encode``: tokenize into ``n_repeats`` windows of
   77 tokens, run CLIP on all windows as one batch, re-join the windows'
-  hidden states with a single BOS/EOS, and select the ``clip_skip`` layer.
+  hidden states with a single BOS/EOS, and select the ``clip_skip`` layer;
+  ``attention_mask`` gives the merged sequence's padding mask (the UNet's
+  ``encoder_attention_mask``).
 """
 from __future__ import annotations
 
@@ -122,6 +124,23 @@ class TextEncoderFrontend:
         enc = [self.tokenize(t) for t in texts]
         return (np.stack([e.input_ids for e in enc]),
                 np.stack([e.token_mult for e in enc]))
+
+    def attention_mask(self, input_ids: np.ndarray) -> np.ndarray:
+        """[B, R*L] ids -> [B, R*(L-2)+2] mask over the merged sequence: 1
+        up to and including each window's first EOS, 0 for the padding
+        after it (the reference's ``pad_attn_bias``), windows joined as
+        ``encode`` joins their hidden states."""
+        tk = self.tokenizer
+        L, R = tk.model_max_length, self.n_repeats
+        B = input_ids.shape[0]
+        ids = input_ids.reshape(B, R, L)
+        eos_pos = np.argmax(ids == tk.eos_token_id, axis=-1)             # [B, R]
+        win_mask = (np.arange(L)[None, None, :] <= eos_pos[..., None]).astype(np.float32)
+        if R == 1:
+            return win_mask[:, 0]
+        return np.concatenate([win_mask[:, 0, :1],
+                               win_mask[:, :, 1:L - 1].reshape(B, R * (L - 2)),
+                               win_mask[:, -1, L - 1:]], axis=1)
 
     def _final_norm(self, x: torch.Tensor, params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Only the final LayerNorm, in fp32 (clip_skip with final norm)."""

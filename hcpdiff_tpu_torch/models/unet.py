@@ -23,9 +23,19 @@ at call time (``functional_call`` and the remat recompute see the swapped
 ones).
 
 For training, ``remat=True`` recomputes each ResnetBlock2D and
-Transformer2D in the backward (``torch.utils.checkpoint``), the JAX
-package's whole-block ``HCP_REMAT_POLICY=full``; and ``forward`` may run
-under ``torch.func.functional_call`` with merged LoRA weights.
+Transformer2D in the backward (``torch.utils.checkpoint``) under the
+policy ``HCP_REMAT_POLICY`` names, as in the JAX package
+(``unet.py:630-646``): ``flash`` (the default) keeps the o and lse of
+kernel A's forward and recomputes everything else, so the recompute
+launches no A and kernels E and F read the very o and lse the forward
+wrote (``remat``); ``full`` recomputes whole blocks, A included. ``forward`` may run under
+``torch.func.functional_call`` with merged LoRA weights.
+
+``forward`` also takes the JAX model's ``encoder_attention_mask`` (an
+additive fp32 bias on the cross-attention logits, 0 where the mask is set
+and the fp32 minimum elsewhere), ControlNet's residual taps
+(``down_residuals``, ``mid_residual``) and the DeepCache protocol
+(``return_deep``, ``deep_cache``; ``unet.py:648-790`` there).
 
 SDXL's ``addition_embed_type='text_time'`` adds an embedding of the
 pooled text embedding and the six ``time_ids`` (original size, crop,
@@ -35,7 +45,8 @@ target size) to the time embedding, through its own two-layer MLP
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -45,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.conv import conv3x3
+from ..ops.flash_attention import keep_flash_outputs
 from ..ops.matmul import fused_dense, geglu_dense, ln_dense, ln_geglu, ln_qkv
 from .layers import GroupNorm, timestep_embedding
 
@@ -153,6 +165,37 @@ class ResnetBlock2D(nn.Module):
         return x + h
 
 
+REMAT_POLICIES = ('flash', 'full')
+
+
+def resolve_remat_policy(policy: Optional[str] = None) -> str:
+    """``policy``, or when None ``HCP_REMAT_POLICY`` (default ``flash``), as
+    the JAX UNet reads it; raises on a name outside REMAT_POLICIES."""
+    policy = policy or os.environ.get('HCP_REMAT_POLICY', 'flash')
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f'HCP_REMAT_POLICY={policy!r}: expected one of {REMAT_POLICIES}')
+    return policy
+
+
+def remat(fn, *args, policy: str = 'flash'):
+    """fn(*args), recomputed in the backward (``torch.utils.checkpoint``).
+    Under ``flash`` the recompute takes each kernel-A forward's o and lse
+    from the forward (``keep_flash_outputs``) and launches no A; under
+    ``full`` it runs fn whole again. (PyTorch's selective checkpointing
+    would keep them too, but its dispatch mode sees every op in Python: on
+    an H100 it made an SD1.5 LoRA step slower than ``full``.)"""
+    if policy == 'full':
+        return checkpoint(fn, *args, use_reentrant=False)
+    kept, ran = [], []
+
+    def run(*a):
+        with keep_flash_outputs(kept, replay=bool(ran)):
+            out = fn(*a)
+        ran.append(True)
+        return out
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class CrossAttention(nn.Module):
     """to_q/to_k/to_v/to_out naming mirrors diffusers, as in the JAX model."""
 
@@ -168,11 +211,13 @@ class CrossAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 res: Optional[torch.Tensor] = None,
-                norm: Optional[nn.LayerNorm] = None) -> torch.Tensor:
+                norm: Optional[nn.LayerNorm] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``norm`` given (the fused configuration): x arrives un-normalized
         and ``norm`` runs in the prologue of kernel G (self-attention) or I
         (cross-attention q; k and v are plain products of the context), and
-        to_out is kernel C with ``res`` in its epilogue."""
+        to_out is kernel C with ``res`` in its epilogue. ``bias`` is added
+        to the attention logits (the encoder attention mask)."""
         ctx = x if context is None else context
         B, S, C = x.shape
         Sk = ctx.shape[1]
@@ -190,7 +235,7 @@ class CrossAttention(nn.Module):
         q = q.view(B, S, h, d).transpose(1, 2)
         k = k.view(B, Sk, h, d).transpose(1, 2)
         v = v.view(B, Sk, h, d).transpose(1, 2)
-        o = attention(q, k, v).transpose(1, 2).reshape(B, S, C)
+        o = attention(q, k, v, bias=bias).transpose(1, 2).reshape(B, S, C)
         if norm is not None:
             return fused_dense(o, self.to_out.weight, self.to_out.bias, res=res)
         out = self.to_out(o)
@@ -232,13 +277,14 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                context_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.fused:      # the LayerNorms run in the sublayers' prologues
             x = self.attn1(x, res=x, norm=self.norm1)
-            x = self.attn2(x, context, res=x, norm=self.norm2)
+            x = self.attn2(x, context, res=x, norm=self.norm2, bias=context_bias)
             return self.ff(x, res=x, norm=self.norm3)
         x = self.attn1(self.norm1(x), res=x)
-        x = self.attn2(self.norm2(x), context, res=x)
+        x = self.attn2(self.norm2(x), context, res=x, bias=context_bias)
         return self.ff(self.norm3(x), res=x)
 
 
@@ -255,7 +301,8 @@ class Transformer2D(nn.Module):
                     BasicTransformerBlock(channels, heads, context_dim, fused, qkv_bias))
         self.proj_out = nn.Linear(channels, channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                context_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         if self.fused:
@@ -263,13 +310,13 @@ class Transformer2D(nn.Module):
             # the block input rides proj_out's epilogue (unet.py:568-595)
             h = fused_dense(h, self.proj_in.weight, self.proj_in.bias)
             for i in range(self.depth):
-                h = getattr(self, f'transformer_blocks_{i}')(h, context)
+                h = getattr(self, f'transformer_blocks_{i}')(h, context, context_bias)
             res = x.permute(0, 2, 3, 1).reshape(B, H * W, C)
             h = fused_dense(h, self.proj_out.weight, self.proj_out.bias, res=res)
             return h.view(B, H, W, C).permute(0, 3, 1, 2)
         h = self.proj_in(h)
         for i in range(self.depth):
-            h = getattr(self, f'transformer_blocks_{i}')(h, context)
+            h = getattr(self, f'transformer_blocks_{i}')(h, context, context_bias)
         h = self.proj_out(h)
         return h.view(B, H, W, C).permute(0, 3, 1, 2) + x
 
@@ -298,10 +345,13 @@ class UNet2DCondition(nn.Module):
     # embedding MLPs); ``to_compute_dtype`` and the checkpoint loader keep them fp32
     FP32_CHILDREN = ('time_embedding_linear_', 'add_embedding_linear_')
 
-    def __init__(self, cfg: UNetConfig, remat: bool = False, fused_sublayers: bool = False):
+    def __init__(self, cfg: UNetConfig, remat: bool = False, fused_sublayers: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
         self.cfg = c = cfg
         self.remat = remat
+        # 'flash' or 'full'; None: HCP_REMAT_POLICY (default 'flash')
+        self.remat_policy = resolve_remat_policy(remat_policy)
         self.fused_sublayers = fused = fused_sublayers
         ch0 = c.block_out_channels[0]
         tdim = ch0 * 4
@@ -370,27 +420,48 @@ class UNet2DCondition(nn.Module):
 
     def _block(self, name: str, *args) -> torch.Tensor:
         """Run a ResnetBlock2D or Transformer2D, recomputed in the backward
-        under ``remat``. The block's current parameters (under
-        ``functional_call``, the swapped-in ones) ride into the recompute
-        explicitly: it runs after ``functional_call`` has put the module's
-        own parameters back."""
+        under ``remat`` (``remat_policy``: ``flash`` keeps kernel A's o and
+        lse for the backward, ``full`` recomputes them too). The block's
+        current parameters (under ``functional_call``, the swapped-in ones)
+        ride into the recompute explicitly: it runs after
+        ``functional_call`` has put the module's own parameters back."""
         block = getattr(self, name)
         if not (self.remat and torch.is_grad_enabled()):
             return block(*args)
         params = dict(block.named_parameters())
-        return checkpoint(lambda *a: functional_call(block, params, a), *args,
-                          use_reentrant=False)
+        return remat(lambda *a: functional_call(block, params, a), *args,
+                     policy=self.remat_policy)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
                 pooled_text_emb: Optional[torch.Tensor] = None,
-                time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                time_ids: Optional[torch.Tensor] = None,
+                encoder_attention_mask: Optional[torch.Tensor] = None,
+                down_residuals: Optional[Sequence[torch.Tensor]] = None,
+                mid_residual: Optional[torch.Tensor] = None,
+                deep_cache: Optional[torch.Tensor] = None,
+                return_deep: bool = False):
         """sample [B, H, W, C] NHWC, timesteps [B] (or a scalar),
         encoder_hidden_states [B, S, D]; under text_time also
-        pooled_text_emb [B, P] and time_ids [B, 6]; returns fp32 NHWC."""
+        pooled_text_emb [B, P] and time_ids [B, 6]; returns fp32 NHWC.
+
+        - ``encoder_attention_mask`` [B, S] (1 keep, 0 drop): every
+          cross-attention's logits get 0 or the fp32 minimum;
+        - ``down_residuals`` (NHWC, one a skip) and ``mid_residual``: added
+          to the skips and to the mid block's output (ControlNet's taps);
+        - ``return_deep``: also return the deep feature (NHWC, compute
+          dtype) entering the last up level, after the level before's
+          upsample;
+        - ``deep_cache`` (that feature): run only down level 0 and the last
+          up level, with the cached feature in place of everything between
+          (DeepCache); a ValueError with residual taps, which live in the
+          skipped levels."""
         c = self.cfg
         dtype = self.conv_in.weight.dtype
         B = sample.shape[0]
+        shallow_only = deep_cache is not None
+        if shallow_only and (down_residuals is not None or mid_residual is not None):
+            raise ValueError('deep_cache is incompatible with ControlNet residual taps')
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(B)
@@ -412,33 +483,53 @@ class UNet2DCondition(nn.Module):
             temb = temb + mlp(add, self.add_embedding_linear_1, self.add_embedding_linear_2)
         temb = temb.to(dtype)
         ctx = encoder_hidden_states.to(dtype)
+        ctx_bias = None
+        if encoder_attention_mask is not None:
+            ctx_bias = torch.where(encoder_attention_mask[:, None, None, :].bool(),
+                                   0.0, torch.finfo(torch.float32).min).float()
 
         x = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
         skips = [x]
         n = len(c.block_out_channels)
         for bi, btype in enumerate(c.down_block_types):
+            if shallow_only and bi > 0:
+                break
             for li in range(c.layers_per_block):
                 x = self._block(f'down_{bi}_res_{li}', x, temb)
                 if btype == 'CrossAttnDownBlock2D':
-                    x = self._block(f'down_{bi}_attn_{li}', x, ctx)
+                    x = self._block(f'down_{bi}_attn_{li}', x, ctx, ctx_bias)
                 skips.append(x)
-            if bi < n - 1:
+            if bi < n - 1 and not shallow_only:
                 x = getattr(self, f'down_{bi}_downsample')(x)
                 skips.append(x)
 
-        x = self._block('mid_res_0', x, temb)
-        if c.mid_cross_attn:
-            x = self._block('mid_attn', x, ctx)
-        x = self._block('mid_res_1', x, temb)
-
-        for bi, btype in enumerate(c.up_block_types):
+        def up_level(bi, x):
             for li in range(c.layers_per_block + 1):
                 x = torch.cat([x, skips.pop()], dim=1)
                 x = self._block(f'up_{bi}_res_{li}', x, temb)
-                if btype == 'CrossAttnUpBlock2D':
-                    x = self._block(f'up_{bi}_attn_{li}', x, ctx)
-            if bi < n - 1:
-                x = getattr(self, f'up_{bi}_upsample')(x)
+                if c.up_block_types[bi] == 'CrossAttnUpBlock2D':
+                    x = self._block(f'up_{bi}_attn_{li}', x, ctx, ctx_bias)
+            return x
+
+        deep = None
+        if shallow_only:
+            x = deep_cache.to(dtype).permute(0, 3, 1, 2)
+        else:
+            if down_residuals is not None:
+                skips = [s + r.to(s.dtype).permute(0, 3, 1, 2)
+                         for s, r in zip(skips, down_residuals)]
+                x = skips[-1] if len(down_residuals) == len(skips) else x
+            x = self._block('mid_res_0', x, temb)
+            if c.mid_cross_attn:
+                x = self._block('mid_attn', x, ctx, ctx_bias)
+            x = self._block('mid_res_1', x, temb)
+            if mid_residual is not None:
+                x = x + mid_residual.to(x.dtype).permute(0, 3, 1, 2)
+            for bi in range(len(c.up_block_types) - 1):
+                x = getattr(self, f'up_{bi}_upsample')(up_level(bi, x))
+            deep = x.permute(0, 2, 3, 1)
+        x = up_level(len(c.up_block_types) - 1, x)
 
         x = self.conv_out(self.conv_norm_out(x))
-        return x.permute(0, 2, 3, 1).float()
+        out = x.permute(0, 2, 3, 1).float()
+        return (out, deep) if return_deep else out

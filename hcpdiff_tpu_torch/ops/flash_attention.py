@@ -51,7 +51,9 @@ which is the same mask when Sq == Sk.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -86,11 +88,14 @@ def pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
     return t if t.shape[-1] == Dp else F.pad(t, (0, Dp - t.shape[-1]))
 
 
-def _logits(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool) -> torch.Tensor:
-    """q k^T * scale in fp32 (or wider); ``causal`` sets the keys past each
-    query (aligned to the sequence ends) to the dtype's minimum."""
+def _logits(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q k^T * scale (+ bias) in fp32 (or wider); ``causal`` sets the keys
+    past each query (aligned to the sequence ends) to the dtype's minimum."""
     dt = accum_dtype(q)
     logits = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.to(dt)
     if causal:
         ql, kl = q.shape[-2], k.shape[-2]
         keep = torch.ones(ql, kl, dtype=torch.bool, device=q.device).tril(kl - ql)
@@ -99,12 +104,15 @@ def _logits(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool) -> tor
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None, causal: bool = False) -> torch.Tensor:
-    """softmax(q k^T * scale) v with fp32 logits and softmax and the
+                    scale: Optional[float] = None, causal: bool = False,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v with fp32 logits and softmax and the
     probabilities cast back to q's dtype, as ``_xla_attention`` does it.
-    ``causal`` masks keys past each query (aligned to the sequence ends)."""
+    ``bias`` (broadcast to [B, H, Sq, Sk]: the encoder attention mask's
+    [B, 1, 1, Sk]) is added to the logits; ``causal`` masks keys past each
+    query (aligned to the sequence ends)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    probs = _logits(q, k, scale, causal).softmax(dim=-1).to(q.dtype)
+    probs = _logits(q, k, scale, causal, bias).softmax(dim=-1).to(q.dtype)
     return torch.matmul(probs, v)
 
 
@@ -278,16 +286,51 @@ def flash_attention_bwd_dkv(q, k, v, lse, do, delta, scale: float, causal: bool 
     return dk[..., :D], dv[..., :D]
 
 
+# The remat policy 'flash' (models/unet.py:remat): while a checkpointed
+# block runs forward, each forward with lse keeps its (o, lse); while the
+# checkpoint recomputes the block in the backward, each takes the pair the
+# forward kept in place of launching A again, so kernels E and F read the o
+# and lse kernel A wrote. Thread-local: the recompute runs on the autograd
+# engine's thread.
+_KEPT = threading.local()
+
+
+@contextlib.contextmanager
+def keep_flash_outputs(kept: list, replay: bool):
+    """Within the block, each forward with lse appends its (o, lse) to
+    ``kept`` or, with ``replay``, takes the next pair of ``kept`` instead."""
+    outer = getattr(_KEPT, 'state', None)
+    _KEPT.state = [kept, replay, 0]
+    try:
+        yield
+    finally:
+        _KEPT.state = outer
+
+
+def _forward_lse(q, k, v, scale: float, causal: bool):
+    """flash_attention_lse, or the pair a forward kept (keep_flash_outputs)."""
+    state = getattr(_KEPT, 'state', None)
+    if state is None:
+        return flash_attention_lse(q, k, v, scale, causal)
+    kept, replay, i = state
+    if replay:
+        state[2] += 1
+        return kept[i]
+    kept.append(flash_attention_lse(q, k, v, scale, causal))
+    return kept[-1]
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: kernel A (with lse when a gradient will be taken) or the
     plain versions on the CPU. Backward: kernels E and F, or their plain
     versions on the CPU. Saves q, k, v, o and lse, as the JAX ``fwd``
-    (:1071-1085) does, and ``causal``."""
+    (:1071-1085) does, and ``causal``; in a recompute under the remat
+    policy 'flash' o and lse are the ones the forward kept."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool, needs_grad: bool):
         if needs_grad:
-            o, lse = flash_attention_lse(q, k, v, scale, causal)
+            o, lse = _forward_lse(q, k, v, scale, causal)
             ctx.save_for_backward(q, k, v, o, lse)
             ctx.scale, ctx.causal = scale, causal
             return o

@@ -36,8 +36,15 @@ all of them updated by the prompt-embedding optimizer when
 What the JAX Trainer does beyond this raises ``NotImplementedError``
 naming its ROADMAP.md queue 1 item, never ignored: the previewer, the
 optimizers other than AdamW/Adam/SGD, TensorBoard/W&B loggers (item 6);
-v-prediction training (SD2.x, item 3); ControlNet plugins and data (item
-7); fsdp, ZeRO and multi-host (item 8).
+ControlNet plugins and data (item 7); fsdp, ZeRO and multi-host (item 8).
+
+v-prediction (``noise_scheduler.prediction_type: v_prediction``, SD2.x-v)
+trains against ``NoiseSchedule.target``; Min-SNR weighs it by the same
+min(gamma / SNR, 1) as epsilon, as the JAX loss does. Under
+``model.gradient_checkpointing`` (default on) the UNet recomputes its
+blocks under ``HCP_REMAT_POLICY`` (``flash`` by default: kernel A's o and
+lse are kept, so the recompute launches no A; ``full``), as the JAX
+trainer does.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ from ..models.compose.sdxl_te import (SDXLTextEncoderFrontend, concat_sdxl_embed
                                       split_sdxl_embedding)
 from ..models.factory import build_models
 from ..models.text_frontend import TextEncoderFrontend
+from ..models.unet import resolve_remat_policy
 from ..utils.cfg_parse import get_cfg_range
 from .assemble import (assemble, assemble_te, base_weights, lora_base_weights, make_te_apply,
                        make_unet_apply)
@@ -94,12 +102,6 @@ def refuse_unported(cfgs: Cfg) -> None:
     if (int(cfgs.get('fsdp', 1) or 1) > 1 or tcfg.get('zero') or tcfg.get('zero1')
             or cfgs.get('multi_host')):
         raise _unported('sharded or multi-host training (fsdp, train.zero, multi_host)', 8)
-    ns = (cfgs.get('model') or {}).get('noise_scheduler')
-    while isinstance(ns, dict):
-        if ns.get('prediction_type') == 'v_prediction':
-            raise _unported('v-prediction training (SD2.x-v: no SD2.1 directory writer yet, so '
-                            'no such run has been checked)', 3)
-        ns = ns.get('base_scheduler') or ns.get('scheduler')
     for ds in (cfgs.get('data') or {}).values():
         if 'Cond' in str((ds or {}).get('_target_', '')):
             raise _unported('ControlNet datasets (TextImageCondPairDataset)', 7)
@@ -161,6 +163,7 @@ class Trainer:
             if m is not None:
                 m.requires_grad_(False)
         self.unet.remat = bool(mcfg.get('gradient_checkpointing', True))
+        self.unet.remat_policy = resolve_remat_policy()
         self.aliases = world['aliases']
 
         # noise scheduler: Pyramid and ZeroTerminal wrappers and

@@ -135,6 +135,38 @@ def test_flash_attention_lse(gen, shape):
     assert float((lse - ref).abs().max()) <= LSE_ATOL
 
 
+def test_flash_remat_keeps_the_forward_outputs(gen, monkeypatch):
+    """Kernel A under the ``flash`` remat policy (``models/unet.py:remat``):
+    the forward launches A with lse once, the recompute launches nothing,
+    and E and F read the o and lse of that launch, which equal a direct
+    launch's bit for bit."""
+    from hcpdiff_tpu_torch.models.unet import remat
+    shape = (2, 5, 1024, 64)
+    q, k, v = (_rn(gen, *shape).requires_grad_(True) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    with torch.no_grad():
+        o_ref, lse_ref = fa.flash_attention_lse(q, k, v, scale)
+    read = []
+    bwd_dq = fa.flash_attention_bwd_dq
+
+    def recorded_dq(q_, k_, v_, lse, do, delta, *rest):
+        read.append(lse)
+        fa.flash_attention_bwd_dq = bwd_dq      # the launch counts on the wrapper's own
+        return bwd_dq(q_, k_, v_, lse, do, delta, *rest)
+    monkeypatch.setattr(fa, 'flash_attention_bwd_dq', recorded_dq)
+    before = (flash_attention.launches, fa.flash_attention_lse.launches)
+    out = remat(lambda *a: flash_attention(*a) * 1.0, q, k, v, policy='flash')
+    assert (flash_attention.launches, fa.flash_attention_lse.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, fa.flash_attention_lse.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    assert torch.equal(out.detach(), o_ref) and len(read) == 1
+    assert torch.equal(read[0], lse_ref)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
 @pytest.mark.parametrize('causal', [False, True])
 @pytest.mark.parametrize('S', [1000, 4000])
 @pytest.mark.parametrize('D', fa.PADDED_HEAD_DIMS)

@@ -14,7 +14,7 @@ widths in fp32 on the CPU:
   the JAX trainer's and load in the other package's ``load_ckpt``;
 - a run interrupted by SIGTERM and continued by ``resume.auto`` equals
   the uninterrupted run bit for bit (losses, pack, EMA);
-- every ``cfgs/train/examples`` config: the thirteen the port trains run
+- every ``cfgs/train/examples`` config: the fourteen the port trains run
   through ``main()`` on the tiny worlds (``tiny_sdxl`` for the SDXL ones;
   paths, steps, device, fp32 and a small bucket overridden; the words of
   the prompt-tuning configs made first by ``tools/create_embedding.py``;
@@ -335,10 +335,10 @@ RUNS = {  # config -> overrides beyond paths, steps and the device
     'DreamArtist++.yaml': [],
     'lora_sdxl.yaml': ['model.pretrained_model_name_or_path=tiny_sdxl'],
     'FT_sdxl.yaml': ['model.pretrained_model_name_or_path=tiny_sdxl'],
+    'sd21_vpred.yaml': [],
 }
 REFUSED = {'controlnet.yaml': 7, 'FT_sdxl_zero3.yaml': 8, 'Lion_optimizer.yaml': 6,
-           'add_logger_tensorboard_wandb.yaml': 6, 'preview_in_training.yaml': 6,
-           'sd21_vpred.yaml': 3}
+           'add_logger_tensorboard_wandb.yaml': 6, 'preview_in_training.yaml': 6}
 # the words each prompt-tuning config trains (made by create_embedding first)
 WORDS_OF = {'TextualInversion.yaml': ['pt-cat1'], 'CustomDiffusion.yaml': ['pt-new1'],
             'lora_anime_character.yaml': ['pt-char1'],
@@ -385,6 +385,8 @@ def test_example_config_trains(proj, tmp_path, name):
                            + [f'{w}-2.pt' for w in WORDS_OF.get(name, [])])
     assert trainer.sdxl == ('sdxl' in name) and trainer.dream_artist == (name == 'DreamArtist++.yaml')
     assert ('emb' in trainer.pack) == (name in WORDS_OF)
+    assert trainer.noise_schedule.prediction_type == (
+        'v_prediction' if name == 'sd21_vpred.yaml' else 'epsilon')
     if name == 'lora_sdxl.yaml':
         assert sorted(trainer.pack) == ['lora_te', 'lora_te2', 'lora_unet']
     if name in ('fine-tuning.yaml', 'ema.yaml', 'DreamBooth.yaml', 'FT_sdxl.yaml'):  # layers: ['']

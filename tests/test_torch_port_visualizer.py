@@ -535,9 +535,7 @@ def test_img2img_and_inpaint_requests(dirs, tmp_path, mode, size):
 def _refusals(tmp_path):
     return {
         'merge': ['merge.group1.type=unet', 'merge.group1.plugin.cn1.path=controlnet.safetensors'],
-        'deep_cache': ['infer_args.deep_cache_interval=2'],
         'controlnet': ['ex_input.cond.image=cond.png'],
-        'attention_mask': ['encoder_attention_mask=true'],
         'anim_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.DiskAnimInterface'],
         'webui_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.WebUIInterface'],
         'other_interface': ['interface.0._target_=my.Interface'],
@@ -546,9 +544,8 @@ def _refusals(tmp_path):
     }
 
 
-@pytest.mark.parametrize('what', ['merge', 'deep_cache', 'controlnet', 'attention_mask',
-                                  'anim_interface', 'webui_interface', 'other_interface', 'jpeg',
-                                  'sampler'])
+@pytest.mark.parametrize('what', ['merge', 'controlnet', 'anim_interface', 'webui_interface',
+                                  'other_interface', 'jpeg', 'sampler'])
 def test_unported_features_raise(dirs, tmp_path, what):
     with pytest.raises(NotImplementedError, match='not ported|PNG only'):
         _run(dirs, tmp_path, 'text2img.yaml', *_refusals(tmp_path)[what])
