@@ -143,6 +143,30 @@ package is missing. Phases, each fatal on failure:
    card's DeepCache loop (bf16) against the CPU's (fp32) on a 32x32
    latent; one request with encoder_attention_mask: true (launches as an
    exact request's, images not the unmasked ones);
+4j. samplers: text2img.yaml through main() on the 4d directory under each of
+   pndm, unipc, lms, deis, heun, dpm2, dpm2_a, dpm++_2s_a and dpm++_sde
+   (512 px, batch 2, 20 steps; the two-stage ones 39 UNet evaluations):
+   launches as an SD1.5 request of the plan's evaluations, images finite,
+   a second request at the seed bitwise equal (the stochastic ones too),
+   seconds a request (main() and alone);
+4k. controlnet: a seeded ControlNet plugin file (the flax-like init, the
+   directory's UNet blocks copied in, zero convs N(0, 0.02^2)) and a
+   condition PNG; img2img_controlnet.yaml through main() at 512 px (batch 1:
+   img2img answers the init image's row) and as txt2img (mode=t2i, batch
+   4, the config's 30 steps): launches as the request plus A 4, B 7, C 7, D 27 a ControlNet call;
+   the image differs from the request without the plugin and equals it
+   bitwise with the zero convs zeroed; seconds and peak memory, the batch-4
+   request with and without the plugin in turns; one ControlNet + UNet call
+   against fp32 on the CPU ([2, 32, 32, 4] latent);
+4l. interfaces: text2img.yaml at batch 2 with DiskAnimInterface and
+   WebUIInterface: one {n}-steps.webp an image, read back by the port's
+   RIFF reader (20 ANMF frames of 512 x 512, 150 ms; the last frame the
+   image bitwise), the 21 progress lines, launches as the request plus 20
+   batch-2 VAE decodes; the decodes' seconds;
+4m. sdxl_text: a seeded SDXL directory (F16) and text2img_sdxl.yaml through
+   main() at 1024 px, batch 1, 30 Euler steps, clip_skip 2 and
+   tokenizer_repeats 2 (a 152-token context): images finite, launches as
+   reckoned (sdxl_launches(30));
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -225,6 +249,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
@@ -242,11 +267,17 @@ REQUESTS = (1, 2, 4)            # batch sizes of the three txt2img requests
 FUSED_REQUESTS = (1, 4)         # and of the fused UNet's
 STEPS, GUIDANCE, SIZE = 20, 7.5, 512
 SDXL_REQUESTS, SDXL_SIZE = (1, 4), 1024
-# an SDXL request's launches, by its configs: 70 transformer blocks a UNet
-# call (each one A, B and C), 46 GroupNorms a call, STEPS calls; then the
-# VAE decode's mid-block attention (A) and 30 GroupNorms
-SDXL_LAUNCHES = {'flash_attention': 70 * STEPS + 1, 'geglu_dense': 70 * STEPS,
-                 'fused_dense': 70 * STEPS, 'group_norm_silu': 46 * STEPS + 30}
+
+
+def sdxl_launches(steps):
+    """An SDXL 1024 px request's launches, by its configs: 70 transformer
+    blocks a UNet call (each one A, B and C), 46 GroupNorms a call, ``steps``
+    calls; then the VAE decode's mid-block attention (A) and 30 GroupNorms."""
+    return {'flash_attention': 70 * steps + 1, 'geglu_dense': 70 * steps,
+            'fused_dense': 70 * steps, 'group_norm_silu': 46 * steps + 30}
+
+
+SDXL_LAUNCHES = sdxl_launches(STEPS)
 # the VAE encode of img2img/inpaint: its mid-block attention and 22 GroupNorms
 ENCODE_LAUNCHES = {'flash_attention': 1, 'group_norm_silu': 22}
 
@@ -2863,6 +2894,305 @@ def deepcache_phase(device, model_dir, tmp):
     return total
 
 
+# the nine samplers of the slice, the stochastic ones among them, and the
+# batch of their requests
+SAMPLER_NAMES = ('pndm', 'unipc', 'lms', 'deis', 'heun', 'dpm2', 'dpm2_a', 'dpm++_2s_a',
+                 'dpm++_sde')
+STOCHASTIC = ('dpm2_a', 'dpm++_2s_a', 'dpm++_sde')
+SAMPLER_BATCH = 2
+# a ControlNet call at 512 px, by the UNet's down and mid configs: the
+# self-attentions of levels 0 and 1 (S = 4096 and 1024: A), 7 transformer
+# blocks (B, C), 20 resblock and 7 transformer GroupNorms (D); the zero
+# convs and the condition encoder's convs are plain
+CONTROLNET_LAUNCHES = {'flash_attention': 4, 'geglu_dense': 7, 'fused_dense': 7,
+                       'group_norm_silu': 27}
+# a VAE decode: its mid-block attention and 30 GroupNorms
+DECODE_LAUNCHES = {'flash_attention': 1, 'geglu_dense': 0, 'fused_dense': 0,
+                   'group_norm_silu': 30}
+CN_ZERO_STD = 0.02            # the plugin's zero convs: small seeded values
+ANIM_FRAME_MS = 150
+
+
+def plus(counts, extra, times):
+    """``counts`` + ``times`` x ``extra``, kernel by kernel."""
+    return {k: n + times * extra.get(k, 0) for k, n in counts.items()}
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def eval_plan(name, steps):
+    """The UNet evaluations of a sampler's ``steps``-step plan (2N - 1 for
+    the two-stage ones)."""
+    from hcpdiff_tpu_torch.diffusion.samplers import make_sampler
+    from hcpdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    return make_sampler(name, NoiseSchedule.make(), steps).num_steps
+
+
+def samplers_phase(model_dir, tmp):
+    """text2img.yaml through main() under each of the nine samplers (512 px,
+    batch 2, 20 steps): launches as an SD1.5 request of the plan's
+    evaluations, images finite, and a second request at the seed
+    (vis_images, timed alone) bitwise equal. Returns the phase's launches."""
+    total, report = dict.fromkeys(TXT2IMG_KERNELS, 0), {}
+    for name in SAMPLER_NAMES:
+        evals = eval_plan(name, STEPS)
+        zero_counters()
+        viser, images, seconds = _cli(model_dir, os.path.join(tmp, f'sampler_{name}'),
+                                      'text2img.yaml', f'bs={SAMPLER_BATCH}',
+                                      f'infer_args.sampler={name}')
+        launches = read_counters(f'the {name} request', TXT2IMG_KERNELS, absent=FUSED_ONLY)
+        _check_launches(launches, sd15_launches(evals), f'the {name} request ({evals} evals)')
+        check(images.shape == (SAMPLER_BATCH, SIZE, SIZE, 3), f'{name} images {images.shape}')
+        _add(total, launches)
+        c = viser.cfgs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+        alone = time.perf_counter() - t0
+        check((again == images).all(), f'{name}: two requests at one seed differ')
+        report[name] = {'evals': evals, 'main_s': round(seconds, 4), 'alone_s': round(alone, 4),
+                        'stochastic': name in STOCHASTIC}
+        del viser
+    log(f'samplers (512 px, batch {SAMPLER_BATCH}, {STEPS} steps, text2img.yaml through main(); '
+        f'alone: vis_images on the loaded Visualizer; two requests at one seed bitwise equal, '
+        f'stochastic ones {list(STOCHASTIC)} included): {json.dumps(report)}; '
+        f'card: {gpu_name_and_power_limit()}')
+    torch.cuda.empty_cache()
+    return total
+
+
+def write_plugin(device, model_dir, path):
+    """A seeded ControlNet plugin file for the directory's UNet: the
+    flax-like init, the UNet's blocks copied in (init_from_unet), the zero
+    convs N(0, CN_ZERO_STD^2) so that the taps matter; fp32, .___. keys."""
+    from hcpdiff_tpu_torch.ckpt.manager import CkptManagerSafe
+    from hcpdiff_tpu_torch.models.controlnet import ControlNet, init_from_unet
+    from hcpdiff_tpu_torch.models.factory import build_models
+    from hcpdiff_tpu_torch.models.layers import init_flax_like
+    t0 = time.perf_counter()
+    world = build_models(model_dir, torch.float32, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    stages = ControlNet.stages_for(2 ** (len(world['vae_cfg'].block_out_channels) - 1))
+    with device:
+        net = init_flax_like(ControlNet(world['unet_cfg'], stages), gen)
+    init_from_unet(net, world['unet'])
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            if n.startswith('zero_'):
+                p.copy_(torch.randn(p.shape, generator=gen, device=device) * CN_ZERO_STD)
+    CkptManagerSafe().save_plugins(path, {'controlnet1': net.state_dict()}, net)
+    log(f'ControlNet plugin (SD1.5, seed {SEED + 70}, {sum(p.numel() for p in net.parameters())} '
+        f'weights, fp32) written in {time.perf_counter() - t0:.2f} s: '
+        f'{os.path.getsize(path) / 2**30:.3f} GiB')
+    del world, net
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def _controlnet_reference(viser, device):
+    """One ControlNet + UNet call on the card (bf16, kernels) against the
+    same weights in fp32 on the CPU (plain versions): a [2, 32, 32, 4]
+    latent (S = 1024 at level 0: A runs) and a [2, 256, 256, 3] condition."""
+    net, unet = viser.pipe.plugins[0][0], viser.pipe.unet
+    gen = torch.Generator().manual_seed(SEED + 71)
+    lat = torch.randn(2, 32, 32, 4, generator=gen)
+    side = 32 * viser.pipe.vae_scale
+    cond = torch.rand(2, side, side, 3, generator=gen)
+    t = torch.tensor([801, 301])
+    ctx, _ = viser.pipe.te.encode([NEGATIVE, PROMPT])
+    out = {}
+    for side, n, u, dev in (('card', net, unet, device),
+                            ('cpu', cpu_fp32(net), cpu_fp32(unet), torch.device('cpu'))):
+        down, mid = n(lat.to(dev), t.to(dev), ctx.float().to(dev), cond.to(dev))
+        out[side] = (u(lat.to(dev), t.to(dev), ctx.float().to(dev), down_residuals=down,
+                       mid_residual=mid), mid)
+    errs = {'controlnet + unet': rel_err(out['card'][0], out['cpu'][0]),
+            'controlnet mid residual': rel_err(out['card'][1], out['cpu'][1])}
+    for name, err in errs.items():
+        log(f'reference {name}: card bf16 vs cpu fp32 rel L2 err {err:.3e} '
+            f'(limit {MODEL_REL_TOL})')
+        check(err <= MODEL_REL_TOL, f'{name} rel err {err} > {MODEL_REL_TOL}')
+
+
+def controlnet_phase(device, model_dir, tmp):
+    """img2img_controlnet.yaml through main() with a seeded plugin and
+    condition PNG (512 px; img2img answers the init image's one row), then
+    the same config as txt2img at the configs' batch 4 (its 30 steps):
+    launches as an SD1.5 request plus CONTROLNET_LAUNCHES a ControlNet call; the image
+    moves against the request without the plugin, and equals it bitwise
+    with the zero convs zeroed; one ControlNet + UNet call against the CPU.
+    Returns the phase's launches."""
+    from hcpdiff_tpu_torch.utils.images import write_png
+    plugin = os.path.join(tmp, 'controlnet.safetensors')
+    write_plugin(device, model_dir, plugin)
+    gen = torch.Generator().manual_seed(SEED + 72)
+    blocks = (torch.rand(SIZE // 16, SIZE // 16, 1, generator=gen) > 0.5).to(torch.uint8) * 255
+    cond = blocks.repeat_interleave(16, 0).repeat_interleave(16, 1).expand(-1, -1, 3)
+    cond_png = os.path.join(tmp, 'cond.png')
+    write_png(cond_png, cond.contiguous().numpy())
+    args = (f'init_image={os.path.join(tmp, "init.png")}', f'ex_input.cond.image={cond_png}',
+            f'merge.group1.plugin.controlnet1.path={plugin}')
+    total = dict.fromkeys(TXT2IMG_KERNELS, 0)
+    cfg_steps = 30                         # img2img.yaml's inference_steps
+    steps = cfg_steps - (cfg_steps - int(cfg_steps * 0.75))    # and its strength
+    zero_counters()
+    viser, images, seconds = _cli(model_dir, os.path.join(tmp, 'cn_i2i'),
+                                  'img2img_controlnet.yaml', *args)
+    launches = read_counters('the img2img_controlnet request', TXT2IMG_KERNELS,
+                             absent=FUSED_ONLY)
+    _check_launches(launches, plus(sd15_launches(steps, encode=True), CONTROLNET_LAUNCHES, steps),
+                    'the img2img_controlnet request')
+    check(images.shape == (1, SIZE, SIZE, 3), f'img2img_controlnet images {images.shape}')
+    check(len(viser.pipe.plugins) == 1, 'the plugin did not load')
+    _add(total, launches)
+    c = viser.cfgs
+    plugins = viser.pipe.plugins
+    viser.pipe.plugins = []
+    plain = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+    diff = float(abs(plain - images).max())
+    check(diff > 0, 'the ControlNet request equals the request without the plugin')
+    with torch.no_grad():
+        for n, p in plugins[0][0].named_parameters():
+            if n.startswith('zero_'):
+                p.zero_()
+    viser.pipe.plugins = plugins
+    zeroed = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+    check((zeroed == plain).all(), 'zeroed zero convs do not give the plain request bitwise')
+    log(f'img2img_controlnet: max abs image difference from the request without the plugin '
+        f'{diff}; with the zero convs zeroed the images equal it bitwise')
+    del viser, plugins
+    torch.cuda.empty_cache()
+    zero_counters()
+    viser, images, seconds4 = _cli(model_dir, os.path.join(tmp, 'cn_t2i'),
+                                   'img2img_controlnet.yaml', *args, 'mode=t2i')
+    launches = read_counters('the txt2img ControlNet request', TXT2IMG_KERNELS, absent=FUSED_ONLY)
+    _check_launches(launches, plus(sd15_launches(cfg_steps), CONTROLNET_LAUNCHES, cfg_steps),
+                    'the txt2img ControlNet request')
+    check(images.shape == (4, SIZE, SIZE, 3), f'txt2img ControlNet images {images.shape}')
+    _add(total, launches)
+    c = viser.cfgs
+    alone, plugins = {}, viser.pipe.plugins
+    for what in ('controlnet', 'plain', 'controlnet', 'plain'):
+        viser.pipe.plugins = plugins if what == 'controlnet' else []
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+        alone.setdefault(what, []).append(
+            (round(time.perf_counter() - t0, 4),
+             round(torch.cuda.max_memory_allocated() / 2**30, 2)))
+    viser.pipe.plugins = plugins
+    log(f'ControlNet requests: img2img_controlnet.yaml main() {seconds:.3f} s (batch 1, {steps} '
+        f'steps), as txt2img main() {seconds4:.3f} s (batch 4, {cfg_steps} steps); batch 4 alone '
+        f'(vis_images, in turns; seconds, peak GiB): {alone}; card: {gpu_name_and_power_limit()}')
+    _controlnet_reference(viser, device)
+    del viser
+    torch.cuda.empty_cache()
+    return total
+
+
+def sdxl_text_phase(device, tmp):
+    """text2img_sdxl.yaml (1024 px, 30 Euler steps) through main() on a
+    seeded SDXL directory at batch 1 with model.clip_skip 2 and
+    model.tokenizer_repeats 2: a 152-token context, images finite,
+    launches as reckoned. Returns the request's launches."""
+    from hcpdiff_tpu_torch.tools.random_diffusers import write_dir
+    sdxl_dir = os.path.join(tmp, 'sdxl')
+    t0 = time.perf_counter()
+    write_dir(sdxl_dir, 'sdxl', SEED, torch.float16, device)
+    log(f'diffusers-layout SDXL directory (F16, seed {SEED}) written in '
+        f'{time.perf_counter() - t0:.2f} s')
+    torch.cuda.empty_cache()
+    steps = 30                              # text2img_sdxl.yaml's inference_steps
+    zero_counters()
+    viser, images, seconds = _cli(sdxl_dir, os.path.join(tmp, 'sdxl_text'), 'text2img_sdxl.yaml',
+                                  'bs=1', 'model.clip_skip=2', 'model.tokenizer_repeats=2')
+    launches = read_counters('the SDXL request (clip_skip 2, 2 repeats)', TXT2IMG_KERNELS,
+                             absent=FUSED_ONLY)
+    _check_launches(launches, sdxl_launches(steps), 'the SDXL text-settings request')
+    check(images.shape == (1, SDXL_SIZE, SDXL_SIZE, 3), f'SDXL images {images.shape}')
+    ctx, pooled = viser.pipe.encode_prompts([PROMPT], [NEGATIVE])
+    fe = viser.frontend.fe2
+    check(ctx.shape[1] == 152 and (fe.n_repeats, fe.clip_skip) == (2, 2),
+          f'SDXL context {list(ctx.shape)}, settings {(fe.n_repeats, fe.clip_skip)}')
+    check(bool(torch.isfinite(pooled).all()) and pooled.shape == (2, 1280),
+          f'pooled {list(pooled.shape)}')
+    c = viser.cfgs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED)
+    alone = time.perf_counter() - t0
+    log(f'SDXL 1024 px request, clip_skip 2, tokenizer_repeats 2 (context {list(ctx.shape)}), '
+        f'batch 1, {steps} Euler steps: main() {seconds:.3f} s, alone {alone:.3f} s; '
+        f'card: {gpu_name_and_power_limit()}')
+    del viser
+    shutil.rmtree(sdxl_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def interfaces_phase(model_dir, tmp):
+    """text2img.yaml at batch 2 with the interfaces DiskAnimInterface and
+    WebUIInterface through main(): a {n}-steps.webp an image (the port's
+    RIFF reader: 20 ANMF frames of 512 x 512, 150 ms, the last frame the
+    image bitwise), the progress lines, and launches as a request plus 20
+    batch-2 decodes. Returns the phase's launches."""
+    from hcpdiff_tpu_torch.utils.images import read_png, read_webp_anim
+    out = os.path.join(tmp, 'anim')
+    cfg = os.path.join(tmp, 'anim.yaml')
+    with open(cfg, 'w') as f:
+        f.write(f'_base_: [{os.path.abspath("cfgs/infer/text2img.yaml")}]\ninterface:\n'
+                f'  - _target_: hcpdiff_tpu.infer.interfaces.DiskAnimInterface\n'
+                f'    save_root: {out}\n'
+                f'  - _target_: hcpdiff_tpu.infer.interfaces.WebUIInterface\n')
+    buf = io.StringIO()
+    zero_counters()
+    with contextlib.redirect_stdout(buf):
+        viser, images, seconds = _cli(model_dir, out, cfg, 'bs=2')
+    launches = read_counters('the animation request', TXT2IMG_KERNELS, absent=FUSED_ONLY)
+    progress = [ln for ln in buf.getvalue().splitlines() if ln.startswith('[hcp-')]
+    log('\n'.join(ln for ln in buf.getvalue().splitlines() if not ln.startswith('[hcp-')))
+    _check_launches(launches, plus(sd15_launches(STEPS), DECODE_LAUNCHES, STEPS),
+                    'the animation request (20 x0 decodes)')
+    check(progress == [f'[hcp-progress] {i}/{STEPS} t=None' for i in range(STEPS)]
+          + ['[hcp-finish] n=2'], f'WebUI lines {progress[:3]} ... {progress[-2:]}')
+    names = sorted(os.listdir(out))
+    check(names == ['0-img.png', '0-img.yaml', '0-steps.webp', '1-img.png', '1-img.yaml',
+                    '1-steps.webp'], f'animation request wrote {names}')
+    for b in range(2):
+        anim = read_webp_anim(os.path.join(out, f'{b}-steps.webp'))
+        frames = anim['frames']
+        check(anim['canvas'] == (SIZE, SIZE) and anim['flags'] == 0x02 and anim['loop'] == 0
+              and len(frames) == STEPS
+              and all(f['duration'] == ANIM_FRAME_MS and f['size'] == (SIZE, SIZE)
+                      for f in frames), f'{b}-steps.webp structure')
+        # DPM++ 2M's last step returns its x0: the last frame is the image
+        check((frames[-1]['image'] == read_png(os.path.join(out, f'{b}-img.png'))).all(),
+              f'{b}-steps.webp: the last frame is not the image')
+    c = viser.cfgs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images, x0s = viser.vis_images(c.prompt, c.neg_prompt, seed=VIS_SEED,
+                                   return_x0_history=True)
+    request = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for si in range(x0s.shape[0]):
+        viser.pipe.decode(x0s[si])
+    decodes = time.perf_counter() - t0
+    log(f'animation request (512 px, batch 2, {STEPS} steps, DiskAnimInterface + '
+        f'WebUIInterface): main() {seconds:.3f} s; the request alone {request:.3f} s, its '
+        f'{STEPS} x0 decodes {decodes:.3f} s ({decodes / STEPS * 1000:.1f} ms each); '
+        f'{os.path.getsize(os.path.join(out, "0-steps.webp")) / 2**20:.1f} MiB a WebP; '
+        f'card: {gpu_name_and_power_limit()}')
+    del viser
+    torch.cuda.empty_cache()
+    return launches
+
+
 def sd21_kernel_phase(train_shapes):
     """A at the batch-4 SD2.1 request's shapes (sd21_attention(4)), and A
     with its lse, E, F and D at the SD2.1 training run's (D: its GroupNorms
@@ -2942,6 +3272,10 @@ def main() -> int:
         da_launches = dreamartist_phase(device, model_dir, tmp)
         sd21_launches, sd21_train_launches, sd21_train_shapes = sd21_phase(device, tmp)
         dc_launches = deepcache_phase(device, model_dir, tmp)
+        sampler_launches = samplers_phase(model_dir, tmp)
+        cn_launches = controlnet_phase(device, model_dir, tmp)
+        anim_launches = interfaces_phase(model_dir, tmp)
+        sdxl_text_launches = sdxl_text_phase(device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -2970,7 +3304,11 @@ def main() -> int:
     records = add_trainer_shapes(records, sd21_kernel_phase(sd21_train_shapes),
                                  sd21_train_launches, 'sd21',
                                  launches_sd21_requests=sd21_launches,
-                                 launches_deepcache=dc_launches)
+                                 launches_deepcache=dc_launches,
+                                 launches_samplers=sampler_launches,
+                                 launches_controlnet=cn_launches,
+                                 launches_interfaces=anim_launches,
+                                 launches_sdxl_text=sdxl_text_launches)
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

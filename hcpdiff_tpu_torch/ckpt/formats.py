@@ -12,7 +12,7 @@ The port's overlay (``adapt/overlay.py``) already holds W_down and W_up
 in these layouts, flattened: ``down`` [r, fan_in] in (cin, kh, kw) order
 and ``up`` [out, r]. Safetensors files are read and written by
 ``ckpt/safetensors_io.py``. Not ported yet: the kohya/webui LoRA key
-conversion (ROADMAP.md queue 1 item 5).
+conversion (ROADMAP.md queue 1 item 10).
 """
 from __future__ import annotations
 

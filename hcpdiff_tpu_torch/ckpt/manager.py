@@ -9,7 +9,9 @@ base_ema, lora, lora_ema}``, whose files each package loads:
 ``base`` is a fine-tuned subset saved in the JAX tree's names and layouts
 (``base:down_0_res_0:conv1:kernel``, HWIO), ``lora`` the ``.___.`` LoRA
 state through the alias map; ``auto_manager`` picks the backend by the
-file's extension. ``CkptManagerDiffusers.save_pipeline`` writes whole
+file's extension. Plugin files (ControlNet) hold each plugin's tree under
+``<slot>.___.<path>.kernel`` keys in the JAX layouts (``save_plugins``,
+``load_plugins``), or are webui ControlNet files (``control_model.*``). ``CkptManagerDiffusers.save_pipeline`` writes whole
 modules as a diffusers-layout directory. In place of the JAX package's
 ``OrbaxCkptManager`` (the port reads and writes no orbax directory),
 ``StateManager`` keeps the trainer's full state for ``resume.auto``.
@@ -26,8 +28,9 @@ import torch.nn as nn
 from . import safetensors_io
 from .bridge import params_from_state_dict, state_dict_from_params
 from .diffusers_layout import write_module
-from .formats import (fold_dict, lora_overlay_to_state, lora_state_to_overlay,
+from .formats import (PLACEHOLDER, fold_dict, lora_overlay_to_state, lora_state_to_overlay,
                       save_webui_embedding, unfold_dict)
+from .ldm_convert import CONTROL_LDM_PREFIX, controlnet_ldm_to_ours
 
 
 def conv_shapes(module: nn.Module, overlay: Mapping[str, Any]) -> Dict[str, tuple]:
@@ -87,6 +90,31 @@ class CkptManagerBase:
                 flat = {kk.replace(':', '.'): v for kk, v in unfold_dict(nested[k]).items()}
                 out[k] = lora_state_to_overlay(flat, aliases=aliases)
         return out
+
+    def save_plugins(self, path: str, plugins: Mapping[str, Mapping[str, torch.Tensor]],
+                     module: nn.Module) -> None:
+        """{slot: the plugin's state dict (``module``'s names)} as
+        ``<slot>.___.<JAX path>`` keys in the JAX tree's layouts."""
+        flat = {}
+        for slot, state in plugins.items():
+            tree = params_from_state_dict(state, module)
+            for key, v in unfold_dict(tree).items():
+                flat[f'{slot}{PLACEHOLDER}{key.replace(":", ".")}'] = v.float()
+        self._write(flat, path)
+
+    def load_plugins(self, path: str, unet_cfg=None) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{slot: the plugin's state dict in the port's names} from a
+        ``.___.``-keyed plugin file, or {'controlnet1': ...} from a webui
+        ControlNet file (``control_model.*``, converted for ``unet_cfg``)."""
+        flat = self._read(path)
+        grouped: Dict[str, Dict[str, torch.Tensor]] = {}
+        for k, v in flat.items():
+            if PLACEHOLDER in k:
+                slot, key = k.split(PLACEHOLDER, 1)
+                grouped.setdefault(slot, {})[key.replace('.', ':')] = v
+        if not grouped and any(k.startswith(CONTROL_LDM_PREFIX) for k in flat):
+            return {'controlnet1': controlnet_ldm_to_ours(flat, unet_cfg)}
+        return {slot: state_dict_from_params(fold_dict(d)) for slot, d in grouped.items()}
 
     def save_embedding(self, path: str, vectors, name: str, step: Optional[int] = None) -> None:
         save_webui_embedding(path, vectors, name, step)

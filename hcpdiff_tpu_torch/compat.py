@@ -3,15 +3,16 @@ reference configs say ``_target_: hcpdiff.X.Y``, which
 ``config/instantiate.py:locate`` reads as ``hcpdiff_tpu_torch.compat.X.Y``;
 this module exports the port's classes under the same names as the JAX
 package's ``compat``. The names whose classes the port lacks yet
-(ControlNet's processor and dataset, the workflow actions) are stand-ins
-that raise ``NotImplementedError`` naming ROADMAP.md queue 1 item 7 when
-called or read."""
+(ControlNet's dataset, the workflow actions) are stand-ins that raise
+``NotImplementedError`` naming ROADMAP.md queue 1 item 7 when called or
+read."""
 from types import SimpleNamespace
 
 from .data import buckets as _buckets
 from .data import sources as _sources
 from .data.captions import JsonCaptionLoader, TXTCaptionLoader, YamlCaptionLoader, auto_caption_loader
 from .data.dataset import CropInfoPairDataset, CycleData, DataGroup, TextImagePairDataset
+from .data.processor import ControlNetProcessor
 from .data.transforms import TagDropout, TagErase, TagShuffle, TemplateFill
 from .diffusion.losses import EDMLoss, KDiffMinSNRLoss, MinSNRLoss, MSELoss, SoftMinSNRLoss
 from .diffusion.schedules import NoiseSchedule, pyramid_noise
@@ -40,7 +41,6 @@ class _UnportedModule:
         raise _refusal(f'{self._name}.{attr}')
 
 
-ControlNetProcessor = _unported('ControlNetProcessor')
 TextImageCondPairDataset = _unported('TextImageCondPairDataset')
 
 # the JAX package's workflow actions (``hcpdiff_tpu/workflow``)

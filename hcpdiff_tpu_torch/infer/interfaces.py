@@ -3,8 +3,23 @@
 ``DiskInterface`` writes numbered images and a reproduction YAML beside
 each, with the JAX package's file names (``{n}-img.png``, ``{n}-img.yaml``)
 and counter (the number of image files already in the directory), through
-``utils/images.py``'s PNG writer and ``config/yaml_lite.py``'s writer. The
-animated-steps and WebUI interfaces are not ported yet and raise.
+``utils/images.py``'s PNG writer and ``config/yaml_lite.py``'s writer.
+
+An interface whose ``need_inter_imgs`` is set makes the Visualizer keep
+every denoise step's x0 prediction and decode it: ``on_inter_step`` then
+gets each step's (index, count, None, x0 latents, decoded images), on
+every interface, before ``on_infer_finish``, as the JAX Visualizer calls
+them.
+
+- ``DiskAnimInterface`` also writes each image's x0 previews as an
+  animated WebP, ``{n}-steps.webp`` beside its ``{n}-img.png``: lossless
+  frames (``utils/images.py:write_webp_anim``; the card's machine has no
+  Pillow), ``frame_ms`` each. The JAX interface names every image of a
+  batch's file ``{last n}-steps.webp``, so only the last image's animation
+  is kept, and writes Pillow's lossy frames (ROADMAP.md, "Reference
+  behaviours");
+- ``WebUIInterface`` prints ``[hcp-progress] i/n t=...`` at each step it
+  is shown and ``[hcp-finish] n=...`` after a request, as the JAX one does.
 """
 from __future__ import annotations
 
@@ -14,10 +29,20 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..config import yaml_lite
-from ..utils.images import write_png
+from ..utils.images import write_png, write_webp_anim
+
+
+def _uint8(images) -> np.ndarray:
+    arr = np.asarray(images)
+    return arr if arr.dtype == np.uint8 else (np.clip(arr, 0, 1) * 255).astype(np.uint8)
 
 
 class BaseInterface:
+    need_inter_imgs = False
+
+    def on_inter_step(self, i: int, num_steps: int, t, latents, images) -> None:
+        pass
+
     def on_infer_finish(self, images, info: Optional[Dict[str, Any]] = None):
         pass
 
@@ -33,11 +58,8 @@ class DiskInterface(BaseInterface):
         self.counter = len([f for f in os.listdir(save_root) if f.endswith(image_type)])
 
     def on_infer_finish(self, images, info: Optional[Dict[str, Any]] = None) -> List[str]:
-        arr = np.asarray(images)
-        if arr.dtype != np.uint8:
-            arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
         paths = []
-        for img in arr:
+        for img in _uint8(images):
             name = f'{self.counter}-img'
             p = os.path.join(self.save_root, f'{name}.{self.image_type}')
             write_png(p, img)
@@ -49,11 +71,31 @@ class DiskInterface(BaseInterface):
 
 
 class DiskAnimInterface(DiskInterface):
-    def __init__(self, *a, **kw):
-        raise NotImplementedError('DiskAnimInterface (intermediate-step animation) is not '
-                                  'ported yet (ROADMAP.md queue 1 item 5)')
+    """DiskInterface, and each image's x0 previews as ``{n}-steps.webp``."""
+    need_inter_imgs = True
+
+    def __init__(self, save_root: str = 'output/', image_type: str = 'png', frame_ms: int = 150):
+        super().__init__(save_root, image_type)
+        self.frame_ms = int(frame_ms)
+        self._frames: List[np.ndarray] = []
+
+    def on_inter_step(self, i, num_steps, t, latents, images):
+        if images is not None:
+            self._frames.append(_uint8(images))
+
+    def on_infer_finish(self, images, info: Optional[Dict[str, Any]] = None) -> List[str]:
+        first = self.counter
+        paths = super().on_infer_finish(images, info)
+        for b in range(len(paths) if self._frames else 0):
+            write_webp_anim(os.path.join(self.save_root, f'{first + b}-steps.webp'),
+                            [f[b] for f in self._frames], self.frame_ms)
+        self._frames = []
+        return paths
 
 
 class WebUIInterface(BaseInterface):
-    def __init__(self, *a, **kw):
-        raise NotImplementedError('WebUIInterface is not ported yet (ROADMAP.md queue 1 item 5)')
+    def on_inter_step(self, i, num_steps, t, latents, images):
+        print(f'[hcp-progress] {i}/{num_steps} t={t}', flush=True)
+
+    def on_infer_finish(self, images, info=None):
+        print(f'[hcp-finish] n={len(images)}', flush=True)

@@ -20,6 +20,13 @@ weights and the positive half with the UNet's: two UNet calls of batch B
 a step in place of one of 2B. ``emb_ext`` (prompt-tuning rows) reaches
 the text encoders.
 
+ControlNet plugins (``DiffusionPipeline.plugins``, (ControlNet, scale)
+pairs) run beside every UNet call that gets a condition image: txt2img's,
+img2img's (and so the legacy inpaint's) and both of DreamArtist's; each
+plugin's residuals, times its scale, are summed into the UNet's
+``down_residuals`` and ``mid_residual`` (the JAX Visualizer's UNet
+callable). ``cond`` [B, H, W, 3] in [0, 1] is CFG-doubled as the context.
+
 ``deep_cache_interval`` N > 1 (txt2img) is DeepCache: at step i a full
 UNet call that also returns the deep feature when i % N == 0, else a call
 that reuses the cached one and runs only the UNet's first down level and
@@ -31,7 +38,7 @@ context, where the text frontend has ``attention_mask``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -163,12 +170,37 @@ class DiffusionPipeline:
         self.unet_params_neg: Optional[Dict[str, torch.Tensor]] = None
         # txt2img's UNet calls take the prompts' padding mask
         self.use_encoder_attention_mask = False
+        # ControlNet plugins: (module, scale), run where a call has ``cond``
+        self.plugins: List[Tuple[torch.nn.Module, float]] = []
+
+    def _with_taps(self, unet: Callable) -> Callable:
+        """``unet`` taking ``cond``: with plugins, each ControlNet runs on
+        the call's (x, t, ctx, cond) and the sums of their scaled residuals
+        go in as the UNet's taps; without, ``cond`` is dropped."""
+        def call(x, t, ctx, cond=None, **e):
+            if cond is not None and self.plugins:
+                down, mid = None, None
+                for net, scale in self.plugins:
+                    d, m = net(x, t, ctx, cond, conditioning_scale=scale)
+                    down = d if down is None else [a + b for a, b in zip(down, d)]
+                    mid = m if mid is None else mid + m
+                e = dict(e, down_residuals=down, mid_residual=mid)
+            return unet(x, t, ctx, **e)
+        return call
 
     def _unet_neg(self) -> Optional[Callable]:
         if self.unet_params_neg is None:
             return None
-        return lambda x, t, ctx, **e: functional_call(self.unet, self.unet_params_neg,
-                                                      (x, t, ctx), e)
+        return self._with_taps(lambda x, t, ctx, **e: functional_call(
+            self.unet, self.unet_params_neg, (x, t, ctx), e))
+
+    def _cond(self, extra_cond, cond: Optional[torch.Tensor], rows: int):
+        """``extra_cond`` with the condition image repeated to ``rows``
+        (the context's rows: CFG-doubled)."""
+        if cond is None:
+            return extra_cond
+        cond = torch.as_tensor(cond, dtype=torch.float32).to(self.device)
+        return dict(extra_cond or {}, cond=cond.repeat(rows // cond.shape[0], 1, 1, 1))
 
     @property
     def device(self) -> torch.device:
@@ -204,7 +236,8 @@ class DiffusionPipeline:
                 num_steps: int = 20, guidance_scale: float = 7.5, sampler: str = 'dpm++_2m',
                 seed: int = 0, batch_size: int = 1, sampler_kwargs: Optional[dict] = None,
                 return_latents: bool = False, return_x0_history: bool = False,
-                emb_ext=None, deep_cache_interval: int = 0):
+                emb_ext=None, deep_cache_interval: int = 0,
+                cond: Optional[torch.Tensor] = None):
         """Returns images as a float32 numpy array [B, height, width, 3] in
         [0, 1], or the final latents when ``return_latents``; with
         ``return_x0_history`` a pair whose second item is every step's x0
@@ -214,7 +247,7 @@ class DiffusionPipeline:
         and ``time_ids = [height, width, 0, 0, height, width]``, in the
         context's rows. CFG runs whenever ``guidance_scale`` > 1 or a
         negative branch is set. ``deep_cache_interval`` > 1 runs DeepCache
-        (``DenoiseLoop``)."""
+        (``DenoiseLoop``). ``cond``: the plugins' condition image."""
         prompts, negs = _batch(prompt, negative_prompt, batch_size)
         B = len(prompts)
         use_cfg = float(guidance_scale) > 1.0 or self.unet_params_neg is not None
@@ -224,10 +257,12 @@ class DiffusionPipeline:
         mask = self._ctx_mask(negs + prompts)
         if mask is not None:
             extra_cond = dict(extra_cond or {}, encoder_attention_mask=mask)
+        extra_cond = self._cond(extra_cond, cond, ctx.shape[0])
         gen = torch.Generator().manual_seed(int(seed))
         latents = torch.randn((B, height // self.vae_scale, width // self.vae_scale,
                                self.vae.cfg.latent_channels), generator=gen)
-        loop = DenoiseLoop(self.unet, make_sampler(sampler, self.schedule, num_steps,
+        loop = DenoiseLoop(self._with_taps(self.unet),
+                           make_sampler(sampler, self.schedule, num_steps,
                                                    **(sampler_kwargs or {})),
                            return_x0=return_x0_history, unet_neg=self._unet_neg(),
                            deep_cache_interval=deep_cache_interval)
@@ -241,14 +276,15 @@ class DiffusionPipeline:
                 strength: float = 0.75, num_steps: int = 20, guidance_scale: float = 7.5,
                 sampler: str = 'dpm++_2m', seed: int = 0, return_latents: bool = False,
                 sampler_kwargs: Optional[dict] = None, noise: Optional[torch.Tensor] = None,
-                emb_ext=None):
+                emb_ext=None, cond: Optional[torch.Tensor] = None):
         """``init_latents``: [B, h, w, C] scaled latents (``encode`` makes
         them). The plan is cut at ``t_start = steps - int(steps * strength)``
         (``slice_for_partial``), the latents are noised to the cut's first
         timestep with ``noise`` (drawn from ``seed`` when None) and the
         partial loop runs with CFG (without a negative branch, as in the JAX
-        package). No further scaling: the loop's ``init_noise_sigma`` is
-        the VP to k-space change of variables."""
+        package), the plugins taking ``cond``. No further scaling: the
+        loop's ``init_noise_sigma`` is the VP to k-space change of
+        variables."""
         init_latents = torch.as_tensor(init_latents).to(self.device, torch.float32)
         B, h, w, _ = init_latents.shape
         prompts, negs = _batch(prompt, negative_prompt, B)
@@ -263,8 +299,9 @@ class DiffusionPipeline:
             noise = torch.randn(tuple(init_latents.shape), generator=gen)
         noised = self.schedule.add_noise(init_latents, noise.to(init_latents),
                                          torch.full((B,), t0, dtype=torch.long))
-        latents, _ = DenoiseLoop(self.unet, sampler_obj)(noised, ctx, float(guidance_scale),
-                                                         extra_cond=extra_cond, generator=gen)
+        extra_cond = self._cond(extra_cond, cond, ctx.shape[0])
+        latents, _ = DenoiseLoop(self._with_taps(self.unet), sampler_obj)(
+            noised, ctx, float(guidance_scale), extra_cond=extra_cond, generator=gen)
         return latents if return_latents else self.decode(latents)
 
     @torch.inference_mode()
@@ -272,7 +309,8 @@ class DiffusionPipeline:
                 negative_prompt='', strength: float = 0.75, inpaint_model: bool = False,
                 num_steps: int = 20, guidance_scale: float = 7.5, sampler: str = 'dpm++_2m',
                 seed: int = 0, sampler_kwargs: Optional[dict] = None,
-                noise: Optional[torch.Tensor] = None, emb_ext=None) -> np.ndarray:
+                noise: Optional[torch.Tensor] = None, emb_ext=None,
+                cond: Optional[torch.Tensor] = None) -> np.ndarray:
         """Inpainting; ``mask_latent`` [B, h, w, 1], 1 = the region to paint.
 
         - ``inpaint_model``: a 9-channel inpaint UNet runs the whole plan
@@ -280,15 +318,18 @@ class DiffusionPipeline:
           [mask, masked latents] joined to its input channels, CFG-doubled;
           ``strength`` and ``sampler_kwargs`` are not used, as in the JAX
           package;
-        - otherwise: img2img on the full latents (``noise`` is its noise),
-          then the kept region is blended back before decoding."""
+        - otherwise: img2img on the full latents (``noise`` is its noise,
+          ``cond`` its plugins' condition), then the kept region is blended
+          back before decoding; the inpaint model's loop takes no
+          ``cond``, as in the JAX package."""
         init_latents = torch.as_tensor(init_latents).to(self.device, torch.float32)
         mask_latent = torch.as_tensor(mask_latent).to(self.device, torch.float32)
         if not inpaint_model:
             out = self.img2img(init_latents, prompt, negative_prompt, strength=strength,
                                num_steps=num_steps, guidance_scale=guidance_scale,
                                sampler=sampler, seed=seed, return_latents=True,
-                               sampler_kwargs=sampler_kwargs, noise=noise, emb_ext=emb_ext)
+                               sampler_kwargs=sampler_kwargs, noise=noise, emb_ext=emb_ext,
+                               cond=cond)
             return self.decode(mask_latent * out + (1 - mask_latent) * init_latents)
         B = init_latents.shape[0]
         extra = torch.cat([mask_latent, init_latents * (1 - mask_latent)], dim=-1)

@@ -26,16 +26,27 @@ written into its module, so a reload of the recipe
 ``emb_dir`` adds its ``.pt`` embeddings' words to the tokenizer, and
 ``save_model`` writes the merged modules as a diffusers-layout directory.
 
+A group's ``plugin`` entries load ControlNets (``.___.``-keyed plugin
+files or webui ``control_model.*`` files, ``alpha`` their scale;
+``merge.plugin_cfg`` is not read: the ControlNet's shape is the UNet's);
+``ex_input.cond`` (``ControlNetProcessor``, by ``_target_`` or a path) is
+the condition image, read at the request's size and batch (txt2img's
+``bs``, img2img's and inpaint's the init image's one row), and every UNet
+call then gets the plugins' summed residuals (``DiffusionPipeline``'s
+``plugins``). A plugin file holding anything but a ControlNet raises.
+
 The configs' class names (``hcpdiff_tpu.infer.interfaces.DiskInterface``,
 ``diffusers.EulerAncestralDiscreteScheduler``) are read as names, never
-imported. ``infer_args.deep_cache_interval`` runs txt2img under DeepCache
-(dropped with a warning beside DreamArtist's negative branch or a
-ControlNet condition, as the JAX Visualizer drops it), and
-``encoder_attention_mask: true`` gives the UNet the prompts' padding mask.
-What the JAX Visualizer does beyond this is not ported yet and raises
-``NotImplementedError`` rather than being ignored: plugins in the
-``merge`` block (ControlNet), ControlNet conditions (``ex_input.cond``),
-and SDXL text-encoder settings other than SDXL's own.
+imported; every sampler of the JAX table is mapped, and SDXL takes the
+config's ``tokenizer_repeats``, ``clip_skip`` and ``clip_final_norm``
+(defaults 1, 1 and no final norm). ``infer_args.deep_cache_interval`` runs
+txt2img under DeepCache (dropped with a warning beside DreamArtist's
+negative branch or a ControlNet condition, as the JAX Visualizer drops
+it), and ``encoder_attention_mask: true`` gives the UNet the prompts'
+padding mask. An interface with ``need_inter_imgs`` (``DiskAnimInterface``)
+makes ``vis_to_dir`` decode every step's x0 of a txt2img request and hand
+it to each interface's ``on_inter_step`` (``WebUIInterface`` prints a
+progress line), as the JAX ``vis_to_dir`` does.
 """
 from __future__ import annotations
 
@@ -55,9 +66,12 @@ from ..adapt.overlay import (attach_host_biases, get_match_layers, merge_overlay
 from ..ckpt.formats import load_webui_embedding
 from ..ckpt.manager import CkptManagerDiffusers, auto_manager
 from ..config import Cfg, load, to_plain
+from ..config.instantiate import instantiate
 from ..config.legacy import InferCFGConverter
+from ..data.processor import ControlNetProcessor
 from ..diffusion.schedules import NoiseSchedule
 from ..models.compose.sdxl_te import SDXLTextEncoderFrontend, split_sdxl_embedding
+from ..models.controlnet import ControlNet
 from ..models.factory import build_models, load_vae
 from ..models.text_frontend import TextEncoderFrontend
 from ..models.unet import UNet2DCondition
@@ -67,19 +81,9 @@ from .interfaces import (BaseInterface, DiskAnimInterface, DiskInterface,
 from .pipeline import DiffusionPipeline
 
 
-def _unported(what: str, item: int = 5) -> NotImplementedError:
-    return NotImplementedError(f'{what} is not ported to the PyTorch package yet '
-                               f'(ROADMAP.md queue 1 item {item})')
-
-
-def _refuse_unported(cfgs: Cfg) -> None:
-    """Raise on every config feature of the JAX Visualizer that the port
-    does not run yet."""
-    for name, group in (cfgs.get('merge') or {}).items():
-        if isinstance(group, dict) and name != 'plugin_cfg' and group.get('plugin'):
-            raise _unported(f'the plugin entries of merge.{name} (ControlNet)', 7)
-    if (cfgs.get('ex_input') or {}).get('cond') is not None:
-        raise _unported('ex_input.cond (ControlNet)', 7)
+def _unported(what: str, item: Optional[int] = None) -> NotImplementedError:
+    where = f' (ROADMAP.md queue 1 item {item})' if item else ''
+    return NotImplementedError(f'{what} is not ported to the PyTorch package{where}')
 
 
 def _within(path: str, selected: Optional[set]) -> bool:
@@ -184,7 +188,6 @@ class Visualizer:
     def __init__(self, cfgs: Cfg):
         cfgs = InferCFGConverter().convert(cfgs)
         self.cfgs = cfgs
-        _refuse_unported(cfgs)
         mcfg = cfgs.get('model') or Cfg()
         self.device = torch.device(str(cfgs.get('device', 'cuda')))
         if self.device.type == 'cuda' and not torch.cuda.is_available():
@@ -210,13 +213,12 @@ class Visualizer:
 
         self.sdxl = bool(world['sdxl'])
         if self.sdxl:
-            asked = (int(mcfg.get('tokenizer_repeats', 1)), int(mcfg.get('clip_skip', 1)),
-                     bool(mcfg.get('clip_final_norm', False)))
-            if asked != (1, 1, False):
-                raise _unported(f'SDXL text encoding with (tokenizer_repeats, clip_skip, '
-                                f'clip_final_norm) = {asked} (SDXL runs (1, 1, False))')
-            self.frontend = SDXLTextEncoderFrontend(world['tokenizer'], world['te'],
-                                                    world['te2'])
+            # SDXL's own defaults: the penultimate layer, no final norm
+            self.frontend = SDXLTextEncoderFrontend(
+                world['tokenizer'], world['te'], world['te2'],
+                n_repeats=int(mcfg.get('tokenizer_repeats', 1)),
+                clip_skip=int(mcfg.get('clip_skip', 1)),
+                clip_final_norm=bool(mcfg.get('clip_final_norm', False)))
         else:
             self.frontend = TextEncoderFrontend(
                 world['tokenizer'], world['te'],
@@ -250,7 +252,8 @@ class Visualizer:
             return WebUIInterface()
         if 'disk' in tgt:
             return DiskInterface(**kwargs)
-        raise _unported(f'the interface {item.get("_target_")!r}')
+        raise _unported(f'the interface {item.get("_target_")!r} (the port has DiskInterface, '
+                        'DiskAnimInterface and WebUIInterface)')
 
     def _apply_new_components(self, nc) -> None:
         """The ``new_components`` block: a diffusers scheduler class becomes
@@ -356,6 +359,7 @@ class Visualizer:
         te_m = ModelMerger(self.base['te'], world['te'], world['aliases']['te'])
         neg_m = ModelMerger(self.base['unet'], world['unet'], world['aliases']['unet'])
         has_neg = False
+        plugins: List[Tuple[ControlNet, float]] = []
         merge_cfg = cfgs.get('merge') or {}
         load_ema = bool(merge_cfg.get('load_ema', False))
         for name, group in merge_cfg.items():
@@ -382,6 +386,13 @@ class Visualizer:
                     item['path'], alpha=float(item.get('alpha', 1.0)),
                     layers=item.get('layers', 'all'), load_ema=load_ema,
                     base_alpha=group.get('base_model_alpha'))
+            for slot, item in dict(group.get('plugin') or {}).items():
+                states = auto_manager(item['path']).load_plugins(
+                    item['path'], unet_cfg=world['unet_cfg'])
+                state = states.get(slot, next(iter(states.values()), None))
+                if state is not None:
+                    plugins.append((self._controlnet(state, item['path']),
+                                    float(item.get('alpha', 1.0))))
         need_bias = overlay_bias_paths(unet_m.overlays + neg_m.overlays, self.base['unet'])
         if need_bias:
             not_qkv = [p for p in need_bias
@@ -400,10 +411,31 @@ class Visualizer:
             names = sorted(unet_m.touched() | neg_m.touched())
             self.unet_params_neg = {n: self._held('unet', v, n) for n, v in neg_m.items(names)}
         self.pipe.unet_params_neg = self.unet_params_neg
+        self.pipe.plugins = plugins
         self._load_embeddings()
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self.merge_seconds = time.perf_counter() - t0
+
+    def _controlnet(self, state: Mapping[str, torch.Tensor], path: str) -> ControlNet:
+        """A ControlNet of the UNet's config and compute dtype (its time MLP
+        fp32), channels_last, holding a plugin's weights; a plugin of
+        other names raises."""
+        unet = self.world['unet']
+        stages = ControlNet.stages_for(self.pipe.vae_scale)
+        with torch.device('meta'):
+            net = ControlNet(unet.cfg, stages, fused_sublayers=unet.fused_sublayers).eval()
+        names = {n for n, _ in net.named_parameters()}
+        if set(state) != names:
+            raise _unported(f'a plugin other than a ControlNet of this UNet ({path}: '
+                            f'{len(set(state) - names)} unknown names, '
+                            f'{len(names - set(state))} missing)', 7)
+        held = {n: v.to(self.device, torch.float32 if n.startswith(ControlNet.FP32_CHILDREN)
+                        else self.dtype) for n, v in state.items()}
+        held = {n: v.contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
+                for n, v in held.items()}
+        net.load_state_dict(held, strict=True, assign=True)
+        return net
 
     def _load_embeddings(self) -> None:
         """``emb_dir``'s ``.pt`` files: each word registered with the
@@ -463,7 +495,14 @@ class Visualizer:
             skw['use_karras_sigmas'] = True
         if skw:
             common['sampler_kwargs'] = skw
-        if mode in ('i2i', 'img2img', 'inpaint') and self.cfgs.get('init_image'):
+        image_mode = mode in ('i2i', 'img2img', 'inpaint') and self.cfgs.get('init_image')
+        if want_hist and image_mode:
+            raise ValueError('the x0 history (an interface with need_inter_imgs) is kept for '
+                             'txt2img requests only, as in the JAX Visualizer')
+        cond = self._cond_image(width, height, 1 if image_mode else batch_size)
+        if cond is not None:
+            common['cond'] = cond
+        if image_mode:
             init_lat = self.pipe.encode(load_image(self.cfgs['init_image'], width, height))
             strength = float(ia.get('strength', 0.75))
             if mode == 'inpaint' and self.cfgs.get('mask_image'):
@@ -483,6 +522,16 @@ class Visualizer:
         images = self.pipe.decode(latents)
         return (images, x0s) if want_hist else images
 
+    def _cond_image(self, width: int, height: int, rows: int) -> Optional[torch.Tensor]:
+        """``ex_input.cond`` as [rows, height, width, 3] in [0, 1]: a node
+        with ``_target_`` (``ControlNetProcessor``) is instantiated, a path
+        read by ``ControlNetProcessor``."""
+        node = (self.cfgs.get('ex_input') or {}).get('cond')
+        if node is None:
+            return None
+        proc = instantiate(node) if isinstance(node, Mapping) else ControlNetProcessor(node)
+        return torch.from_numpy(proc(width=width, height=height, batch_size=rows))
+
     def _deep_cache_interval(self, ia: Mapping) -> int:
         """``infer_args.deep_cache_interval``, or 0 with a warning where
         DeepCache cannot run: DreamArtist's negative branch, a ControlNet
@@ -498,17 +547,27 @@ class Visualizer:
     def vis_to_dir(self, prompt=None, negative_prompt=None, num: int = 1, **kw) -> np.ndarray:
         """``num`` requests at seeds ``seed``, ``seed + 1``, ... (a seed
         from the clock when the config has none), each handed to every
-        interface with its reproduction info; returns all images."""
+        interface with its reproduction info (and, when an interface asks
+        for them, every step's decoded x0 first); returns all images."""
         prompt = prompt if prompt is not None else self.cfgs.get('prompt', '')
         negative_prompt = (negative_prompt if negative_prompt is not None
                            else self.cfgs.get('neg_prompt', ''))
         base_seed = self.cfgs.get('seed')
         if base_seed is None:
             base_seed = int(time.time()) % (1 << 31)
+        want_inter = any(itf.need_inter_imgs for itf in self.interfaces)
         all_imgs = []
         for i in range(num):
             seed = int(base_seed) + i
-            imgs = self.vis_images(prompt, negative_prompt, **dict(kw, seed=seed))
+            if want_inter:
+                imgs, x0s = self.vis_images(prompt, negative_prompt, return_x0_history=True,
+                                            **dict(kw, seed=seed))
+                for si in range(x0s.shape[0]):
+                    frame = self.pipe.decode(x0s[si])
+                    for itf in self.interfaces:
+                        itf.on_inter_step(si, x0s.shape[0], None, x0s[si], frame)
+            else:
+                imgs = self.vis_images(prompt, negative_prompt, **dict(kw, seed=seed))
             info = {'prompt': prompt, 'negative_prompt': negative_prompt, 'seed': seed,
                     **to_plain(self.cfgs.get('infer_args') or {})}
             for itf in self.interfaces:

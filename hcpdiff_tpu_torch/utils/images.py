@@ -12,6 +12,11 @@ bicubic resampling for 8-bit images, and ``to_model_input`` (counterpart of
   8-bit L or RGB array, bit for bit: Pillow's separable filter (Keys
   cubic, a = -0.5, its support widened by the scale when shrinking), its
   22-bit fixed-point weights and rounding, horizontal pass first;
+- ``write_webp_anim``/``encode_webp_anim``: an animated WebP of 8-bit RGB
+  frames, each a lossless VP8L image of literals only (no transforms, no
+  colour cache, every channel a complete code of 256 length-8 literals,
+  the distance code one symbol); ``read_webp_anim`` reads back what it
+  writes (the RIFF chunks, and each frame's pixels);
 - ``load_image``/``load_mask``: what the Visualizer reads for img2img and
   inpaint. An 8-bit L/RGB/RGBA PNG needs no Pillow; another PNG or
   format is decoded by Pillow, imported there, and raises an error naming
@@ -136,6 +141,142 @@ def decode_png(data: bytes, path: str = 'PNG data') -> np.ndarray:
 
 
 # ------------------------------------------------------- Pillow's bicubic
+
+# ------------------------------------------------------------------ WebP
+
+# VP8L's order of the code-length code's lengths
+_CL_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+_N_GREEN = 256 + 24                         # literals and length prefixes, no cache
+
+
+def _lsb(value: int, n: int) -> list:
+    """``value``'s ``n`` low bits, least significant first (VP8L's order)."""
+    return [(value >> k) & 1 for k in range(n)]
+
+
+def _literal_code(n_symbols: int) -> list:
+    """A normal prefix code over ``n_symbols`` whose first 256 symbols have
+    length 8 and the rest 0 (a complete code: symbol s's code is s, read
+    most significant bit first). Its lengths are coded with a code-length
+    code of two symbols, 0 and 8, of length 1 (codes 0 and 1)."""
+    n = _CL_ORDER.index(8) + 1
+    bits = [0] + _lsb(n - 4, 4)
+    for sym in _CL_ORDER[:n]:
+        bits += _lsb(1 if sym in (0, 8) else 0, 3)
+    return bits + [0] + [1] * 256 + [0] * (n_symbols - 256)
+
+
+# the header of every frame's VP8L stream after its size fields: no
+# transform, no colour cache, no meta codes, the green, red, blue and alpha
+# codes, and a one-symbol simple distance code
+_VP8L_CODES = ([0, 0, 0] + _literal_code(_N_GREEN) + _literal_code(256) * 3
+               + [1, 0, 0, 0])
+
+
+def _vp8l_header_bits(width: int, height: int) -> list:
+    return (_lsb(0x2f, 8) + _lsb(width - 1, 14) + _lsb(height - 1, 14) + [0] + _lsb(0, 3)
+            + _VP8L_CODES)
+
+
+def encode_vp8l(image: np.ndarray) -> bytes:
+    """An 8-bit RGB image [H, W, 3] as a lossless VP8L bitstream of
+    literals (alpha 255)."""
+    h, w = image.shape[:2]
+    if not (1 <= w <= 1 << 14 and 1 <= h <= 1 << 14):
+        raise ValueError(f'VP8L takes sides 1..16384, not {w}x{h}')
+    px = np.empty((h * w, 4), np.uint8)
+    px[:, 0] = image[..., 1].reshape(-1)          # green, red, blue, alpha
+    px[:, 1] = image[..., 0].reshape(-1)
+    px[:, 2] = image[..., 2].reshape(-1)
+    px[:, 3] = 255
+    bits = np.concatenate([np.asarray(_vp8l_header_bits(w, h), np.uint8),
+                           np.unpackbits(px.reshape(-1), bitorder='big')])
+    return np.packbits(bits, bitorder='little').tobytes()
+
+
+def _riff_chunk(kind: bytes, data: bytes) -> bytes:
+    return kind + struct.pack('<I', len(data)) + data + (b'\0' if len(data) % 2 else b'')
+
+
+def _u24(v: int) -> bytes:
+    return struct.pack('<I', v)[:3]
+
+
+def encode_webp_anim(frames, frame_ms: int) -> bytes:
+    """Frames (8-bit RGB [H, W, 3], one size) as an animated WebP: VP8X
+    with the animation flag, ANIM (white background, looping forever), then
+    one ANMF a frame at (0, 0), ``frame_ms`` long, not blended."""
+    frames = [np.asarray(f, np.uint8) for f in frames]
+    h, w = frames[0].shape[:2]
+    if any(f.shape != (h, w, 3) for f in frames):
+        raise ValueError('encode_webp_anim: every frame must be RGB of one size')
+    body = _riff_chunk(b'VP8X', bytes([0x02, 0, 0, 0]) + _u24(w - 1) + _u24(h - 1))
+    body += _riff_chunk(b'ANIM', b'\xff\xff\xff\xff' + struct.pack('<H', 0))
+    for f in frames:
+        head = _u24(0) + _u24(0) + _u24(w - 1) + _u24(h - 1) + _u24(int(frame_ms)) + b'\x02'
+        body += _riff_chunk(b'ANMF', head + _riff_chunk(b'VP8L', encode_vp8l(f)))
+    return b'RIFF' + struct.pack('<I', 4 + len(body)) + b'WEBP' + body
+
+
+def write_webp_anim(path: str, frames, frame_ms: int) -> None:
+    with open(path, 'wb') as f:
+        f.write(encode_webp_anim(frames, frame_ms))
+
+
+def _riff_chunks(data: bytes, where: str):
+    """(fourcc, payload) of each chunk of ``data``, odd sizes padded."""
+    out, pos = [], 0
+    while pos < len(data):
+        if pos + 8 > len(data):
+            raise ValueError(f'{where}: a truncated chunk header at {pos}')
+        kind, size = data[pos:pos + 4], struct.unpack('<I', data[pos + 4:pos + 8])[0]
+        if pos + 8 + size > len(data):
+            raise ValueError(f'{where}: chunk {kind!r} runs past the end')
+        out.append((kind, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + size % 2
+    return out
+
+
+def _decode_vp8l_literals(data: bytes, w: int, h: int) -> np.ndarray:
+    """The pixels of a VP8L stream ``encode_vp8l`` wrote; raises on any
+    other stream."""
+    head = np.asarray(_vp8l_header_bits(w, h), np.uint8)
+    bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder='little')
+    if len(bits) < len(head) + 32 * w * h or not np.array_equal(bits[:len(head)], head):
+        raise ValueError('not a literal-only VP8L stream of this size')
+    px = np.packbits(bits[len(head):len(head) + 32 * w * h], bitorder='big').reshape(h, w, 4)
+    return np.stack([px[..., 1], px[..., 0], px[..., 2]], axis=-1)
+
+
+def read_webp_anim(path: str) -> dict:
+    """What ``write_webp_anim`` wrote: {'canvas': (w, h), 'flags': the VP8X
+    flags, 'loop', 'frames': [{'offset': (x, y), 'size': (w, h),
+    'duration', 'flags', 'image': uint8 [h, w, 3]}]}; raises on a file of
+    another layout."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:4] != b'RIFF' or data[8:12] != b'WEBP':
+        raise ValueError(f'{path}: not a RIFF WEBP file')
+    if struct.unpack('<I', data[4:8])[0] != len(data) - 8:
+        raise ValueError(f'{path}: the RIFF size is not the file\'s')
+    chunks = _riff_chunks(data[12:], path)
+    kinds = [k for k, _ in chunks]
+    if kinds[:2] != [b'VP8X', b'ANIM'] or set(kinds[2:]) != {b'ANMF'}:
+        raise ValueError(f'{path}: chunks {kinds}')
+    vp8x, anim = chunks[0][1], chunks[1][1]
+    u24 = lambda b: int.from_bytes(b, 'little')        # noqa: E731
+    out = {'flags': vp8x[0], 'canvas': (u24(vp8x[4:7]) + 1, u24(vp8x[7:10]) + 1),
+           'loop': struct.unpack('<H', anim[4:6])[0], 'frames': []}
+    for _, p in chunks[2:]:
+        (kind, bitstream), = _riff_chunks(p[16:], path)
+        w, h = u24(p[6:9]) + 1, u24(p[9:12]) + 1
+        if kind != b'VP8L':
+            raise ValueError(f'{path}: a frame of {kind!r}')
+        out['frames'].append({'offset': (2 * u24(p[0:3]), 2 * u24(p[3:6])), 'size': (w, h),
+                              'duration': u24(p[12:15]), 'flags': p[15],
+                              'image': _decode_vp8l_literals(bitstream, w, h)})
+    return out
+
 
 _PRECISION_BITS = 32 - 8 - 2
 

@@ -103,3 +103,18 @@ def test_import_rule_covers_the_new_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ('compat.py', 'utils/cfg_parse.py', 'tools/create_embedding.py'):
         assert f'hcpdiff_tpu_torch/{module}' in names
+
+
+def test_controlnet_processor_is_the_port_class(tmp_path):
+    """ControlNetProcessor, a stand-in before, is the port's class under the
+    reference's path (held to the JAX one in test_torch_port_controlnet.py)."""
+    import numpy as np
+    from hcpdiff_tpu_torch.data.processor import ControlNetProcessor
+    from hcpdiff_tpu_torch.utils.images import write_png
+    cls = locate('hcpdiff.data.data_processor.ControlNetProcessor')
+    assert cls is ControlNetProcessor is compat.ControlNetProcessor
+    path = str(tmp_path / 'c.png')
+    write_png(path, np.full((8, 8, 3), 255, np.uint8))
+    out = instantiate({'_target_': 'hcpdiff.data.data_processor.ControlNetProcessor',
+                       'image': path})(width=4, height=4, batch_size=2)
+    assert out.shape == (2, 4, 4, 3) and (out == 1.0).all()

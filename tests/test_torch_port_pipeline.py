@@ -50,8 +50,13 @@ def test_dpmpp_2m_plan_matches_jax(kw):
 
 
 def test_make_sampler_rejects_unported():
-    with pytest.raises(NotImplementedError, match='pndm'):
-        tsamplers.make_sampler('pndm', TSchedule.make(), 10)
+    """pndm, refused before, builds with the JAX plan; a name outside the
+    JAX table is rejected."""
+    js = jsamplers.make_sampler('pndm', JSchedule.make(), 10)
+    np.testing.assert_array_equal(tsamplers.make_sampler('pndm', TSchedule.make(), 10).timesteps,
+                                  np.asarray(js.timesteps))
+    with pytest.raises(ValueError, match='unknown sampler'):
+        tsamplers.make_sampler('plms_fancy', TSchedule.make(), 10)
 
 
 @pytest.fixture(scope='module')

@@ -164,7 +164,8 @@ def sdxl_world():
     tv = load_params(tvae.AutoencoderKL(tvae.VAEConfig.tiny()), vp)
     jfe = jsdxl.SDXLTextEncoderFrontend(tk, j1, p1, j2, p2)
     tfe = tsdxl.SDXLTextEncoderFrontend(tk, t1, t2)
-    return dict(jfe=jfe, ju=ju, up=up, pipe=tpipe.DiffusionPipeline(tu, tv, tfe))
+    return dict(jfe=jfe, ju=ju, up=up, pipe=tpipe.DiffusionPipeline(tu, tv, tfe),
+                jparts=(tk, j1, p1, j2, p2), tparts=(tk, t1, t2))
 
 
 def test_sdxl_frontend_encode_matches_jax(sdxl_world):
@@ -180,6 +181,27 @@ def test_sdxl_frontend_encode_matches_jax(sdxl_world):
     jids, jmult = sdxl_world['jfe'].tokenize_batch(prompts)
     np.testing.assert_array_equal(ids, jids)
     np.testing.assert_array_equal(mult, jmult)
+
+
+@pytest.mark.parametrize('repeats, skip, final_norm', [(2, 1, False), (1, 2, False),
+                                                        (1, 1, True)])
+def test_sdxl_frontend_text_settings_match_jax(sdxl_world, repeats, skip, final_norm):
+    """SDXL's other text settings (the Visualizer's model.tokenizer_repeats,
+    clip_skip, clip_final_norm): hidden and pooled against the JAX
+    frontend; two repeats give a 152-token context (two windows of 75 and
+    BOS, EOS) and the first window's
+    pooled row."""
+    kw = dict(n_repeats=repeats, clip_skip=skip, clip_final_norm=final_norm)
+    jfe = jsdxl.SDXLTextEncoderFrontend(*sdxl_world['jparts'], **kw)
+    tfe = tsdxl.SDXLTextEncoderFrontend(*sdxl_world['tparts'], **kw)
+    prompts = ['a photo of a {cat:1.3} ' * 12, 'photo']
+    hidden, pooled = jfe.encode(prompts)
+    thidden, tpooled = tfe.encode(prompts)
+    assert thidden.shape == (2, 75 * repeats + 2, CTX) and tpooled.shape == (2, POOLED)
+    np.testing.assert_allclose(thidden.numpy(), np.asarray(hidden), atol=TEXT_ATOL)
+    np.testing.assert_allclose(tpooled.numpy(), np.asarray(pooled), atol=TEXT_ATOL)
+    if repeats == 1:            # the setting changes the context SDXL's defaults give
+        assert not torch.equal(sdxl_world['pipe'].te.encode(prompts)[0], thidden)
 
 
 def test_text_time_denoise_slice_matches_jax(sdxl_world):

@@ -13,10 +13,13 @@ tiny widths in fp32 on the CPU:
   noised latents (the packages draw different noise from one seed;
   atol 1e-3, the repo's loop bound);
 - ``Visualizer``/``main`` on ``device: cpu``: PNG and YAML outputs, the
-  scheduler mapping, the features that raise (a ``merge`` group's plugin
-  entries among them; the merge recipes, ``emb_dir`` and ``save_model``
-  are held to the JAX package in ``test_torch_port_serving.py``), no card,
-  and no JAX, ``hcpdiff_tpu`` or ``diffusers`` import;
+  scheduler mapping, the features that raise (a plugin other than a
+  ControlNet among them) and those this slice ported (the merge recipes,
+  ``emb_dir`` and ``save_model`` are held to the JAX package in
+  ``test_torch_port_serving.py``, ControlNet in
+  ``test_torch_port_controlnet.py``, the interfaces in
+  ``test_torch_port_interfaces.py``), no card, and no JAX,
+  ``hcpdiff_tpu`` or ``diffusers`` import;
 - the PNG reader and writer and the bicubic resize against Pillow.
 """
 import dataclasses
@@ -340,11 +343,14 @@ def test_sampler_matches_jax(name, kw, t_start, monkeypatch):
 
 
 def test_make_sampler_still_refuses_the_rest():
-    for name in ('pndm', 'unipc', 'lms', 'deis', 'heun', 'dpm2', 'dpm2_a', 'dpm++_2s_a',
-                 'dpm++_sde'):
-        assert name in jsamplers.SAMPLERS
-        with pytest.raises(NotImplementedError, match='not ported'):
-            tsamplers.make_sampler(name, TSchedule.make(), 10)
+    """Every name of the JAX table builds (the nine of this slice checked
+    step by step in test_torch_port_samplers.py); the rest, names outside
+    it, are refused."""
+    for name in jsamplers.SAMPLERS:
+        assert type(tsamplers.make_sampler(name, TSchedule.make(), 10)).__name__ == type(
+            jsamplers.make_sampler(name, JSchedule.make(), 10)).__name__
+    with pytest.raises(ValueError, match='unknown sampler'):
+        tsamplers.make_sampler('plms_fancy', TSchedule.make(), 10)
 
 
 # -------------------------------------------------------- img2img, inpaint
@@ -533,9 +539,13 @@ def test_img2img_and_inpaint_requests(dirs, tmp_path, mode, size):
 
 
 def _refusals(tmp_path):
+    foreign = str(tmp_path / 'foreign.safetensors')
+    save_safetensors({'slot.___.layer.kernel': np.zeros((2, 2), np.float32)}, foreign)
+    cond = str(tmp_path / 'cond.png')
+    images.write_png(cond, np.full((32, 32, 3), 128, np.uint8))
     return {
-        'merge': ['merge.group1.type=unet', 'merge.group1.plugin.cn1.path=controlnet.safetensors'],
-        'controlnet': ['ex_input.cond.image=cond.png'],
+        'merge': ['merge.group1.type=unet', f'merge.group1.plugin.cn1.path={foreign}'],
+        'controlnet': [f'ex_input.cond={cond}'],
         'anim_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.DiskAnimInterface'],
         'webui_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.WebUIInterface'],
         'other_interface': ['interface.0._target_=my.Interface'],
@@ -547,18 +557,48 @@ def _refusals(tmp_path):
 @pytest.mark.parametrize('what', ['merge', 'controlnet', 'anim_interface', 'webui_interface',
                                   'other_interface', 'jpeg', 'sampler'])
 def test_unported_features_raise(dirs, tmp_path, what):
-    with pytest.raises(NotImplementedError, match='not ported|PNG only'):
-        _run(dirs, tmp_path, 'text2img.yaml', *_refusals(tmp_path)[what])
+    """What the port still refuses raises: a plugin other than a ControlNet
+    (ROADMAP.md item 7), an interface it lacks, non-PNG images. What this
+    slice ported runs: a ControlNet condition without a plugin is dropped
+    (the plain request, as in the JAX Visualizer), the animation and WebUI
+    interfaces, the two-stage samplers (Heun: 2N - 1 evaluations)."""
+    args = _refusals(tmp_path)[what]
+    if what in ('merge', 'other_interface', 'jpeg'):
+        with pytest.raises(NotImplementedError, match='not ported|PNG only'):
+            _run(dirs, tmp_path, 'text2img.yaml', *args)
+        return
+    viser, imgs, out = _run(dirs, tmp_path, 'text2img.yaml', *args)
+    assert imgs.shape == (2, 32, 32, 3) and np.isfinite(imgs).all()
+    c = viser.cfgs
+    ref = viser.pipe.txt2img(c.prompt, c.neg_prompt, width=32, height=32, num_steps=3,
+                             guidance_scale=float(c.infer_args.guidance_scale), seed=5,
+                             batch_size=2, sampler=c.infer_args.sampler)
+    np.testing.assert_array_equal(imgs, ref)
+    if what == 'anim_interface':
+        assert sorted(f for f in os.listdir(out) if f.endswith('.webp')) == [
+            '0-steps.webp', '1-steps.webp']
+    if what == 'sampler':
+        assert viser.cfgs.infer_args.sampler == 'heun'
 
 
 def test_sdxl_directory_runs_and_refuses_other_text_settings(dirs, tmp_path):
+    """SDXL's own text settings by default; the config's other ones
+    (tokenizer_repeats, clip_skip, clip_final_norm) now run: a 152-token
+    context from the second layer from the top (each held to the JAX
+    frontend in test_torch_port_sdxl.py)."""
     out = str(tmp_path / 'out')
     args = ['--cfg', _cfg('text2img_sdxl.yaml'), f'pretrained_model={dirs["port_sdxl"]}',
             f'interface.0.save_root={out}', *CPU, 'infer_args.sampler=euler']
     viser, imgs = main(args)
     assert viser.sdxl and imgs.shape == (2, 32, 32, 3) and np.isfinite(imgs).all()
-    with pytest.raises(NotImplementedError, match='SDXL text encoding'):
-        main(args + ['model.clip_skip=2'])
+    fe = viser.frontend.fe1
+    assert (fe.n_repeats, fe.clip_skip, fe.clip_final_norm) == (1, 1, False)
+    other, imgs2 = main(args + ['model.clip_skip=2', 'model.tokenizer_repeats=2'])
+    for fe in (other.frontend.fe1, other.frontend.fe2):
+        assert (fe.n_repeats, fe.clip_skip, fe.clip_final_norm) == (2, 2, False)
+    ctx, pooled = other.pipe.encode_prompts(['a cat'], [''])
+    assert ctx.shape[1] == 2 * 75 + 2 and np.isfinite(imgs2).all()
+    assert np.abs(imgs2 - imgs).max() > 0
 
 
 def test_empty_emb_dir_and_missing_vae_dir(dirs, tmp_path):
