@@ -167,6 +167,29 @@ package is missing. Phases, each fatal on failure:
    main() at 1024 px, batch 1, 30 Euler steps, clip_skip 2 and
    tokenizer_repeats 2 (a 152-token context): images finite, launches as
    reckoned (sdxl_launches(30));
+4n. controlnet_train: cfgs/train/examples/controlnet.yaml through the
+   training entry point (python -m hcpdiff_tpu_torch.train) on the 4d
+   directory: the 4e phase's 16 seeded PNGs, their condition images seeded
+   PNGs of the same stems and sizes, FixedBucket 512 px, batch 4, the
+   latent cache, bf16 with the UNet's remat, 6 steps saving at 6: losses
+   finite, every zero conv and the condition encoder's output conv moved
+   from zero, plugin-6.safetensors written and reloading equal to the final
+   pack, launches of A (with lse), E, F, B, C and D equal to
+   controlnet_train_reckoning (the ControlNet's down and mid path forward
+   and backward, no remat; the frozen UNet's down and mid path forward
+   only, its up path under remat, from the taps on), step seconds and peak
+   memory; one step's ControlNet gradients and loss on the card against
+   the same weights in fp32 on the CPU ([2, 32, 32, 4] latent, [2, 256,
+   256, 3] condition) within GRAD_REL_TOL;
+4o. workflow: cfgs/workflow text2img.yaml, text2img_lora.yaml,
+   text2img_controlnet.yaml (4n's plugin file and a seeded 512 px condition
+   PNG) and highres_fix_latent.yaml under sampler=euler in both loops (20
+   steps at 512 px, then 12 at 1024 px on the 2x latent: the first model
+   path with A at D = 160) through python -m hcpdiff_tpu_torch.infer_workflow
+   on the 4d directory, bf16: images finite in [0, 1], one PNG each equal to
+   the image, text2img_lora.yaml's images bitwise text2img.yaml's (its
+   actions_pre_lora are not run), launches as reckoned (a 1024 px UNet
+   call: A 15, levels 0-2 five each); seconds and peak memory a workflow;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -232,6 +255,10 @@ package is missing. Phases, each fatal on failure:
    [8, 32^2, 1280] without, the 1024 px VAE's [4, 1024^2, 128],
    [4, 1024^2, 256] and [4, 512^2, 512] with SiLU and its mid-block
    attention norm [4, 128^2, 512] without;
+7e. A also at the highres workflow's 1024 px shapes (labelled highres):
+   [2, 8, 16384, 40], [2, 8, 4096, 80] and [2, 8, 1024, 160], beside
+   scaled_dot_product_attention; the plain version of the first runs one
+   batch row at a time (its fp32 scores take 8 GiB a row);
 8. head dims outside the built set: A, A with lse, E and F at D = 16, 96,
    144 and 192 (zero-padded by the wrappers to 48, 128, 160, 512; causal
    at 144 and 192) against their plain versions;
@@ -3193,6 +3220,308 @@ def interfaces_phase(model_dir, tmp):
     return launches
 
 
+# the ControlNet training phase: controlnet.yaml through the training
+# entry point on the 4d directory and the trainer phase's images
+CN_TRAIN_STEPS = 6
+CN_TRAIN_KERNELS = TRAINER_KERNELS
+
+
+def unet_parts(cfg):
+    """The UNet's down, mid and up parts: each one's Transformer2D levels
+    with depths (transformer_levels' order) and its resblock count."""
+    levels = transformer_levels(cfg)
+    n, lpb = len(cfg.block_out_channels), cfg.layers_per_block
+    n_down = sum(t == 'CrossAttnDownBlock2D' for t in cfg.down_block_types) * lpb
+    n_mid = int(cfg.mid_cross_attn)
+    return {'down': (levels[:n_down], n * lpb), 'mid': (levels[n_down:n_down + n_mid], 2),
+            'up': (levels[n_down + n_mid:], n * (lpb + 1))}
+
+
+def controlnet_train_reckoning(cfg, step_shapes, encodes, vae_scale, enc_norms,
+                               policy='flash'):
+    """The launches a ControlNet run must make. A step is one ControlNet
+    call (the UNet's down and mid copy) and one UNet call. The ControlNet's
+    weights train and it runs without remat: each self-attention whose S
+    the kernel takes runs A with its lse once and E and F once, each
+    transformer block B and C once, each GroupNorm D once. The frozen UNet's
+    down path carries no gradient: A without lse, B, C and D once. Its mid
+    block takes the last tap's sum and its up path the others': under
+    remat, A with its lse once ('flash') or twice ('full'), E and F once,
+    B and C twice a block, D twice a GroupNorm; the output norm once.
+    Encodes as trainer_reckoning's."""
+    parts = unet_parts(cfg)
+    runs = {'flash': 1, 'full': 2}[policy]
+    out = dict.fromkeys(CN_TRAIN_KERNELS, 0)
+    for shapes in step_shapes:
+        for _, h, w, _ in shapes:
+            def count(*names):
+                """(flash self-attentions, transformer depth, GroupNorms) of parts."""
+                levels = [x for name in names for x in parts[name][0]]
+                res = sum(parts[name][1] for name in names)
+                return (sum(d for lvl, d in levels if flash_route((h >> lvl) * (w >> lvl))),
+                        sum(d for _, d in levels), 2 * res + len(levels))
+            cn, still, grad = count('down', 'mid'), count('down'), count('mid', 'up')
+            _add(out, {'flash_attention': cn[0] + still[0] + runs * grad[0],
+                       'flash_attention_lse': cn[0] + runs * grad[0],
+                       'flash_attention_bwd_dq': cn[0] + grad[0],
+                       'flash_attention_bwd_dkv': cn[0] + grad[0],
+                       'geglu_dense': cn[1] + still[1] + 2 * grad[1],
+                       'fused_dense': cn[1] + still[1] + 2 * grad[1],
+                       'group_norm_silu': cn[2] + still[2] + 2 * grad[2] + 1})
+    for _, (w, h) in encodes:
+        out['flash_attention'] += int(flash_route((h // vae_scale) * (w // vae_scale)))
+        out['group_norm_silu'] += enc_norms
+    return out
+
+
+def _controlnet_step_check(trainer, device):
+    """One step's loss and ControlNet gradients on the card (bf16, kernels,
+    the run's remat) against the same weights in fp32 on the CPU (plain
+    versions): a [2, 32, 32, 4] latent (S = 1024 at level 0: A, E and F
+    run), a [2, 256, 256, 3] condition, fixed noise and t."""
+    from hcpdiff_tpu_torch.models.text_frontend import TextEncoderFrontend
+    from hcpdiff_tpu_torch.trainer.assemble import make_controlnet_apply, make_unet_apply
+    from hcpdiff_tpu_torch.trainer.step import StepConfig, build_train_step
+    gen = torch.Generator().manual_seed(SEED + 81)
+    lat = torch.randn(2, 32, 32, 4, generator=gen)
+    noise = torch.randn(2, 32, 32, 4, generator=gen)
+    side = 32 * 2 ** (len(trainer.vae.cfg.block_out_channels) - 1)
+    cond = torch.rand(2, side, side, 3, generator=gen)
+    t = torch.tensor([801, 301])
+    ids, mult = trainer.frontend.tokenize_batch([PROMPT, NEGATIVE])
+    fe = trainer.frontend
+    pack = trainer.state.pack['controlnet']
+    out = {}
+    for side, dev in (('card', device), ('cpu', torch.device('cpu'))):
+        if side == 'card':
+            unet, net, encode = trainer.unet, trainer.controlnet, fe.encode_ids
+        else:
+            unet, net = cpu_fp32(trainer.unet), cpu_fp32(trainer.controlnet)
+            unet.remat = False          # remat gives the same gradients (CPU tests)
+            encode = TextEncoderFrontend(fe.tokenizer, cpu_fp32(fe.model), n_repeats=fe.n_repeats,
+                                         clip_skip=fe.clip_skip,
+                                         clip_final_norm=fe.clip_final_norm).encode_ids
+        step = build_train_step(make_unet_apply(unet), encode, trainer.noise_schedule,
+                                trainer.criterion, StepConfig(),
+                                controlnet_apply=make_controlnet_apply(net))
+        p = {'controlnet': {n: v.detach().to(dev).requires_grad_(True) for n, v in pack.items()}}
+        batch = {'latents': lat.to(dev), 'input_ids': torch.from_numpy(ids).to(dev),
+                 'token_mult': torch.from_numpy(mult).to(dev), 'cond': cond.to(dev)}
+        loss = step.forward_loss(p, {'unet': {}, 'te': {}}, batch, noise.to(dev), t.to(dev))
+        names = sorted(p['controlnet'])
+        g = torch.autograd.grad(loss, [p['controlnet'][n] for n in names])
+        groups = {'zero convs': [], 'condition encoder': [], 'blocks': []}
+        for n, gi in zip(names, g):
+            key = ('zero convs' if n.startswith('zero_') else 'condition encoder'
+                   if n.startswith('cond_embedding.') else 'blocks')
+            groups[key].append(gi.float().cpu().flatten())
+        out[side] = (float(loss.detach()), {k: torch.cat(v) for k, v in groups.items()})
+        del unet, net, step, p, g
+    loss_err = abs(out['card'][0] - out['cpu'][0]) / abs(out['cpu'][0])
+    log(f'controlnet step check: loss card {out["card"][0]:.6f} cpu {out["cpu"][0]:.6f} '
+        f'(rel diff {loss_err:.3e}, limit {GRAD_REL_TOL})')
+    check(loss_err <= GRAD_REL_TOL, f'controlnet step loss rel diff {loss_err}')
+    for key, cpu in out['cpu'][1].items():
+        err = float((out['card'][1][key] - cpu).norm() / cpu.norm())
+        log(f'controlnet step check: {key} gradients, card bf16 vs cpu fp32 rel L2 err '
+            f'{err:.3e} (limit {GRAD_REL_TOL}; |grad| {float(cpu.norm()):.4e})')
+        check(err <= GRAD_REL_TOL, f'controlnet {key} gradient rel err {err} > {GRAD_REL_TOL}')
+
+
+def controlnet_train_phase(device, model_dir, tmp):
+    """controlnet.yaml through main() at SD1.5 full width, 512 px, batch 4,
+    CN_TRAIN_STEPS steps, on the trainer phase's images and seeded
+    condition PNGs of the same stems; the card's step against the CPU's.
+    Returns the run's launches and its plugin file."""
+    import numpy as np
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    imgs, conds = os.path.join(tmp, 'train_imgs'), os.path.join(tmp, 'train_conds')
+    write_dataset(conds, seed=SEED + 80)
+    exp = os.path.join(tmp, 'exp_cn')
+    src = 'data.dataset1.source.data_source1'
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    trainer = _train_cli('controlnet.yaml', model_dir, exp, imgs,
+                         f'train.train_steps={CN_TRAIN_STEPS}', f'train.save_step={CN_TRAIN_STEPS}',
+                         f'{src}.cond_root={conds}')
+    seconds = time.perf_counter() - t0
+    launches = read_counters('the ControlNet trainer run (controlnet.yaml)', CN_TRAIN_KERNELS,
+                             absent=FUSED_ONLY)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ds = trainer.datasets[0]
+    buckets = sorted({s for shapes in trainer.step_shapes for s in shapes})
+    log(f'controlnet trainer: main() {seconds:.3f} s: directory load '
+        f'{trainer.seconds["model load"]:.3f} s, latent cache {trainer.seconds["latent cache"]:.3f}'
+        f' s ({len(ds._latent_cache)} latents in {len(ds.encodes)} VAE calls); buckets '
+        f'{buckets}; peak {peak:.2f} GiB')
+    check(sorted(trainer.state.pack) == ['controlnet'] and trainer.dtype == torch.bfloat16
+          and trainer.unet.remat, 'the run trains a ControlNet alone, in bf16 with remat')
+    check(len(trainer.history) == CN_TRAIN_STEPS
+          and all(math.isfinite(x) for x in trainer.history),
+          f'controlnet trainer losses {trainer.history}')
+    check(buckets == [(4, 64, 64, 4)], f'controlnet trainer buckets {buckets}')
+    vae = trainer.vae
+    _check_launches(launches, controlnet_train_reckoning(
+        trainer.unet.cfg, trainer.step_shapes, ds.encodes,
+        2 ** (len(vae.cfg.block_out_channels) - 1),
+        sum(isinstance(m, GroupNorm) for m in vae.encoder.modules()),
+        trainer.unet.remat_policy), 'the ControlNet trainer run')
+    steps = np.diff(trainer.step_ends)
+    med = float(np.median(steps))
+    log(f'controlnet trainer timed steps 2-{CN_TRAIN_STEPS} (batch 4, 512 px, SD1.5 ControlNet '
+        f'trained, UNet frozen with remat): median {med:.4f} s/step, min {steps.min():.4f}, max '
+        f'{steps.max():.4f}, all {[round(float(x), 4) for x in steps]}; {4 / med:.3f} samples/s;'
+        f' losses {[round(x, 5) for x in trainer.history]}; card: {gpu_name_and_power_limit()}')
+    pack = trainer.state.pack['controlnet']
+    idle = [n for n, v in pack.items()
+            if n.startswith(('zero_', 'cond_embedding.conv_out.')) and not bool(v.any())]
+    check(not idle, f'ControlNet heads still zero after {CN_TRAIN_STEPS} steps: {idle[:3]}')
+    ckpts = sorted(os.listdir(os.path.join(exp, 'ckpts')))
+    plugin = os.path.join(exp, 'ckpts', f'plugin-{CN_TRAIN_STEPS}.safetensors')
+    check(ckpts == [os.path.basename(plugin)], f'controlnet trainer checkpoints {ckpts}')
+    loaded = trainer.ckpt_manager.load_plugins(plugin)
+    check(sorted(loaded) == ['controlnet1'] and sorted(loaded['controlnet1']) == sorted(pack)
+          and all(torch.equal(loaded['controlnet1'][n], v.detach().cpu())
+                  for n, v in pack.items()),
+          f'plugin-{CN_TRAIN_STEPS} does not load back as the final ControlNet')
+    n_heads = sum(n.startswith('zero_') for n in pack) // 2
+    log(f'controlnet trainer: plugin-{CN_TRAIN_STEPS}.safetensors ({os.path.getsize(plugin) / 2**30:.3f}'
+        f' GiB) loads back equal to the final pack; all {n_heads} zero convs and the condition '
+        f'encoder\'s output conv moved from zero')
+    _controlnet_step_check(trainer, device)
+    del trainer, pack, loaded
+    torch.cuda.empty_cache()
+    return launches, plugin
+
+
+# the workflow phase: cfgs/workflow through the workflow entry point
+WF_HIGHRES_STEPS = 20 - (20 - int(20 * 0.6))    # the second loop's, by its strength
+WF_RUNS = (('text2img.yaml', 7, ()), ('text2img_lora.yaml', 7, ()),
+           ('text2img_controlnet.yaml', 8, ()),
+           ('highres_fix_latent.yaml', 10, ('actions.3.sampler=euler',
+                                             'actions.7.sampler=euler')))
+
+
+DECODE_NORMS = 30              # the SD VAE decoder's GroupNorms
+
+
+def decode_launches(h, w):
+    """A VAE decode of an [h, w] latent: its mid-block attention (A where
+    the kernel takes S = h w) and its GroupNorms."""
+    return {'flash_attention': int(flash_route(h * w)), 'group_norm_silu': DECODE_NORMS}
+
+
+def unet_call_launches(cfg, h, w):
+    """One SD UNet call's launches at an [h, w] latent: A for each
+    self-attention whose S the kernel takes, B and C a transformer block,
+    D a GroupNorm (two a resblock, one a Transformer2D, the output norm)."""
+    levels = transformer_levels(cfg)
+    depth = sum(d for _, d in levels)
+    n, lpb = len(cfg.block_out_channels), cfg.layers_per_block
+    n_res = n * lpb + 2 + n * (lpb + 1)
+    return {'flash_attention': sum(d for lvl, d in levels if flash_route((h >> lvl) * (w >> lvl))),
+            'geglu_dense': depth, 'fused_dense': depth,
+            'group_norm_silu': 2 * n_res + len(levels) + 1}
+
+
+def workflow_phase(device, model_dir, plugin, tmp):
+    """The shipped workflows through infer_workflow's main() on the 4d
+    directory (bf16, seed 42, 20 steps, CFG 7.5): text2img, text2img_lora,
+    text2img_controlnet (the trained plugin, a seeded condition PNG) and
+    highres_fix_latent under euler (512 px, then 12 steps at 1024 px).
+    Returns the phase's launches."""
+    import numpy as np
+    from hcpdiff_tpu_torch.infer_workflow import main
+    from hcpdiff_tpu_torch.models.unet import UNetConfig
+    from hcpdiff_tpu_torch.models.vae import VAEConfig
+    from hcpdiff_tpu_torch.utils.images import read_png, write_png
+    cfg, lat = UNetConfig.sd15(), SIZE // 2 ** (len(VAEConfig.sd().block_out_channels) - 1)
+    gen = torch.Generator().manual_seed(SEED + 82)
+    blocks = (torch.rand(SIZE // 32, SIZE // 32, 1, generator=gen) > 0.5).to(torch.uint8) * 255
+    cond_png = os.path.join(tmp, 'wf_cond.png')
+    write_png(cond_png, blocks.repeat_interleave(32, 0).repeat_interleave(32, 1)
+              .expand(-1, -1, 3).contiguous().numpy())
+    call, call2x = unet_call_launches(cfg, lat, lat), unet_call_launches(cfg, 2 * lat, 2 * lat)
+    check(call2x['flash_attention'] == 15, f'a 1024 px UNet call reckons A '
+          f'{call2x["flash_attention"]} times, not 15 (levels 0-2, five each)')
+    loop = plus(dict.fromkeys(TXT2IMG_KERNELS, 0), call, STEPS)
+    text2img = plus(loop, decode_launches(lat, lat), 1)
+    check(text2img == sd15_launches(STEPS), 'unet_call_launches disagrees with sd15_launches')
+    expected = {
+        'text2img.yaml': text2img, 'text2img_lora.yaml': text2img,
+        'text2img_controlnet.yaml': plus(text2img, CONTROLNET_LAUNCHES, STEPS),
+        'highres_fix_latent.yaml': plus(plus(loop, call2x, WF_HIGHRES_STEPS),
+                                        decode_launches(2 * lat, 2 * lat), 1)}
+    total, report, images = dict.fromkeys(TXT2IMG_KERNELS, 0), {}, {}
+    for name, save, extra in WF_RUNS:
+        out = os.path.join(tmp, 'wf_' + name.split('.')[0])
+        args = ['--cfg', f'cfgs/workflow/{name}', f'prepare.0.pretrained_model={model_dir}',
+                f'actions.{save}.save_root={out}/', *extra]
+        if name == 'text2img_controlnet.yaml':
+            args += [f'memory.plugin_path={plugin}', f'memory.cond_image={cond_png}']
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        states = main(args)
+        seconds = time.perf_counter() - t0
+        launches = read_counters(f'the workflow {name}', TXT2IMG_KERNELS, absent=FUSED_ONLY)
+        _check_launches(launches, expected[name], f'the workflow {name}')
+        _add(total, launches)
+        img = states['images']
+        side = 2 * SIZE if name.startswith('highres') else SIZE
+        check(img.shape == (1, side, side, 3) and bool(np.isfinite(img).all())
+              and img.min() >= 0.0 and img.max() <= 1.0,
+              f'{name}: images {img.shape} not finite in [0, 1]')
+        check(sorted(os.listdir(out)) == ['0-img.png'] and (read_png(os.path.join(
+            out, '0-img.png')) == (img.clip(0, 1) * 255).astype('uint8')[0]).all(),
+            f'{name}: the PNG is not the image')
+        images[name] = img
+        report[name] = {'main_s': round(seconds, 4),
+                        'peak_gib': round(torch.cuda.max_memory_allocated() / 2**30, 2),
+                        'mean': round(float(img.mean()), 4), 'std': round(float(img.std()), 4)}
+        del states
+        torch.cuda.empty_cache()
+    check((images['text2img_lora.yaml'] == images['text2img.yaml']).all(),
+          'text2img_lora.yaml differs from text2img.yaml (its actions_pre_lora are not run)')
+    diff = float(abs(images['text2img_controlnet.yaml'] - images['text2img.yaml']).max())
+    check(diff > 0, 'the ControlNet workflow equals text2img.yaml: the plugin did nothing')
+    log(f'workflows (python -m hcpdiff_tpu_torch.infer_workflow, bf16, {STEPS} steps; highres: '
+        f'euler, {STEPS} steps at {SIZE} px then {WF_HIGHRES_STEPS} at {2 * SIZE} px; main() '
+        f'seconds include the directory load): {json.dumps(report)}; the ControlNet workflow\'s '
+        f'max abs difference from text2img.yaml {diff}; text2img_lora.yaml bitwise '
+        f'text2img.yaml; card: {gpu_name_and_power_limit()}')
+    return total
+
+
+HIGHRES_ATTN = ((2, 8, 16384, 40), (2, 8, 4096, 80), (2, 8, 1024, 160))
+
+
+def highres_kernel_phase():
+    """A at the highres workflow's 1024 px self-attention shapes, labelled
+    highres, beside scaled_dot_product_attention: {wrapper name: per-shape
+    records}. The plain version at S = 16384 runs a batch row at a time."""
+    from hcpdiff_tpu_torch.ops import flash_attention as fa
+    F = torch.nn.functional
+    rn = _rn_on(torch.Generator(device='cuda').manual_seed(SEED + 83))
+
+    def rows(q, k, v):
+        return torch.cat([fa.attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                          for i in range(q.shape[0])])
+    out = []
+    with torch.inference_mode():
+        for shape in HIGHRES_ATTN:
+            q, k, v = rn(*shape), rn(*shape), rn(*shape)
+            out.append(_measure(
+                f'highres q/k/v {list(shape)}', fa.flash_attention,
+                rows if shape[2] >= 16384 else fa.attention_plain, [q, k, v], _within_rel,
+                'flash_attention', attention_work(*shape),
+                lambda: F.scaled_dot_product_attention(q, k, v)))
+            del q, k, v
+            torch.cuda.empty_cache()
+    return {'flash_attention': out}
+
+
 def sd21_kernel_phase(train_shapes):
     """A at the batch-4 SD2.1 request's shapes (sd21_attention(4)), and A
     with its lse, E, F and D at the SD2.1 training run's (D: its GroupNorms
@@ -3276,6 +3605,8 @@ def main() -> int:
         cn_launches = controlnet_phase(device, model_dir, tmp)
         anim_launches = interfaces_phase(model_dir, tmp)
         sdxl_text_launches = sdxl_text_phase(device, tmp)
+        cn_train_launches, plugin = controlnet_train_phase(device, model_dir, tmp)
+        wf_launches = workflow_phase(device, model_dir, plugin, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -3309,6 +3640,8 @@ def main() -> int:
                                  launches_controlnet=cn_launches,
                                  launches_interfaces=anim_launches,
                                  launches_sdxl_text=sdxl_text_launches)
+    records = add_trainer_shapes(records, highres_kernel_phase(), wf_launches, 'workflow',
+                                 launches_controlnet_train=cn_train_launches)
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

@@ -78,11 +78,12 @@ class CkptManagerBase:
         self._write({k: v.float() for k, v in unfold_dict(ckpt).items()}, path)
 
     def load_ckpt(self, path: str, aliases: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
-        """-> {'base'/'base_ema': {port name: tensor}, 'lora'/'lora_ema':
-        the port's overlays}, from a file either package wrote."""
+        """-> {'base'/'base_ema'/'plugin': {port name: tensor},
+        'lora'/'lora_ema': the port's overlays}, from a file either package
+        wrote."""
         nested = fold_dict(self._read(path))
         out: Dict[str, Any] = {}
-        for k in ('base', 'base_ema'):
+        for k in ('base', 'base_ema', 'plugin'):
             if k in nested:
                 out[k] = state_dict_from_params(nested[k])
         for k in ('lora', 'lora_ema'):

@@ -13,7 +13,9 @@ a leading ``hcpdiff_tpu.`` is rewritten to ``hcpdiff_tpu_torch.``, and a
 target that does not exist there raises rather than importing the JAX
 package. The reference's own paths (``hcpdiff.data.TextImagePairDataset``)
 are read in ``hcpdiff_tpu_torch/compat.py``, as the JAX package reads them
-in its ``compat``. JAX itself is never imported through a config string.
+in its ``compat``. JAX itself is never imported through a config string,
+nor through a config's program (``port_import``, the workflow's
+``ExecAction``'s ``__import__``, applies the same rule).
 """
 from __future__ import annotations
 
@@ -42,16 +44,23 @@ def register(name: str, obj: Any = None):
     return obj
 
 
+def _rewrite(path: str) -> str:
+    """``path`` under the port's names (``_PREFIXES``); a package of
+    ``_REFUSED`` raises."""
+    for old, new in _PREFIXES:
+        if (path + '.').startswith(old):          # the package itself, or a path in it
+            path = (new + (path + '.')[len(old):])[:-1]
+            break
+    if path.split('.')[0] in _REFUSED:
+        raise ImportError(f'the PyTorch port does not import {path!r}')
+    return path
+
+
 def locate(path: str) -> Any:
     """Import ``pkg.mod.Class`` (or registry short name) and return the object."""
     if path in _REGISTRY:
         return _REGISTRY[path]
-    for old, new in _PREFIXES:
-        if path.startswith(old):
-            path = new + path[len(old):]
-            break
-    if path.split('.')[0] in _REFUSED:
-        raise ImportError(f'the PyTorch port does not import {path!r}')
+    path = _rewrite(path)
     parts = path.split('.')
     for i in range(len(parts) - 1, 0, -1):
         mod_name = '.'.join(parts[:i])
@@ -67,6 +76,22 @@ def locate(path: str) -> Any:
             continue
         return obj
     raise ImportError(f'cannot locate target: {path}')
+
+
+def port_import(name: str, globals=None, locals=None, fromlist=(), level: int = 0) -> Any:
+    """``__import__`` for config programs (the workflow's ``ExecAction``):
+    absolute imports of the JAX package's or the reference's paths get the
+    port's objects by ``locate``'s rule (``import hcpdiff_tpu.data.processor``
+    binds ``hcpdiff_tpu`` to ``hcpdiff_tpu_torch``), JAX's packages raise,
+    other imports are Python's own."""
+    new = name if level else _rewrite(name)
+    if new == name:
+        return __import__(name, globals, locals, fromlist, level)
+    try:
+        module = importlib.import_module(new)
+    except ImportError:
+        module = locate(new)            # a compat namespace (``hcpdiff.data``)
+    return module if fromlist else importlib.import_module(_rewrite(name.split('.')[0]))
 
 
 def instantiate(node: Any, **kwargs: Any) -> Any:

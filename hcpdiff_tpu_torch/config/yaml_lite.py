@@ -9,6 +9,8 @@ it reads its configs itself. This module takes the subset of YAML that
 - flow lists ``[a, b]`` and flow mappings ``{path: '...', alpha: 0.8}``,
   which may run over several lines;
 - single- and double-quoted strings on one line;
+- literal block scalars (``|``, ``|-``, ``|+``: the workflow configs'
+  programs and notes);
 - plain scalars resolved as PyYAML's SafeLoader resolves them (null,
   booleans including yes/no/on/off, ints including 0x/0b/octal and
   sexagesimal), with YAML 1.2's floats (``1e-3``, ``.5``), as the JAX
@@ -16,7 +18,8 @@ it reads its configs itself. This module takes the subset of YAML that
 - comments, and ``${...}`` strings, which are left for ``interp``.
 
 It raises ``YAMLError``, naming the file and line, on what it does not
-take: block scalars (``|``, ``>``), anchors and aliases, tags, merge keys,
+take: folded block scalars (``>``) and indentation indicators (``|2``),
+anchors and aliases, tags, merge keys,
 complex keys, timestamps, multi-line plain or quoted scalars, and more
 than one document.
 
@@ -131,6 +134,7 @@ class _Parser:
 
     def __init__(self, text: str, name: str):
         self.name = name
+        self.raw = text.splitlines()
         self.lines: List[_Line] = []
         seen_content = False
         for n, raw in enumerate(text.splitlines(), 1):
@@ -269,7 +273,8 @@ class _Parser:
         if first == '!':
             raise self.error('tags are not supported', line)
         if first in '|>':
-            raise self.error('block scalars (| and >) are not supported', line)
+            raise self.error('block scalars other than literal ones (|, |-, |+) are not '
+                             'supported', line)
         if first in '@`%':
             raise self.error(f'a plain scalar cannot start with {first!r}', line)
         if first == '-' and (len(text) == 1 or text[1] == ' '):
@@ -300,6 +305,8 @@ class _Parser:
                     end = j
                     break
             plain = text[pos:end].rstrip()
+            if plain in ('|', '|-', '|+'):
+                return self.literal(i, plain[1:])
             self.check_plain(plain, line)
             try:
                 value = resolve_plain(plain)
@@ -309,6 +316,39 @@ class _Parser:
         if i < len(self.lines) and self.lines[i].indent > line.indent:
             raise self.error('multi-line scalars are not supported', self.lines[i])
         return value, i
+
+    def literal(self, i: int, chomp: str) -> Tuple[str, int]:
+        """The literal block scalar whose header ends lines[i]: the raw lines
+        below it indented more than that line, less the first one's
+        indentation, under the header's chomping ('' clip, '-' strip, '+'
+        keep); returns it and the index of the next line."""
+        line = self.lines[i]
+        head = self.raw[line.lineno - 1]
+        parent = len(head) - len(head.lstrip(' '))
+        j, indent, body = line.lineno, None, []
+        while j < len(self.raw):
+            r = self.raw[j]
+            if r.strip():
+                ind = len(r) - len(r.lstrip(' '))
+                if ind <= parent or (indent is not None and ind < indent):
+                    break
+                indent = ind if indent is None else indent
+                body.append(r[indent:])
+            else:
+                body.append('')
+            j += 1
+        n = len(body)
+        while body and not body[-1]:
+            body.pop()
+        text = '\n'.join(body)
+        if chomp == '+':
+            text += '\n' * (n - len(body) + 1)
+        elif chomp == '' and body:
+            text += '\n'
+        i += 1
+        while i < len(self.lines) and self.lines[i].lineno <= j:
+            i += 1
+        return text, i
 
     def rest_is_comment(self, text: str, end: int, line: _Line) -> None:
         rest = text[end:]

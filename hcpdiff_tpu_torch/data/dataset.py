@@ -17,10 +17,12 @@ stay numpy until the trainer moves them to the device.
 
 - DreamArtist's collate lays the prompts out [neg..., pos...] (a prompt
   without a pair is doubled); ``with_crop_info`` adds SDXL's crop-info
-  ``time_ids`` [B, 6] (``CropInfoPairDataset``).
-
-Not ported: ControlNet condition images (the trainer refuses their
-configs, ROADMAP.md queue 1 item 7).
+  ``time_ids`` [B, 6] (``CropInfoPairDataset``);
+- a ``Text2ImageCondSource`` item adds its ControlNet condition image,
+  ``batch['cond']`` [B, H, W, 3] in [0, 1] (``TextImageCondPairDataset``):
+  resized and centre-cropped to the bucket's size on its own (not with
+  the image's seeded crop, as in the JAX package), and read every batch,
+  also under ``cache_latents``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import numpy as np
 
 from ..utils.images import resize_bicubic
 from .buckets import BaseBucket, FixedBucket
-from .sources import DataSource, Text2ImageAttMapSource
+from .sources import DataSource, Text2ImageAttMapSource, Text2ImageCondSource
 from .utils import resize_crop_fix, to_model_input
 
 
@@ -124,7 +126,7 @@ class TextImagePairDataset:
         w, h = size
         lw, lh = w // self.vae_scale, h // self.vae_scale
 
-        latents, images, prompts, att_masks, crop_infos = [], [], [], [], []
+        latents, images, prompts, att_masks, crop_infos, conds = [], [], [], [], [], []
         for i in idx:
             i = int(i)
             path, meta = self.files[i]
@@ -146,6 +148,9 @@ class TextImagePairDataset:
                 am = src.get_att_map(path)
                 if am is not None:
                     att_masks.append(src.att_map_to_weight(resize_bicubic(am, (lw, lh))))
+            if isinstance(src, Text2ImageCondSource):
+                cimg, _ = resize_crop_fix(src.get_cond_image(path), size, None)
+                conds.append(to_model_input(cimg) * 0.5 + 0.5)
             if self.with_crop_info:
                 # [h_orig, w_orig, crop_y, crop_x, h, w]; a latent loaded
                 # from a disk cache has no geometry: uncropped at the target
@@ -170,9 +175,17 @@ class TextImagePairDataset:
             batch['prompts'] = prompts
         if att_masks:
             batch['att_mask'] = np.stack(att_masks).astype(np.float32)
+        if conds:
+            batch['cond'] = np.stack(conds).astype(np.float32)
         if crop_infos:
             batch['time_ids'] = np.asarray(crop_infos, np.float32)
         return batch
+
+
+class TextImageCondPairDataset(TextImagePairDataset):
+    """ControlNet's dataset: the condition image rides in ``batch['cond']``
+    (reference cond_dataset.py:16); ``get_batch`` adds it for every
+    ``Text2ImageCondSource`` item."""
 
 
 class CropInfoPairDataset(TextImagePairDataset):

@@ -4,8 +4,8 @@ A source yields (image_path, caption, per-item metadata); datasets combine
 sources with buckets. Images load as uint8 RGB arrays through
 ``data/utils.py:load_rgb`` (PNG only; a JPEG or other file raises, naming
 it), transparent pixels over ``bg_color`` as the JAX package composites
-them. ``Text2ImageCondSource`` (ControlNet's condition images) is not
-ported (ROADMAP.md queue 1 item 7) and raises.
+them. ``Text2ImageCondSource`` adds ControlNet's condition images from a
+folder beside the images.
 """
 from __future__ import annotations
 
@@ -172,9 +172,20 @@ class T2IFolderClassSource(Text2ImageSource):
 
 
 class Text2ImageCondSource(Text2ImageSource):
-    """ControlNet condition images: not ported yet."""
+    """Adds ControlNet condition images from a parallel folder: the file of
+    the image's stem under ``cond_root`` (reference
+    source/text2img_cond.py:9)."""
 
-    def __init__(self, *a, **kw):
-        raise NotImplementedError('Text2ImageCondSource (ControlNet training data) is not '
-                                  'ported to the PyTorch package yet (ROADMAP.md queue 1 '
-                                  'item 7)')
+    def __init__(self, img_root: str, cond_root: str, **kw):
+        super().__init__(img_root, **kw)
+        self.cond_root = cond_root
+
+    def get_cond_image(self, path: str) -> np.ndarray:
+        """uint8 RGB, the alpha dropped (Pillow's ``convert('RGB')``, as the
+        JAX package reads it); PNG only."""
+        stem = os.path.splitext(os.path.basename(path))[0]
+        for ext in types_support:
+            p = os.path.join(self.cond_root, f'{stem}.{ext}')
+            if os.path.exists(p):
+                return load_rgb(p, bg_color=None)
+        raise FileNotFoundError(f'no cond image for {path}')

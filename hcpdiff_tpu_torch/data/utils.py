@@ -98,10 +98,15 @@ def _read(path: str) -> np.ndarray:
         raise
 
 
-def load_rgb(path: str, bg_color: Sequence[int] = (255, 255, 255)) -> np.ndarray:
+def load_rgb(path: str, bg_color: Optional[Sequence[int]] = (255, 255, 255)) -> np.ndarray:
     """A PNG as uint8 RGB, transparent pixels over ``bg_color`` (the JAX
-    package's ``composite_rgba(Image.open(path), bg_color)``)."""
-    return composite_rgba(_read(path), bg_color)
+    package's ``composite_rgba(Image.open(path), bg_color)``); with
+    ``bg_color`` None the alpha is dropped, as Pillow's ``convert('RGB')``
+    drops it."""
+    arr = _read(path)
+    if bg_color is None:
+        return np.repeat(arr[:, :, None], 3, axis=2) if arr.ndim == 2 else arr[:, :, :3]
+    return composite_rgba(arr, bg_color)
 
 
 def load_gray(path: str) -> np.ndarray:

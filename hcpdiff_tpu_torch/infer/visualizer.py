@@ -71,7 +71,7 @@ from ..config.legacy import InferCFGConverter
 from ..data.processor import ControlNetProcessor
 from ..diffusion.schedules import NoiseSchedule
 from ..models.compose.sdxl_te import SDXLTextEncoderFrontend, split_sdxl_embedding
-from ..models.controlnet import ControlNet
+from ..models.controlnet import ControlNet, controlnet_from_state
 from ..models.factory import build_models, load_vae
 from ..models.text_frontend import TextEncoderFrontend
 from ..models.unet import UNet2DCondition
@@ -391,7 +391,9 @@ class Visualizer:
                     item['path'], unet_cfg=world['unet_cfg'])
                 state = states.get(slot, next(iter(states.values()), None))
                 if state is not None:
-                    plugins.append((self._controlnet(state, item['path']),
+                    plugins.append((controlnet_from_state(state, world['unet'],
+                                                          self.pipe.vae_scale, self.dtype,
+                                                          item['path']),
                                     float(item.get('alpha', 1.0))))
         need_bias = overlay_bias_paths(unet_m.overlays + neg_m.overlays, self.base['unet'])
         if need_bias:
@@ -416,26 +418,6 @@ class Visualizer:
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         self.merge_seconds = time.perf_counter() - t0
-
-    def _controlnet(self, state: Mapping[str, torch.Tensor], path: str) -> ControlNet:
-        """A ControlNet of the UNet's config and compute dtype (its time MLP
-        fp32), channels_last, holding a plugin's weights; a plugin of
-        other names raises."""
-        unet = self.world['unet']
-        stages = ControlNet.stages_for(self.pipe.vae_scale)
-        with torch.device('meta'):
-            net = ControlNet(unet.cfg, stages, fused_sublayers=unet.fused_sublayers).eval()
-        names = {n for n, _ in net.named_parameters()}
-        if set(state) != names:
-            raise _unported(f'a plugin other than a ControlNet of this UNet ({path}: '
-                            f'{len(set(state) - names)} unknown names, '
-                            f'{len(names - set(state))} missing)', 7)
-        held = {n: v.to(self.device, torch.float32 if n.startswith(ControlNet.FP32_CHILDREN)
-                        else self.dtype) for n, v in state.items()}
-        held = {n: v.contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
-                for n, v in held.items()}
-        net.load_state_dict(held, strict=True, assign=True)
-        return net
 
     def _load_embeddings(self) -> None:
         """``emb_dir``'s ``.pt`` files: each word registered with the

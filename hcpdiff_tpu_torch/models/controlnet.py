@@ -16,17 +16,24 @@ flax's SAME padding, zero-initialized output) and the zero convs are plain
 convs, as ``nn.Conv`` is plain XLA there. Names are the JAX tree's paths
 (``zero_0``, ``cond_embedding.blocks_1``, ``down_0_res_0.conv1`` ...), so
 ``ckpt/bridge.py`` loads one Flax ControlNet tree into either package.
+
+``build_controlnet`` (``ControlNet.from_unet``) is the trainable-plugin
+builder the Trainer's ``plugin_unet`` and the workflow's
+``BuildPluginAction`` call; ``plugin_builder`` resolves a config's
+``_target_`` to a builder; ``controlnet_from_state`` holds a plugin
+file's weights for inference.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Callable, List, Mapping, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import timestep_embedding
+from ..config.instantiate import locate
+from .layers import init_flax_like, timestep_embedding
 from .unet import Downsample2D, ResnetBlock2D, Transformer2D, UNet2DCondition, UNetConfig, _conv3
 
 
@@ -113,6 +120,9 @@ class ControlNet(nn.Module):
         self.mid_res_1 = ResnetBlock2D(mid_c, mid_c, c.norm_num_groups, tdim, fused)
         self.zero_mid = nn.Conv2d(mid_c, mid_c, 1)
 
+    # the compute dtype but the time MLP, as the UNet holds its weights
+    to_compute_dtype = UNet2DCondition.to_compute_dtype
+
     @staticmethod
     def stages_for(vae_scale: int) -> int:
         return int(math.log2(vae_scale))
@@ -173,3 +183,66 @@ def init_from_unet(controlnet: ControlNet, unet: UNet2DCondition) -> ControlNet:
         for k, v in taken.items():
             own[k].copy_(v)
     return controlnet
+
+
+def build_controlnet(generator: torch.Generator, unet: UNet2DCondition, vae_scale: int = 8,
+                     **_) -> ControlNet:
+    """A fresh ControlNet for ``unet`` (the reference's make_plugin): fp32 on
+    the UNet's device, the flax-like init drawn from ``generator`` (which
+    lives on that device), the condition encoder's output conv and every
+    zero conv zero (flax's zeros initializers in the JAX model), and the
+    UNet's shared blocks copied in (``init_from_unet``). ``vae_scale``
+    gives the condition encoder's stride-2 stages."""
+    device = next(unet.parameters()).device
+    with device:
+        net = ControlNet(unet.cfg, ControlNet.stages_for(vae_scale),
+                         fused_sublayers=unet.fused_sublayers)
+    with torch.no_grad():
+        init_flax_like(net, generator)
+        for name, p in net.named_parameters():
+            if name.startswith(('zero_', 'cond_embedding.conv_out.')):
+                p.zero_()
+    return init_from_unet(net, unet)
+
+
+ControlNet.from_unet = staticmethod(build_controlnet)
+
+
+def plugin_builder(target: str) -> Callable[..., nn.Module]:
+    """The builder of a plugin config's ``_target_``: the located class's
+    ``from_unet(generator, unet, vae_scale=, **spec)``, else
+    ``build_controlnet`` where the target names a ControlNet; otherwise a
+    ``ValueError`` (the JAX Trainer's dispatch)."""
+    try:
+        builder = getattr(locate(target), 'from_unet', None)
+    except ImportError:
+        builder = None
+    if builder is None and 'ControlNet' in target:
+        builder = build_controlnet
+    if builder is None:
+        raise ValueError(f'plugin {target!r} has no from_unet builder (see '
+                         'models/controlnet.py build_controlnet)')
+    return builder
+
+
+def controlnet_from_state(state: Mapping[str, torch.Tensor], unet: UNet2DCondition,
+                          vae_scale: int, dtype: torch.dtype, path: str = '') -> ControlNet:
+    """A ControlNet of ``unet``'s config on its device holding a plugin's
+    weights, in ``dtype`` but its time MLP (fp32), channels_last, for
+    inference; a plugin of other names raises."""
+    device = next(unet.parameters()).device
+    with torch.device('meta'):
+        net = ControlNet(unet.cfg, ControlNet.stages_for(vae_scale),
+                         fused_sublayers=unet.fused_sublayers).eval()
+    names = {n for n, _ in net.named_parameters()}
+    if set(state) != names:
+        raise NotImplementedError(
+            f'a plugin other than a ControlNet of this UNet ({path}: '
+            f'{len(set(state) - names)} unknown names, {len(names - set(state))} missing) is '
+            'not ported to the PyTorch package (ROADMAP.md queue 1 item 7)')
+    held = {n: v.to(device, torch.float32 if n.startswith(ControlNet.FP32_CHILDREN) else dtype)
+            for n, v in state.items()}
+    held = {n: v.contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
+            for n, v in held.items()}
+    net.load_state_dict(held, strict=True, assign=True)
+    return net.requires_grad_(False)

@@ -11,6 +11,9 @@ The pack is a dict of adaptation trees:
     'emb'                               prompt-tuning rows [n, D] (SDXL: a dict
                                         of the two encoders' tables), shared by
                                         both branches
+    'controlnet'                        a ControlNet's fp32 weights {state-dict
+                                        name: tensor} (``make_controlnet_apply``);
+                                        no model's weights take it
 
 ``assemble`` (UNet), ``assemble_te`` and ``assemble_te2`` give the weights
 that differ from the model's own: the frozen base (no gradient), overlaid
@@ -38,7 +41,7 @@ from torch.func import functional_call
 from ..adapt.overlay import merge_overlays
 
 PORTED_PACK_KEYS = ('lora_unet', 'unet_ft', 'lora_te', 'te_ft', 'lora_te2', 'te2_ft',
-                    'lora_unet_neg', 'lora_te_neg', 'lora_te2_neg', 'emb')
+                    'lora_unet_neg', 'lora_te_neg', 'lora_te2_neg', 'emb', 'controlnet')
 
 
 def base_weights(module: nn.Module, names: Iterable[str]) -> Dict[str, torch.Tensor]:
@@ -103,6 +106,17 @@ def make_unet_apply(unet: nn.Module) -> Callable:
 
     def apply(params: Mapping[str, torch.Tensor], x, t, ctx, **extra):
         return functional_call(unet, cast(params), (x, t, ctx), extra)
+    return apply
+
+
+def make_controlnet_apply(net: nn.Module) -> Callable:
+    """``controlnet_apply(params, x, t, ctx, cond) -> (down residuals, mid
+    residual)``: ``net`` (a ControlNet) with ``params`` in place of its own,
+    each cast to the dtype of the parameter it replaces."""
+    cast = _casting(net)
+
+    def apply(params: Mapping[str, torch.Tensor], x, t, ctx, cond):
+        return functional_call(net, cast(params), (x, t, ctx, cond))
     return apply
 
 

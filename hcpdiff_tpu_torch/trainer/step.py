@@ -20,9 +20,11 @@ DreamArtist's two branches (the ids laid out [neg..., pos...], ``pred =
 e_n + scale * (e_p - e_n)`` with the scale ramped over t / T), pyramid
 noise, ``grad_accum``, EMA (over the whole pack), ``min_timestep``/
 ``max_timestep``, the three prediction types (through
-``NoiseSchedule.target``), ``att_mask`` and ``loss_weight``, and the
-metrics ``loss`` and ``grad_norm`` (over the whole pack). Not yet:
-ControlNet.
+``NoiseSchedule.target``), ``att_mask`` and ``loss_weight``, ControlNet
+(``controlnet``: its fp32 weights, run by ``controlnet_apply`` on the
+noisy latents, t, the context and the batch's ``cond``, its residuals fed
+to the frozen UNet's taps), and the metrics ``loss`` and ``grad_norm``
+(over the whole pack).
 """
 from __future__ import annotations
 
@@ -136,7 +138,8 @@ def init_train_state(pack: Dict[str, Any], optimizer: Optimizer, use_ema: bool =
 def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseSchedule,
                      criterion, cfg: StepConfig,
                      lora_scales: Optional[Dict[str, Dict[str, float]]] = None,
-                     te_apply: Optional[Callable] = None):
+                     te_apply: Optional[Callable] = None,
+                     controlnet_apply: Optional[Callable] = None):
     """Returns ``train_step(state, frozen, batch, generator=None, draws=None)``.
 
     unet_apply(params, x, t, ctx, **extra) -> prediction; ``params`` are
@@ -147,12 +150,15 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
     te_apply(params, input_ids, token_mult, emb_ext) (``make_te_apply``)
     runs it with the assembled weights otherwise (SDXL: ``params`` =
     {'te': ..., 'te2': ...}).
+    controlnet_apply(params, x, t, ctx, cond) -> (down residuals, mid
+    residual) runs the pack's ``controlnet`` weights where the batch has
+    ``cond`` [B, H, W, 3] (not under DreamArtist, as in the JAX step).
     frozen: {'unet': ..., 'te': ...[, 'te2': ...]}, each {state-dict
     name: fp32 base weight} for the weights the pack's LoRA merges into;
     a 'te2' entry makes the step SDXL's.
     batch: {'latents': [B, h, w, 4], 'input_ids': [B, S] (DreamArtist: [2B,
     S], negative prompts first), 'token_mult', 'att_mask' [B, h, w],
-    'loss_weight' [] or [B], 'time_ids' [B, 6] optional}; with grad_accum
+    'loss_weight' [] or [B], 'time_ids' [B, 6], 'cond' optional}; with grad_accum
     > 1 every entry has a leading [grad_accum] axis.
     draws: optional [(noise, t)] per microbatch, used instead of drawing
     from ``generator`` (the tests feed the JAX package's draws).
@@ -188,6 +194,10 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
                 extra = {'pooled_text_emb': pooled,
                          'time_ids': tid if tid is not None else torch.zeros(
                              B, 6, device=latents.device)}
+            if (controlnet_apply is not None and 'controlnet' in pack and not cfg.dream_artist
+                    and batch.get('cond') is not None):
+                down, mid = controlnet_apply(pack['controlnet'], noisy, t, ctx, batch['cond'])
+                extra.update(down_residuals=down, mid_residual=mid)
             return unet_apply(assemble(frozen.get('unet', {}), pack, lora_scales, branch),
                               noisy, t, ctx, **extra)
 

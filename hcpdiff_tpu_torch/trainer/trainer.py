@@ -7,12 +7,13 @@ Lifecycle, as in the JAX package: config -> exp_dir and its frozen
 ``models/factory.py``; SDXL with its second text encoder) -> prompt-tuning
 words (``tokenizer_pt.emb_dir``'s ``.pt`` files) -> datasets and buckets
 (and the latent cache; DreamArtist's [neg, pos] prompts, SDXL's crop-info
-``time_ids``) -> the trainable pack (LoRA on the UNet and the text
-encoders, DreamArtist's negative branch, layer-wise fine-tuning, the
-words' rows) -> per-group optimizer and lr schedules, and the
-prompt-embedding optimizer -> the train step -> the loop, which logs,
-saves reference-format checkpoints (``ckpts/unet-<step>.safetensors``,
-``text_encoder-<step>...``, ``text_encoder_2-<step>...``, ``<word>-<step>.pt``)
+``time_ids``, ControlNet's condition images) -> the trainable pack (LoRA
+on the UNet and the text encoders, DreamArtist's negative branch,
+layer-wise fine-tuning, the words' rows, a ControlNet plugin) ->
+per-group optimizer and lr schedules, and the prompt-embedding optimizer
+-> the train step -> the loop, which logs, saves reference-format
+checkpoints (``ckpts/unet-<step>.safetensors``, ``text_encoder-<step>...``,
+``text_encoder_2-<step>...``, ``<word>-<step>.pt``, ``plugin-<step>...``)
 and the full state (``state/``, for ``train.resume.auto``);
 ``save_merged`` exports the merged weights as a diffusers-layout
 directory.
@@ -33,10 +34,20 @@ table an encoder, split from the files' joined [n, 768 + 1280] vectors),
 all of them updated by the prompt-embedding optimizer when
 ``tokenizer_pt.train`` names any, as in the JAX package.
 
+``plugin_unet`` entries are built by their ``_target_``'s ``from_unet``
+(``models/controlnet.py:plugin_builder``; a ControlNet: a copy of the
+UNet's down and mid blocks, zero convs zero, the rest seeded from ``seed +
+7``) into ``pack['controlnet']`` (fp32, its own lr group); the step runs
+it on each batch's ``cond`` and feeds its residuals to the frozen UNet,
+which takes no gradient for its own weights (autograd records its mid and
+up path, from the taps on); the ControlNet runs without remat, as in the
+JAX package.
+
 What the JAX Trainer does beyond this raises ``NotImplementedError``
 naming its ROADMAP.md queue 1 item, never ignored: the previewer, the
 optimizers other than AdamW/Adam/SGD, TensorBoard/W&B loggers (item 6);
-ControlNet plugins and data (item 7); fsdp, ZeRO and multi-host (item 8).
+``plugin_TE`` (item 7: the JAX Trainer builds nothing from it); fsdp, ZeRO
+and multi-host (item 8).
 
 v-prediction (``noise_scheduler.prediction_type: v_prediction``, SD2.x-v)
 trains against ``NoiseSchedule.target``; Min-SNR weighs it by the same
@@ -63,21 +74,22 @@ from ..ckpt.manager import CkptManagerDiffusers, CkptManagerPKL, CkptManagerSafe
 from ..config import Cfg, instantiate, load, save_config
 from ..config.legacy import TrainCFGConverter
 from ..data.buckets import FixedBucket, LongEdgeBucket, RatioBucket, SizeBucket
-from ..data.dataset import DataGroup, TextImagePairDataset
+from ..data.dataset import DataGroup, TextImageCondPairDataset, TextImagePairDataset
 from ..data.sources import (ComposeDataSource, T2IFolderClassSource, Text2ImageAttMapSource,
                             Text2ImageCondSource, Text2ImageSource)
 from ..data.transforms import Compose, TemplateFill
 from ..diffusion.losses import LOSSES
 from ..diffusion.schedules import NoiseSchedule
 from ..loggers import build_loggers
+from ..models.controlnet import plugin_builder
 from ..models.compose.sdxl_te import (SDXLTextEncoderFrontend, concat_sdxl_embedding,
                                       split_sdxl_embedding)
 from ..models.factory import build_models
 from ..models.text_frontend import TextEncoderFrontend
 from ..models.unet import resolve_remat_policy
 from ..utils.cfg_parse import get_cfg_range
-from .assemble import (assemble, assemble_te, base_weights, lora_base_weights, make_te_apply,
-                       make_unet_apply)
+from .assemble import (assemble, assemble_te, base_weights, lora_base_weights,
+                       make_controlnet_apply, make_te_apply, make_unet_apply)
 from .optimizers import make_optimizer, make_pt_optimizer, make_schedule, resolve_optimizer
 from .preemption import PreemptionGuard, resolve_preemption_cfg
 from .step import StepConfig, build_train_step, init_train_state, pack_leaves
@@ -95,16 +107,13 @@ def refuse_unported(cfgs: Cfg) -> None:
     """Raise on every feature of the JAX Trainer's configs that the port
     does not train yet, before anything is built."""
     tcfg = cfgs.get('train') or {}
-    if cfgs.get('plugin_unet') or cfgs.get('plugin_TE'):
-        raise _unported('plugins (plugin_unet/plugin_TE: ControlNet)', 7)
+    if cfgs.get('plugin_TE'):
+        raise _unported('text-encoder plugins (plugin_TE)', 7)
     if cfgs.get('previewer'):
         raise _unported('the training previewer (previewer:)', 6)
     if (int(cfgs.get('fsdp', 1) or 1) > 1 or tcfg.get('zero') or tcfg.get('zero1')
             or cfgs.get('multi_host')):
         raise _unported('sharded or multi-host training (fsdp, train.zero, multi_host)', 8)
-    for ds in (cfgs.get('data') or {}).values():
-        if 'Cond' in str((ds or {}).get('_target_', '')):
-            raise _unported('ControlNet datasets (TextImageCondPairDataset)', 7)
     resolve_optimizer(tcfg.get('optimizer'))
     resolve_optimizer(tcfg.get('optimizer_pt'))
 
@@ -256,6 +265,8 @@ class Trainer:
                 kw['bg_color'] = tuple(int(c) for c in s['bg_color'])
             if cls is Text2ImageAttMapSource:
                 kw['att_map_root'] = s.get('att_map') or s.get('att_map_root')
+            if cls is Text2ImageCondSource:
+                kw['cond_root'] = s.get('cond_root')
             sources.append(cls(**kw))
         if not sources:
             raise ValueError('a dataset has no source')
@@ -267,11 +278,12 @@ class Trainer:
                  + list(self.cfgs.get('lora_text_encoder') or []))
         with_crop = (bool(ds_cfg.get('with_crop_info', self.sdxl))
                      or 'CropInfo' in str(ds_cfg.get('_target_', '')))
-        ds = TextImagePairDataset(source, self._build_bucket(ds_cfg.get('bucket')),
-                                  frontend=self.frontend, vae_scale=vae_scale,
-                                  cache_latents=bool(ds_cfg.get('cache_latents', False)),
-                                  loss_weight=float(ds_cfg.get('loss_weight', 1.0)),
-                                  dream_artist=da, with_crop_info=with_crop)
+        cls = (TextImageCondPairDataset if 'Cond' in str(ds_cfg.get('_target_', ''))
+               else TextImagePairDataset)
+        ds = cls(source, self._build_bucket(ds_cfg.get('bucket')), frontend=self.frontend,
+                 vae_scale=vae_scale, cache_latents=bool(ds_cfg.get('cache_latents', False)),
+                 loss_weight=float(ds_cfg.get('loss_weight', 1.0)), dream_artist=da,
+                 with_crop_info=with_crop)
         ds.build(int(ds_cfg.get('batch_size', 4)))
         ds.bucket.check_sizes(vae_scale * 2 ** (len(self.unet.cfg.block_out_channels) - 1))
         if ds.want_cache:
@@ -379,9 +391,24 @@ class Trainer:
                 rows, dim_l=self.te.cfg.hidden_size).items()} if self.sdxl else rows)
             for item in (cfgs.get('tokenizer_pt') or {}).get('train'):
                 self.pt_lrs[item['name']] = float(item.get('lr', 3e-3))
+        # plugins: each entry's builder (the JAX Trainer keeps the last one)
+        self.controlnet = None
+        vae_scale = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        for spec in dict(cfgs.get('plugin_unet') or {}).values():
+            spec = dict(spec or {})
+            builder = plugin_builder(str(spec.pop('_target_', '')))
+            spec.pop('_partial_', None)
+            lr = float(spec.pop('lr', 1e-4))
+            plugin_gen = torch.Generator(device=self.device).manual_seed(self.seed + 7)
+            self.controlnet = builder(plugin_gen, self.unet, vae_scale=vae_scale, **spec)
+            self.controlnet.requires_grad_(False)
+            pack['controlnet'] = {n: p.detach().float().clone()
+                                  for n, p in self.controlnet.named_parameters()}
+            self.group_lrs['controlnet'] = lr
         if not pack:
             raise ValueError('the config trains nothing: no lora_unet, lora_text_encoder, unet '
-                             'or text_encoder layers or tokenizer_pt words were selected')
+                             'or text_encoder layers, tokenizer_pt words or plugin_unet were '
+                             'selected')
         self.pack = pack
         self.dream_artist = 'lora_unet_neg' in pack or 'lora_te_neg' in pack
 
@@ -410,10 +437,23 @@ class Trainer:
         self.ckpt_manager.set_save_dir(os.path.join(self.exp_dir, 'ckpts'))
         self.states = StateManager(os.path.join(self.exp_dir, 'state'))
 
+    def _resume_plugin(self, path: str) -> None:
+        """The first plugin of a plugin file into ``pack['controlnet']``."""
+        state = next(iter(self.ckpt_manager.load_plugins(path).values()), None)
+        if state is None or 'controlnet' not in self.pack:
+            return
+        own = self.pack['controlnet']
+        if set(state) != set(own):
+            raise ValueError(f'{path}: its plugin is not a ControlNet of this UNet '
+                             f'({len(set(state) ^ set(own))} names differ)')
+        for name, v in state.items():
+            own[name].copy_(v)
+
     @torch.no_grad()
     def load_resume(self):
         """Weight-only resume from reference-style per-model ckpt lists
-        (``train.resume.ckpt_path.unet`` / ``TE``), EMA twins included."""
+        (``train.resume.ckpt_path.unet`` / ``TE`` / ``plugin``), EMA twins
+        included."""
         self.start_step = 0
         self._resume_ema: Dict[str, Any] = {}
         rcfg = (self.cfgs.get('train') or Cfg()).get('resume')
@@ -421,8 +461,6 @@ class Trainer:
             return
         self.start_step = int(rcfg.get('start_step', 0))
         cp = rcfg.get('ckpt_path') or {}
-        if cp.get('plugin'):
-            raise _unported('resuming plugins (ControlNet)', 7)
 
         def load_model(paths, lora_key, ft_key, module, aliases):
             params = dict(module.named_parameters())
@@ -440,10 +478,14 @@ class Trainer:
                     (self.pack.get(ft_key, {}).get(name, params[name])).copy_(v)
                 if ck.get('base_ema') and ft_key in self.pack:
                     self._resume_ema[ft_key] = ck['base_ema']
+                if ck.get('plugin'):
+                    self._resume_plugin(path)
 
         load_model(cp.get('unet'), 'lora_unet', 'unet_ft', self.unet, self.aliases['unet'])
         load_model(cp.get('TE') or cp.get('text_encoder'), 'lora_te', 'te_ft', self.te,
                    self.aliases['te'])
+        for path in cp.get('plugin') or []:
+            self._resume_plugin(path)
         words = cp.get('words') or {}
         for name, path in (words.items() if isinstance(words, dict) else words):
             if name not in self.emb_slices or 'emb' not in self.pack:
@@ -498,9 +540,13 @@ class Trainer:
                 if te is not None:
                     te.to(torch.bfloat16)
         self.unet.to_compute_dtype(self.dtype)
+        cn_apply = None
+        if self.controlnet is not None:
+            cn_apply = make_controlnet_apply(self.controlnet.to_compute_dtype(self.dtype))
         self._train_step = build_train_step(
             make_unet_apply(self.unet), self.frontend.encode_ids, self.noise_schedule,
-            self.criterion, step_cfg, self.lora_scales, te_apply=make_te_apply(self.frontend))
+            self.criterion, step_cfg, self.lora_scales, te_apply=make_te_apply(self.frontend),
+            controlnet_apply=cn_apply)
         self.state = init_train_state(self.pack, self.optimizer, use_ema=ema_cfg is not None,
                                       schedules=self.schedules, optimizer_pt=self.optimizer_pt,
                                       schedule_pt=self.schedule_pt)
@@ -665,7 +711,8 @@ class Trainer:
         """``ckpts/unet-<step>``, ``text_encoder-<step>`` and (SDXL)
         ``text_encoder_2-<step>`` in the reference layout (the JAX trainer's
         keys; the negative branch is not saved, as there), ``<word>-<step>.pt``
-        for each trained word (SDXL: the joined vectors), and the full
+        for each trained word (SDXL: the joined vectors), ``plugin-<step>``
+        ({'controlnet1': the ControlNet}, ``.___.`` keys), and the full
         state."""
         self.states.save(step, self._full_state(step))
         pack, ema = self.state.pack, self.state.ema or {}
@@ -678,6 +725,10 @@ class Trainer:
                                  f'{names[part]}-{step}{self.ckpt_manager.ext}'),
                     module, base=pack.get(ft), lora_overlay=pack.get(lora),
                     base_ema=ema.get(ft), lora_ema=ema.get(lora), aliases=self.aliases[alias])
+        if 'controlnet' in pack:
+            self.ckpt_manager.save_plugins(
+                os.path.join(self.exp_dir, 'ckpts', f'plugin-{step}{self.ckpt_manager.ext}'),
+                {'controlnet1': pack['controlnet']}, self.controlnet)
         if 'emb' in pack:
             rows = pack['emb']
             rows = (concat_sdxl_embedding({k: v.detach().cpu().numpy() for k, v in rows.items()})

@@ -1,9 +1,9 @@
 """The reference's ``_target_: hcpdiff.…`` paths in the port: every public
-name of the JAX package's ``compat`` resolves through the port's
-``locate('hcpdiff.…')`` to the port's object of the same name, or raises
-``NotImplementedError`` naming ROADMAP.md queue 1 item 7 when it is used;
-the shipped configs that name such paths resolve all their targets; and
-the port's new modules are among the import rule's files."""
+name of the JAX package's ``compat`` (ControlNet's dataset and the workflow
+actions among them) resolves through the port's ``locate('hcpdiff.…')`` to
+the port's object of the same name; the shipped configs that name such
+paths resolve all their targets; and the port's new modules are among the
+import rule's files."""
 import inspect
 import pathlib
 
@@ -17,7 +17,6 @@ from tests.test_torch_port_imports import FILES
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PUBLIC = sorted(n for n in dir(jcompat) if not n.startswith('_'))
-ITEM7 = 'ROADMAP.md queue 1 item 7'
 
 
 def _public(obj):
@@ -28,21 +27,9 @@ def _check(path, jobj):
     """``hcpdiff.<path>`` in the port against the JAX compat's object:
     modules are the port's module of the same path, namespaces hold the
     same names (each checked in turn), classes and functions are the
-    port's of the same name; what the port lacks raises naming item 7."""
-    try:
-        obj = locate(f'hcpdiff.{path}')
-    except NotImplementedError as e:
-        assert ITEM7 in str(e)
-        return
-    if isinstance(obj, compat._UnportedModule):
-        with pytest.raises(NotImplementedError, match=ITEM7):
-            getattr(obj, 'anything')
-    elif inspect.isclass(obj) and obj.__module__ == compat.__name__ and not _public(obj) - {
-            'mro'}:
-        assert obj.__name__ == path.split('.')[-1]
-        with pytest.raises(NotImplementedError, match=ITEM7):
-            obj()
-    elif inspect.ismodule(jobj):
+    port's of the same name."""
+    obj = locate(f'hcpdiff.{path}')
+    if inspect.ismodule(jobj):
         assert obj.__name__ == jobj.__name__.replace('hcpdiff_tpu.', 'hcpdiff_tpu_torch.', 1)
     elif inspect.isclass(jobj) and jobj.__module__ == jcompat.__name__ or not (
             inspect.isclass(jobj) or callable(jobj)):
@@ -101,7 +88,8 @@ def test_shipped_configs_resolve_every_target(cfg):
 
 def test_import_rule_covers_the_new_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
-    for module in ('compat.py', 'utils/cfg_parse.py', 'tools/create_embedding.py'):
+    for module in ('compat.py', 'utils/cfg_parse.py', 'tools/create_embedding.py',
+                   'workflow/base.py', 'workflow/actions.py', 'infer_workflow.py'):
         assert f'hcpdiff_tpu_torch/{module}' in names
 
 

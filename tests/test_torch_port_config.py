@@ -3,7 +3,8 @@ the reference libraries, on the CPU:
 
 - ``config/yaml_lite.py`` against PyYAML's SafeLoader with the JAX
   loader's YAML 1.2 float rule (``hcpdiff_tpu.config.loader.yaml_load``)
-  on every file under ``cfgs/infer`` and ``cfgs/train``, its writer read
+  on every file under ``cfgs/infer``, ``cfgs/train`` and ``cfgs/workflow``
+  (literal block scalars among them), its writer read
   back by ``yaml.safe_load``, and its refusals named by file and line;
 - the port's ``config.load`` against ``hcpdiff_tpu.config.load`` on every
   ``cfgs/infer`` file, with and without dotlist overrides;
@@ -25,7 +26,8 @@ from hcpdiff_tpu_torch.config import yaml_lite
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CFGS = ROOT / 'cfgs'
-YAMLS = sorted((CFGS / 'infer').rglob('*.yaml')) + sorted((CFGS / 'train').rglob('*.yaml'))
+YAMLS = (sorted((CFGS / 'infer').rglob('*.yaml')) + sorted((CFGS / 'train').rglob('*.yaml'))
+         + sorted((CFGS / 'workflow').rglob('*.yaml')))
 INFER = sorted((CFGS / 'infer').rglob('*.yaml'))
 OVERRIDES = ['seed=3', 'bs=2', 'infer_args.width=256', 'infer_args.guidance_scale=5',
              'prompt=a photo of a cat, 1girl', 'new.list=[1, 2.5, x]', 'merge=---',
@@ -63,13 +65,15 @@ def test_writer_quotes_what_would_read_back_otherwise():
 @pytest.mark.parametrize('text', [
     '', 'a', '0.8', '1e-4', '.5', '-.inf', '[a, b]', '{a: 1, b: [1, 2]}', 'a: b', 'yes',
     'Off', '0x1f', '017', '0b101', '1_000', '1:30', '~', "'it''s'", '"x\\ty\\u00e9"', 'a #c',
-    'k: v  # c\nl:\n- 1\n- {m: n}\n', 'a: [1,\n  2,\n]\nb: 2', 'x: "a: b"', '3.', '+1'])
+    'k: v  # c\nl:\n- 1\n- {m: n}\n', 'a: [1,\n  2,\n]\nb: 2', 'x: "a: b"', '3.', '+1',
+    'a: |\n  b\n   c\n\nd: 1', 'a: |-\n  x\n  # not a comment\nb: [1]', '- |+\n  k\n\n- z',
+    'x:\n  - p: |  # c\n      l1\n        l2\n    q: 2\n', 'a: |\nb: 1'])
 def test_reader_matches_pyyaml_on_scalars_and_documents(text):
     assert yaml_lite.loads(text) == jax_yaml_load(text)
 
 
 @pytest.mark.parametrize('text, what', [
-    ('a: |\n  b\n', 'block scalars'), ('a: >\n  b\n', 'block scalars'),
+    ('a: |2\n  b\n', 'block scalars'), ('a: >\n  b\n', 'block scalars'),
     ('a: &x 1\nb: *x\n', 'anchors and aliases'), ('a: *x\n', 'anchors and aliases'),
     ('a: 1\n---\nb: 2\n', 'one document'), ('a: !!str 1\n', 'tags'),
     ('a: 2023-04-01\n', 'timestamps'), ("a: 'open\n  more'\n", 'close on their line'),

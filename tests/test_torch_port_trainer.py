@@ -14,7 +14,7 @@ widths in fp32 on the CPU:
   the JAX trainer's and load in the other package's ``load_ckpt``;
 - a run interrupted by SIGTERM and continued by ``resume.auto`` equals
   the uninterrupted run bit for bit (losses, pack, EMA);
-- every ``cfgs/train/examples`` config: the fourteen the port trains run
+- every ``cfgs/train/examples`` config: the fifteen the port trains run
   through ``main()`` on the tiny worlds (``tiny_sdxl`` for the SDXL ones;
   paths, steps, device, fp32 and a small bucket overridden; the words of
   the prompt-tuning configs made first by ``tools/create_embedding.py``;
@@ -336,8 +336,9 @@ RUNS = {  # config -> overrides beyond paths, steps and the device
     'lora_sdxl.yaml': ['model.pretrained_model_name_or_path=tiny_sdxl'],
     'FT_sdxl.yaml': ['model.pretrained_model_name_or_path=tiny_sdxl'],
     'sd21_vpred.yaml': [],
+    'controlnet.yaml': ['data.dataset1.bucket.target_size=32'],
 }
-REFUSED = {'controlnet.yaml': 7, 'FT_sdxl_zero3.yaml': 8, 'Lion_optimizer.yaml': 6,
+REFUSED = {'FT_sdxl_zero3.yaml': 8, 'Lion_optimizer.yaml': 6,
            'add_logger_tensorboard_wandb.yaml': 6, 'preview_in_training.yaml': 6}
 # the words each prompt-tuning config trains (made by create_embedding first)
 WORDS_OF = {'TextualInversion.yaml': ['pt-cat1'], 'CustomDiffusion.yaml': ['pt-new1'],
@@ -358,6 +359,8 @@ def _run_args(name, proj, tmp_path):
         args += [f'{src}.img_root={proj / "instance"}', 'data.dataset1.bucket.target_size=32',
                  f'data.dataset_class.source.data_source1.img_root={proj / "class"}']
     else:
+        if name == 'controlnet.yaml':          # the images are their own condition
+            args += [f'{src}.cond_root={proj / "imgs"}']
         args += [f'{src}.img_root={proj / "imgs"}',
                  f'{src}.caption_file={proj / "imgs" / "captions.json"}',
                  'data.dataset1.bucket.target_area=1024', 'data.dataset1.bucket.step_size=16']
@@ -382,7 +385,9 @@ def test_example_config_trains(proj, tmp_path, name):
     models = {'unet': 'unet', 'te': 'text_encoder', 'te2': 'text_encoder_2'}
     assert ckpts == sorted([f'{models[m]}-2.safetensors' for m in models
                             if f'lora_{m}' in trainer.pack or f'{m}_ft' in trainer.pack]
-                           + [f'{w}-2.pt' for w in WORDS_OF.get(name, [])])
+                           + [f'{w}-2.pt' for w in WORDS_OF.get(name, [])]
+                           + ['plugin-2.safetensors'] * ('controlnet' in trainer.pack))
+    assert ('controlnet' in trainer.pack) == (name == 'controlnet.yaml')
     assert trainer.sdxl == ('sdxl' in name) and trainer.dream_artist == (name == 'DreamArtist++.yaml')
     assert ('emb' in trainer.pack) == (name in WORDS_OF)
     assert trainer.noise_schedule.prediction_type == (
