@@ -190,6 +190,33 @@ package is missing. Phases, each fatal on failure:
    the image, text2img_lora.yaml's images bitwise text2img.yaml's (its
    actions_pre_lora are not run), launches as reckoned (a 1024 px UNet
    call: A 15, levels 0-2 five each); seconds and peak memory a workflow;
+4p. optimizers: each of Lion, Adafactor, 8-bit AdamW (a bf16 first
+   moment), D-Adaptation AdamW and Prodigy takes 5 steps (optax's global
+   clip first) on seeded fp32 tensors of the trainer phase's LoRA pack's
+   shapes, plus two full 320x320 and 1280x320 weights (Adafactor's
+   factored path), on the card and on the CPU: parameters and state within
+   atol 1e-6 + rtol 1e-5; then Lion_optimizer.yaml through the training
+   entry point on the 4e images at 512 px, batch 4, 6 steps, and the same
+   config under train.optimizer._target_=optim.adafactor, optim.adamw_8bit,
+   optim.dadapt_adamw and optim.prodigy, 3 steps each (the last two without
+   warm-up: from lr 0 their first d is 0 / 0, NaN in optax as here):
+   losses finite, launches as trainer_reckoning counts them, step medians,
+   peak memory and the optimizer state's bytes;
+4q. preview and loggers: preview_in_training.yaml with
+   previewer.image_log_step=3 through the entry point, 6 steps: two 512
+   px, 20-step DDIM previews written as imgs/3-preview.png and
+   imgs/6-preview.png, finite and not constant, launches training's plus
+   two batch-1 20-step requests' (sd15_launches); a preview_dict call
+   leaves the pack bitwise as it was, its seconds and peak increment
+   printed; add_logger_tensorboard_wandb.yaml, 6 steps: the TensorBoard
+   event file passes the port's reader's CRC checks and holds the logged
+   loss (the trainer's moving average) and step at steps 1-6; W&B runs
+   in WANDB_MODE=disabled where wandb is installed (no network), and
+   where it is not, the warning line is printed once;
+4r. jpeg: lora_conventional.yaml, 3 steps, on the baseline JPEGs committed
+   under tests/data/torch_port_jpeg (4:2:0, 4:4:4, 4:2:2 with restart
+   markers; 512x512 and 640x448), decoded by utils/jpeg.py: losses finite,
+   launches as reckoned, decode seconds an image;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -3542,6 +3569,261 @@ def sd21_kernel_phase(train_shapes):
     return per
 
 
+# phases 4p-4r: the rest of the trainer (the optimizers, the previewer,
+# the TensorBoard and W&B loggers, JPEG data) through the training entry
+# point on the 4d directory and the 4e images
+OPT_STEPS, OPT_SHORT, OPT_CHECK_STEPS = 6, 3, 5
+OPT_NAMES = ('lion', 'adafactor', 'adamw_8bit', 'dadapt_adamw', 'prodigy')
+OPT_LR = {'lion': 1e-4, 'adafactor': 1e-3, 'adamw_8bit': 1e-3, 'dadapt_adamw': 1.0,
+          'prodigy': 1.0}
+OPT_TOL = {'atol': 1e-6, 'rtol': 1e-5}
+# two full weights beside the LoRA factors: Adafactor factors a leaf's
+# second moment only where its two largest axes are both >= 128
+OPT_FULL_SHAPES = ((320, 320), (1280, 320))
+PREVIEW_EVERY, PREVIEW_STEPS, LOGGER_STEPS, JPEG_STEPS = 3, 6, 6, 3
+JPEG_DIR = os.path.join('tests', 'data', 'torch_port_jpeg')
+
+
+def _config_run(cfg, model_dir, exp, imgs, steps, what, *extra):
+    """One run of the training entry point, the counters zeroed just before
+    and read just after: (trainer, launches, seconds, peak GiB); its losses
+    must be finite."""
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    trainer = _train_cli(cfg, model_dir, exp, imgs, f'train.train_steps={steps}',
+                         f'train.save_step={steps}', *extra)
+    seconds = time.perf_counter() - t0
+    launches = read_counters(what, TRAINER_KERNELS, absent=FUSED_ONLY)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(trainer.history) == steps and all(math.isfinite(x) for x in trainer.history),
+          f'{what}: losses {trainer.history}')
+    return trainer, launches, seconds, peak
+
+
+def _reckoned(trainer):
+    """trainer_reckoning for a run's steps and latent-cache encodes."""
+    from hcpdiff_tpu_torch.models.layers import GroupNorm
+    vae = trainer.vae
+    return trainer_reckoning(trainer.unet.cfg, trainer.step_shapes, trainer.datasets[0].encodes,
+                             2 ** (len(vae.cfg.block_out_channels) - 1),
+                             sum(isinstance(m, GroupNorm) for m in vae.encoder.modules()))
+
+
+def _step_stats(trainer):
+    import numpy as np
+    steps = np.diff(trainer.step_ends)
+    return (f'median {float(np.median(steps)):.4f} s/step, all '
+            f'{[round(float(x), 4) for x in steps]}')
+
+
+def _state_bytes(trainer):
+    """Bytes of the tensors in the optimizers' state."""
+    return sum(v.numel() * v.element_size() for opt in (trainer.state.optimizer,
+                                                        trainer.state.optimizer_pt)
+               if opt is not None for st in opt.state.values() for v in st.values()
+               if torch.is_tensor(v))
+
+
+def _optimizer_check(device, shapes):
+    """Each optimizer's OPT_CHECK_STEPS steps on seeded fp32 tensors of
+    ``shapes`` on the card and on the CPU, from the same clipped gradients
+    (a fixed direction plus noise, clipped by optax's global norm on the
+    CPU): parameters and state within OPT_TOL. Returns {name: max abs
+    error of the parameters}."""
+    from hcpdiff_tpu_torch.trainer.optimizers import OPTIMIZERS, clip_by_global_norm_
+    gen = torch.Generator().manual_seed(SEED + 90)
+    params0 = [torch.randn(s, generator=gen) * 0.5 for s in shapes]
+    base = [torch.randn(s, generator=gen) for s in shapes]
+    grads = []
+    for i in range(OPT_CHECK_STEPS):
+        g = [(b + 0.5 * torch.randn(b.shape, generator=gen)) * (0.01 if i % 3 == 0 else 1.0)
+             for b in base]
+        clip_by_global_norm_(g, 1.0)
+        grads.append(g)
+
+    def run(name, dev):
+        params = [p.clone().to(dev) for p in params0]
+        opt = OPTIMIZERS[name](OPT_LR[name])(params)
+        for g in grads:
+            for p, x in zip(params, g):
+                p.grad = x.to(dev)
+            opt.step()
+        return params, opt
+
+    errors = {}
+    for name in OPT_NAMES:
+        card, card_opt = run(name, device)
+        cpu, cpu_opt = run(name, torch.device('cpu'))
+        pairs = [(a, b, 'param') for a, b in zip(card, cpu)]
+        for a, b in zip(card, cpu):
+            st_a, st_b = card_opt.state[a], cpu_opt.state[b]
+            check(sorted(st_a) == sorted(st_b), f'{name}: state keys {sorted(st_a)}')
+            pairs += [(st_a[k], st_b[k], k) for k in st_a if torch.is_tensor(st_a[k])]
+        worst = {}
+        for a, b, k in pairs:
+            check(a.dtype == b.dtype and a.shape == b.shape, f'{name} {k}: {a.dtype} {a.shape}')
+            a, b = a.cpu().float(), b.float()
+            check(bool(torch.isfinite(a).all()) and torch.allclose(a, b, **OPT_TOL),
+                  f'{name} {k}: card against CPU max abs err {float((a - b).abs().max())}')
+            worst[k] = max(worst.get(k, 0.0), float((a - b).abs().max()))
+        errors[name] = worst
+        del card, card_opt
+    return errors
+
+
+def optimizers_phase(device, model_dir, tmp):
+    """4p. Returns the phase's launches (the five runs')."""
+    from hcpdiff_tpu_torch.trainer.step import pack_leaves
+    imgs = os.path.join(tmp, 'train_imgs')
+    total = dict.fromkeys(TRAINER_KERNELS, 0)
+    shapes = None
+    for name in OPT_NAMES:
+        steps = OPT_STEPS if name == 'lion' else OPT_SHORT
+        extra = () if name == 'lion' else (f'train.optimizer._target_=optim.{name}',)
+        if name in ('dadapt_adamw', 'prodigy'):
+            extra += ('train.scheduler.num_warmup_steps=0',)
+        what = f'Lion_optimizer.yaml under {name}'
+        trainer, launches, seconds, peak = _config_run(
+            'Lion_optimizer.yaml', model_dir, os.path.join(tmp, f'exp_{name}'), imgs, steps,
+            what, *extra)
+        opt = trainer.state.optimizer
+        check(type(opt).__name__ == {'lion': 'Lion', 'adafactor': 'Adafactor',
+                                     'adamw_8bit': 'AdamWBf16', 'dadapt_adamw': 'DAdaptAdamW',
+                                     'prodigy': 'Prodigy'}[name], f'{what}: {type(opt)}')
+        _check_launches(launches, _reckoned(trainer), what)
+        _add(total, launches)
+        d = ''
+        if name in ('dadapt_adamw', 'prodigy'):
+            d = '; d per group ' + str([float(opt.state[g['params'][0]]['d'])
+                                        for g in opt.param_groups])
+        log(f'optimizers: {what}, {steps} steps, main() {seconds:.3f} s: {_step_stats(trainer)};'
+            f' peak {peak:.2f} GiB; optimizer state {_state_bytes(trainer) / 2**20:.2f} MiB; '
+            f'losses {[round(x, 5) for x in trainer.history]}{d}; card: '
+            f'{gpu_name_and_power_limit()}')
+        if shapes is None:
+            shapes = [tuple(t.shape) for t in pack_leaves(trainer.state.pack)]
+        del trainer, opt
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    errors = _optimizer_check(device, shapes + list(OPT_FULL_SHAPES))
+    log(f'optimizers: {OPT_CHECK_STEPS} steps on {len(shapes)} LoRA-pack tensors '
+        f'({sum(math.prod(s) for s in shapes)} weights) and {list(OPT_FULL_SHAPES)}, card against '
+        f'CPU within atol {OPT_TOL["atol"]} + rtol {OPT_TOL["rtol"]}: max abs errors {errors} '
+        f'({time.perf_counter() - t0:.2f} s)')
+    return total
+
+
+def preview_logger_phase(device, model_dir, tmp):
+    """4q. Returns (the preview run's launches, the logger run's)."""
+    import numpy as np
+    from hcpdiff_tpu_torch.trainer.step import pack_leaves
+    from hcpdiff_tpu_torch.utils.images import read_png
+    from hcpdiff_tpu_torch.utils.tb_events import read_events
+    imgs = os.path.join(tmp, 'train_imgs')
+    exp = os.path.join(tmp, 'exp_preview')
+    what = 'the preview run (preview_in_training.yaml)'
+    trainer, launches, seconds, peak = _config_run(
+        'preview_in_training.yaml', model_dir, exp, imgs, PREVIEW_STEPS, what,
+        f'previewer.image_log_step={PREVIEW_EVERY}')
+    pv = trainer.previewer
+    check((pv.width, pv.height, pv.num_steps, pv.sampler) == (SIZE, SIZE, STEPS, 'ddim'),
+          f'preview settings {(pv.width, pv.height, pv.num_steps, pv.sampler)}')
+    n_previews = PREVIEW_STEPS // PREVIEW_EVERY
+    _check_launches(launches, plus(_reckoned(trainer), sd15_launches(STEPS), n_previews), what)
+    for step in range(PREVIEW_EVERY, PREVIEW_STEPS + 1, PREVIEW_EVERY):
+        img = read_png(os.path.join(exp, 'imgs', f'{step}-preview.png'))
+        check(img.shape == (SIZE, SIZE, 3) and float(img.std()) > 1.0,
+              f'preview at step {step}: shape {img.shape}, std {float(img.std())}')
+    pack = trainer.state.pack
+    before = [t.detach().clone() for t in pack_leaves(pack)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img = pv.preview_dict()['preview']
+    torch.cuda.synchronize()
+    alone = time.perf_counter() - t0
+    increment = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(img.shape == (SIZE, SIZE, 3) and bool(np.isfinite(img).all()) and float(img.std()) > 0,
+          'preview_dict image')
+    check(all(torch.equal(a, b) for a, b in zip(before, pack_leaves(pack))),
+          'a preview_dict call changed the pack')
+    log(f'preview: {what}, {PREVIEW_STEPS} steps, main() {seconds:.3f} s, {n_previews} previews '
+        f'({SIZE} px, {STEPS} DDIM steps, guidance {pv.guidance_scale}) {trainer.seconds["preview"]:.3f}'
+        f' s together; steps {_step_stats(trainer)} (a step after a preview includes it); peak '
+        f'{peak:.2f} GiB; one more preview_dict {alone:.3f} s, peak increment {increment:.2f} GiB '
+        f'over {base / 2**30:.2f} GiB held, the pack bitwise unchanged; card: '
+        f'{gpu_name_and_power_limit()}')
+    del trainer, pack, before, pv
+    torch.cuda.empty_cache()
+
+    # the loggers: CLI, TensorBoard and W&B. Where wandb is installed, its
+    # disabled mode keeps wandb.init off the network and the logger on; where
+    # it is not, the logger switches itself off and the group prints one
+    # warning
+    os.environ['WANDB_MODE'] = 'disabled'
+    try:
+        import wandb  # noqa: F401
+        has_wandb = True
+    except ImportError:
+        has_wandb = False
+    exp = os.path.join(tmp, 'exp_logger')
+    what = 'the logger run (add_logger_tensorboard_wandb.yaml)'
+    trainer, logger_launches, seconds, peak = _config_run(
+        'add_logger_tensorboard_wandb.yaml', model_dir, exp, imgs, LOGGER_STEPS, what)
+    _check_launches(logger_launches, _reckoned(trainer), what)
+    files = os.listdir(os.path.join(exp, 'tb'))
+    check(len(files) == 1 and files[0].startswith('events.out.tfevents.'), f'tb files {files}')
+    events = read_events(os.path.join(exp, 'tb', files[0]))     # every CRC checked
+    got = [(v['tag'], e['step'], v['simple_value']) for e in events for v in e['values']]
+    ema, want = None, []
+    for step, loss in enumerate(trainer.history, 1):
+        ema = loss if ema is None else 0.93 * ema + 0.07 * loss
+        want += [('loss', step, float(np.float32(ema))), ('step', step, float(step))]
+    check(events[0].get('file_version') == 'brain.Event:2' and got == want,
+          f'the event file holds {got}, not {want}')
+    with open(os.path.join(exp, 'train.log')) as f:
+        warned = f.read().count('the wandb package is not installed')
+    check(has_wandb or warned == 1, f'the W&B warning was printed {warned} times, not once')
+    log(f'loggers: {what}, {LOGGER_STEPS} steps, main() {seconds:.3f} s, {_step_stats(trainer)};'
+        f' {files[0]}: {len(events)} events, CRCs checked, loss and step at steps 1-'
+        f'{LOGGER_STEPS}; W&B warning printed {warned} time(s) (wandb installed: {has_wandb})')
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, logger_launches
+
+
+def jpeg_phase(device, model_dir, tmp):
+    """4r. Returns the run's launches."""
+    from hcpdiff_tpu_torch.utils.jpeg import read_jpeg
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_DIR)
+    files = sorted(f for f in os.listdir(root) if f.endswith('.jpg'))
+    decode = {}
+    for f in files:
+        t0 = time.perf_counter()
+        arr = read_jpeg(os.path.join(root, f))
+        decode[f] = (round(time.perf_counter() - t0, 4), arr.shape)
+        check(arr.dtype.name == 'uint8' and arr.ndim == 3 and float(arr.std()) > 1.0,
+              f'{f} decodes to {arr.dtype} {arr.shape}')
+    what = 'the JPEG run (lora_conventional.yaml)'
+    trainer, launches, seconds, peak = _config_run(
+        'lora_conventional.yaml', model_dir, os.path.join(tmp, 'exp_jpeg'), root, JPEG_STEPS,
+        what)
+    ds = trainer.datasets[0]
+    check(len(ds._latent_cache) == len(files), f'{len(ds._latent_cache)} latents cached from '
+          f'{len(files)} JPEGs')
+    _check_launches(launches, _reckoned(trainer), what)
+    log(f'jpeg: decode seconds and shapes an image (utils/jpeg.py, one CPU core) {decode}; '
+        f'{what} on {len(files)} JPEGs, {JPEG_STEPS} steps, main() {seconds:.3f} s (latent cache '
+        f'{trainer.seconds["latent cache"]:.3f} s, {len(ds.encodes)} VAE calls {ds.encodes}), '
+        f'{_step_stats(trainer)}, peak {peak:.2f} GiB, losses '
+        f'{[round(x, 5) for x in trainer.history]}; card: {gpu_name_and_power_limit()}')
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaf_kinds(pack):
     """The factor name ('down', 'up', 'alpha') of each leaf, in pack_leaves order."""
     out = []
@@ -3607,6 +3889,9 @@ def main() -> int:
         sdxl_text_launches = sdxl_text_phase(device, tmp)
         cn_train_launches, plugin = controlnet_train_phase(device, model_dir, tmp)
         wf_launches = workflow_phase(device, model_dir, plugin, tmp)
+        opt_launches = optimizers_phase(device, model_dir, tmp)
+        preview_launches, logger_launches = preview_logger_phase(device, model_dir, tmp)
+        jpeg_launches = jpeg_phase(device, model_dir, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -3641,7 +3926,10 @@ def main() -> int:
                                  launches_interfaces=anim_launches,
                                  launches_sdxl_text=sdxl_text_launches)
     records = add_trainer_shapes(records, highres_kernel_phase(), wf_launches, 'workflow',
-                                 launches_controlnet_train=cn_train_launches)
+                                 launches_controlnet_train=cn_train_launches,
+                                 launches_optimizers=opt_launches,
+                                 launches_preview=preview_launches,
+                                 launches_logger=logger_launches, launches_jpeg=jpeg_launches)
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

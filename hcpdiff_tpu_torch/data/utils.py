@@ -1,8 +1,8 @@
 """Image crop/resize utilities (counterpart of ``hcpdiff_tpu/data/utils.py``).
 
 The JAX package works on PIL images; here an image is a uint8 HWC numpy
-array, read by ``utils/images.py`` (PNG only: the port decodes no other
-format) and resized by its copy of Pillow's bicubic filter, so crops
+array, read by ``utils/images.py`` (8-bit PNG) or ``utils/jpeg.py``
+(baseline JPEG, as Pillow decodes it; other formats raise) and resized by its copy of Pillow's bicubic filter, so crops
 equal the JAX package's bit for bit. The crop geometry (and the seeded
 random offsets) is the JAX package's, and its crop info is returned for
 SDXL crop conditioning.
@@ -16,7 +16,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.images import UnsupportedPNG, read_png, resize_bicubic, to_model_input
+from ..utils.images import PNG_SIGNATURE, UnsupportedPNG, decode_png, resize_bicubic, to_model_input
+from ..utils.jpeg import UnsupportedJPEG, decode_jpeg, is_jpeg
 
 __all__ = ['crop_geometry', 'resize_crop_fix', 'pad_crop_fix', 'to_model_input',
            'composite_rgba', 'load_rgb', 'load_gray']
@@ -85,21 +86,29 @@ def composite_rgba(arr: np.ndarray, bg_color: Sequence[int] = (255, 255, 255)) -
 
 
 def _read(path: str) -> np.ndarray:
+    """An 8-bit L/RGB/RGBA PNG or a baseline JPEG (L or RGB)."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if is_jpeg(data):
+        try:
+            return decode_jpeg(data, path)
+        except UnsupportedJPEG:
+            raise
+        except ValueError as e:
+            raise ValueError(f'{e}; the PyTorch port reads PNG and baseline JPEG images') from e
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f'{path}: the PyTorch port reads PNG and baseline JPEG images only '
+                         '(other formats are not decoded; ROADMAP.md queue 1 item 6); '
+                         'convert the file to PNG')
     try:
-        return read_png(path)
+        return decode_png(data, path)
     except UnsupportedPNG as e:
         raise ValueError(f'{path}: the PyTorch port reads 8-bit L/RGB/RGBA PNG images only '
                          f'({e}); convert the file to such a PNG') from e
-    except ValueError as e:
-        if 'is not a PNG file' in str(e):
-            raise ValueError(f'{path}: the PyTorch port reads PNG images only (JPEG and other '
-                             'formats are not decoded; ROADMAP.md queue 1 item 6); '
-                             'convert the file to PNG') from e
-        raise
 
 
 def load_rgb(path: str, bg_color: Optional[Sequence[int]] = (255, 255, 255)) -> np.ndarray:
-    """A PNG as uint8 RGB, transparent pixels over ``bg_color`` (the JAX
+    """A PNG or JPEG as uint8 RGB, transparent pixels over ``bg_color`` (the JAX
     package's ``composite_rgba(Image.open(path), bg_color)``); with
     ``bg_color`` None the alpha is dropped, as Pillow's ``convert('RGB')``
     drops it."""
@@ -110,8 +119,8 @@ def load_rgb(path: str, bg_color: Optional[Sequence[int]] = (255, 255, 255)) -> 
 
 
 def load_gray(path: str) -> np.ndarray:
-    """A PNG as uint8 L, as Pillow's ``convert('L')`` gives it (alpha
-    dropped)."""
+    """A PNG or JPEG as uint8 L, as Pillow's ``convert('L')`` gives it
+    (alpha dropped)."""
     arr = _read(path)
     if arr.ndim == 2:
         return arr

@@ -1,4 +1,5 @@
-from .base import BaseLogger, CLILogger, LoggerGroup, TBLogger, WanDBLogger, build_loggers
+from .base import (BaseLogger, CLILogger, LoggerGroup, TBLogger, WanDBLogger, WebUILogger,
+                   build_loggers)
 
-__all__ = ['BaseLogger', 'LoggerGroup', 'CLILogger', 'TBLogger', 'WanDBLogger',
+__all__ = ['BaseLogger', 'LoggerGroup', 'CLILogger', 'TBLogger', 'WanDBLogger', 'WebUILogger',
            'build_loggers']

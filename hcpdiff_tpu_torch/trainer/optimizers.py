@@ -6,9 +6,11 @@ The JAX package builds optax transforms, optionally chained after
 :class:`Optimizer` that binds a ``torch.optim`` optimizer to the trainable
 tensors and carries the clip norm, which the train step applies with
 optax's formula (:func:`clip_by_global_norm_`). ``adamw``, ``adam`` and
-``sgd`` are ported; ``resolve_optimizer`` raises for the others (Lion,
-Adafactor, 8-bit AdamW, D-Adaptation, Prodigy: ROADMAP.md queue 1 item 6)
-and for a target it does not know.
+``sgd`` are ``torch.optim``'s; ``lion``, ``adafactor``, ``adamw_8bit``,
+``dadapt_adamw`` and ``prodigy`` are ``trainer/optim_classes.py``'s, which
+take optax's steps. ``resolve_optimizer`` takes the short names,
+``optim.<name>`` and the class paths the JAX registry maps, and raises
+for a target it does not know.
 
 ``make_schedule`` gives the value of the JAX package's optax schedule at
 an update count, computed as optax computes it (float32). optax evaluates
@@ -25,9 +27,10 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .optim_classes import AdamWBf16, Adafactor, DAdaptAdamW, Lion, Prodigy
+
 Factory = Callable[[Sequence], torch.optim.Optimizer]
 Schedule = Callable[[int], float]
-ROADMAP = 'ROADMAP.md queue 1 item 6'
 
 _f32 = np.float32
 
@@ -145,17 +148,55 @@ def sgd(lr: float = 1e-4, momentum: float = 0.9, **kw) -> Factory:
     return lambda params: torch.optim.SGD(params, lr=lr, momentum=momentum)
 
 
-OPTIMIZERS = {'adamw': adamw, 'adam': adam, 'sgd': sgd}
-# torch class paths the configs may name, as the JAX registry maps them
-_ALIASES = {'torch.optim.adamw': 'adamw', 'torch.optim.adam': 'adam', 'torch.optim.sgd': 'sgd'}
-UNPORTED = ('lion', 'adafactor', 'adamw_8bit', 'adamw8bit', 'adam8bit', 'dadapt_adamw',
-            'dadaptadam', 'dadaptadamw', 'prodigy')
+def lion(lr: float = 1e-6, betas=(0.9, 0.99), weight_decay: float = 0.0, **kw) -> Factory:
+    """``optax.lion``."""
+    return lambda params: Lion(params, lr=lr, betas=tuple(betas), weight_decay=weight_decay)
+
+
+def adafactor(lr: float = 1e-5, **kw) -> Factory:
+    """``optax.adafactor(lr)`` with optax's defaults; betas and weight
+    decay are ignored, as the JAX factory ignores them."""
+    return lambda params: Adafactor(params, lr=lr)
+
+
+def adamw_8bit(lr: float = 1e-5, betas=(0.9, 0.999), eps: float = 1e-8,
+               weight_decay: float = 1e-2, **kw) -> Factory:
+    """The JAX package's ``adamw_8bit``: AdamW with a bf16 first moment
+    (not quantized to 8 bits)."""
+    return lambda params: AdamWBf16(params, lr=lr, betas=tuple(betas), eps=eps,
+                                    weight_decay=weight_decay)
+
+
+def dadapt_adamw(lr: float = 1.0, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, **kw) -> Factory:
+    """``optax.contrib.dadapt_adamw``, ``d`` estimated per parameter group."""
+    return lambda params: DAdaptAdamW(params, lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay)
+
+
+def prodigy(lr: float = 1.0, betas=(0.9, 0.999), eps: float = 1e-8,
+            weight_decay: float = 0.0, **kw) -> Factory:
+    """``optax.contrib.prodigy``, ``d`` estimated per parameter group."""
+    return lambda params: Prodigy(params, lr=lr, betas=tuple(betas), eps=eps,
+                                  weight_decay=weight_decay)
+
+
+OPTIMIZERS = {'adamw': adamw, 'adam': adam, 'lion': lion, 'sgd': sgd, 'adafactor': adafactor,
+              'adamw_8bit': adamw_8bit, 'dadapt_adamw': dadapt_adamw, 'prodigy': prodigy}
+# the class paths the JAX registry maps (lower case)
+_ALIASES = {'torch.optim.adamw': 'adamw', 'torch.optim.adam': 'adam', 'torch.optim.sgd': 'sgd',
+            'lion_pytorch.lion': 'lion', 'bitsandbytes.optim.adamw8bit': 'adamw_8bit',
+            'dadaptation.dadaptadam': 'dadapt_adamw', 'dadaptation.dadaptadamw': 'dadapt_adamw',
+            'prodigyopt.prodigy': 'prodigy',
+            'transformers.optimization.adafactor': 'adafactor'}
+# class names the JAX resolver takes under any module path
+_TAILS = {'adamw8bit': 'adamw_8bit', 'adam8bit': 'adamw_8bit'}
 
 
 def resolve_optimizer(ocfg) -> tuple:
     """An optimizer config node ``{_target_: name, **kwargs}`` -> (factory,
     kwargs). ``lr`` is dropped (the group lrs drive the schedules). An
-    unported or unknown target raises, never falling back to AdamW."""
+    unknown target raises, never falling back to AdamW."""
     spec = dict(ocfg or {})
     tgt = spec.pop('_target_', None)
     spec.pop('_partial_', None)
@@ -165,12 +206,10 @@ def resolve_optimizer(ocfg) -> tuple:
     if tgt is None:
         return adamw, spec
     low = str(tgt).lower()
-    tail = _ALIASES.get(low, low.rsplit('.', 1)[-1])
-    if tail in OPTIMIZERS:
-        return OPTIMIZERS[tail], spec
-    if tail in UNPORTED:
-        raise NotImplementedError(f'optimizer {tgt!r} is not ported to the PyTorch package yet '
-                                  f'({ROADMAP}); use adamw, adam or sgd')
+    tail = low.rsplit('.', 1)[-1]
+    name = _ALIASES.get(low, _TAILS.get(tail, tail))
+    if name in OPTIMIZERS:
+        return OPTIMIZERS[name], spec
     raise ValueError(f'cannot resolve optimizer _target_ {tgt!r}; known: '
                      f'{sorted(OPTIMIZERS)}')
 

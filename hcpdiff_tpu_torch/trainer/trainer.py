@@ -43,11 +43,17 @@ which takes no gradient for its own weights (autograd records its mid and
 up path, from the taps on); the ControlNet runs without remat, as in the
 JAX package.
 
+A ``previewer:`` block builds ``loggers/preview.py:ImagePreviewer``:
+every ``image_log_step`` steps (after the logging) it samples an image
+from the live weights and passes it to the loggers' ``log_image``. The
+optimizers are ``trainer/optimizers.py``'s (AdamW, Adam, SGD, Lion,
+Adafactor, 8-bit AdamW, D-Adaptation, Prodigy); the loggers
+``loggers/base.py``'s (CLI, TensorBoard, WebUI, W&B).
+
 What the JAX Trainer does beyond this raises ``NotImplementedError``
-naming its ROADMAP.md queue 1 item, never ignored: the previewer, the
-optimizers other than AdamW/Adam/SGD, TensorBoard/W&B loggers (item 6);
-``plugin_TE`` (item 7: the JAX Trainer builds nothing from it); fsdp, ZeRO
-and multi-host (item 8).
+naming its ROADMAP.md queue 1 item, never ignored: ``plugin_TE`` (item 7:
+the JAX Trainer builds nothing from it); fsdp, ZeRO and multi-host (item
+8).
 
 v-prediction (``noise_scheduler.prediction_type: v_prediction``, SD2.x-v)
 trains against ``NoiseSchedule.target``; Min-SNR weighs it by the same
@@ -109,13 +115,9 @@ def refuse_unported(cfgs: Cfg) -> None:
     tcfg = cfgs.get('train') or {}
     if cfgs.get('plugin_TE'):
         raise _unported('text-encoder plugins (plugin_TE)', 7)
-    if cfgs.get('previewer'):
-        raise _unported('the training previewer (previewer:)', 6)
     if (int(cfgs.get('fsdp', 1) or 1) > 1 or tcfg.get('zero') or tcfg.get('zero1')
             or cfgs.get('multi_host')):
         raise _unported('sharded or multi-host training (fsdp, train.zero, multi_host)', 8)
-    resolve_optimizer(tcfg.get('optimizer'))
-    resolve_optimizer(tcfg.get('optimizer_pt'))
 
 
 class Trainer:
@@ -154,6 +156,7 @@ class Trainer:
         self.save_step = int(tcfg.get('save_step', 100))
         self.make_train_step()
         self.restore_full_state()
+        self.build_previewer()
 
     # ------------------------------------------------------------ build ----
     def build_model(self, world):
@@ -207,6 +210,17 @@ class Trainer:
             self.frontend = TextEncoderFrontend(
                 self.tokenizer, self.te, clip_skip=int(mcfg.get('clip_skip', 0)),
                 clip_final_norm=bool(mcfg.get('clip_final_norm', True)), **text)
+
+    def build_previewer(self):
+        """``previewer:`` -> ``ImagePreviewer`` and its ``image_log_step``
+        (200 by default)."""
+        self.previewer, self.image_log_step = None, 0
+        pcfg = self.cfgs.get('previewer')
+        if pcfg:
+            from ..loggers.preview import ImagePreviewer
+            spec = {k: v for k, v in dict(pcfg).items() if not k.startswith('_')}
+            self.image_log_step = int(spec.pop('image_log_step', 200))
+            self.previewer = ImagePreviewer(self, **spec)
 
     def make_hooks(self):
         """Prompt-tuning words: every ``.pt`` file of ``tokenizer_pt.emb_dir``
@@ -690,6 +704,11 @@ class Trainer:
                     self.loggers.log({'loss': loss_ema, 'step': step}, step)
                     t0 = time.perf_counter()
                 self.step_ends.append(time.perf_counter())
+                if self.previewer is not None and self.image_log_step and step % self.image_log_step == 0:
+                    t_preview = time.perf_counter()
+                    self.loggers.log_image(self.previewer.preview_dict(), step)
+                    self.seconds['preview'] = (self.seconds.get('preview', 0.0)
+                                               + time.perf_counter() - t_preview)
                 if step % self.save_step == 0:
                     self.save_model(step)
                 if step < self.train_steps and guard is not None and guard.should_stop():

@@ -17,10 +17,12 @@ bicubic resampling for 8-bit images, and ``to_model_input`` (counterpart of
   colour cache, every channel a complete code of 256 length-8 literals,
   the distance code one symbol); ``read_webp_anim`` reads back what it
   writes (the RIFF chunks, and each frame's pixels);
+- ``decode_jpeg``/``read_jpeg``: baseline JPEG, as Pillow decodes it
+  (``utils/jpeg.py``);
 - ``load_image``/``load_mask``: what the Visualizer reads for img2img and
-  inpaint. An 8-bit L/RGB/RGBA PNG needs no Pillow; another PNG or
-  format is decoded by Pillow, imported there, and raises an error naming
-  Pillow where it is missing.
+  inpaint. An 8-bit L/RGB/RGBA PNG or a baseline JPEG needs no Pillow;
+  another PNG or format is decoded by Pillow, imported there, and raises
+  an error naming Pillow where it is missing.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ import zlib
 from typing import Tuple
 
 import numpy as np
+
+from .jpeg import UnsupportedJPEG, decode_jpeg, is_jpeg, read_jpeg  # noqa: F401
 
 PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _COLOR_TYPES = {1: 0, 3: 2, 4: 6}          # channels -> PNG colour type
@@ -368,10 +372,18 @@ def _luma(arr: np.ndarray) -> np.ndarray:
 def read_image(path: str, mode: str) -> np.ndarray:
     """uint8 [H, W, 3] (``mode`` 'RGB') or [H, W] ('L'), as Pillow's
     ``convert(mode)`` gives them: 8-bit L/RGB/RGBA PNGs by ``read_png``,
-    other PNGs (palette, grey + alpha, 16-bit, interlaced) and other
-    formats by Pillow."""
+    baseline JPEGs by ``read_jpeg``, other PNGs (palette, grey + alpha,
+    16-bit, interlaced) and other formats by Pillow."""
     with open(path, 'rb') as f:
-        is_png = f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
+        head = f.read(len(PNG_SIGNATURE))
+    is_png = head == PNG_SIGNATURE
+    if is_jpeg(head):
+        try:
+            arr = read_jpeg(path)
+        except UnsupportedJPEG:
+            pass
+        else:
+            return _rgb(arr) if mode == 'RGB' else _luma(arr)
     if is_png:
         try:
             arr = read_png(path)

@@ -89,7 +89,9 @@ def test_shipped_configs_resolve_every_target(cfg):
 def test_import_rule_covers_the_new_modules():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ('compat.py', 'utils/cfg_parse.py', 'tools/create_embedding.py',
-                   'workflow/base.py', 'workflow/actions.py', 'infer_workflow.py'):
+                   'workflow/base.py', 'workflow/actions.py', 'infer_workflow.py',
+                   'trainer/optim_classes.py', 'utils/tb_events.py', 'utils/jpeg.py',
+                   'loggers/preview.py'):
         assert f'hcpdiff_tpu_torch/{module}' in names
 
 

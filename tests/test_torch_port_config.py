@@ -23,6 +23,7 @@ from hcpdiff_tpu.config.loader import yaml_load as jax_yaml_load
 import hcpdiff_tpu_torch.config as tcfg
 from hcpdiff_tpu_torch.ckpt import safetensors_io
 from hcpdiff_tpu_torch.config import yaml_lite
+from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CFGS = ROOT / 'cfgs'

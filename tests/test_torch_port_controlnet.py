@@ -45,7 +45,7 @@ from hcpdiff_tpu_torch.models import controlnet as tcn
 from hcpdiff_tpu_torch.models import unet as tunet
 from hcpdiff_tpu_torch.utils import images
 from tests.test_torch_port_visualizer import _jax_noise, _write_jax_dir
-from tests.torch_port_common import random_params
+from tests.torch_port_common import random_params, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(ROOT, 'cfgs', 'infer', 'img2img_controlnet.yaml')

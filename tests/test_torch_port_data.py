@@ -42,6 +42,7 @@ from hcpdiff_tpu_torch.models.text_frontend import TextEncoderFrontend as TFront
 from hcpdiff_tpu_torch.trainer.optimizers import make_schedule as tschedule
 from hcpdiff_tpu_torch.utils.clip_tokenizer import CLIPTokenizer as TTokenizer
 from hcpdiff_tpu_torch.utils.images import write_png
+from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 WORDS = ['cat', 'dog', 'photo', 'painting']
 # (w, h) of a mixed set of files: squares, 3:2, 2:3, a panorama, duplicates
@@ -124,11 +125,19 @@ def test_rgba_composite_matches_jax(tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(tmp_path):
+    """A baseline JPEG loads as Pillow decodes it; a progressive JPEG and a
+    BMP raise, naming the file."""
     path = str(tmp_path / 'photo.jpg')
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, progressive=True)
     assert get_image_size(path) == (8, 8)
     with pytest.raises(ValueError, match='photo.jpg.*PNG'):
         tutils.load_rgb(path)
+    Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(path)
+    np.testing.assert_array_equal(tutils.load_rgb(path), np.asarray(Image.open(path)))
+    bmp = str(tmp_path / 'photo.bmp')
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(bmp)
+    with pytest.raises(ValueError, match='photo.bmp.*PNG'):
+        tutils.load_rgb(bmp)
     junk = tmp_path / 'junk.png'
     junk.write_bytes(b'not an image')
     with pytest.raises(ValueError, match='junk.png'):

@@ -24,6 +24,7 @@ from hcpdiff_tpu.ops import attention as jattn
 from hcpdiff_tpu.ops import flash_attention as jfa
 from hcpdiff_tpu_torch.ops import attention as tattn
 from hcpdiff_tpu_torch.ops import flash_attention as tfa
+from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 B, H, S, BLOCK = 1, 2, 256, 128
 

@@ -30,7 +30,7 @@ from hcpdiff_tpu_torch.models import unet as tunet
 from hcpdiff_tpu_torch.ops.conv import conv3x3
 from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu
 from hcpdiff_tpu_torch.ops.matmul import ln_dense, ln_geglu, ln_qkv
-from tests.torch_port_common import random_params
+from tests.torch_port_common import random_params, one_torch_thread  # noqa: F401
 
 ATOL, ATOL_GEGLU, RTOL = 3e-4, 5e-4, 1e-4
 GRAD_ATOL, GRAD_RTOL = 1e-2, 1e-3

@@ -22,7 +22,7 @@ from hcpdiff_tpu_torch.ckpt.bridge import load_params
 from hcpdiff_tpu_torch.models import unet as tunet
 from hcpdiff_tpu_torch.ops import attention as tattn
 from hcpdiff_tpu_torch.ops import flash_attention as fa
-from tests.torch_port_common import random_params
+from tests.torch_port_common import random_params, one_torch_thread  # noqa: F401
 
 PAD_ATOL = 1e-6
 

@@ -31,6 +31,7 @@ from hcpdiff_tpu_torch.infer import interfaces as tinterfaces
 from hcpdiff_tpu_torch.infer.visualizer import main
 from hcpdiff_tpu_torch.utils import images
 from tests.test_torch_port_visualizer import _write_jax_dir
+from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(ROOT, 'cfgs', 'infer', 'text2img.yaml')

@@ -27,7 +27,7 @@ from hcpdiff_tpu_torch.models import clip as tclip
 from hcpdiff_tpu_torch.models import text_frontend as ttf
 from hcpdiff_tpu_torch.models import unet as tunet
 from hcpdiff_tpu_torch.models import vae as tvae
-from tests.torch_port_common import random_params
+from tests.torch_port_common import random_params, one_torch_thread  # noqa: F401
 
 STEPS, GUIDANCE = 4, 7.5
 

@@ -20,6 +20,7 @@ from hcpdiff_tpu.infer import pipeline as jpipe
 from hcpdiff_tpu_torch.diffusion import samplers as tsamplers
 from hcpdiff_tpu_torch.diffusion.schedules import NoiseSchedule as TSchedule
 from hcpdiff_tpu_torch.infer import pipeline as tpipe
+from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5
 # whole loops (the JAX one compiled as a scan) over a toy UNet: atol/rtol 1e-4

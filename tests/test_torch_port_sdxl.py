@@ -34,7 +34,7 @@ from hcpdiff_tpu_torch.models import layers as tlayers
 from hcpdiff_tpu_torch.models import unet as tunet
 from hcpdiff_tpu_torch.models import vae as tvae
 from hcpdiff_tpu_torch.models.compose import sdxl_te as tsdxl
-from tests.torch_port_common import random_params
+from tests.torch_port_common import random_params, one_torch_thread  # noqa: F401
 
 STEPS, GUIDANCE = 4, 7.5
 UNET_ATOL, LOOP_ATOL, TEXT_ATOL = 1e-3, 1e-3, 1e-5

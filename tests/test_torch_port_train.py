@@ -38,7 +38,7 @@ from hcpdiff_tpu_torch.models import unet as tunet
 from hcpdiff_tpu_torch.trainer import optimizers as topt
 from hcpdiff_tpu_torch.trainer import step as tstep
 from hcpdiff_tpu_torch.trainer.assemble import assemble, lora_base_weights, make_unet_apply
-from tests.torch_port_common import random_params
+from tests.torch_port_common import random_params, one_torch_thread  # noqa: F401
 
 # bench_train.py's LoRA layer patterns
 PATTERNS = ['re:.*attn[12]\\.to_(q|k|v|out)$', 're:.*ff\\.(proj|out)$']

@@ -24,6 +24,7 @@ from hcpdiff_tpu.ops import matmul as jmm
 from hcpdiff_tpu_torch.ops import flash_attention as tfa
 from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu
 from hcpdiff_tpu_torch.ops.matmul import fused_dense, geglu_dense
+from tests.torch_port_common import one_torch_thread  # noqa: F401
 
 
 def _np(rng, *shape, scale=1.0):

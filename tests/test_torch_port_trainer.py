@@ -14,14 +14,17 @@ widths in fp32 on the CPU:
   the JAX trainer's and load in the other package's ``load_ckpt``;
 - a run interrupted by SIGTERM and continued by ``resume.auto`` equals
   the uninterrupted run bit for bit (losses, pack, EMA);
-- every ``cfgs/train/examples`` config: the fifteen the port trains run
-  through ``main()`` on the tiny worlds (``tiny_sdxl`` for the SDXL ones;
+- every ``cfgs/train/examples`` config: the eighteen the port trains run
+  through ``main()`` on the tiny worlds (Lion's optimizer, the previewer's
+  PNGs at 32 px, the TensorBoard file's losses and the W&B warning
+  checked) (``tiny_sdxl`` for the SDXL ones;
   paths, steps, device, fp32 and a small bucket overridden; the words of
   the prompt-tuning configs made first by ``tools/create_embedding.py``;
   ``lora_conventional.yaml`` in a subprocess that then checks it loaded
   no ``jax``, ``hcpdiff_tpu``, ``optax``, ``PIL`` or ``yaml`` module), the
   others raise ``NotImplementedError`` naming their ROADMAP item.
 """
+import importlib.util
 import json
 import os
 import pathlib
@@ -55,7 +58,7 @@ from hcpdiff_tpu_torch.models import vae as tvae
 from hcpdiff_tpu_torch.trainer.step import pack_leaves
 from hcpdiff_tpu_torch.trainer.trainer import Trainer, main
 from hcpdiff_tpu_torch.utils.clip_tokenizer import CLIPTokenizer as TTokenizer
-from hcpdiff_tpu_torch.utils.images import write_png
+from hcpdiff_tpu_torch.utils.images import read_png, write_png
 from tests.torch_port_common import random_params
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -337,9 +340,13 @@ RUNS = {  # config -> overrides beyond paths, steps and the device
     'FT_sdxl.yaml': ['model.pretrained_model_name_or_path=tiny_sdxl'],
     'sd21_vpred.yaml': [],
     'controlnet.yaml': ['data.dataset1.bucket.target_size=32'],
+    'Lion_optimizer.yaml': [],
+    # a 32 px, 2-step preview at every step
+    'preview_in_training.yaml': ['previewer.image_log_step=1', 'previewer.width=32',
+                                 'previewer.height=32', 'previewer.num_steps=2'],
+    'add_logger_tensorboard_wandb.yaml': [],
 }
-REFUSED = {'FT_sdxl_zero3.yaml': 8, 'Lion_optimizer.yaml': 6,
-           'add_logger_tensorboard_wandb.yaml': 6, 'preview_in_training.yaml': 6}
+REFUSED = {'FT_sdxl_zero3.yaml': 8}
 # the words each prompt-tuning config trains (made by create_embedding first)
 WORDS_OF = {'TextualInversion.yaml': ['pt-cat1'], 'CustomDiffusion.yaml': ['pt-new1'],
             'lora_anime_character.yaml': ['pt-char1'],
@@ -373,7 +380,8 @@ def test_every_example_config_is_run_or_refused():
 
 
 @pytest.mark.parametrize('name', sorted(set(RUNS) - {'lora_conventional.yaml'}))
-def test_example_config_trains(proj, tmp_path, name):
+def test_example_config_trains(proj, tmp_path, monkeypatch, name):
+    monkeypatch.setenv('WANDB_MODE', 'disabled')       # where wandb is installed: no network
     from hcpdiff_tpu_torch.tools.create_embedding import main as create_embedding
     for word in WORDS_OF.get(name, []):
         create_embedding(['tiny', word, '2', '--init_text', 'a photo of cat', '--root',
@@ -399,6 +407,19 @@ def test_example_config_trains(proj, tmp_path, name):
     if name == 'DreamBooth.yaml':
         assert len(trainer.datasets) == 2
         assert [len(s) for s in trainer.step_shapes] == [2, 2]
+    if name == 'Lion_optimizer.yaml':
+        assert type(trainer.state.optimizer).__name__ == 'Lion'
+    if name == 'preview_in_training.yaml':
+        for step in (1, 2):
+            img = read_png(str(tmp_path / 'exp' / 'imgs' / f'{step}-preview.png'))
+            assert img.shape == (32, 32, 3) and img.std() > 0
+    if name == 'add_logger_tensorboard_wandb.yaml':
+        from hcpdiff_tpu_torch.utils.tb_events import read_events
+        (events,) = (tmp_path / 'exp' / 'tb').iterdir()
+        got = [(v['tag'], e['step']) for e in read_events(str(events)) for v in e['values']]
+        assert got == [('loss', 1), ('step', 1), ('loss', 2), ('step', 2)]
+        warned = 'the wandb package is not installed' in (tmp_path / 'exp' / 'train.log').read_text()
+        assert warned == (importlib.util.find_spec('wandb') is None)
 
 
 def test_main_trains_lora_conventional_without_jax(proj, tmp_path):

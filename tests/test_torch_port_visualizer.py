@@ -63,7 +63,7 @@ from hcpdiff_tpu_torch.models.factory import build_models as tbuild
 from hcpdiff_tpu_torch.models.text_frontend import TextEncoderFrontend as TFrontend
 from hcpdiff_tpu_torch.tools.random_diffusers import write_module
 from hcpdiff_tpu_torch.utils import images
-from tests.torch_port_common import random_params
+from tests.torch_port_common import random_params, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBDIRS = (('unet', 'unet'), ('vae', 'vae'), ('text_encoder', 'te'), ('text_encoder_2', 'te2'))

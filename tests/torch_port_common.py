@@ -9,6 +9,21 @@ import math
 
 import jax
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch while a module's tests run (a module
+    imports this fixture to use it). The tiny models gain nothing from
+    threads, and under the suite's parallel workers each torch process's
+    intra-op threads oversubscribe the cores: a float64 gradcheck of the
+    tiny attention took 2 s alone and 153 s so."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_params(module, *init_args, seed: int = 0, **init_kw):
