@@ -217,6 +217,22 @@ package is missing. Phases, each fatal on failure:
    under tests/data/torch_port_jpeg (4:2:0, 4:4:4, 4:2:2 with restart
    markers; 512x512 and 640x448), decoded by utils/jpeg.py: losses finite,
    launches as reckoned, decode seconds an image;
+4s. zero3: cfgs/train/examples/FT_sdxl_zero3.yaml (train.zero: 3,
+   gradient_accumulation_steps: 2, every UNet weight an fp32 master under
+   AdamW) through the training entry point as a user launches several
+   processes, python -m torch.distributed.run --nproc_per_node 1 -m
+   hcpdiff_tpu_torch.train, on the 4d directory and the 4e images at
+   512 px (target_area 512^2), batch 4, 4 steps: the run's report
+   (--report) must show the nccl backend, finite losses and launches of
+   A (with lse), E, F, B, C and D as reckoned (every block recomputed, the
+   first resblock too); then the same run at train.zero: 0, whose final
+   unet-4 checkpoint must equal the zero-3 run's within 1e-6 relative L2;
+   step median and peak GiB printed with the card's name and power limit.
+   (SDXL's full fine-tune does not fit one card at world size 1: its
+   fp32 pack, gradients and AdamW state alone are ~41 GB, PERF.md.) Then
+   A and B at the per-rank shapes of tensor-parallel txt2img at tp=2
+   (SD1.5 batch 4, CFG-doubled: 4 of 8 heads; B on half the GEGLU
+   columns), labelled tp, against their plain versions;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -3824,6 +3840,124 @@ def jpeg_phase(device, model_dir, tmp):
     return launches
 
 
+# phase 4s: the zero-3 full fine-tune through torch.distributed.run, and
+# the per-rank shapes of tensor-parallel inference at tp = 2
+ZERO3_STEPS, ZERO3_BATCH, ZERO3_TOL = 4, 4, 1e-6
+TP = 2
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _torchrun_train(model_dir, exp, imgs, *extra):
+    """python -m torch.distributed.run --nproc_per_node 1 -m
+    hcpdiff_tpu_torch.train on FT_sdxl_zero3.yaml in a subprocess (the
+    entry point a user launches): (its --report, seconds)."""
+    report = os.path.join(exp + '.json')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node', '1',
+           '--master_addr', '127.0.0.1', '--master_port', str(_free_port()),
+           '-m', 'hcpdiff_tpu_torch.train', '--report', report] + train_args(
+        'FT_sdxl_zero3.yaml', model_dir, exp, imgs, f'train.train_steps={ZERO3_STEPS}',
+        f'train.save_step={ZERO3_STEPS}', f'data.dataset1.batch_size={ZERO3_BATCH}',
+        'data.dataset1.bucket.target_area=262144', *extra)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f'torch.distributed.run of the trainer exited '
+          f'{res.returncode}: {res.stdout[-2000:]} {res.stderr[-4000:]}')
+    with open(report) as f:
+        return json.load(f), seconds
+
+
+def _unet_ckpt(exp):
+    from hcpdiff_tpu_torch.ckpt.safetensors_io import load_file
+    state = load_file(os.path.join(exp, 'ckpts', f'unet-{ZERO3_STEPS}.safetensors'))
+    return torch.cat([state[k].float().reshape(-1) for k in sorted(state)])
+
+
+def zero3_phase(model_dir, tmp):
+    """4s. Returns the zero-3 run's launches."""
+    import numpy as np
+    from hcpdiff_tpu_torch.models.unet import UNetConfig
+    imgs = os.path.join(tmp, 'train_imgs')
+    runs = {}
+    for zero in (3, 0):
+        exp = os.path.join(tmp, f'exp_zero{zero}')
+        report, seconds = _torchrun_train(model_dir, exp, imgs, f'train.zero={zero}')
+        what = f'FT_sdxl_zero3.yaml at train.zero: {zero} (torch.distributed.run)'
+        check(report['backend'] == 'nccl' and report['world_size'] == 1
+              and report['zero'] == zero, f'{what}: {report["backend"]}, world '
+              f'{report["world_size"]}, zero {report["zero"]}')
+        history = report['history']
+        check(len(history) == ZERO3_STEPS and all(math.isfinite(x) for x in history),
+              f'{what}: losses {history}')
+        # each step: 2 microbatches of [4, h, w, 4]
+        calls = [[tuple(shape[1:])] for shapes in report['step_shapes'] for shape in shapes
+                 for _ in range(shape[0])]
+        want = trainer_reckoning(UNetConfig.sd15(), calls, report['encodes'], 8,
+                                 ENCODE_LAUNCHES['group_norm_silu'], grad_temb=True)
+        launches = {k: report['launches'][k] for k in counters()}
+        log(f'kernel launches during {what}: {launches}')
+        for name in TRAINER_KERNELS:
+            check(launches[name] > 0, f'kernel {name} never launched during {what}')
+        _check_launches(launches, want, what)
+        steps = np.diff(report['step_ends'])
+        log(f'zero3: {what}, {ZERO3_STEPS} steps of {ZERO3_BATCH} x 2 microbatches, '
+            f'{seconds:.3f} s with the launch; latents {report["step_shapes"]}; median '
+            f'{float(np.median(steps)):.4f} s/step, all {[round(float(x), 4) for x in steps]}; '
+            f'peak {report["peak_gib"]:.2f} GiB; pack {report["pack_bytes"] / 2**30:.3f} GiB, '
+            f'optimizer state {report["optimizer_state_bytes"] / 2**30:.3f} GiB held; losses '
+            f'{[round(x, 5) for x in history]}; backend {report["backend"]}; card: '
+            f'{gpu_name_and_power_limit()}')
+        runs[zero] = report
+        # the full states (~10 GB each) are not read here
+        shutil.rmtree(os.path.join(exp, 'state'), ignore_errors=True)
+    err = rel_err(_unet_ckpt(os.path.join(tmp, 'exp_zero3')),
+                  _unet_ckpt(os.path.join(tmp, 'exp_zero0')))
+    log(f'zero3: unet-{ZERO3_STEPS} of the zero-3 run against the zero-0 run: rel L2 '
+        f'{err:.3e} (limit {ZERO3_TOL}); losses {runs[3]["history"]} against '
+        f'{runs[0]["history"]}')
+    check(err <= ZERO3_TOL, f'the zero-3 pack differs from the zero-0 one: rel L2 {err}')
+    for zero in (3, 0):
+        shutil.rmtree(os.path.join(tmp, f'exp_zero{zero}'), ignore_errors=True)
+    return {k: runs[3]['launches'][k] for k in counters()}
+
+
+def tp_kernel_phase():
+    """A and B at the per-rank shapes of tensor-parallel txt2img at tp = 2
+    (SD1.5, batch 4, CFG-doubled to 8: 4 of the 8 heads; B on half the
+    GEGLU columns, value and gate rows of the same columns), labelled tp:
+    {wrapper name: per-shape records}."""
+    from hcpdiff_tpu_torch.ops import flash_attention as fa
+    from hcpdiff_tpu_torch.ops import matmul as mm
+    F = torch.nn.functional
+    rn = _rn_on(torch.Generator(device='cuda').manual_seed(SEED + 97))
+    out = {'flash_attention': [], 'geglu_dense': []}
+    with torch.inference_mode():
+        for shape in ((8, 8 // TP, 4096, 40), (8, 8 // TP, 1024, 80)):
+            q, k, v = rn(*shape), rn(*shape), rn(*shape)
+            out['flash_attention'].append(_measure(
+                f'tp q/k/v {list(shape)}', fa.flash_attention, fa.attention_plain, [q, k, v],
+                _within_rel, 'flash_attention', attention_work(*shape),
+                lambda: F.scaled_dot_product_attention(q, k, v)))
+            del q, k, v
+        for S, C in FFN_LEVELS:
+            M, rows = 8 * S, 8 * C // TP
+            x, w, b = rn(M, C), rn(rows, C, scale=C ** -0.5), rn(rows)
+            out['geglu_dense'].append(_measure(
+                f'tp x [{M}, {C}], w [{rows}, {C}]', mm.geglu_dense, mm.geglu_dense_plain,
+                [x, w, b], _within, 'geglu_dense', gemm_work(M, C, rows, rows // 2, bias=rows),
+                None, {'linear_ms': lambda: F.linear(x, w, b)}))
+            del x, w, b
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaf_kinds(pack):
     """The factor name ('down', 'up', 'alpha') of each leaf, in pack_leaves order."""
     out = []
@@ -3892,6 +4026,7 @@ def main() -> int:
         opt_launches = optimizers_phase(device, model_dir, tmp)
         preview_launches, logger_launches = preview_logger_phase(device, model_dir, tmp)
         jpeg_launches = jpeg_phase(device, model_dir, tmp)
+        zero3_launches = zero3_phase(model_dir, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -3930,6 +4065,7 @@ def main() -> int:
                                  launches_optimizers=opt_launches,
                                  launches_preview=preview_launches,
                                  launches_logger=logger_launches, launches_jpeg=jpeg_launches)
+    records = add_trainer_shapes(records, tp_kernel_phase(), zero3_launches, 'zero3')
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

@@ -176,12 +176,17 @@ class StateManager:
 
     _NAME = re.compile(r'^state_(\d+)\.pt$')
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, create: bool = True):
+        """``create``: make the directory (the writing process does; the
+        others of a multi-process run only read it)."""
         self.dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.dir, exist_ok=True)
+        if create:
+            os.makedirs(self.dir, exist_ok=True)
 
     def steps(self):
+        if not os.path.isdir(self.dir):
+            return []
         return sorted(int(m.group(1)) for m in map(self._NAME.match, os.listdir(self.dir)) if m)
 
     def latest_step(self) -> Optional[int]:

@@ -12,6 +12,15 @@ stay numpy until the trainer moves them to the device.
 - ``CycleData`` re-shuffles the buckets each epoch and can start at an
   (epoch, batch) position, which is how a resumed run continues the data
   where the saved one stopped;
+- under data parallelism (``host_rank``/``host_count``, set by the
+  trainer to the rank's index on the data axis and its size) each rank
+  loads only ``idx[r::W]`` of every global batch (``DistributedSampler``'s
+  stride, as the JAX package slices each host's rows) and its latent
+  cache encodes only those files. The bucket is built for the global
+  batch in one process, as in the JAX trainer (whose config's
+  ``batch_size`` is per device: the trainer builds for ``batch_size``
+  times the world size). A later epoch's shuffle can hand a rank a file it
+  did not cache: that file is encoded when its batch is assembled;
 - ``DataGroup`` zips several datasets (DreamBooth's instance and class
   images), one batch of each a step, on a prefetch thread.
 
@@ -41,6 +50,9 @@ from .utils import resize_crop_fix, to_model_input
 
 
 class TextImagePairDataset:
+    host_rank: int = 0
+    host_count: int = 1
+
     def __init__(self, source: DataSource, bucket: Optional[BaseBucket] = None,
                  frontend=None, vae_scale: int = 8,
                  cache_latents: bool = False, cache_dir: Optional[str] = None,
@@ -59,9 +71,11 @@ class TextImagePairDataset:
         self._latent_cache: Dict[Any, Tuple[np.ndarray, Optional[dict]]] = {}
         self.files: List[Tuple[str, Dict[str, Any]]] = []
         self.encodes: List[Tuple[int, Tuple[int, int]]] = []   # (images, size) of each call
+        self._encode_fn: Optional[Callable[[np.ndarray], np.ndarray]] = None
 
     # ---- build ----
     def build(self, bs: int) -> 'TextImagePairDataset':
+        """``bs`` is the global batch (every rank's rows together)."""
         self.bs = bs
         self.files = self.source.get_image_list()
         infos = [(p, self.source.size_of(p)) for p, _ in self.files]
@@ -70,6 +84,16 @@ class TextImagePairDataset:
 
     def __len__(self) -> int:
         return len(self.bucket)
+
+    def _rows(self, bi: int):
+        """This rank's items of batch ``bi`` and the batch's size."""
+        idx, size = self.bucket[bi]
+        if self.host_count > 1:
+            if len(idx) % self.host_count:
+                raise ValueError(f'a batch of {len(idx)} does not split over '
+                                 f'{self.host_count} ranks')
+            idx = list(idx)[self.host_rank::self.host_count]
+        return idx, size
 
     # ---- latent caching ----
     def _cache_key(self) -> str:
@@ -80,24 +104,29 @@ class TextImagePairDataset:
         """encode_fn: [N, H, W, 3] in [-1, 1] -> [N, h, w, 4] scaled latents.
         One entry per (item, bucket size), from the centre crop; the
         encodes go in the bucket's batch order, up to ``batch_size`` new
-        items a call."""
+        items a call (this rank's items only)."""
+        self._encode_fn = encode_fn
         for bi in range(len(self.bucket)):
-            idx, size = self.bucket[bi]
+            idx, size = self._rows(bi)
             for start in range(0, len(idx), batch_size):
-                chunk = [i for i in idx[start:start + batch_size]
-                         if (int(i), size) not in self._latent_cache]
-                chunk = list(dict.fromkeys(int(i) for i in chunk))
-                if not chunk:
-                    continue
-                imgs, metas = zip(*[self._load_image(i, size, rng=None) for i in chunk])
-                lat = np.asarray(encode_fn(np.stack(imgs)))
-                self.encodes.append((len(chunk), size))
-                for i, l, ci in zip(chunk, lat, metas):
-                    self._latent_cache[(i, size)] = (l, ci)
+                self._encode(idx[start:start + batch_size], size)
         if self.cache_dir:
             os.makedirs(self.cache_dir, exist_ok=True)
             np.savez(os.path.join(self.cache_dir, f'latents_{self._cache_key()}.npz'),
                      **{f'{i}_{s[0]}x{s[1]}': v[0] for (i, s), v in self._latent_cache.items()})
+
+    def _encode(self, items, size) -> None:
+        """Cache the latents of those of ``items`` not cached at ``size``,
+        in one encode call."""
+        chunk = list(dict.fromkeys(int(i) for i in items
+                                   if (int(i), size) not in self._latent_cache))
+        if not chunk:
+            return
+        imgs, metas = zip(*[self._load_image(i, size, rng=None) for i in chunk])
+        lat = np.asarray(self._encode_fn(np.stack(imgs)))
+        self.encodes.append((len(chunk), size))
+        for i, l, ci in zip(chunk, lat, metas):
+            self._latent_cache[(i, size)] = (l, ci)
 
     def load_latent_cache(self) -> bool:
         if not self.cache_dir:
@@ -121,7 +150,9 @@ class TextImagePairDataset:
         return to_model_input(img), crop_info
 
     def get_batch(self, bi: int, epoch: int = 0, step_seed: int = 0) -> Dict[str, np.ndarray]:
-        idx, size = self.bucket[bi]
+        idx, size = self._rows(bi)
+        if self._encode_fn is not None:
+            self._encode(idx, size)
         rng = np.random.default_rng((epoch * 1_000_003 + step_seed * 7919 + bi))
         w, h = size
         lw, lh = w // self.vae_scale, h // self.vae_scale

@@ -37,6 +37,13 @@ and the fp32 minimum elsewhere), ControlNet's residual taps
 (``down_residuals``, ``mid_residual``) and the DeepCache protocol
 (``return_deep``, ``deep_cache``; ``unet.py:648-790`` there).
 
+``UNetConfig.tp`` > 1 (``parallel/tp.py``): each transformer sublayer
+computes its member's heads/tp attention heads (kernel A) and inner/tp
+GEGLU columns (kernel B) from slices of the full weights, and sums its
+row-parallel output projection over the ``tp_axis`` group, as the JAX
+model's ``_tp_call`` does; with ``qkv_bias`` or the fused-sublayer route
+it raises ``NotImplementedError``, as there.
+
 SDXL's ``addition_embed_type='text_time'`` adds an embedding of the
 pooled text embedding and the six ``time_ids`` (original size, crop,
 target size) to the time embedding, through its own two-layer MLP
@@ -58,6 +65,7 @@ from ..ops.attention import attention
 from ..ops.conv import conv3x3
 from ..ops.flash_attention import keep_flash_outputs
 from ..ops.matmul import fused_dense, geglu_dense, ln_dense, ln_geglu, ln_qkv
+from ..parallel.tp import tp_all_reduce
 from .layers import GroupNorm, timestep_embedding
 
 
@@ -80,6 +88,11 @@ class UNetConfig:
     # to_q/to_k/to_v with biases: the host a pre-0.9 biased LoRA merges
     # into (the Visualizer rebuilds the UNet with it)
     qkv_bias: bool = False
+    # Megatron-style tensor parallelism over the mesh axis ``tp_axis``
+    # (inference; parallel/tp.py): heads/tp heads and inner/tp GEGLU
+    # columns a member, sliced from the full weights at call time
+    tp: int = 1
+    tp_axis: str = 'model'
 
     @classmethod
     def sd15(cls) -> 'UNetConfig':
@@ -200,10 +213,12 @@ class CrossAttention(nn.Module):
     """to_q/to_k/to_v/to_out naming mirrors diffusers, as in the JAX model."""
 
     def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, tp: int = 1):
         super().__init__()
         ctx_dim = query_dim if context_dim is None else context_dim
         self.heads = heads
+        self.tp = tp
+        self.tp_bind = None         # (group, index) on the tp axis, set by tp_unet_apply
         self.to_q = nn.Linear(query_dim, query_dim, bias=qkv_bias)
         self.to_k = nn.Linear(ctx_dim, query_dim, bias=qkv_bias)
         self.to_v = nn.Linear(ctx_dim, query_dim, bias=qkv_bias)
@@ -219,6 +234,10 @@ class CrossAttention(nn.Module):
         to_out is kernel C with ``res`` in its epilogue. ``bias`` is added
         to the attention logits (the encoder attention mask)."""
         ctx = x if context is None else context
+        if self.tp > 1:
+            if norm is not None:
+                raise NotImplementedError('tp>1 with the fused-sublayer route is unsupported')
+            return self._tp_call(x, ctx, res, bias)
         B, S, C = x.shape
         Sk = ctx.shape[1]
         h = self.heads
@@ -241,41 +260,84 @@ class CrossAttention(nn.Module):
         out = self.to_out(o)
         return out if res is None else out + res
 
+    def _tp_call(self, x, ctx, res, bias):
+        """Head-parallel attention: q/k/v from this member's rows of the
+        full weights (its heads/tp heads), kernel A on them, to_out
+        row-parallel with one all-reduce over the tp axis."""
+        B, S, C = x.shape
+        Sk = ctx.shape[1]
+        h, d = self.heads, C // self.heads
+        if h % self.tp:
+            raise ValueError(f'heads={h} not divisible by tp={self.tp}')
+        if self.to_q.bias is not None:
+            raise NotImplementedError('tp>1 with qkv_bias is unsupported')
+        idx = self.tp_bind[1] if self.tp_bind is not None else 0
+        hl, ltp = h // self.tp, C // self.tp
+        rows = slice(idx * ltp, (idx + 1) * ltp)
+        q = F.linear(x, self.to_q.weight[rows]).view(B, S, hl, d).transpose(1, 2)
+        k = F.linear(ctx, self.to_k.weight[rows]).view(B, Sk, hl, d).transpose(1, 2)
+        v = F.linear(ctx, self.to_v.weight[rows]).view(B, Sk, hl, d).transpose(1, 2)
+        o = attention(q, k, v, bias=bias).transpose(1, 2).reshape(B, S, ltp)
+        out = tp_all_reduce(F.linear(o, self.to_out.weight[:, rows]), self.tp_bind)
+        out = out + self.to_out.bias
+        return out if res is None else out + res
+
 
 class GEGLUFeedForward(nn.Module):
     """proj's rows are [value | gate]; kernel B (H, with ``norm`` in its
     prologue, in the fused configuration) applies the gate in its epilogue
     and kernel C adds the block residual in its own."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, tp: int = 1):
         super().__init__()
         inner = dim * mult
         self.proj = nn.Linear(dim, inner * 2)
         self.out = nn.Linear(inner, dim)
+        self.tp = tp
+        self.tp_bind = None         # (group, index) on the tp axis, set by tp_unet_apply
 
     def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None,
                 norm: Optional[nn.LayerNorm] = None) -> torch.Tensor:
+        if self.tp > 1:
+            if norm is not None:
+                raise NotImplementedError('tp>1 with the fused-sublayer route is unsupported')
+            return self._tp_call(x, res)
         if norm is None:
             h = geglu_dense(x, self.proj.weight, self.proj.bias)
         else:
             h = ln_geglu(x, norm.weight, norm.bias, self.proj.weight, self.proj.bias, norm.eps)
         return fused_dense(h, self.out.weight, self.out.bias, res=res)
 
+    def _tp_call(self, x, res):
+        """Column-parallel GEGLU: kernel B on this member's inner/tp value
+        rows and the gate rows of the same columns, then ff.out
+        row-parallel with one all-reduce over the tp axis."""
+        inner = self.out.in_features
+        li = inner // self.tp
+        idx = self.tp_bind[1] if self.tp_bind is not None else 0
+        cols = slice(idx * li, (idx + 1) * li)
+        gate = slice(inner + idx * li, inner + (idx + 1) * li)
+        w, b = self.proj.weight, self.proj.bias
+        h = geglu_dense(x, torch.cat([w[cols], w[gate]]), torch.cat([b[cols], b[gate]]))
+        out = tp_all_reduce(F.linear(h, self.out.weight[:, cols]), self.tp_bind)
+        out = out + self.out.bias
+        return out if res is None else out + res
+
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, context_dim: int, fused: bool = False,
-                 qkv_bias: bool = False):
+                 qkv_bias: bool = False, tp: int = 1):
         super().__init__()
         # kernels G and I compute bias-free q/k/v: a biased block takes the
         # unfused sublayers, as the JAX block does (unet.py:513)
         self.fused = fused and not qkv_bias
         # flax nn.LayerNorm's default epsilon
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn1 = CrossAttention(dim, heads, qkv_bias=qkv_bias)
+        self.attn1 = CrossAttention(dim, heads, qkv_bias=qkv_bias, tp=tp)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn2 = CrossAttention(dim, heads, context_dim, qkv_bias=qkv_bias)
+        self.attn2 = CrossAttention(dim, heads, context_dim, qkv_bias=qkv_bias, tp=tp)
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
-        self.ff = GEGLUFeedForward(dim)
+        self.ff = GEGLUFeedForward(dim, tp=tp)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 context_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -290,7 +352,7 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
-                 groups: int, fused: bool = False, qkv_bias: bool = False):
+                 groups: int, fused: bool = False, qkv_bias: bool = False, tp: int = 1):
         super().__init__()
         self.depth = depth
         self.fused = fused
@@ -298,7 +360,7 @@ class Transformer2D(nn.Module):
         self.proj_in = nn.Linear(channels, channels)
         for i in range(depth):
             setattr(self, f'transformer_blocks_{i}',
-                    BasicTransformerBlock(channels, heads, context_dim, fused, qkv_bias))
+                    BasicTransformerBlock(channels, heads, context_dim, fused, qkv_bias, tp))
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
@@ -368,7 +430,8 @@ class UNet2DCondition(nn.Module):
         def tfm(channels, level):
             return Transformer2D(channels, c.num_heads[level],
                                  c.transformer_layers_per_block[level],
-                                 c.cross_attention_dim, c.norm_num_groups, fused, c.qkv_bias)
+                                 c.cross_attention_dim, c.norm_num_groups, fused, c.qkv_bias,
+                                 c.tp)
 
         skip_ch = [ch0]
         cur = ch0

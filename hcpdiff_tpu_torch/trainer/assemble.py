@@ -29,16 +29,28 @@ LoRA merges into (``base_weights``). LoRA merges in fp32 and each merged
 weight is cast to the compute dtype at use, which gives the JAX package's
 numbers (fp32 frozen params, bf16 compute): a bf16 copy of a weight that
 carries no LoRA equals casting it at each use.
+
+Under ``fsdp: N`` (the JAX ``fsdp_shardings``) the frozen base is
+sharded over the fsdp axis by :class:`FrozenShards`: each member stores
+1/N of every frozen leaf between steps (the fp32 copies above and the
+frozen modules' own weights), and the step's weights are built inside
+``FrozenShards.gathered()``, which gathers every leaf in a few flat
+all-gathers and releases them after the step. The peak is therefore one
+whole copy of the frozen base during the step, against the JAX layout's,
+where XLA gathers each weight into its own matmul: the same 1/N between
+steps, a higher peak within one.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional
+import contextlib
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import torch
 import torch.nn as nn
 from torch.func import functional_call
 
 from ..adapt.overlay import merge_overlays
+from ..parallel import mesh as pm
 
 PORTED_PACK_KEYS = ('lora_unet', 'unet_ft', 'lora_te', 'te_ft', 'lora_te2', 'te2_ft',
                     'lora_unet_neg', 'lora_te_neg', 'lora_te2_neg', 'emb', 'controlnet')
@@ -138,3 +150,53 @@ def make_te_apply(frontend) -> Callable:
     def apply(params: Mapping[str, torch.Tensor], input_ids, token_mult=None, emb_ext=None):
         return frontend.encode_ids(input_ids, token_mult, params=cast(params), emb_ext=emb_ext)
     return apply
+
+
+class FrozenShards:
+    """The frozen base sharded over the ``fsdp`` axis of a mesh: member k
+    of n keeps chunk k of each tensor (flattened, padded to a multiple of
+    n), and the tensors themselves hold no storage between steps.
+    ``gathered()`` makes them whole (their ``.data``) for its body."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor], group, n: int, index: int):
+        self.tensors = list(tensors)
+        self.group, self.n = group, n
+        self.meta = [(tuple(t.shape), t.numel(), -(-t.numel() // n)) for t in self.tensors]
+        self.runs = pm.buckets([t.detach() for t in self.tensors])
+        self.shards: List[torch.Tensor] = []
+        for run in self.runs:
+            parts = []
+            for i in run:
+                t, (_, numel, chunk) = self.tensors[i].detach().reshape(-1), self.meta[i]
+                part = t[index * chunk:(index + 1) * chunk]
+                parts.append(torch.cat([part, part.new_zeros(chunk - part.numel())]))
+            self.shards.append(torch.cat(parts))
+        self.release()
+
+    def release(self) -> None:
+        for t in self.tensors:
+            t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+
+    def gather(self) -> None:
+        for run, shard in zip(self.runs, self.shards):
+            full = pm.all_gather_flat(shard, self.group).view(self.n, -1)
+            off = 0
+            for i in run:
+                shape, numel, chunk = self.meta[i]
+                t = self.tensors[i]
+                t.data = full[:, off:off + chunk].reshape(-1)[:numel].view(shape).clone()
+                off += chunk
+
+    @contextlib.contextmanager
+    def gathered(self):
+        self.gather()
+        try:
+            yield
+        finally:
+            self.release()
+
+    def held_bytes(self) -> int:
+        return sum(s.numel() * s.element_size() for s in self.shards)
+
+    def full_bytes(self) -> int:
+        return sum(numel * t.element_size() for (_, numel, _), t in zip(self.meta, self.tensors))

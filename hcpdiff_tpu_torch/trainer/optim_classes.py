@@ -13,11 +13,14 @@ pack key (``optax.multi_transform``), so D-Adaptation's and Prodigy's
 distance estimate ``d`` and its sums are kept per parameter group, in the
 state of the group's first parameter (``d``, ``numerator``). Every
 reduction stays on the parameters' device: ``step()`` makes no host sync.
-The update counts are host integers.
+The update counts are host integers. Under ZeRO a rank holds only some of
+a group's parameters: ``group_sum`` (set by ``parallel/zero.py``) then
+sums the group's two partial sums over the ranks, once a group a step on
+every rank, so each rank updates with the same ``d``.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -140,6 +143,16 @@ class Adafactor(_Counted):
     def __init__(self, params, lr: float = 1e-5):
         super().__init__(params, dict(lr=lr))
 
+    @classmethod
+    def state_bytes(cls, shape: Tuple[int, ...]) -> int:
+        """The bytes of a parameter's state (fp32): its row and column
+        statistics where factored, else a whole second moment."""
+        n = int(np.prod(shape))
+        dims = _factored_dims(tuple(shape), cls.MIN_DIM_TO_FACTOR)
+        if dims is None:
+            return 4 * n
+        return 4 * (n // shape[dims[1]] + n // shape[dims[0]])
+
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
@@ -190,6 +203,21 @@ class _DistanceAdaptive(_Counted):
     the group's count."""
 
     D0 = 1e-6
+    GROUP_KEYS = ('step', 'd', 'numerator')     # the group's state, with its first parameter
+    group_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    sum_device: Optional[torch.device] = None
+
+    def _sums(self, *partials: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The group's sums over every rank's parameters (``group_sum``)."""
+        if self.group_sum is None:
+            return partials
+        return tuple(self.group_sum(torch.stack([p.float() for p in partials])))
+
+    def _skip(self) -> None:
+        """A group with no parameter to step here still takes its part in
+        the ranks' sums."""
+        if self.group_sum is not None:
+            self.group_sum(torch.zeros(2, device=self.sum_device))
 
     def _group_state(self, group):
         p0 = group['params'][0]
@@ -221,6 +249,7 @@ class DAdaptAdamW(_DistanceAdaptive):
         for group in self.param_groups:
             params = _trained(group)
             if not params:
+                self._skip()
                 continue
             b1, b2 = group['betas']
             sb2, eps = b2 ** 0.5, group['eps']
@@ -240,6 +269,7 @@ class DAdaptAdamW(_DistanceAdaptive):
                 st['exp_avg_sq'].copy_(st['exp_avg_sq'] * b2 + (1 - b2) * g * g)
                 st['grad_sum'].copy_(st['grad_sum'] * sb2 + (1 - sb2) * dlr * g)
             l1 = _group_sum(st['grad_sum'].abs().sum() for st in states)
+            numerator_acum, l1 = self._sums(numerator_acum, l1)
             head['numerator'] = head['numerator'] * sb2 + (1 - sb2) * dlr * numerator_acum
             head['d'] = torch.maximum(head['d'], head['numerator'] / ((1 - sb2) * l1))
             for p, st in zip(params, states):
@@ -264,6 +294,7 @@ class Prodigy(_DistanceAdaptive):
         for group in self.param_groups:
             params = _trained(group)
             if not params:
+                self._skip()
                 continue
             b1, b2 = group['betas']
             b3, d0, eps = b2 ** 0.5, self.D0, group['eps']
@@ -283,6 +314,7 @@ class Prodigy(_DistanceAdaptive):
                 st['exp_avg_sq'].copy_(st['exp_avg_sq'] * b2 + (1 - b2) * dg * dg)
                 st['grad_sum'].copy_(st['grad_sum'] * b3 + dlr * dg / d0)
             denominator = _group_sum(st['grad_sum'].abs().sum() for st in states)
+            numerator_acum, denominator = self._sums(numerator_acum, denominator)
             head['numerator'] = head['numerator'] * b3 + (d / d0) * dlr * numerator_acum
             head['d'] = torch.maximum(d, head['numerator'] / denominator)
             for p, st in zip(params, states):

@@ -156,7 +156,10 @@ def lion(lr: float = 1e-6, betas=(0.9, 0.99), weight_decay: float = 0.0, **kw) -
 def adafactor(lr: float = 1e-5, **kw) -> Factory:
     """``optax.adafactor(lr)`` with optax's defaults; betas and weight
     decay are ignored, as the JAX factory ignores them."""
-    return lambda params: Adafactor(params, lr=lr)
+    def factory(params):
+        return Adafactor(params, lr=lr)
+    factory.state_bytes = Adafactor.state_bytes      # ZeRO balances the ranks by it
+    return factory
 
 
 def adamw_8bit(lr: float = 1e-5, betas=(0.9, 0.999), eps: float = 1e-8,
@@ -248,12 +251,15 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(tensors: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(tensors: Sequence[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scale ``tensors`` in place by max_norm / norm where norm >= max_norm,
     as ``optax.clip_by_global_norm`` does (not
     ``torch.nn.utils.clip_grad_norm_``, which divides by norm + 1e-6).
-    Returns the norm before clipping."""
-    norm = global_norm(tensors)
+    ``norm``: the global norm, where ``tensors`` are only a share of the
+    gradients it covers (ZeRO). Returns the norm before clipping."""
+    if norm is None:
+        norm = global_norm(tensors)
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for t in tensors:
         t.mul_(factor.to(t.dtype))

@@ -8,7 +8,13 @@ gradient), the UNet's assembled weights and forward, the loss, its
 gradient with respect to the pack, gradient accumulation as a loop over
 microbatches, the learning rates of the pack's groups from their
 schedules, the optimizer step (after optax-style global-norm clipping)
-and the EMA. The JAX step is a pure function; here the optimizer updates
+and the EMA. Given ``parallel`` (``parallel/zero.py:DataParallel``), the
+batch is this rank's block of the global batch: the noise and timesteps
+are drawn (or fed) for the global batch and the rank keeps its block,
+the gradients and the loss are reduced over the data axis after the
+``grad_accum`` loop, the global norm sums every rank's partials, and
+under ZeRO each optimizer steps only the rank's leaves. The JAX step is
+a pure function; here the optimizer updates
 the pack's tensors in place, so the returned state is the one passed in,
 advanced one step.
 
@@ -99,29 +105,58 @@ def pack_leaves(tree: Mapping[str, Any]) -> List[torch.Tensor]:
     return out
 
 
+def optimizer_groups(pack: Mapping[str, Any], per_key: bool
+                     ) -> Tuple[List[List[int]], List[List[int]]]:
+    """The parameter groups of the model keys' optimizer (one a key under
+    ``per_key``, else one) and of the prompt-embedding one, as indices
+    into ``pack_leaves(pack)``."""
+    model, pt, pos = [], [], 0
+    for key in sorted(pack):
+        n = len(pack_leaves({key: pack[key]}))
+        idx = list(range(pos, pos + n))
+        pos += n
+        if is_pt_key(key):
+            pt = [(pt[0] if pt else []) + idx]
+        elif per_key or not model:
+            model.append(idx)
+        else:
+            model[0] += idx
+    return model, pt
+
+
 def init_train_state(pack: Dict[str, Any], optimizer: Optimizer, use_ema: bool = False,
                      schedules: Optional[Mapping[str, Callable[[int], float]]] = None,
                      optimizer_pt: Optional[Optimizer] = None,
-                     schedule_pt: Optional[Callable[[int], float]] = None) -> TrainState:
+                     schedule_pt: Optional[Callable[[int], float]] = None,
+                     owned: Optional[Sequence[bool]] = None) -> TrainState:
     """Marks every leaf of ``pack`` trainable and binds the optimizer to
     the model keys' leaves and ``optimizer_pt`` (lr ``schedule_pt``) to
     the ``emb*`` keys'; the EMA starts as a copy of the pack.
     ``schedules`` ({pack key: count -> lr}) gives each model key a
     parameter group of its own whose lr follows its schedule; without it
-    one group takes the optimizer's lr."""
-    for t in pack_leaves(pack):
+    one group takes the optimizer's lr. ``owned`` (ZeRO, one flag a leaf of
+    ``pack_leaves(pack)``) binds the optimizers to those leaves only; each
+    group keeps its place, empty where the rank owns none of it."""
+    leaves = pack_leaves(pack)
+    for t in leaves:
         t.requires_grad_(True)
+    keep = owned if owned is not None else [True] * len(leaves)
+    model_groups, pt_groups = optimizer_groups(pack, schedules is not None)
     model = sorted(k for k in pack if not is_pt_key(k))
-    pt = {k: pack[k] for k in pack if is_pt_key(k)}
-    params, group_schedules = pack_leaves({k: pack[k] for k in model}), None
+    groups = [[leaves[i] for i in g if keep[i]] for g in model_groups]
+    params, group_schedules = (groups[0] if groups else []), None
     if schedules is not None:
-        params = [{'params': pack_leaves({k: pack[k]}), 'lr': schedules[k](0)} for k in model]
+        params = [{'params': g, 'lr': schedules[k](0)} for g, k in zip(groups, model)]
         group_schedules = [schedules[k] for k in model]
+    elif owned is not None:
+        params = [{'params': params}]
     opt_pt = None
-    if pt:
+    if pt_groups:
         if optimizer_pt is None:
-            raise ValueError(f'pack keys {sorted(pt)} need the prompt-embedding optimizer')
-        opt_pt = optimizer_pt.init(pack_leaves(pt))
+            raise ValueError(f'pack keys {sorted(k for k in pack if is_pt_key(k))} need the '
+                             'prompt-embedding optimizer')
+        rows = [leaves[i] for i in pt_groups[0] if keep[i]]
+        opt_pt = optimizer_pt.init(rows if owned is None else [{'params': rows}])
         if schedule_pt is not None:
             opt_pt.param_groups[0]['lr'] = schedule_pt(0)
 
@@ -139,7 +174,8 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
                      criterion, cfg: StepConfig,
                      lora_scales: Optional[Dict[str, Dict[str, float]]] = None,
                      te_apply: Optional[Callable] = None,
-                     controlnet_apply: Optional[Callable] = None):
+                     controlnet_apply: Optional[Callable] = None,
+                     parallel=None):
     """Returns ``train_step(state, frozen, batch, generator=None, draws=None)``.
 
     unet_apply(params, x, t, ctx, **extra) -> prediction; ``params`` are
@@ -161,7 +197,8 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
     'loss_weight' [] or [B], 'time_ids' [B, 6], 'cond' optional}; with grad_accum
     > 1 every entry has a leading [grad_accum] axis.
     draws: optional [(noise, t)] per microbatch, used instead of drawing
-    from ``generator`` (the tests feed the JAX package's draws).
+    from ``generator`` (the tests feed the JAX package's draws); under
+    ``parallel`` they are the global batch's.
     ``train_step.forward_loss(pack, frozen, batch, noise, t)`` is the
     scalar loss of one microbatch.
     """
@@ -219,13 +256,17 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
 
     def draw(latents: torch.Tensor, generator: torch.Generator
              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The noise and timesteps of the global batch (``parallel``: the
+        local batch times the data axis)."""
         dev = generator.device
+        shape = latents.shape
+        if parallel is not None:
+            shape = (shape[0] * parallel.n,) + tuple(shape[1:])
         if cfg.noise_kind == 'pyramid':
-            noise = pyramid_noise(generator, latents.shape, cfg.pyramid_discount)
+            noise = pyramid_noise(generator, shape, cfg.pyramid_discount)
         else:
-            noise = torch.randn(latents.shape, generator=generator, device=dev)
-        t = torch.randint(cfg.min_timestep, t_hi, (latents.shape[0],), generator=generator,
-                          device=dev)
+            noise = torch.randn(shape, generator=generator, device=dev)
+        t = torch.randint(cfg.min_timestep, t_hi, (shape[0],), generator=generator, device=dev)
         return noise.to(latents.device), t.to(latents.device)
 
     def ema_decay(step: int) -> float:
@@ -236,15 +277,15 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
             return d
         return cfg.ema_decay
 
-    def update(optimizer, pairs, clip_norm, lrs):
+    def update(optimizer, pairs, clip_norm, lrs, norm):
         """optax's chain over these (param, grad) pairs: clip the gradients
-        by their own global norm, then one optimizer step at the groups'
-        lrs."""
+        by the global ``norm`` of the optimizer's gradients, then one
+        optimizer step at the groups' lrs."""
         if optimizer is None:
             return
         grads = [g for _, g in pairs]
         if clip_norm:
-            clip_by_global_norm_(grads, clip_norm)
+            clip_by_global_norm_(grads, clip_norm, norm=norm)
         for (p, _), g in zip(pairs, grads):
             p.grad = g
         for group, lr in zip(optimizer.param_groups, lrs):
@@ -257,12 +298,17 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
                    draws: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         leaves = pack_leaves(state.pack)
+        ema = pack_leaves(state.ema) if state.ema is not None else None
+        if parallel is not None:
+            parallel.gather(leaves)
         grads = [torch.zeros_like(p) for p in leaves]
         loss_sum = 0.0
         for i in range(cfg.grad_accum):
             mb = batch if cfg.grad_accum == 1 else {
                 k: (v[i] if v is not None else None) for k, v in batch.items()}
             noise, t = draws[i] if draws is not None else draw(mb['latents'], generator)
+            if parallel is not None:
+                noise, t = parallel.block(noise), parallel.block(t)
             loss = forward_loss(state.pack, frozen, mb, noise, t)
             for acc, g in zip(grads, torch.autograd.grad(loss, leaves, allow_unused=True)):
                 if g is not None:
@@ -271,20 +317,39 @@ def build_train_step(unet_apply: Callable, te_encode: Callable, schedule: NoiseS
         if cfg.grad_accum > 1:
             for g in grads:
                 g.div_(cfg.grad_accum)
-        metrics = {'loss': loss_sum / cfg.grad_accum, 'grad_norm': global_norm(grads)}
+        loss = loss_sum / cfg.grad_accum
         # the model keys and the emb* keys, each under its own optimizer;
         # optax evaluates a schedule at the count before this update
         pt = [is_pt_key(k) for k in sorted(state.pack) for _ in pack_leaves({k: state.pack[k]})]
-        update(state.optimizer, [pg for pg, e in zip(zip(leaves, grads), pt) if not e],
-               state.clip_norm, [lr(state.step) for lr in state.schedules or ()])
-        update(state.optimizer_pt, [pg for pg, e in zip(zip(leaves, grads), pt) if e],
-               state.clip_norm_pt, [state.schedule_pt(state.step)] if state.schedule_pt else [])
+        if parallel is None:
+            grad_norm = global_norm(grads)
+        else:
+            grads, loss = parallel.reduce_grads(grads, loss)
+        # each optimizer's squared norm over the gradients this rank holds
+        sq = [sum(g.float().square().sum() for g, e in zip(grads, pt) if e == want
+                  and g is not None) for want in (False, True)]
+        sq = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=leaves[0].device)
+                          for x in sq])
+        if parallel is not None:
+            sq, loss = parallel.global_sums(sq, loss)
+            grad_norm = torch.sqrt(sq.sum())
+        metrics = {'loss': loss, 'grad_norm': grad_norm}
+        pairs = [(p, g, e) for p, g, e in zip(leaves, grads, pt) if g is not None]
+        update(state.optimizer, [(p, g) for p, g, e in pairs if not e], state.clip_norm,
+               [lr(state.step) for lr in state.schedules or ()], torch.sqrt(sq[0]))
+        update(state.optimizer_pt, [(p, g) for p, g, e in pairs if e], state.clip_norm_pt,
+               [state.schedule_pt(state.step)] if state.schedule_pt else [], torch.sqrt(sq[1]))
+        if parallel is not None:
+            parallel.after_update(leaves)
         state.step += 1
-        if state.ema is not None:
+        if ema is not None:
             d = ema_decay(state.step)
             with torch.no_grad():
-                for e, p in zip(pack_leaves(state.ema), leaves):
-                    e.mul_(d).add_(p, alpha=1.0 - d)
+                for e, p in zip(ema, leaves):
+                    if e.numel():
+                        e.mul_(d).add_(p, alpha=1.0 - d)
+        if parallel is not None:
+            parallel.release(leaves, ema or [])
         return state, metrics
 
     train_step.forward_loss = forward_loss

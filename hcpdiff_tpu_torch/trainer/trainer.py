@@ -52,8 +52,27 @@ Adafactor, 8-bit AdamW, D-Adaptation, Prodigy); the loggers
 
 What the JAX Trainer does beyond this raises ``NotImplementedError``
 naming its ROADMAP.md queue 1 item, never ignored: ``plugin_TE`` (item 7:
-the JAX Trainer builds nothing from it); fsdp, ZeRO and multi-host (item
-8).
+the JAX Trainer builds nothing from it).
+
+Several processes (``parallel/``): launched by ``torchrun`` (``python -m
+torch.distributed.run --nproc_per_node N -m hcpdiff_tpu_torch.train
+...``; ``multi_host: true`` is the same launch over several nodes) each
+rank joins the process group (``nccl`` on ``cuda:LOCAL_RANK``, ``gloo``
+under ``device: cpu``) and the ('data', 'fsdp') mesh (``fsdp: N``). All
+ranks agree on ``exp_dir`` (rank 0's); only rank 0 creates directories,
+writes ``cfg.yaml``, opens loggers, previews and writes checkpoints and
+the full state, which every rank gathers into (a barrier closes each
+save). Each rank loads its rows of every global batch (``batch_size``
+is per rank, as in the JAX trainer: the global batch is ``batch_size``
+times the world size), the step reduces over the data axis, and
+``train.zero: N`` (``train.zero1``) shards the optimizer state (1), the
+gradients (2) and the pack and its EMA (3) over it
+(``parallel/zero.py``); ``fsdp: N`` shards the frozen base
+(``FrozenShards``). The full state is saved in one process's layout and
+split again on resume. Checkpoints and ``state/`` must be on a file
+system every rank sees. A preemption signal on any rank stops every
+rank at the same step: the ranks agree every ``train.preemption_poll_step``
+steps (10), one MAX all-reduce of one int.
 
 v-prediction (``noise_scheduler.prediction_type: v_prediction``, SD2.x-v)
 trains against ``NoiseSchedule.target``; Min-SNR weighs it by the same
@@ -66,7 +85,9 @@ trainer does.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -86,19 +107,22 @@ from ..data.sources import (ComposeDataSource, T2IFolderClassSource, Text2ImageA
 from ..data.transforms import Compose, TemplateFill
 from ..diffusion.losses import LOSSES
 from ..diffusion.schedules import NoiseSchedule
-from ..loggers import build_loggers
+from ..loggers import LoggerGroup, build_loggers
 from ..models.controlnet import plugin_builder
 from ..models.compose.sdxl_te import (SDXLTextEncoderFrontend, concat_sdxl_embedding,
                                       split_sdxl_embedding)
 from ..models.factory import build_models
 from ..models.text_frontend import TextEncoderFrontend
 from ..models.unet import resolve_remat_policy
+from ..parallel import mesh as pm
+from ..parallel.zero import DataParallel, zero_level
 from ..utils.cfg_parse import get_cfg_range
-from .assemble import (assemble, assemble_te, base_weights, lora_base_weights,
+from .assemble import (FrozenShards, assemble, assemble_te, base_weights, lora_base_weights,
                        make_controlnet_apply, make_te_apply, make_unet_apply)
 from .optimizers import make_optimizer, make_pt_optimizer, make_schedule, resolve_optimizer
 from .preemption import PreemptionGuard, resolve_preemption_cfg
-from .step import StepConfig, build_train_step, init_train_state, pack_leaves
+from .step import (StepConfig, build_train_step, init_train_state, is_pt_key,
+                   optimizer_groups, pack_leaves)
 
 DTYPES = {'fp16': torch.bfloat16, 'bf16': torch.bfloat16, None: torch.bfloat16,
           'fp32': torch.float32, 'no': torch.float32}
@@ -115,9 +139,7 @@ def refuse_unported(cfgs: Cfg) -> None:
     tcfg = cfgs.get('train') or {}
     if cfgs.get('plugin_TE'):
         raise _unported('text-encoder plugins (plugin_TE)', 7)
-    if (int(cfgs.get('fsdp', 1) or 1) > 1 or tcfg.get('zero') or tcfg.get('zero1')
-            or cfgs.get('multi_host')):
-        raise _unported('sharded or multi-host training (fsdp, train.zero, multi_host)', 8)
+    zero_level(tcfg)
 
 
 class Trainer:
@@ -127,17 +149,32 @@ class Trainer:
         cfgs = TrainCFGConverter().convert(cfgs)
         refuse_unported(cfgs)
         self.cfgs = cfgs
-        self.device = torch.device(str(cfgs.get('device', 'cuda')))
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
+        device = torch.device(str(cfgs.get('device', 'cuda')))
+        if device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError('the Trainer runs on a CUDA card and none is present; ask for '
                                'the CPU with device=cpu')
-        self.exp_dir = cfgs.get('exp_dir') or f'exps/{time.strftime("%Y-%m-%d-%H-%M-%S")}'
-        os.makedirs(os.path.join(self.exp_dir, 'ckpts'), exist_ok=True)
-        save_config(cfgs, os.path.join(self.exp_dir, 'cfg.yaml'))
-        self.loggers = build_loggers(cfgs.get('logger'), self.exp_dir)
+        if cfgs.get('multi_host') and not pm.launched():
+            raise RuntimeError('multi_host: true needs the torchrun environment (RANK, '
+                               'WORLD_SIZE, MASTER_ADDR, MASTER_PORT) on every node')
+        # the process group before anything asks which rank this is
+        self.device = pm.init_distributed(device)
+        tcfg = cfgs.get('train') or Cfg()
+        self.zero = zero_level(tcfg)
+        self.mesh = pm.make_mesh(fsdp=int(cfgs.get('fsdp', 1) or 1))
+        self.main = pm.is_main_process()
+        self.exp_dir = cfgs.get('exp_dir')
+        if not self.exp_dir:
+            # every rank derives its save paths from rank 0's
+            self.exp_dir = pm.broadcast_string(f'exps/{time.strftime("%Y-%m-%d-%H-%M-%S")}')
+        if self.main:
+            os.makedirs(os.path.join(self.exp_dir, 'ckpts'), exist_ok=True)
+            save_config(cfgs, os.path.join(self.exp_dir, 'cfg.yaml'))
+            self.loggers = build_loggers(cfgs.get('logger'), self.exp_dir)
+        else:
+            self.loggers = LoggerGroup([])
+        # one seed on every rank: the draws are the global batch's
         self.seed = int(cfgs.get('seed', 42))
 
-        tcfg = cfgs.get('train') or Cfg()
         self.grad_accum = int(tcfg.get('gradient_accumulation_steps', 1))
         self.build_model(world)
         self.make_hooks()
@@ -213,7 +250,7 @@ class Trainer:
 
     def build_previewer(self):
         """``previewer:`` -> ``ImagePreviewer`` and its ``image_log_step``
-        (200 by default)."""
+        (200 by default); every rank builds it, rank 0 previews."""
         self.previewer, self.image_log_step = None, 0
         pcfg = self.cfgs.get('previewer')
         if pcfg:
@@ -298,7 +335,12 @@ class Trainer:
                  vae_scale=vae_scale, cache_latents=bool(ds_cfg.get('cache_latents', False)),
                  loss_weight=float(ds_cfg.get('loss_weight', 1.0)), dream_artist=da,
                  with_crop_info=with_crop)
-        ds.build(int(ds_cfg.get('batch_size', 4)))
+        # batch_size is per rank (the reference's per GPU): the bucket is
+        # built for the global batch, as the JAX trainer builds it
+        # (hcpdiff_tpu/trainer/trainer.py:245-247, 310), and each rank loads
+        # its rows of it
+        ds.build(int(ds_cfg.get('batch_size', 4)) * pm.process_count())
+        ds.host_rank, ds.host_count = self.mesh.index('data'), self.mesh.size('data')
         ds.bucket.check_sizes(vae_scale * 2 ** (len(self.unet.cfg.block_out_channels) - 1))
         if ds.want_cache:
             t0 = time.perf_counter()
@@ -448,8 +490,12 @@ class Trainer:
     def build_ckpt_manager(self):
         kind = self.cfgs.get('ckpt_type', 'safetensors')
         self.ckpt_manager = CkptManagerSafe() if kind == 'safetensors' else CkptManagerPKL()
-        self.ckpt_manager.set_save_dir(os.path.join(self.exp_dir, 'ckpts'))
-        self.states = StateManager(os.path.join(self.exp_dir, 'state'))
+        ckpts = os.path.join(self.exp_dir, 'ckpts')
+        if self.main:
+            self.ckpt_manager.set_save_dir(ckpts)
+        else:
+            self.ckpt_manager.ckpt_dir = ckpts
+        self.states = StateManager(os.path.join(self.exp_dir, 'state'), create=self.main)
 
     def _resume_plugin(self, path: str) -> None:
         """The first plugin of a plugin file into ``pack['controlnet']``."""
@@ -557,28 +603,106 @@ class Trainer:
         cn_apply = None
         if self.controlnet is not None:
             cn_apply = make_controlnet_apply(self.controlnet.to_compute_dtype(self.dtype))
+        # data parallelism wherever there is a process group, also of one rank
+        self.dp = (DataParallel(self.mesh, self.zero, pack_leaves(self.pack),
+                                self._ownership_weights()) if pm.distributed() else None)
         self._train_step = build_train_step(
             make_unet_apply(self.unet), self.frontend.encode_ids, self.noise_schedule,
             self.criterion, step_cfg, self.lora_scales, te_apply=make_te_apply(self.frontend),
-            controlnet_apply=cn_apply)
+            controlnet_apply=cn_apply, parallel=self.dp)
+        owned = None
+        if self.dp is not None:
+            owned = [self.dp.owns(i) for i in range(len(self.dp.owner))]
         self.state = init_train_state(self.pack, self.optimizer, use_ema=ema_cfg is not None,
                                       schedules=self.schedules, optimizer_pt=self.optimizer_pt,
-                                      schedule_pt=self.schedule_pt)
+                                      schedule_pt=self.schedule_pt, owned=owned)
         with torch.no_grad():
             for key, tree in self._resume_ema.items():
                 for dst, src in zip(pack_leaves(self.state.ema[key]), pack_leaves(tree)):
                     dst.copy_(src)
+        if self.dp is not None:
+            for opt in (self.state.optimizer, self.state.optimizer_pt):
+                self.dp.bind_optimizer(opt)
+            self.dp.release(*self._pack_lists())
+        # fsdp: the frozen base (the fp32 copies and the frozen modules'
+        # weights) sharded over the fsdp axis between steps
+        self.frozen_shards = None
+        if self.mesh.size('fsdp') > 1:
+            frozen = [t for part in self.frozen.values() for t in part.values()]
+            frozen += [p for m in (self.unet, self.te, self.te2) if m is not None
+                       for p in m.parameters()]
+            self.frozen_shards = FrozenShards(frozen, self.mesh.group('fsdp'),
+                                              self.mesh.size('fsdp'), self.mesh.index('fsdp'))
         self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
         self.data_pos = [(0, 0)] * len(self.datasets)
         self.pending: List[List[Dict[str, torch.Tensor]]] = [[] for _ in self.datasets]
 
     # ------------------------------------------------------- full state ----
-    def _full_state(self, step: int) -> Dict[str, Any]:
-        opts = {k: getattr(self.state, k) for k in ('optimizer', 'optimizer_pt')}
-        return {'step': step, 'pack': self.state.pack, 'ema': self.state.ema,
-                **{k: o.state_dict() for k, o in opts.items() if o is not None},
+    def _ownership_weights(self) -> Optional[List[int]]:
+        """ZeRO 1 and 2 balance the optimizers' state: each leaf's bytes of
+        it where the optimizer says (``factory.state_bytes``); level 3
+        balances the pack (None: the leaves' bytes)."""
+        if self.zero not in (1, 2):
+            return None
+        out = []
+        for key in sorted(self.pack):
+            opt = self.optimizer_pt if is_pt_key(key) else self.optimizer
+            size = getattr(opt.factory, 'state_bytes', None)
+            out += [size(tuple(t.shape)) if size else t.numel() * t.element_size()
+                    for t in pack_leaves({key: self.pack[key]})]
+        return out
+
+    def _pack_lists(self):
+        """The pack's leaves and the EMA's (empty without one)."""
+        ema = pack_leaves(self.state.ema) if self.state.ema is not None else []
+        return pack_leaves(self.state.pack), ema
+
+    @contextlib.contextmanager
+    def whole(self):
+        """A collective: every rank holds the whole pack and EMA (ZeRO-3)
+        and frozen base (fsdp) for the body."""
+        if self.dp is not None:
+            self.dp.gather(*self._pack_lists())
+        shards = self.frozen_shards.gathered() if self.frozen_shards else contextlib.nullcontext()
+        try:
+            with shards:
+                yield
+        finally:
+            if self.dp is not None:
+                self.dp.release(*self._pack_lists())
+
+    def _opt_groups(self):
+        """{'optimizer': ..., 'optimizer_pt': ...}: each optimizer's
+        parameter groups as pack-leaf indices."""
+        model, pt = optimizer_groups(self.state.pack, self.state.schedules is not None)
+        return {'optimizer': model, 'optimizer_pt': pt}
+
+    def _gathered_pending(self):
+        """The queued microbatches as global batches (each rank's block in
+        its place) under data parallelism."""
+        if self.dp is None or self.dp.n == 1:
+            return self.pending
+        ranks = pm.gather_to_host(self.pending, self.dp.group)
+        return [[{k: (torch.cat([r[di][j][k] for r in ranks]) if v.dim() else v)
+                  for k, v in b.items()} for j, b in enumerate(queue)]
+                for di, queue in enumerate(ranks[0])]
+
+    def _full_state(self, step: int) -> Optional[Dict[str, Any]]:
+        """A collective under data parallelism: the full state as one
+        process holds it (the optimizers' shards and the pending batches
+        gathered), on rank 0; None elsewhere."""
+        opts = {}
+        for key, groups in self._opt_groups().items():
+            o = getattr(self.state, key)
+            if o is not None:
+                opts[key] = (self.dp.canonical_state(o, groups) if self.dp is not None
+                             else o.state_dict())
+        pending = self._gathered_pending()
+        if not self.main:
+            return None
+        return {'step': step, 'pack': self.state.pack, 'ema': self.state.ema, **opts,
                 'generator': self.generator.get_state(), 'data': list(self.data_pos),
-                'pending': self.pending}
+                'pending': pending}
 
     @torch.no_grad()
     def restore_full_state(self):
@@ -587,21 +711,29 @@ class Trainer:
         if not (isinstance(rcfg, dict) and rcfg.get('auto', False)):
             return
         latest = self.states.latest_step()
+        if pm.distributed():
+            # rank 0's view of the directory decides for every rank
+            latest = pm.broadcast_string('' if latest is None else str(latest))
+            latest = int(latest) if latest else None
         if latest is None:
             return
         st = self.states.restore(latest)
-        for dst, src in zip(pack_leaves(self.state.pack), pack_leaves(st['pack'])):
-            dst.copy_(src)
-        if self.state.ema is not None:
-            for dst, src in zip(pack_leaves(self.state.ema), pack_leaves(st['ema'])):
+        with self.whole():
+            for dst, src in zip(pack_leaves(self.state.pack), pack_leaves(st['pack'])):
                 dst.copy_(src)
-        for key in ('optimizer', 'optimizer_pt'):
-            if getattr(self.state, key) is not None:
-                getattr(self.state, key).load_state_dict(st[key])
+            if self.state.ema is not None:
+                for dst, src in zip(pack_leaves(self.state.ema), pack_leaves(st['ema'])):
+                    dst.copy_(src)
+        for key, groups in self._opt_groups().items():
+            opt = getattr(self.state, key)
+            if opt is not None:
+                opt.load_state_dict(st[key] if self.dp is None
+                                    else self.dp.local_state(opt, groups, st[key]))
         self.generator.set_state(st['generator'])
         self.data_pos = [tuple(p) for p in st['data']]
-        self.pending = [[{k: v.to(self.device) for k, v in b.items()} for b in queue]
-                        for queue in st['pending']]
+        block = self.dp.block if self.dp is not None else (lambda t: t)
+        self.pending = [[{k: (block(v) if v.dim() else v).to(self.device) for k, v in b.items()}
+                         for b in queue] for queue in st['pending']]
         self.start_step = self.state.step = int(st['step'])
         self.loggers.info(f'resumed the full train state at step {latest}')
 
@@ -613,7 +745,7 @@ class Trainer:
         package's)."""
         sigs = resolve_preemption_cfg((self.cfgs.get('train') or Cfg()).get('preemption'))
         self.preempted = False
-        with PreemptionGuard(sigs or []) as guard:
+        with PreemptionGuard(sigs or [], collective=pm.process_count() > 1) as guard:
             return self._train_loop(guard if sigs else None, draws)
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -672,6 +804,7 @@ class Trainer:
 
     def _train_loop(self, guard, draws) -> int:
         log_step = max(int(self.loggers.log_step), 1)
+        poll_step = max(int((self.cfgs.get('train') or Cfg()).get('preemption_poll_step', 10)), 1)
         step = self.start_step
         loss_ema = None
         pending_losses: List[torch.Tensor] = []
@@ -685,8 +818,11 @@ class Trainer:
                 batches = self._next_batches(data_iter)
                 for di, batch in enumerate(batches):
                     d = draws(step, di, batch) if draws is not None else None
-                    self.state, metrics = self._train_step(self.state, self.frozen, batch,
-                                                           self.generator, draws=d)
+                    shards = (self.frozen_shards.gathered() if self.frozen_shards
+                              else contextlib.nullcontext())
+                    with shards:
+                        self.state, metrics = self._train_step(self.state, self.frozen, batch,
+                                                               self.generator, draws=d)
                     pending_losses.append(metrics['loss'].detach())
                 self.step_shapes.append([tuple(b['latents'].shape) for b in batches])
                 step += 1
@@ -706,12 +842,16 @@ class Trainer:
                 self.step_ends.append(time.perf_counter())
                 if self.previewer is not None and self.image_log_step and step % self.image_log_step == 0:
                     t_preview = time.perf_counter()
-                    self.loggers.log_image(self.previewer.preview_dict(), step)
+                    with self.whole():
+                        if self.main:
+                            self.loggers.log_image(self.previewer.preview_dict(), step)
                     self.seconds['preview'] = (self.seconds.get('preview', 0.0)
                                                + time.perf_counter() - t_preview)
                 if step % self.save_step == 0:
                     self.save_model(step)
-                if step < self.train_steps and guard is not None and guard.should_stop():
+                # several ranks agree (a collective) only every poll_step steps
+                poll = guard is not None and (pm.process_count() <= 1 or step % poll_step == 0)
+                if step < self.train_steps and poll and guard.should_stop():
                     self.preempted = True
                     self.loggers.info(f'preemption signal: saving the full state at step '
                                       f'{step} and stopping')
@@ -732,8 +872,16 @@ class Trainer:
         keys; the negative branch is not saved, as there), ``<word>-<step>.pt``
         for each trained word (SDXL: the joined vectors), ``plugin-<step>``
         ({'controlnet1': the ControlNet}, ``.___.`` keys), and the full
-        state."""
-        self.states.save(step, self._full_state(step))
+        state. A collective under data parallelism: every rank gathers,
+        rank 0 writes, a barrier closes the step."""
+        with self.whole():
+            full = self._full_state(step)
+            if self.main:
+                self._write(step, full)
+        pm.barrier('save_model')
+
+    def _write(self, step: int, full: Dict[str, Any]):
+        self.states.save(step, full)
         pack, ema = self.state.pack, self.state.ema or {}
         names = {'unet': 'unet', 'te': 'text_encoder', 'te2': 'text_encoder_2'}
         for _, _, module, alias, part in self._models():
@@ -766,23 +914,57 @@ class Trainer:
         weights are written in fp32 (``assemble`` merges there), the rest
         in the dtype the trainer holds them in."""
         pack = self.state.pack
-        with torch.no_grad():
-            states = {'unet': assemble(self.frozen['unet'], pack, self.lora_scales),
-                      'te': assemble_te(self.frozen['te'], pack, self.lora_scales)}
-        CkptManagerDiffusers().save_pipeline(out_dir, self.unet, self.vae, self.te,
-                                             tokenizer=self.frontend.tokenizer, states=states)
+        with self.whole():
+            if self.main:
+                with torch.no_grad():
+                    states = {'unet': assemble(self.frozen['unet'], pack, self.lora_scales),
+                              'te': assemble_te(self.frozen['te'], pack, self.lora_scales)}
+                CkptManagerDiffusers().save_pipeline(out_dir, self.unet, self.vae, self.te,
+                                                     tokenizer=self.frontend.tokenizer,
+                                                     states=states)
+        pm.barrier('save_merged')
         self.loggers.info(f'exported the merged pipeline to {out_dir}')
+
+
+def run_report(trainer: Trainer) -> Dict[str, Any]:
+    """What a run did, for ``--report``: the process group, the mesh, the
+    ZeRO level, every step's loss, shapes and end time, the latent cache's
+    encode calls, the kernels' launches and (on a card) the peak device
+    memory and the bytes this rank holds of the pack and the optimizers'
+    state."""
+    from ..ops import kernel_launches
+    opt_bytes = sum(v.numel() * v.element_size() for o in (trainer.state.optimizer,
+                                                           trainer.state.optimizer_pt)
+                    if o is not None for st in o.state.values() for v in st.values()
+                    if torch.is_tensor(v))
+    cuda = trainer.device.type == 'cuda'
+    return {'backend': pm.dist.get_backend() if pm.distributed() else None,
+            'world_size': pm.process_count(), 'mesh': trainer.mesh.shape, 'zero': trainer.zero,
+            'history': trainer.history, 'step_ends': trainer.step_ends,
+            'step_shapes': trainer.step_shapes,
+            'encodes': [list(e) for d in trainer.datasets for e in d.encodes],
+            'launches': kernel_launches(),
+            'pack_bytes': sum(t.numel() * t.element_size()
+                              for t in pack_leaves(trainer.state.pack)),
+            'optimizer_state_bytes': opt_bytes,
+            'peak_gib': torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+            'device': torch.cuda.get_device_name(trainer.device) if cuda else 'cpu'}
 
 
 def main(argv=None) -> Trainer:
     """``--cfg FILE`` and ``key=value`` overrides; trains and returns the
-    Trainer."""
+    Trainer. ``--report FILE``: rank 0 writes ``run_report`` there as
+    JSON after the run."""
     p = argparse.ArgumentParser(description='Config-driven training on the PyTorch port')
     p.add_argument('--cfg', required=True)
+    p.add_argument('--report', default=None)
     args, unknown = p.parse_known_args(argv)
     trainer = Trainer(load(args.cfg, unknown))
     try:
         trainer.train()
     finally:
         trainer.loggers.close()
+    if args.report and trainer.main:
+        with open(args.report, 'w') as f:
+            json.dump(run_report(trainer), f)
     return trainer
