@@ -67,6 +67,20 @@ package is missing. Phases, each fatal on failure:
    weight an fp32 master under AdamW) must give finite losses and move
    every weight tensor; the run's kernel shapes join the kernel records
    (labelled trainer, launches_trainer);
+4t. tools (after 4e, on its directory and LoRAs): python -m
+   hcpdiff_tpu_torch.tools.diffusers2sd to one .safetensors, then
+   sd2diffusers back: every tensor bitwise the original's; gen_from_ptlist
+   for two prompts at batch 2, 512 px, PNG from the original directory and
+   JPEG at quality 95 from the round-tripped one: the images bitwise
+   equal, each JPEG the encoder's bytes of its PNG and, decoded by
+   utils/jpeg.py, within JPEG_RMS_BOUND_Q95 of it and within
+   JPEG_PLAIN_RMS_BOUND_Q95 of jpeg.plain_round_trip of it; lora_convert
+   --to_webui then --from_webui on unet-12/text_encoder-12: every factor
+   equal, and text2img_lora.yaml with either pair gives the same images;
+   one 5-step request under utils/profiling.trace, read by analyze_trace:
+   A, B, C and D among the device lanes' top 40 rows by time; launches as
+   reckoned (sd15_launches), kept as launches_tools; seconds of each tool,
+   an image and a JPEG encode printed;
 4f. the server (python -m hcpdiff_tpu_torch.server's InferenceServer and
    handler, 127.0.0.1 on an ephemeral port, a reload token) on the same
    directory and the trainer's unet-12/text_encoder-12 LoRAs at alpha 0.8
@@ -2022,6 +2036,200 @@ def trainer_phase(device, model_dir, tmp):
     del ft, sub, orig
     torch.cuda.empty_cache()
     return launches, shapes
+
+
+# the tools phase: the converters and gen_from_ptlist on the visualizer
+# phase's directory and the trainer phase's LoRAs. The Visualizer reads no
+# scheduler file and neither directory has a tokenizer/ (the factory takes
+# the tiny tokenizer for both), so sd2diffusers' DDIM scheduler file
+# changes nothing; its text_encoder/config.json holds CLIP's BOS/EOS ids
+# where the seeded directory holds the tiny tokenizer's, which only the
+# pooled output reads, and an SD1.5 request does not use it
+TOOL_PROMPTS = ('a photo of a cat sitting on a wooden table', 'a painting of a dog, oil')
+TOOL_BATCH, TOOL_QUALITY, PROFILE_STEPS = 2, 95, 5
+# tests/test_torch_port_jpeg_encode.py: a quality-95 round trip of uniform
+# noise (JPEG's worst case) stays within this RMS error, in 8-bit levels,
+# and a quality-95 JPEG, decoded, within the second of utils/jpeg.py's
+# float plain_round_trip of its image (a JPEG at quality 50, or of the
+# image shifted a pixel, lies 3.3-71 away)
+JPEG_RMS_BOUND_Q95, JPEG_PLAIN_RMS_BOUND_Q95 = 64.0, 2.5
+TOOL_FAMILIES = ('A flash_attention', 'B geglu_dense', 'C fused_dense', 'D group_norm_silu')
+TOP_DEVICE_ROWS = 40
+
+
+def _equal_state(a, b, what):
+    check(sorted(a) == sorted(b), f'{what}: the names differ')
+    for k in a:
+        check(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]),
+              f'{what}: {k} differs')
+    return len(a)
+
+
+def _gen_from_ptlist(model_dir, out_dir, prompt_file, image_type):
+    from hcpdiff_tpu_torch.tools import gen_from_ptlist
+    t0 = time.perf_counter()
+    viser, images = gen_from_ptlist.main([
+        '--cfg', 'cfgs/infer/text2img.yaml', '--prompt_file', prompt_file, '--out_dir', out_dir,
+        '--image_type', image_type, '--quality', str(TOOL_QUALITY),
+        f'pretrained_model={model_dir}', f'seed={VIS_SEED}', f'bs={TOOL_BATCH}', 'emb_dir=null'])
+    return viser, images, time.perf_counter() - t0
+
+
+def tools_phase(device, model_dir, tmp):
+    """4t. diffusers2sd and sd2diffusers on the SD1.5 directory (every tensor
+    back bitwise), gen_from_ptlist from both directories (PNG from the
+    original, JPEG at quality 95 from the round-tripped: the images bitwise
+    equal, each JPEG the encoder's bytes of its PNG and within the bounds),
+    the trainer's LoRAs through lora_convert both ways and a merge-at-load
+    request with each pair (images bitwise equal), then one request under
+    utils/profiling.trace read by analyze_trace. Returns the launches."""
+    import numpy as np
+    from hcpdiff_tpu_torch.ckpt.diffusers_layout import clip_alias_map, unet_alias_map
+    from hcpdiff_tpu_torch.ckpt.manager import auto_manager
+    from hcpdiff_tpu_torch.models.clip import CLIPTextConfig
+    from hcpdiff_tpu_torch.models.factory import load_state_dict
+    from hcpdiff_tpu_torch.models.unet import UNetConfig
+    from hcpdiff_tpu_torch.tools import analyze_trace, diffusers2sd, lora_convert, sd2diffusers
+    from hcpdiff_tpu_torch.utils.images import read_png
+    from hcpdiff_tpu_torch.utils.jpeg import encode_jpeg, plain_round_trip, read_jpeg
+    from hcpdiff_tpu_torch.utils.profiling import trace
+    total = {name: 0 for name in counters()}
+
+    def counted(what, expect):
+        launches = read_counters(what, TXT2IMG_KERNELS, absent=FUSED_ONLY)
+        _check_launches(launches, expect, what)
+        for k, v in launches.items():
+            total[k] += v
+
+    # (a) the directory to one LDM file and back
+    single, rt_dir = os.path.join(tmp, 'sd15_ldm.safetensors'), os.path.join(tmp, 'sd15_rt')
+    t0 = time.perf_counter()
+    diffusers2sd.main(['--model_path', model_dir, '--checkpoint_path', single])
+    to_single = time.perf_counter() - t0
+    size = os.path.getsize(single)
+    t0 = time.perf_counter()
+    sd2diffusers.main(['--checkpoint_path', single, '--dump_path', rt_dir])
+    to_dir = time.perf_counter() - t0
+    os.remove(single)
+    n = sum(_equal_state(load_state_dict(os.path.join(model_dir, sub)),
+                         load_state_dict(os.path.join(rt_dir, sub)), f'round-tripped {sub}')
+            for sub in ('unet', 'vae', 'text_encoder'))
+    log(f'tools: diffusers2sd {to_single:.3f} s ({size / 2**30:.3f} GiB .safetensors), '
+        f'sd2diffusers {to_dir:.3f} s; all {n} tensors of the round-tripped directory equal '
+        f'the original\'s bitwise (F16); card: {gpu_name_and_power_limit()}')
+
+    # (b) gen_from_ptlist: PNG from the original, JPEG from the round trip
+    prompt_file = os.path.join(tmp, 'prompts.txt')
+    with open(prompt_file, 'w') as f:
+        f.write('\n'.join(TOOL_PROMPTS) + '\n')
+    reckoned = {k: v * len(TOOL_PROMPTS) for k, v in sd15_launches(STEPS).items()}
+    runs = {}
+    for kind, d in (('png', model_dir), ('jpg', rt_dir)):
+        out = os.path.join(tmp, f'ptlist_{kind}')
+        zero_counters()
+        viser, images, seconds = _gen_from_ptlist(d, out, prompt_file, kind)
+        counted(f'gen_from_ptlist ({kind}, {os.path.basename(d)})', reckoned)
+        n_img = len(TOOL_PROMPTS) * TOOL_BATCH
+        check(images.shape == (n_img, SIZE, SIZE, 3) and bool(np.isfinite(images).all()),
+              f'gen_from_ptlist {kind}: images {images.shape}')
+        want = sorted([f'{i}-img.{kind}' for i in range(n_img)]
+                      + [f'{i}-img.yaml' for i in range(n_img)])
+        check(sorted(os.listdir(out)) == want, f'gen_from_ptlist {kind} wrote {os.listdir(out)}')
+        runs[kind] = (images, out, seconds)
+        log(f'tools: gen_from_ptlist {kind} from {os.path.basename(d)}: {len(TOOL_PROMPTS)} '
+            f'prompts x batch {TOOL_BATCH} at {SIZE} px, main() {seconds:.3f} s (directory load '
+            f'and writes included), {seconds / n_img:.3f} s an image')
+    del viser
+    check(np.array_equal(runs['png'][0], runs['jpg'][0]),
+          'the round-tripped directory\'s images differ from the original\'s')
+    rms, plain_rms, enc_s = [], [], []
+    for i in range(len(runs['jpg'][0])):
+        png = read_png(os.path.join(runs['png'][1], f'{i}-img.png'))
+        path = os.path.join(runs['jpg'][1], f'{i}-img.jpg')
+        t0 = time.perf_counter()
+        data = encode_jpeg(png, TOOL_QUALITY)
+        enc_s.append(time.perf_counter() - t0)
+        # the interface wrote the encoder's bytes at the configured quality
+        check(open(path, 'rb').read() == data, f'{path} is not encode_jpeg of its PNG')
+        decoded = read_jpeg(path).astype(np.float64)
+        rms.append(float(np.sqrt(((decoded - png) ** 2).mean())))
+        # the encoder itself, against the float version of the codec
+        plain = plain_round_trip(png, TOOL_QUALITY)
+        plain_rms.append(float(np.sqrt(((decoded - plain) ** 2).mean())))
+    log(f'tools: the round-tripped directory\'s images equal the original\'s bitwise; each '
+        f'JPEG is encode_jpeg of its PNG byte for byte; decoded JPEG vs PNG RMS error '
+        f'{[round(x, 4) for x in rms]} levels (bound {JPEG_RMS_BOUND_Q95}), vs '
+        f'plain_round_trip of the PNG {[round(x, 4) for x in plain_rms]} levels (bound '
+        f'{JPEG_PLAIN_RMS_BOUND_Q95}); JPEG encode of one {SIZE} px image at quality '
+        f'{TOOL_QUALITY} (host, one core) {[round(x, 4) for x in enc_s]} s')
+    check(max(rms) <= JPEG_RMS_BOUND_Q95, f'a decoded JPEG is {max(rms)} RMS from its PNG')
+    check(max(plain_rms) <= JPEG_PLAIN_RMS_BOUND_Q95,
+          f'a decoded JPEG is {max(plain_rms)} RMS from the plain round trip of its PNG')
+
+    # (c) the trainer's LoRAs to kohya and back, and a merge-at-load request each
+    ckpts = os.path.join(tmp, 'exp', 'ckpts')
+    files = {'unet': os.path.join(ckpts, f'unet-{TRAINER_STEPS}.safetensors'),
+             'te': os.path.join(ckpts, f'text_encoder-{TRAINER_STEPS}.safetensors')}
+    kohya, back = os.path.join(tmp, 'kohya.safetensors'), os.path.join(tmp, 'kohya_back')
+    t0 = time.perf_counter()
+    lora_convert.main(['--to_webui', '--lora_path', files['unet'], '--lora_path_TE',
+                       files['te'], '--dump_path', kohya])
+    lora_convert.main(['--from_webui', '--lora_path', kohya, '--dump_path', back])
+    convert_s = time.perf_counter() - t0
+    rt = {'unet': os.path.join(back, 'unet.safetensors'),
+          'te': os.path.join(back, 'text_encoder.safetensors')}
+    aliases = {'unet': unet_alias_map(UNetConfig.sd15()),
+               'te': clip_alias_map(CLIPTextConfig.sd15())}
+    layers = 0
+    for part in ('unet', 'te'):
+        a = auto_manager(files[part]).load_ckpt(files[part], aliases[part])['lora']
+        b = auto_manager(rt[part]).load_ckpt(rt[part], aliases[part])['lora']
+        check(sorted(a) == sorted(b), f'{part} LoRA layers differ after the round trip')
+        for path in a:
+            for field in ('down', 'up', 'alpha'):
+                check(torch.equal(a[path][field], b[path][field]),
+                      f'{part} LoRA {path}.{field} differs after the round trip')
+        layers += len(a)
+    merged = {}
+    for which, pair in (('trainer', files), ('round-tripped', rt)):
+        viser = None
+        zero_counters()
+        viser, images, seconds = _cli(
+            model_dir, os.path.join(tmp, f'lora_{which}'), 'text2img_lora.yaml', 'bs=1',
+            'emb_dir=null', f'merge.group1.lora.0.path={pair["unet"]}',
+            f'merge.group2.lora.0.path={pair["te"]}')
+        counted(f'the merge-at-load request ({which} LoRAs)', sd15_launches(STEPS))
+        merged[which] = images
+    check(np.array_equal(merged['trainer'], merged['round-tripped']),
+          'the round-tripped LoRAs\' request differs from the trainer\'s')
+    log(f'tools: lora_convert --to_webui and --from_webui {convert_s:.3f} s, {layers} LoRA '
+        f'layers equal after the round trip; text2img_lora.yaml with the round-tripped files '
+        f'gives the trainer\'s files\' images bitwise')
+
+    # (d) one request under the profiler, read back by analyze_trace
+    log_dir = os.path.join(tmp, 'trace')
+    zero_counters()
+    t0 = time.perf_counter()
+    with trace(log_dir):
+        viser.vis_images(viser.cfgs.prompt, viser.cfgs.neg_prompt, seed=VIS_SEED,
+                         inference_steps=PROFILE_STEPS)
+    traced_s = time.perf_counter() - t0
+    counted('the traced request', sd15_launches(PROFILE_STEPS))
+    t0 = time.perf_counter()
+    rows = analyze_trace.analyze(log_dir, 10000)
+    gpu = [r for r in rows if r['device']][:TOP_DEVICE_ROWS]
+    fams = sorted({r['family'] for r in gpu})
+    log(f'tools: traced request ({PROFILE_STEPS} steps, batch 1) {traced_s:.3f} s with the '
+        f'trace written; analyze_trace {time.perf_counter() - t0:.3f} s; the device lanes\' top '
+        f'rows: ' + '; '.join(f'{r["ms"]:.3f} ms x{r["events"]} {r["lane"]} {r["family"]} '
+                              f'{r["name"][:80]}' for r in gpu[:12]))
+    for fam in TOOL_FAMILIES:
+        check(fam in fams, f'{fam} is not among the top {TOP_DEVICE_ROWS} device rows of the '
+              f'trace: {fams}')
+    del viser
+    shutil.rmtree(rt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
 
 
 # the server phase: python -m hcpdiff_tpu_torch.server's parts on the
@@ -4012,6 +4220,7 @@ def main() -> int:
         model_dir = write_model_dir(device, tmp)
         visualizer_launches = visualizer_phase(device, model_dir, tmp)
         trainer_launches, trainer_shapes = trainer_phase(device, model_dir, tmp)
+        tools_launches = tools_phase(device, model_dir, tmp)
         server_launches = server_phase(device, model_dir, tmp)
         sdxl_train_launches, sdxl_step, sdxl_train_shapes = sdxl_trainer_phase(device, tmp)
         da_launches = dreamartist_phase(device, model_dir, tmp)
@@ -4066,6 +4275,7 @@ def main() -> int:
                                  launches_preview=preview_launches,
                                  launches_logger=logger_launches, launches_jpeg=jpeg_launches)
     records = add_trainer_shapes(records, tp_kernel_phase(), zero3_launches, 'zero3')
+    records = add_trainer_shapes(records, {}, tools_launches, 'tools')
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

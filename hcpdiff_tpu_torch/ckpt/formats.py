@@ -6,13 +6,16 @@ byte-compatible with the JAX package's files:
   ``.___.layer.W_up`` and ``.___.alpha``, the host path through the alias
   map ({JAX tree path: diffusers module path}), W_down [r, in] (conv
   [r, cin, kh, kw]) and W_up [out, r] (conv [out, r, 1, 1]);
-- the webui embedding format ``{'string_to_param': {'*': tensor}, 'name'}``.
+- the webui embedding format ``{'string_to_param': {'*': tensor}, 'name'}``;
+- the kohya/webui LoRA keys ``lora_unet_<diffusers path with '_'>
+  .lora_down.weight``/``.lora_up.weight``/``.alpha`` (``lora_te``,
+  ``lora_te1``, ``lora_te2`` for the text encoders).
 
 The port's overlay (``adapt/overlay.py``) already holds W_down and W_up
 in these layouts, flattened: ``down`` [r, fan_in] in (cin, kh, kw) order
-and ``up`` [out, r]. Safetensors files are read and written by
-``ckpt/safetensors_io.py``. Not ported yet: the kohya/webui LoRA key
-conversion (ROADMAP.md queue 1 item 10).
+and ``up`` [out, r]. So a linear layer converts with no transpose, and a
+conv layer by a reshape to [r, cin, kh, kw] and [out, r, 1, 1]. Safetensors
+files are read and written by ``ckpt/safetensors_io.py``.
 """
 from __future__ import annotations
 
@@ -124,3 +127,81 @@ def load_webui_embedding(path: str) -> Tuple[str, np.ndarray]:
     else:
         t, name = obj, stem
     return name, t.detach().cpu().float().numpy()
+
+
+def _kohya_module_name(layer_path: str, prefix: str) -> str:
+    """A diffusers module path -> its kohya module name: dots to
+    underscores after ``<prefix>_``."""
+    return f'{prefix}_{layer_path.replace(".", "_")}'
+
+
+_KOHYA_FIELDS = (('.lora_down.weight', 'down'), ('.lora_up.weight', 'up'), ('.alpha', 'alpha'))
+
+
+def overlay_to_kohya(overlay: Mapping[str, Mapping[str, torch.Tensor]],
+                     torch_paths: Mapping[str, str], prefix: str = 'lora_unet',
+                     conv_shapes: Optional[Dict[str, Tuple[int, ...]]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The port's overlay + {path: diffusers module path} -> a kohya state
+    dict: ``lora_down.weight`` [r, in] (a conv's [r, cin, kh, kw]),
+    ``lora_up.weight`` [out, r] ([out, r, 1, 1]) and ``alpha``.
+    ``conv_shapes``: {path: conv weight shape [out, cin, kh, kw]} of the
+    overlaid convs. The kohya layout has no slot for a LoRA's bias delta
+    (pre-0.9 layers): an overlay with one raises rather than lose it."""
+    biased = [p for p, e in overlay.items() if 'bias' in e]
+    if biased:
+        raise ValueError('overlay_to_kohya: the kohya format cannot hold LoRA bias deltas '
+                         f'(pre-0.9 layers), present at {biased[:3]}; save the overlay in the '
+                         '.___. format instead, or strip the biases first')
+    conv_shapes = conv_shapes or {}
+    sd: Dict[str, torch.Tensor] = {}
+    for path, entry in overlay.items():
+        base = _kohya_module_name(torch_paths.get(path, path), prefix)
+        down = entry['down'].detach().float().cpu()
+        up = entry['up'].detach().float().cpu()
+        shape = conv_shapes.get(path)
+        if shape is not None and len(shape) == 4:
+            down = down.reshape(down.shape[0], *shape[1:])
+            up = up[:, :, None, None]
+        sd[f'{base}.lora_down.weight'] = down.contiguous()
+        sd[f'{base}.lora_up.weight'] = up.contiguous()
+        sd[f'{base}.alpha'] = entry['alpha'].detach().float().cpu().reshape(())
+    return sd
+
+
+def kohya_to_overlay(sd: Mapping[str, torch.Tensor], port_paths: Mapping[str, str],
+                     prefix: str = 'lora_unet') -> Dict[str, Dict[str, torch.Tensor]]:
+    """The inverse for the keys under ``<prefix>_``, by {diffusers module
+    path: port path}: a conv's 4-D factors are flattened to the overlay's
+    [r, cin * kh * kw] and [out, r]; ``alpha`` defaults to the rank. A key
+    of the prefix that is not a known factor of a module the map names, or
+    a module without both factors, raises a ``ValueError`` naming them."""
+    by_name = {_kohya_module_name(tp, prefix): fp for tp, fp in port_paths.items()}
+    start = prefix + '_'
+    tmp: Dict[str, Dict[str, torch.Tensor]] = {}
+    unknown = []
+    for key, v in sd.items():
+        if not key.startswith(start):
+            continue
+        for suffix, field in _KOHYA_FIELDS:
+            if key.endswith(suffix) and key[:-len(suffix)] in by_name:
+                tmp.setdefault(by_name[key[:-len(suffix)]], {})[field] = torch.as_tensor(v)
+                break
+        else:
+            unknown.append(key)
+    if unknown:
+        raise ValueError(f'kohya_to_overlay: {len(unknown)} {prefix} keys name no LoRA factor of '
+                         f'a module of this model: {sorted(unknown)[:8]}')
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, e in tmp.items():
+        if 'down' not in e or 'up' not in e:
+            raise ValueError(f'kohya_to_overlay: {path} lacks lora_down or lora_up')
+        down, up = e['down'].float(), e['up'].float()
+        if up.dim() == 4 and tuple(up.shape[2:]) != (1, 1):
+            raise ValueError(f'kohya_to_overlay: {path} has a {tuple(up.shape[2:])} lora_up; '
+                             'only 1x1 up factors are LoRA')
+        down = down.reshape(down.shape[0], -1)
+        up = up.reshape(up.shape[0], up.shape[1])
+        alpha = e.get('alpha', torch.tensor(float(down.shape[0])))
+        out[path] = {'down': down, 'up': up, 'alpha': alpha.float().reshape(())}
+    return out

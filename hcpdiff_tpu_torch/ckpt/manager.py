@@ -12,7 +12,9 @@ state through the alias map; ``auto_manager`` picks the backend by the
 file's extension. Plugin files (ControlNet) hold each plugin's tree under
 ``<slot>.___.<path>.kernel`` keys in the JAX layouts (``save_plugins``,
 ``load_plugins``), or are webui ControlNet files (``control_model.*``). ``CkptManagerDiffusers.save_pipeline`` writes whole
-modules as a diffusers-layout directory. In place of the JAX package's
+modules as a diffusers-layout directory; ``CkptManagerWebui`` reads a
+webui/LDM single file (a whole SD model) into diffusers-layout parts. In
+place of the JAX package's
 ``OrbaxCkptManager`` (the port reads and writes no orbax directory),
 ``StateManager`` keeps the trainer's full state for ``resume.auto``.
 """
@@ -30,7 +32,7 @@ from .bridge import params_from_state_dict, state_dict_from_params
 from .diffusers_layout import write_module
 from .formats import (PLACEHOLDER, fold_dict, lora_overlay_to_state, lora_state_to_overlay,
                       save_webui_embedding, unfold_dict)
-from .ldm_convert import CONTROL_LDM_PREFIX, controlnet_ldm_to_ours
+from .ldm_convert import CONTROL_LDM_PREFIX, controlnet_ldm_to_ours, split_ldm_checkpoint
 
 
 def conv_shapes(module: nn.Module, overlay: Mapping[str, Any]) -> Dict[str, tuple]:
@@ -161,6 +163,44 @@ class CkptManagerDiffusers(CkptManagerSafe):
                 write_module(module, os.path.join(out_dir, sub), state=states.get(key))
         if tokenizer is not None:
             tokenizer.save_pretrained(os.path.join(out_dir, 'tokenizer'))
+
+
+class CkptManagerWebui(CkptManagerSafe):
+    """A webui/LDM single-file checkpoint (``.safetensors`` or ``.ckpt`` of
+    a whole SD1.x/SD2.x model) read as diffusers-layout parts."""
+
+    @staticmethod
+    def read_single_file(path: str, allow_pickle: bool = False) -> Dict[str, torch.Tensor]:
+        """{key: tensor} of a single file: a ``.safetensors`` through
+        ``safetensors_io``; a ``.ckpt`` through ``torch.load(...,
+        weights_only=True)``, its ``state_dict`` entry where it has one and
+        only its tensors kept. A pickle of other objects than tensors and
+        plain containers needs ``weights_only=False``: the original
+        CompVis/Stability training checkpoints (PyTorch Lightning's, with
+        the trainer's callbacks, hyper-parameters and loop state beside the
+        ``state_dict``) and files that hold numpy scalars. Such a file
+        raises a ``ValueError`` unless ``allow_pickle`` allows the full
+        unpickler, which can run code: only for files one trusts."""
+        if path.endswith('.safetensors'):
+            return safetensors_io.load_file(path)
+        try:
+            obj = torch.load(path, map_location='cpu', weights_only=True)
+        except Exception as e:
+            if not allow_pickle:
+                raise ValueError(f'{path}: not loadable with weights_only=True ({e}); for a '
+                                 'trusted file pass allow_pickle=True') from e
+            obj = torch.load(path, map_location='cpu', weights_only=False)
+        sd = obj.get('state_dict', obj) if isinstance(obj, Mapping) else obj
+        if not isinstance(sd, Mapping):
+            raise ValueError(f'{path}: holds a {type(sd).__name__}, not a state dict')
+        return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+    @classmethod
+    def load_webui_parts(cls, path: str, allow_pickle: bool = False
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """-> {'unet', 'vae', 'text_encoder'}: diffusers-layout state dicts
+        (``ldm_convert.split_ldm_checkpoint``)."""
+        return split_ldm_checkpoint(cls.read_single_file(path, allow_pickle))
 
 
 def auto_manager(path_or_ext: str) -> CkptManagerBase:

@@ -241,11 +241,14 @@ class Visualizer:
     @staticmethod
     def _interface(item) -> BaseInterface:
         """An interface chosen by a substring of its ``_target_``, as the JAX
-        Visualizer chooses it (the class is not imported)."""
+        Visualizer chooses it (the class is not imported), with the disk
+        options ``save_root``, ``image_type``, ``quality`` and ``save_cfg``
+        (the JAX Visualizer passes the first two only)."""
         spec = dict(item)
         tgt = str(spec.pop('_target_', 'disk')).lower()
         kwargs = dict(save_root=spec.get('save_root', 'output/'),
-                      image_type=spec.get('image_type', 'png'))
+                      image_type=spec.get('image_type', 'png'),
+                      quality=spec.get('quality', 95), save_cfg=spec.get('save_cfg', True))
         if 'anim' in tgt or spec.get('show_steps'):
             return DiskAnimInterface(**kwargs)
         if 'webui' in tgt:

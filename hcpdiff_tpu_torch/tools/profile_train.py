@@ -33,8 +33,8 @@ BWD_FAMILIES = (('flash_bwd_dq', 'E flash_attention_bwd_dq'),
 def kernel_families(prof, steps: int = 1) -> dict:
     """{family: {'ms', 'launches'}} of a ``torch.profiler`` run's device
     kernels, divided by ``steps``; the families of
-    ``profile_txt2img.FAMILIES`` and E and F by name."""
-    from hcpdiff_tpu_torch.tools.profile_txt2img import FAMILIES
+    ``utils/profiling.py:FAMILIES`` and E and F by name."""
+    from hcpdiff_tpu_torch.utils.profiling import FAMILIES
     families = BWD_FAMILIES + tuple(FAMILIES)
     fams = {}
     for ev in prof.key_averages():

@@ -8,7 +8,8 @@ Builds SD1.5 (512x512, the default and the fused-sublayer UNet) or SDXL
 (1024x1024, the default UNet only) at full width in bf16 from a seed (as
 chip_smoke.py does), warms the pipelines up, then for each batch size
 times unprofiled 20-step DPM++ 2M requests in turns (default, fused,
-fused, default) and profiles one request of each with ``torch.profiler``. It
+fused, default) and traces one request of each (``utils/profiling.py:trace``,
+summed by ``analyze_trace``). It
 prints, per configuration, the request seconds, the kernel time by family
 (ms and launches per request), the calls of kernel D's wrapper in the
 profiled request, and the device's idle share (1 - kernel time / the
@@ -19,50 +20,22 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
+import tempfile
 import time
 
 import torch
 
 from ..infer.pipeline import DiffusionPipeline
 from ..ops.groupnorm import group_norm_silu
+from ..utils.profiling import trace
+from .analyze_trace import analyze, by_family
 from .random_sd15 import build_sd15, fused_copy
 from .random_sdxl import build_sdxl
 
 PROMPT = 'a photo of a cat sitting on a wooden table, highly detailed'
 NEGATIVE = 'blurry, low quality'
-# kernel name (as CUPTI reports it) -> family; the first match wins
-FAMILIES = (
-    ('flash_fwd_kernel', 'A flash_attention'),
-    ('LnCfg<true', 'H ln_geglu'),       # ln_proj_kernel<LnCfg<GEGLU, ..>, ..>
-    ('LnCfg<false', 'G ln_qkv / I ln_dense'),
-    ('Tile<true', 'B geglu_dense'),     # ffn_gemm_kernel<Tile<GEGLU, ..>, ..>
-    ('ffn_splitk_reduce<true', 'B geglu_dense'),
-    ('Tile<false', 'C fused_dense'),
-    ('ffn_splitk_reduce<false', 'C fused_dense'),
-    ('conv3x3_', 'J conv3x3'),          # the wgmma kernel and its split-K sum
-    ('::gn_', 'D group_norm_silu'),
-    ('layer_norm', 'LayerNorm'),
-    ('conv', 'cuDNN convolutions'),
-    ('fprop', 'cuDNN convolutions'),
-    ('implicit_gemm', 'cuDNN convolutions'),
-    ('nvjet', 'cuBLAS GEMMs'),
-    ('gemm', 'cuBLAS GEMMs'),
-    ('softmax', 'softmax'),
-    ('elementwise', 'elementwise'),
-    ('copy', 'copies'),
-    ('cat', 'copies'),
-)
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for key, fam in FAMILIES:
-        if key.lower() in low:
-            return fam
-    return 'other'
-
-
 # --model: its image size
 MODELS = {'sd15': 512, 'sdxl': 1024}
 
@@ -84,27 +57,18 @@ def request(pipe, batch: int, size: int, steps: int = 20):
 
 
 def kernel_breakdown(pipe, batch: int, size: int):
-    """Kernel time (ms) and launches by family over one profiled request,
-    the top kernels, and the calls of kernel D's wrapper in that request."""
-    from torch.profiler import ProfilerActivity, profile
+    """Kernel time (ms) and launches by family over one request traced by
+    ``utils/profiling.py:trace`` and read by ``analyze_trace``, the top
+    kernels, and the calls of kernel D's wrapper in that request."""
+    log_dir = tempfile.mkdtemp(prefix='hcp_profile_txt2img_')
     before = group_norm_silu.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(log_dir):
         request(pipe, batch, size)
-        torch.cuda.synchronize()
     d_calls = group_norm_silu.launches - before
-    fams, names = {}, []
-    for ev in prof.key_averages():
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        fam = fams.setdefault(family(ev.key), {'ms': 0.0, 'launches': 0})
-        fam['ms'] += us / 1e3
-        fam['launches'] += ev.count
-        names.append((us / 1e3, ev.count, ev.key[:110], family(ev.key)))
-    names.sort(reverse=True)
-    return fams, names[:20], d_calls
+    rows = [r for r in analyze(log_dir, None) if r['device']]
+    shutil.rmtree(log_dir, ignore_errors=True)
+    top = [(r['ms'], r['events'], r['name'][:110], r['family']) for r in rows[:20]]
+    return by_family(rows), top, d_calls
 
 
 def main() -> int:
@@ -138,7 +102,7 @@ def main() -> int:
                    'idle_share': 1.0 - kernel_ms / 1e3 / median,
                    'launches': sum(f['launches'] for f in fams.values()),
                    'group_norm_silu_calls': d_calls,
-                   'families': dict(sorted(fams.items(), key=lambda kv: -kv[1]['ms'])),
+                   'families': fams,
                    'top_kernels': top}
             result['configs'][f'{name} batch {batch}'] = rec
             print(f'== {args.model} {name} batch {batch}: requests {[round(s, 4) for s in secs[name]]} s, '

@@ -16,7 +16,9 @@ bicubic resampling for 8-bit images, and ``to_model_input`` (counterpart of
   frames, each a lossless VP8L image of literals only (no transforms, no
   colour cache, every channel a complete code of 256 length-8 literals,
   the distance code one symbol); ``read_webp_anim`` reads back what it
-  writes (the RIFF chunks, and each frame's pixels);
+  writes (the RIFF chunks, and each frame's pixels); ``write_webp``/
+  ``encode_webp`` and ``read_webp``: one such frame as a still image (the
+  simple format: RIFF, WEBP, one VP8L chunk);
 - ``decode_jpeg``/``read_jpeg``: baseline JPEG, as Pillow decodes it
   (``utils/jpeg.py``);
 - ``load_image``/``load_mask``: what the Visualizer reads for img2img and
@@ -227,6 +229,18 @@ def write_webp_anim(path: str, frames, frame_ms: int) -> None:
         f.write(encode_webp_anim(frames, frame_ms))
 
 
+def encode_webp(image: np.ndarray) -> bytes:
+    """An 8-bit RGB image [H, W, 3] as a lossless still WebP (one VP8L
+    chunk)."""
+    body = _riff_chunk(b'VP8L', encode_vp8l(np.asarray(image, np.uint8)))
+    return b'RIFF' + struct.pack('<I', 4 + len(body)) + b'WEBP' + body
+
+
+def write_webp(path: str, image: np.ndarray) -> None:
+    with open(path, 'wb') as f:
+        f.write(encode_webp(image))
+
+
 def _riff_chunks(data: bytes, where: str):
     """(fourcc, payload) of each chunk of ``data``, odd sizes padded."""
     out, pos = [], 0
@@ -280,6 +294,21 @@ def read_webp_anim(path: str) -> dict:
                               'duration': u24(p[12:15]), 'flags': p[15],
                               'image': _decode_vp8l_literals(bitstream, w, h)})
     return out
+
+
+def read_webp(path: str) -> np.ndarray:
+    """The pixels (uint8 [H, W, 3]) of a still WebP ``write_webp`` wrote;
+    raises on a file of another layout."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:4] != b'RIFF' or data[8:12] != b'WEBP':
+        raise ValueError(f'{path}: not a RIFF WEBP file')
+    chunks = _riff_chunks(data[12:], path)
+    if [k for k, _ in chunks] != [b'VP8L'] or chunks[0][1][:1] != b'\x2f':
+        raise ValueError(f'{path}: not one lossless VP8L image')
+    head = int.from_bytes(chunks[0][1][1:5], 'little')
+    w, h = (head & 0x3FFF) + 1, ((head >> 14) & 0x3FFF) + 1
+    return _decode_vp8l_literals(chunks[0][1], w, h)
 
 
 _PRECISION_BITS = 32 - 8 - 2

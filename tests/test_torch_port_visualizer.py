@@ -23,6 +23,7 @@ tiny widths in fp32 on the CPU:
 - the PNG reader and writer and the bicubic resize against Pillow.
 """
 import dataclasses
+import io
 import json
 import os
 import struct
@@ -549,22 +550,29 @@ def _refusals(tmp_path):
         'anim_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.DiskAnimInterface'],
         'webui_interface': ['interface.0._target_=hcpdiff_tpu.infer.interfaces.WebUIInterface'],
         'other_interface': ['interface.0._target_=my.Interface'],
-        'jpeg': ['interface.0.image_type=jpg'],
+        'jpeg': ['interface.0.image_type=jpg', 'interface.0.quality=80',
+                 'interface.0.save_cfg=false'],
+        'image_type': ['interface.0.image_type=gif'],
         'sampler': ['infer_args.sampler=heun'],
     }
 
 
 @pytest.mark.parametrize('what', ['merge', 'controlnet', 'anim_interface', 'webui_interface',
-                                  'other_interface', 'jpeg', 'sampler'])
+                                  'other_interface', 'jpeg', 'image_type', 'sampler'])
 def test_unported_features_raise(dirs, tmp_path, what):
     """What the port still refuses raises: a plugin other than a ControlNet
-    (ROADMAP.md item 7), an interface it lacks, non-PNG images. What this
-    slice ported runs: a ControlNet condition without a plugin is dropped
-    (the plain request, as in the JAX Visualizer), the animation and WebUI
-    interfaces, the two-stage samplers (Heun: 2N - 1 evaluations)."""
+    (ROADMAP.md item 7), an interface it lacks, an image type it has no
+    writer for. What was ported runs: a ControlNet condition without a
+    plugin is dropped (the plain request, as in the JAX Visualizer), the
+    animation and WebUI interfaces, the two-stage samplers (Heun: 2N - 1
+    evaluations), JPEG at a quality without the YAML (Pillow's bytes)."""
     args = _refusals(tmp_path)[what]
-    if what in ('merge', 'other_interface', 'jpeg'):
-        with pytest.raises(NotImplementedError, match='not ported|PNG only'):
+    if what in ('merge', 'other_interface'):
+        with pytest.raises(NotImplementedError, match='not ported'):
+            _run(dirs, tmp_path, 'text2img.yaml', *args)
+        return
+    if what == 'image_type':
+        with pytest.raises(ValueError, match="'gif'"):
             _run(dirs, tmp_path, 'text2img.yaml', *args)
         return
     viser, imgs, out = _run(dirs, tmp_path, 'text2img.yaml', *args)
@@ -579,6 +587,12 @@ def test_unported_features_raise(dirs, tmp_path, what):
             '0-steps.webp', '1-steps.webp']
     if what == 'sampler':
         assert viser.cfgs.infer_args.sampler == 'heun'
+    if what == 'jpeg':
+        assert sorted(os.listdir(out)) == ['0-img.jpg', '1-img.jpg']
+        for i, img in enumerate((np.clip(imgs, 0, 1) * 255).astype(np.uint8)):
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, 'JPEG', quality=80)
+            assert open(os.path.join(out, f'{i}-img.jpg'), 'rb').read() == buf.getvalue()
 
 
 def test_sdxl_directory_runs_and_refuses_other_text_settings(dirs, tmp_path):
