@@ -247,6 +247,30 @@ package is missing. Phases, each fatal on failure:
    A and B at the per-rank shapes of tensor-parallel txt2img at tp=2
    (SD1.5 batch 4, CFG-doubled: 4 of 8 heads; B on half the GEGLU
    columns), labelled tp, against their plain versions;
+4u. int8 (HCP_INT8's w8a8 route, kernels K and L): int8_dense's
+   straight-through gradients on the card (K and L forward) against the CPU
+   route on fp32 inputs; SD1.5 512 px requests (20 DPM++ 2M steps, CFG 7.5)
+   through a bf16 and an int8 copy of the UNet (the same weights), in turns,
+   three pairs at batch 4 and one at batch 1: images finite in [0, 1], PSNR
+   and SSIM of the int8 images against the bf16 ones
+   (tools/int8_quality.py's), every request's launches held to its
+   reckoning (int8_request_launches: K twice and L once a layer, 192 layers
+   a UNet call, B and C zero; A and D as sd15_launches); a fused int8 request
+   at batch 1 (L on proj_in/proj_out and the to_outs, G, I, H, C and J as
+   reckoned); text2img.yaml through main() under HCP_INT8=1 on the 4d
+   directory (launches as an int8 request's); then HCP_NATIVE_IMG's route
+   on the committed JPEGs against the default route (tests/test_native.py's
+   bounds, equal crop info, host seconds an image of each) and the grouped
+   frozen-base cast (utils/casting.py) of the SD1.5 UNet's fp32 weights on
+   the card against the whole-tree comprehension (peak memory above the
+   fp32 tree, twice each in turns: the grouped one must peak lower); after
+   phase 7, K and L against their plain versions at every int8 shape of a
+   batch-4 request (int8_shapes: levels 0-2 and the mid block, the
+   cross-attention's k/v at M = 616), K's codes and scales bitwise, L
+   (timed alone on K's codes) and the whole layer within one bf16 ulp
+   (bitwise expected), each beside torch._int_mm (the int32 product alone)
+   and F.linear in bf16 (the layer in bf16), with bounds at 1979 TOPS int8
+   (K: 67 TFLOP/s fp32) and 3.35 TB/s, and once in fp32;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -295,7 +319,9 @@ package is missing. Phases, each fatal on failure:
    the paths', at #2/#4/#6's exact-route shapes);
 7c. kernel J also at the UNet's other levels (the 8x8 and 16x16 convs,
    most of them split K; 32x32 and 64x64 at Cin 640 and 960), with
-   F.conv2d as the yardstick for the bias-only epilogue; kernel D is
+   F.conv2d as the yardstick for the bias-only epilogue (and, as
+   conv2d_ms, for the product alone beside the row-bias and residual
+   epilogues); kernel D is
    timed at every GroupNorm shape of a batch-4 request (UNet [8, S, C],
    VAE [4, S, C]; tools/time_kernels.py's GN_SHAPES: both of its regimes),
    without SiLU (the transformer and VAE-attention norms) beside
@@ -339,6 +365,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -461,12 +488,14 @@ def counters():
     from hcpdiff_tpu_torch.ops import matmul as mm
     from hcpdiff_tpu_torch.ops.conv import conv3x3
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu
+    from hcpdiff_tpu_torch.ops.int8 import int8_dense, quantize_rows
     return {'flash_attention': fa.flash_attention, 'flash_attention_lse': fa.flash_attention_lse,
             'flash_attention_bwd_dq': fa.flash_attention_bwd_dq,
             'flash_attention_bwd_dkv': fa.flash_attention_bwd_dkv,
             'geglu_dense': mm.geglu_dense, 'fused_dense': mm.fused_dense,
             'group_norm_silu': group_norm_silu, 'ln_qkv': mm.ln_qkv, 'ln_geglu': mm.ln_geglu,
-            'ln_dense': mm.ln_dense, 'conv3x3': conv3x3}
+            'ln_dense': mm.ln_dense, 'conv3x3': conv3x3, 'quantize_rows': quantize_rows,
+            'int8_dense': int8_dense}
 
 
 def zero_counters():
@@ -1280,8 +1309,11 @@ def fused_kernel_phase(launches):
         rb = rn(B, Cout) if epilogue == 'row_bias' else None
         res = rn(B, Cout, H, W).to(memory_format=cl) if epilogue == 'res' else None
         library = (lambda: F.conv2d(x, w, b, padding=1)) if epilogue == 'bias' else None
+        # no single call adds a row bias or a residual: F.conv2d times the
+        # product alone there (conv2d_ms), as F.linear does beside B and C
+        yard = {} if epilogue == 'bias' else {'conv2d_ms': lambda: F.conv2d(x, w, b, padding=1)}
         return (f'x [{B}, {Cin}, {H}, {W}] -> {Cout}, {epilogue}', [x, w, b, rb, res],
-                conv_work(B, H, W, Cin, Cout, rb is not None, res is not None), library)
+                conv_work(B, H, W, Cin, Cout, rb is not None, res is not None), library, yard)
 
     cases = {
         'ln_qkv': (CSRC + 'ln_gemm_wgmma.cu', [MM + '412'], mm.ln_qkv, mm.ln_qkv_plain,
@@ -4166,6 +4198,340 @@ def tp_kernel_phase():
     return out
 
 
+# --------------------------------------------------------------------- int8 --
+
+# H100 SXM dense int8 tensor-core peak (NVIDIA's data sheet), operations a second
+PEAK_INT8 = 1979e12
+INT8_PAIRS = (4, 4, 4, 1)       # batch sizes of the int8/bf16 request pairs, in turns
+INT8_GRAD_REL = 1e-5            # int8_dense's gradients, card against CPU (fp32 sums)
+NATIVE_MEAN, NATIVE_MAX = 1.0 / 127.5, 6.0 / 127.5   # tests/test_native.py's bounds
+I8 = 'hcpdiff_tpu/ops/int8.py:'
+
+
+def int8_call_launches(cfg, h, w, fused=False):
+    """One SD UNet call's launches under int8=True at an [h, w] latent: A and
+    D as unet_call_launches; a layer is K twice (x, w) and L once: proj_in
+    and proj_out of each Transformer2D, and a block's q, k, v and to_out of
+    both attentions and ff.proj and ff.out (fused: only the to_outs, with G,
+    I and H + C in the block and J in each resblock's two 3x3 convs)."""
+    base = unet_call_launches(cfg, h, w)
+    levels = transformer_levels(cfg)
+    depth = sum(d for _, d in levels)
+    n, lpb = len(cfg.block_out_channels), cfg.layers_per_block
+    n_res = n * lpb + 2 + n * (lpb + 1)
+    layers = 2 * len(levels) + (2 if fused else 10) * depth
+    return {'flash_attention': base['flash_attention'],
+            'group_norm_silu': base['group_norm_silu'], 'geglu_dense': 0,
+            'fused_dense': depth if fused else 0, 'ln_qkv': depth if fused else 0,
+            'ln_dense': depth if fused else 0, 'ln_geglu': depth if fused else 0,
+            'conv3x3': 2 * n_res if fused else 0, 'int8_dense': layers,
+            'quantize_rows': 2 * layers}
+
+
+def int8_request_launches(cfg, steps, h, w, fused=False):
+    """A txt2img request of ``steps`` UNet calls at an [h, w] latent under
+    int8, then its VAE decode."""
+    out = {k: v * steps for k, v in int8_call_launches(cfg, h, w, fused).items()}
+    for k, v in decode_launches(h, w).items():
+        out[k] += v
+    return out
+
+
+def _int8_ulps(out, ref):
+    """(every element within one ulp of the output dtype, max |diff|, the
+    elements not bitwise equal)."""
+    torch.cuda.synchronize()
+    bits = 7 if ref.dtype == torch.bfloat16 else 23
+    o, r = out.double(), ref.double()
+    _, e = torch.frexp(r.abs().clamp_min(2.0 ** -126))
+    diff = (o - r).abs()
+    ok = bool((diff <= torch.exp2((e - 1 - bits).double())).all())
+    return ok, float(diff.max()), int((out != ref).sum())
+
+
+def _within_ulp(out, ref):
+    ok, err, unequal = _int8_ulps(out, ref)
+    log(f'  elements not bitwise equal: {unequal} of {ref.numel()}')
+    return ok, err
+
+
+def _codes_equal(out, ref):
+    """K's outputs against the plain version's: codes [M, Kp] (zero past K)
+    against [M, K], scales [M] against [M, 1]; bitwise."""
+    torch.cuda.synchronize()
+    if out.dtype == torch.int8:
+        K = ref.shape[1]
+        ok = torch.equal(out[:, :K], ref) and not bool(out[:, K:].any())
+        return ok, float((out[:, :K].int() - ref.int()).abs().max())
+    return torch.equal(out, ref.reshape(-1)), float((out - ref.reshape(-1)).abs().max())
+
+
+def quantize_work(M, K, itemsize=2):
+    """K: x read once, the padded codes and the fp32 scales written; about 5
+    fp32 operations an element (abs, max, divide, round, clip) outside the
+    tensor cores."""
+    from hcpdiff_tpu_torch.ops.int8 import padded_k
+    return bound(5 * M * K, itemsize * M * K + M * padded_k(K) + 4 * M, PEAK_FP32)
+
+
+def int8_gemm_work(M, K, N, bias, res, itemsize=2):
+    """L: the padded codes and fp32 scales read once, the bias and residual
+    in the output type, the output written; 2 M N K int8 operations."""
+    from hcpdiff_tpu_torch.ops.int8 import padded_k
+    Kp = padded_k(K)
+    nbytes = (M + N) * Kp + 4 * (M + N) + itemsize * (N * bias + M * N * (1 + res))
+    return bound(2 * M * N * K, nbytes, PEAK_INT8)
+
+
+@torch.inference_mode()
+def int8_kernel_phase(launches):
+    """K and L against their plain versions at every int8 shape of an SD1.5
+    batch-4 request, timed with their yardsticks; returns their records."""
+    from hcpdiff_tpu_torch.ops import int8 as i8
+    from hcpdiff_tpu_torch.tools.time_int8 import int8_shapes
+    F = torch.nn.functional
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 40)
+    rn = _rn_on(gen)
+    k_cases, l_cases, seen = [], [], set()
+    for M, K, N, epi in int8_shapes():
+        x, w = rn(M, K, scale=2.0), rn(N, K, scale=K ** -0.5)
+        b = rn(N) if epi != 'none' else None
+        res = rn(M, N) if epi == 'bias+res' else None
+        for rows, t in ((M, x), (N, w)):
+            if (rows, K) not in seen:
+                seen.add((rows, K))
+                k_cases.append((f'x [{rows}, {K}]', [t], quantize_work(rows, K), None))
+        xq, sx = i8.quantize_rows(x)
+        wq, sw = i8.quantize_rows(w)
+        ok, err, unequal = _int8_ulps(i8.int8_dense(x, w, b, res), i8.int8_dense_plain(x, w, b, res))
+        log(f'  int8_dense x [{M}, {K}] w [{N}, {K}] {epi}: the layer (K twice, L) against '
+            f'int8_dense_plain: max |diff| {err:.4g}, {unequal} elements not bitwise equal')
+        check(ok, f'int8_dense at [{M}, {K}, {N}] differs from its plain version by more than '
+                  f'one bf16 ulp: {err}')
+
+        def kernel(xq, wq, sx, sw, b, res, M=M, N=N):
+            return i8.gemm_launch(xq, wq, sx, sw, b, res,
+                                  torch.empty(M, N, dtype=torch.bfloat16, device='cuda'))
+
+        def plain(xq, wq, sx, sw, b, res):
+            return i8.int8_gemm_plain(xq, wq, sx, sw, torch.bfloat16, b, res)
+        yard = {'int_mm_ms': lambda xq=xq, wq=wq: torch._int_mm(xq, wq.t()),
+                'linear_ms': lambda x=x, w=w, b=b: F.linear(x, w, b)}
+        try:
+            torch._int_mm(xq, wq.t())
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            log(f'torch._int_mm refused at [{M}, {K}, {N}], int_mm_ms not timed: {e}')
+            del yard['int_mm_ms']
+        l_cases.append((f'x [{M}, {K}], w [{N}, {K}], {epi}', [xq, wq, sx, sw, b, res],
+                        int8_gemm_work(M, K, N, b is not None, res is not None), None, yard,
+                        kernel, plain))
+    k_rec = _record('quantize_rows', CSRC + 'int8_gemm.cu', [I8 + '37', I8 + '45'],
+                    launches['quantize_rows'],
+                    [_measure(label, i8.quantize_rows, i8.quantize_rows_plain, args, _codes_equal,
+                              'quantize_rows', work, lib)
+                     for label, args, work, lib in k_cases],
+                    {'codes': 'bitwise', 'scales': 'bitwise'},
+                    note='no pallas_call: the JAX package quantizes with XLA ops (_quant_rows, '
+                         '_quant_cols); library_ms null: no PyTorch call computes it')
+    l_rec = _record('int8_dense', CSRC + 'int8_gemm.cu', [I8 + '53'], launches['int8_dense'],
+                    [_measure(label, kernel, plain, args, _within_ulp, 'int8_dense', work, lib,
+                              yard)
+                     for label, args, work, lib, yard, kernel, plain in l_cases],
+                    {'ulps': 1, 'expected': 'bitwise'},
+                    note='no pallas_call: XLA int8 dot and fusions in the JAX package; timed '
+                         'alone on K\'s codes; int_mm_ms: torch._int_mm, the int32 product '
+                         'alone; linear_ms: F.linear in bf16, the layer in bf16; no single '
+                         'call computes L, so library_ms is null')
+    # fp32: K on an fp32 activation, L with an fp32 epilogue and output
+    x, w = torch.randn(8192, 640, device='cuda', generator=gen), rn(640, 640).float()
+    b, res = torch.randn(640, device='cuda', generator=gen), torch.randn(8192, 640, device='cuda',
+                                                                         generator=gen)
+    k_rec['fp32'] = _measure('fp32 x [8192, 640]', i8.quantize_rows, i8.quantize_rows_plain, [x],
+                             _codes_equal, 'quantize_rows', (0.0, 'none'))
+    ok, err, unequal = _int8_ulps(i8.int8_dense(x, w, b, res), i8.int8_dense_plain(x, w, b, res))
+    check(ok, f'int8_dense in fp32 differs from its plain version: {err}')
+    l_rec['fp32'] = {'shape': 'fp32 x [8192, 640], w [640, 640], bias+res', 'max_abs_err': err,
+                     'not_bitwise': unequal}
+    for rec in (k_rec, l_rec):
+        rec.get('fp32', {}).pop('bound_ms', None)
+        rec.get('fp32', {}).pop('bound_by', None)
+        rec.get('fp32', {}).pop('library_ms', None)
+    log(f'int8 fp32: int8_dense max |diff| {err:.4g}, {unequal} not bitwise')
+    torch.cuda.empty_cache()
+    return [k_rec, l_rec]
+
+
+@torch.inference_mode(False)
+@torch.enable_grad()
+def int8_gradient_check(device):
+    """int8_dense's straight-through gradients on the card (forward: K and
+    L) against the CPU route (the plain version) on the same fp32 inputs."""
+    from hcpdiff_tpu_torch.ops.int8 import int8_dense
+    gen = torch.Generator().manual_seed(SEED + 41)
+    x, w = torch.randn(2, 300, 320, generator=gen), torch.randn(640, 320, generator=gen) * 0.05
+    b, g = torch.randn(640, generator=gen), torch.randn(2, 300, 640, generator=gen)
+    res = torch.randn(2, 300, 640, generator=gen)
+    out, grads = {}, {}
+    for side, dev in (('card', device), ('cpu', torch.device('cpu'))):
+        ins = [t.to(dev).requires_grad_(True) for t in (x, w, b, res)]
+        y = int8_dense(*ins)
+        y.backward(g.to(dev))
+        out[side] = y.detach().cpu()
+        grads[side] = [t.grad.cpu() for t in ins]
+    ok, err, unequal = _int8_ulps(out['card'], out['cpu'])
+    check(ok, f'int8_dense forward, card against cpu: {err}')
+    errs = [rel_err(c, p) for c, p in zip(grads['card'], grads['cpu'])]
+    log(f'int8 gradient check (x [2, 300, 320], w [640, 320], bias, res; fp32): forward card '
+        f'vs cpu max |diff| {err:.3g} ({unequal} not bitwise); gradients of x, w, b, res card '
+        f'vs cpu rel L2 {[f"{e:.3e}" for e in errs]} (limit {INT8_GRAD_REL})')
+    check(max(errs) <= INT8_GRAD_REL, f'int8_dense gradients differ: {errs}')
+
+
+def native_phase():
+    """HCP_NATIVE_IMG's route (resize, crop, normalize in C++) on the
+    committed JPEGs against the default route (the port's numpy bicubic),
+    at a 512x512 and a 320x256 crop: arrays within tests/test_native.py's
+    bounds, equal crop info, host seconds an image of each."""
+    import numpy as np
+
+    from hcpdiff_tpu_torch.data import utils as du
+    from hcpdiff_tpu_torch.utils import native
+    from hcpdiff_tpu_torch.utils.jpeg import read_jpeg
+    t0 = time.perf_counter()
+    native.library()
+    log(f'native image library built and loaded in {time.perf_counter() - t0:.2f} s')
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_DIR)
+    secs = {'native': [], 'default': []}
+    worst = [0.0, 0.0]
+    for f in sorted(f for f in os.listdir(root) if f.endswith('.jpg')):
+        img = read_jpeg(os.path.join(root, f))
+        for size in ((512, 512), (320, 256)):
+            for _ in range(2):                  # the second of each is kept
+                t0 = time.perf_counter()
+                arr, info = du.resize_crop_fix_native(img, size, None)
+                t_native = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                plain, pinfo = du.resize_crop_fix(img, size, None)
+                plain = du.to_model_input(plain)
+                t_default = time.perf_counter() - t0
+            secs['native'].append(t_native)
+            secs['default'].append(t_default)
+            diff = np.abs(arr - plain)
+            worst = [max(worst[0], float(diff.mean())), max(worst[1], float(diff.max()))]
+            check(info == pinfo, f'native crop info {info} != {pinfo}')
+            check(diff.mean() < NATIVE_MEAN and diff.max() < NATIVE_MAX,
+                  f'{f} at {size}: native vs default mean {diff.mean()} max {diff.max()}')
+    log(f'native route on the committed JPEGs (4 images x 2 crops): worst mean |diff| '
+        f'{worst[0] * 127.5:.4f} levels, max {worst[1] * 127.5:.4f} levels (bounds 1, 6); host '
+        f's an image: native {statistics.median(secs["native"]):.4f} (median, '
+        f'{min(secs["native"]):.4f}-{max(secs["native"]):.4f}), default numpy bicubic '
+        f'{statistics.median(secs["default"]):.4f} ({min(secs["default"]):.4f}-'
+        f'{max(secs["default"]):.4f})')
+
+
+def cast_phase(unet):
+    """The frozen-base cast of the SD1.5 UNet's weights in fp32 on the card:
+    peak memory of the whole-tree comprehension the trainer had against
+    utils/casting.py's grouped cast."""
+    from hcpdiff_tpu_torch.utils.casting import cast_tree_bf16
+    peaks = {}
+    for how in ('comprehension', 'grouped', 'comprehension', 'grouped'):
+        tree = {'unet': {n: t.detach().float().clone() for n, t in unet.state_dict().items()}}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if how == 'comprehension':
+            tree = {k: {n: t.to(torch.bfloat16) for n, t in v.items()} for k, v in tree.items()}
+        else:
+            tree = cast_tree_bf16(tree)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        after = torch.cuda.memory_allocated()
+        check(all(t.dtype == torch.bfloat16 for t in tree['unet'].values()), f'{how}: not bf16')
+        peaks.setdefault(how, []).append(((peak - base) / 2**30, base / 2**30, after / 2**30))
+        del tree
+    torch.cuda.empty_cache()
+    for how, vals in peaks.items():
+        log(f'cast of the SD1.5 UNet ({sum(t.numel() for t in unet.state_dict().values())} '
+            f'values) fp32 -> bf16, {how}: peak above the fp32 tree '
+            f'{[round(v[0], 4) for v in vals]} GiB (allocated before {vals[0][1]:.4f}, after '
+            f'{vals[0][2]:.4f} GiB)')
+    check(max(v[0] for v in peaks['grouped']) < min(v[0] for v in peaks['comprehension']),
+          f'the grouped cast peaks no lower than the comprehension: {peaks}')
+
+
+@torch.inference_mode()
+def int8_phase(device, unet, vae, te, model_dir, tmp):
+    """4u. HCP_INT8's w8a8 route on SD1.5 at 512 px: requests int8 and bf16
+    in turns, a fused int8 request, main() under HCP_INT8=1; then the native
+    image route and the grouped cast. Returns the int8 requests' launches."""
+    import numpy as np
+
+    from hcpdiff_tpu_torch.infer.pipeline import DiffusionPipeline
+    from hcpdiff_tpu_torch.tools import int8_quality as q
+    from hcpdiff_tpu_torch.tools.random_sd15 import unet_copy
+    int8_gradient_check(device)
+    pipes = {'bf16': DiffusionPipeline(unet, vae, te),
+             'int8': DiffusionPipeline(unet_copy(unet, device, int8=True), vae, te)}
+    for pipe in pipes.values():
+        warm_up(pipe, (1, 4), SIZE)
+    lat = SIZE // 8
+    reckoned = {'int8': int8_request_launches(unet.cfg, STEPS, lat, lat),
+                'bf16': {**sd15_launches(STEPS), 'int8_dense': 0, 'quantize_rows': 0}}
+    total = collections.Counter()
+    secs = {(m, b): [] for m in pipes for b in set(INT8_PAIRS)}
+    for i, batch in enumerate(INT8_PAIRS):
+        images = {}
+        for mode in (('bf16', 'int8') if i % 2 == 0 else ('int8', 'bf16')):
+            zero_counters()
+            images[mode], s = q.request(pipes[mode], batch, SIZE, STEPS, SEED)
+            got = read_counters(f'a {mode} request, batch {batch}', ())
+            _check_launches(got, reckoned[mode], f'the {mode} request (batch {batch})')
+            if mode == 'int8':
+                total.update(got)
+            secs[(mode, batch)].append(s)
+            img = images[mode]
+            check(img.shape == (batch, SIZE, SIZE, 3) and bool(np.isfinite(img).all())
+                  and img.min() >= 0.0 and img.max() <= 1.0,
+                  f'{mode} images {img.shape} not finite in [0, 1]')
+        log(f'int8 pair {i} (batch {batch}, {SIZE} px, {STEPS} DPM++ 2M steps): bf16 '
+            f'{secs[("bf16", batch)][-1]:.4f} s, int8 {secs[("int8", batch)][-1]:.4f} s; int8 '
+            f'images against bf16: PSNR {q.psnr(images["int8"], images["bf16"], 1.0):.4f} dB, '
+            f'SSIM {q.ssim(images["int8"], images["bf16"], 1.0):.4f}')
+    for (mode, batch), s in sorted(secs.items()):
+        log(f'int8 phase {mode} requests at batch {batch}: {[round(v, 4) for v in s]} s, '
+            f'median {statistics.median(s):.4f} s ({statistics.median(s) / batch:.4f} s an image)')
+    del pipes['int8']
+    fused = DiffusionPipeline(unet_copy(unet, device, fused_sublayers=True, int8=True), vae, te)
+    warm_up(fused, (1,), SIZE)
+    zero_counters()
+    img, s = q.request(fused, 1, SIZE, STEPS, SEED)
+    got = read_counters('a fused int8 request, batch 1', ())
+    _check_launches(got, int8_request_launches(unet.cfg, STEPS, lat, lat, fused=True),
+                    'the fused int8 request')
+    check(bool(np.isfinite(img).all()) and img.min() >= 0.0 and img.max() <= 1.0,
+          'fused int8 images not finite in [0, 1]')
+    log(f'fused int8 request (batch 1): {s:.4f} s')
+    del fused
+    torch.cuda.empty_cache()
+    os.environ['HCP_INT8'] = '1'
+    try:
+        zero_counters()
+        viser, images, seconds = _cli(model_dir, os.path.join(tmp, 'int8_t2i'), 'text2img.yaml')
+        got = read_counters('main() text2img.yaml under HCP_INT8=1', ())
+    finally:
+        del os.environ['HCP_INT8']
+    check(viser.pipe.unet.int8, 'main() under HCP_INT8=1 built a UNet without int8')
+    _check_launches(got, int8_request_launches(unet.cfg, STEPS, lat, lat),
+                    'main() text2img.yaml under HCP_INT8=1')
+    del viser
+    torch.cuda.empty_cache()
+    native_phase()
+    cast_phase(unet)
+    return dict(total)
+
+
 def _leaf_kinds(pack):
     """The factor name ('down', 'up', 'alpha') of each leaf, in pack_leaves order."""
     out = []
@@ -4236,6 +4602,7 @@ def main() -> int:
         preview_launches, logger_launches = preview_logger_phase(device, model_dir, tmp)
         jpeg_launches = jpeg_phase(device, model_dir, tmp)
         zero3_launches = zero3_phase(model_dir, tmp)
+        int8_launches = int8_phase(device, unet, vae, te, model_dir, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
@@ -4276,6 +4643,7 @@ def main() -> int:
                                  launches_logger=logger_launches, launches_jpeg=jpeg_launches)
     records = add_trainer_shapes(records, tp_kernel_phase(), zero3_launches, 'zero3')
     records = add_trainer_shapes(records, {}, tools_launches, 'tools')
+    records += int8_kernel_phase(int8_launches)
     head_dim_phase()
     fp32_phase(records, device)
     log(gpu)

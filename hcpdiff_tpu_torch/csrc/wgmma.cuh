@@ -1,7 +1,8 @@
 // Hopper warpgroup matrix products (wgmma, sm_90a) over swizzled
 // shared-memory tiles, for kernels J (conv.cu), A (flash_attention.cu), E
 // and F (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu), B and C
-// (gemm_wgmma.cu) and G, H and I (ln_gemm_wgmma.cu).
+// (gemm_wgmma.cu), G, H and I (ln_gemm_wgmma.cu) and, over int8, L
+// (int8_gemm.cu: Wgmma8).
 //
 // Layouts. A tile of R rows is stored as blocks of R rows x SW bytes (SW =
 // 128, 64 or 32: 64, 32 or 16 bf16 columns), each block at an address
@@ -399,6 +400,52 @@ struct WgmmaRS<256> {
               "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
               "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    }
+};
+
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Wgmma8<N>::mma(d, a, b, scale_d): d[64 x N] (+)= A[64 x 32] * B[N x 32]^T
+// over signed 8-bit operands with int32 accumulators (kernel L,
+// int8_gemm.cu). For 8-bit types both operands must be K-major in shared
+// memory (there is no transpose bit); a 32-deep slice is 32 bytes, as a
+// 16-deep bf16 slice is, so the descriptors and swizzled layouts above
+// serve unchanged. The int32 fragment has the fp32 one's layout.
+template <int N>
+struct Wgmma8;
+
+template <>
+struct Wgmma8<160> {
+    __device__ __forceinline__ static void mma(int (&d)[80], uint64_t a, uint64_t b,
+                                               int scale_d = 1) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+            "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+            "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+            "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+            "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+            "}, %80, %81, p;\n}\n"
+            : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+              "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+              "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+              "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+              "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+              "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+              "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+              "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+              "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+              "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+              "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+              "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+              "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+              "+r"(d[78]), "+r"(d[79])
+            : "l"(a), "l"(b), "r"(scale_d));
     }
 };
 

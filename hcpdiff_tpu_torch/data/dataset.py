@@ -46,7 +46,7 @@ import numpy as np
 from ..utils.images import resize_bicubic
 from .buckets import BaseBucket, FixedBucket
 from .sources import DataSource, Text2ImageAttMapSource, Text2ImageCondSource
-from .utils import resize_crop_fix, to_model_input
+from .utils import native_route, resize_crop_fix, resize_crop_fix_native, to_model_input
 
 
 class TextImagePairDataset:
@@ -146,7 +146,10 @@ class TextImagePairDataset:
                     rng: Optional[np.random.Generator]) -> Tuple[np.ndarray, dict]:
         path, meta = self.files[i]
         src = meta.get('source', self.source)
-        img, crop_info = resize_crop_fix(src.load_image(path), size, rng)
+        img = src.load_image(path)
+        if native_route(img):          # HCP_NATIVE_IMG=1 (data/utils.py)
+            return resize_crop_fix_native(img, size, rng)
+        img, crop_info = resize_crop_fix(img, size, rng)
         return to_model_input(img), crop_info
 
     def get_batch(self, bi: int, epoch: int = 0, step_seed: int = 0) -> Dict[str, np.ndarray]:

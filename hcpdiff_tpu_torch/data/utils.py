@@ -7,11 +7,17 @@ equal the JAX package's bit for bit. The crop geometry (and the seeded
 random offsets) is the JAX package's, and its crop info is returned for
 SDXL crop conditioning.
 
-Not ported: ``resize_crop_fix_native``, the opt-in ``HCP_NATIVE_IMG=1``
-path over ``csrc/image_ops.cpp`` (ROADMAP.md queue 1 item 6).
+``HCP_NATIVE_IMG=1`` takes the JAX package's opt-in native route
+(``resize_crop_fix_native``: resample, crop and normalize in C++,
+``utils/native.py`` over ``csrc/image_ops.cpp``) for RGB images, with the
+same crop geometry and seeded draws, so crop info is identical on both
+routes; the resampling stays in float between its two passes, where
+Pillow's filter rounds to uint8, so the arrays differ by a fraction of a
+level (the JAX package measured Pillow faster, so it is not the default).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -19,8 +25,8 @@ import numpy as np
 from ..utils.images import PNG_SIGNATURE, UnsupportedPNG, decode_png, resize_bicubic, to_model_input
 from ..utils.jpeg import UnsupportedJPEG, decode_jpeg, is_jpeg
 
-__all__ = ['crop_geometry', 'resize_crop_fix', 'pad_crop_fix', 'to_model_input',
-           'composite_rgba', 'load_rgb', 'load_gray']
+__all__ = ['crop_geometry', 'resize_crop_fix', 'resize_crop_fix_native', 'native_route',
+           'pad_crop_fix', 'to_model_input', 'composite_rgba', 'load_rgb', 'load_gray']
 
 
 def crop_geometry(w0: int, h0: int, size: Tuple[int, int],
@@ -48,6 +54,26 @@ def resize_crop_fix(img: np.ndarray, size: Tuple[int, int],
     nw, nh, x0, y0 = crop_geometry(w0, h0, size, rng)
     img = resize_bicubic(img, (nw, nh))[y0:y0 + th, x0:x0 + tw]
     return img, {'crop_coord': (x0, y0), 'original_size': (w0, h0), 'target_size': (tw, th)}
+
+
+def native_route(img: np.ndarray) -> bool:
+    """Whether ``img`` takes ``resize_crop_fix_native``: ``HCP_NATIVE_IMG=1``
+    and an RGB image (others take the plain path, as in the JAX package)."""
+    return (os.environ.get('HCP_NATIVE_IMG') == '1' and img.ndim == 3 and img.shape[2] == 3)
+
+
+def resize_crop_fix_native(img: np.ndarray, size: Tuple[int, int],
+                           rng: Optional[np.random.Generator] = None) -> Tuple[np.ndarray, dict]:
+    """``resize_crop_fix`` then ``to_model_input`` in one pass of the native
+    library: uint8 RGB [H, W, 3] -> float32 [h, w, 3] in [-1, 1], and the
+    same crop info (the geometry and draws are ``crop_geometry``'s). Raises
+    where the library does not build."""
+    from ..utils import native
+    h0, w0 = img.shape[:2]
+    tw, th = size
+    nw, nh, x0, y0 = crop_geometry(w0, h0, size, rng)
+    arr = native.resize_crop_normalize(img, (nw, nh), (x0, y0), (tw, th))
+    return arr, {'crop_coord': (x0, y0), 'original_size': (w0, h0), 'target_size': (tw, th)}
 
 
 def pad_crop_fix(img: np.ndarray, size: Tuple[int, int]) -> Tuple[np.ndarray, dict]:
@@ -98,7 +124,8 @@ def _read(path: str) -> np.ndarray:
             raise ValueError(f'{e}; the PyTorch port reads PNG and baseline JPEG images') from e
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f'{path}: the PyTorch port reads PNG and baseline JPEG images only '
-                         '(other formats are not decoded; ROADMAP.md queue 1 item 6); '
+                         '(other formats are not decoded; ROADMAP.md queue 1 item 6: JPEG '
+                         'types); '
                          'convert the file to PNG')
     try:
         return decode_png(data, path)

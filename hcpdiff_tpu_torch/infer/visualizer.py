@@ -341,7 +341,8 @@ class Visualizer:
         old = self.world['unet']
         cfg = dataclasses.replace(old.cfg, qkv_bias=True)
         with torch.device('meta'):
-            unet = UNet2DCondition(cfg, fused_sublayers=old.fused_sublayers).eval()
+            unet = UNet2DCondition(cfg, fused_sublayers=old.fused_sublayers,
+                                   int8=old.int8).eval()
         qkv = [p for p in module_paths(unet) if p.rsplit('.', 1)[-1] in ('to_q', 'to_k', 'to_v')]
         self.base['unet'] = attach_host_biases(self.base['unet'], qkv)
         for m in mergers:

@@ -9,8 +9,9 @@ residuals (NHWC, one a UNet skip) and the mid residual, each scaled by
 The blocks are the UNet's own ``ResnetBlock2D``, ``Transformer2D`` and
 ``Downsample2D``, so the kernels run as in the UNet (GroupNorm D, the
 self-attention at S >= 1024 A, the feed-forward B and C; under
-``fused_sublayers=True`` G, H, I and J, as the JAX environment switches
-route both networks). The condition encoder's convs (3 -> 16 -> 16 -> 32
+``fused_sublayers=True`` G, H, I and J, and under ``int8`` (``HCP_INT8=1``)
+the int8 kernels K and L, as the JAX environment switches route both
+networks). The condition encoder's convs (3 -> 16 -> 16 -> 32
 -> 32 -> 96 -> 96 -> 256 -> C0, ``cond_stages`` of them stride 2 with
 flax's SAME padding, zero-initialized output) and the zero convs are plain
 convs, as ``nn.Conv`` is plain XLA there. Names are the JAX tree's paths
@@ -26,7 +27,7 @@ file's weights for inference.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Mapping, Tuple
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,7 +35,8 @@ import torch.nn.functional as F
 
 from ..config.instantiate import locate
 from .layers import init_flax_like, timestep_embedding
-from .unet import Downsample2D, ResnetBlock2D, Transformer2D, UNet2DCondition, UNetConfig, _conv3
+from .unet import (Downsample2D, ResnetBlock2D, Transformer2D, UNet2DCondition, UNetConfig, _conv3,
+                   resolve_int8)
 
 
 def _cond_channels(stages: int) -> Tuple[int, ...]:
@@ -82,10 +84,12 @@ class ControlNet(nn.Module):
     # held in fp32 whatever the compute dtype, as the UNet's time MLP
     FP32_CHILDREN = ('time_embedding_linear_',)
 
-    def __init__(self, cfg: UNetConfig, cond_stages: int = 3, fused_sublayers: bool = False):
+    def __init__(self, cfg: UNetConfig, cond_stages: int = 3, fused_sublayers: bool = False,
+                 int8: Optional[bool] = None):
         super().__init__()
         self.cfg = c = cfg
         self.fused_sublayers = fused = fused_sublayers
+        self.int8 = int8 = resolve_int8(int8)
         ch0 = c.block_out_channels[0]
         tdim = ch0 * 4
         n = len(c.block_out_channels)
@@ -103,7 +107,8 @@ class ControlNet(nn.Module):
                 if btype == 'CrossAttnDownBlock2D':
                     setattr(self, f'down_{bi}_attn_{li}', Transformer2D(
                         out_c, c.num_heads[bi], c.transformer_layers_per_block[bi],
-                        c.cross_attention_dim, c.norm_num_groups, fused, c.qkv_bias))
+                        c.cross_attention_dim, c.norm_num_groups, fused, c.qkv_bias,
+                        int8=int8))
                 taps.append(out_c)
             if bi < n - 1:
                 setattr(self, f'down_{bi}_downsample', Downsample2D(out_c))
@@ -116,7 +121,7 @@ class ControlNet(nn.Module):
             self.mid_attn = Transformer2D(mid_c, c.num_heads[-1],
                                           c.transformer_layers_per_block[-1],
                                           c.cross_attention_dim, c.norm_num_groups, fused,
-                                          c.qkv_bias)
+                                          c.qkv_bias, int8=int8)
         self.mid_res_1 = ResnetBlock2D(mid_c, mid_c, c.norm_num_groups, tdim, fused)
         self.zero_mid = nn.Conv2d(mid_c, mid_c, 1)
 
@@ -196,7 +201,7 @@ def build_controlnet(generator: torch.Generator, unet: UNet2DCondition, vae_scal
     device = next(unet.parameters()).device
     with device:
         net = ControlNet(unet.cfg, ControlNet.stages_for(vae_scale),
-                         fused_sublayers=unet.fused_sublayers)
+                         fused_sublayers=unet.fused_sublayers, int8=unet.int8)
     with torch.no_grad():
         init_flax_like(net, generator)
         for name, p in net.named_parameters():
@@ -233,7 +238,7 @@ def controlnet_from_state(state: Mapping[str, torch.Tensor], unet: UNet2DConditi
     device = next(unet.parameters()).device
     with torch.device('meta'):
         net = ControlNet(unet.cfg, ControlNet.stages_for(vae_scale),
-                         fused_sublayers=unet.fused_sublayers).eval()
+                         fused_sublayers=unet.fused_sublayers, int8=unet.int8).eval()
     names = {n for n, _ in net.named_parameters()}
     if set(state) != names:
         raise NotImplementedError(

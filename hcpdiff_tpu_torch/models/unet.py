@@ -44,6 +44,27 @@ row-parallel output projection over the ``tp_axis`` group, as the JAX
 model's ``_tp_call`` does; with ``qkv_bias`` or the fused-sublayer route
 it raises ``NotImplementedError``, as there.
 
+``int8=True`` (``HCP_INT8=1`` when the argument is None; read once, when
+the UNet is built, where the JAX model reads it at every call) is the
+JAX package's dynamic w8a8 route (``ops/int8.py``: kernels K and L) for
+the transformers' products, with the JAX model's precedence
+(``unet.py:238-592`` there):
+
+- ``Transformer2D``: proj_in and proj_out (the block input as its
+  residual) are int8 before anything else, also under the fused route and
+  tp > 1;
+- ``CrossAttention``: tp > 1 takes ``_tp_call``, no int8; the fused route
+  keeps G (self-attention q/k/v) or I (cross-attention q) with plain k and
+  v products of the context; otherwise q/k/v are int8 unless the block has
+  q/k/v biases; to_out is int8 in every route but tp > 1, with the block
+  residual;
+- ``GEGLUFeedForward``: tp > 1 takes ``_tp_call``, the fused route keeps H
+  and C; otherwise ff.proj is int8, the exact-GELU gate a plain elementwise
+  op on its two halves, and ff.out int8 with the block residual.
+
+So in the default configuration kernels B and C no longer launch. No
+parameter is added: one state dict loads with int8 on and off.
+
 SDXL's ``addition_embed_type='text_time'`` adds an embedding of the
 pooled text embedding and the six ``time_ids`` (original size, crop,
 target size) to the time embedding, through its own two-layer MLP
@@ -64,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention
 from ..ops.conv import conv3x3
 from ..ops.flash_attention import keep_flash_outputs
+from ..ops.int8 import int8_dense
 from ..ops.matmul import fused_dense, geglu_dense, ln_dense, ln_geglu, ln_qkv
 from ..parallel.tp import tp_all_reduce
 from .layers import GroupNorm, timestep_embedding
@@ -190,6 +212,12 @@ def resolve_remat_policy(policy: Optional[str] = None) -> str:
     return policy
 
 
+def resolve_int8(int8: Optional[bool] = None) -> bool:
+    """``int8``, or when None whether ``HCP_INT8`` is ``1`` (the JAX
+    package's switch of its w8a8 route)."""
+    return os.environ.get('HCP_INT8', '0') == '1' if int8 is None else bool(int8)
+
+
 def remat(fn, *args, policy: str = 'flash'):
     """fn(*args), recomputed in the backward (``torch.utils.checkpoint``).
     Under ``flash`` the recompute takes each kernel-A forward's o and lse
@@ -213,11 +241,12 @@ class CrossAttention(nn.Module):
     """to_q/to_k/to_v/to_out naming mirrors diffusers, as in the JAX model."""
 
     def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None,
-                 qkv_bias: bool = False, tp: int = 1):
+                 qkv_bias: bool = False, tp: int = 1, int8: bool = False):
         super().__init__()
         ctx_dim = query_dim if context_dim is None else context_dim
         self.heads = heads
         self.tp = tp
+        self.int8 = int8
         self.tp_bind = None         # (group, index) on the tp axis, set by tp_unet_apply
         self.to_q = nn.Linear(query_dim, query_dim, bias=qkv_bias)
         self.to_k = nn.Linear(ctx_dim, query_dim, bias=qkv_bias)
@@ -231,8 +260,10 @@ class CrossAttention(nn.Module):
         """``norm`` given (the fused configuration): x arrives un-normalized
         and ``norm`` runs in the prologue of kernel G (self-attention) or I
         (cross-attention q; k and v are plain products of the context), and
-        to_out is kernel C with ``res`` in its epilogue. ``bias`` is added
-        to the attention logits (the encoder attention mask)."""
+        to_out is kernel C with ``res`` in its epilogue. Under ``int8``
+        to_out is int8 in both routes, and so are q/k/v of the unfused one
+        unless they have biases. ``bias`` is added to the attention logits
+        (the encoder attention mask)."""
         ctx = x if context is None else context
         if self.tp > 1:
             if norm is not None:
@@ -242,7 +273,10 @@ class CrossAttention(nn.Module):
         Sk = ctx.shape[1]
         h = self.heads
         d = C // h
-        if norm is None:
+        if norm is None and self.int8 and self.to_q.bias is None:
+            q = int8_dense(x, self.to_q.weight)
+            k, v = int8_dense(ctx, self.to_k.weight), int8_dense(ctx, self.to_v.weight)
+        elif norm is None:
             q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         elif context is None:
             q, k, v = ln_qkv(x, norm.weight, norm.bias, self.to_q.weight, self.to_k.weight,
@@ -255,6 +289,8 @@ class CrossAttention(nn.Module):
         k = k.view(B, Sk, h, d).transpose(1, 2)
         v = v.view(B, Sk, h, d).transpose(1, 2)
         o = attention(q, k, v, bias=bias).transpose(1, 2).reshape(B, S, C)
+        if self.int8:
+            return int8_dense(o, self.to_out.weight, self.to_out.bias, res=res)
         if norm is not None:
             return fused_dense(o, self.to_out.weight, self.to_out.bias, res=res)
         out = self.to_out(o)
@@ -286,14 +322,16 @@ class CrossAttention(nn.Module):
 class GEGLUFeedForward(nn.Module):
     """proj's rows are [value | gate]; kernel B (H, with ``norm`` in its
     prologue, in the fused configuration) applies the gate in its epilogue
-    and kernel C adds the block residual in its own."""
+    and kernel C adds the block residual in its own. Under ``int8`` the
+    unfused route runs both products int8 and the gate between them."""
 
-    def __init__(self, dim: int, mult: int = 4, tp: int = 1):
+    def __init__(self, dim: int, mult: int = 4, tp: int = 1, int8: bool = False):
         super().__init__()
         inner = dim * mult
         self.proj = nn.Linear(dim, inner * 2)
         self.out = nn.Linear(inner, dim)
         self.tp = tp
+        self.int8 = int8
         self.tp_bind = None         # (group, index) on the tp axis, set by tp_unet_apply
 
     def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None,
@@ -302,10 +340,13 @@ class GEGLUFeedForward(nn.Module):
             if norm is not None:
                 raise NotImplementedError('tp>1 with the fused-sublayer route is unsupported')
             return self._tp_call(x, res)
-        if norm is None:
-            h = geglu_dense(x, self.proj.weight, self.proj.bias)
-        else:
+        if norm is not None:
             h = ln_geglu(x, norm.weight, norm.bias, self.proj.weight, self.proj.bias, norm.eps)
+        elif self.int8:
+            h, gate = int8_dense(x, self.proj.weight, self.proj.bias).chunk(2, dim=-1)
+            return int8_dense(h * F.gelu(gate), self.out.weight, self.out.bias, res=res)
+        else:
+            h = geglu_dense(x, self.proj.weight, self.proj.bias)
         return fused_dense(h, self.out.weight, self.out.bias, res=res)
 
     def _tp_call(self, x, res):
@@ -326,18 +367,19 @@ class GEGLUFeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, context_dim: int, fused: bool = False,
-                 qkv_bias: bool = False, tp: int = 1):
+                 qkv_bias: bool = False, tp: int = 1, int8: bool = False):
         super().__init__()
         # kernels G and I compute bias-free q/k/v: a biased block takes the
         # unfused sublayers, as the JAX block does (unet.py:513)
         self.fused = fused and not qkv_bias
         # flax nn.LayerNorm's default epsilon
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn1 = CrossAttention(dim, heads, qkv_bias=qkv_bias, tp=tp)
+        self.attn1 = CrossAttention(dim, heads, qkv_bias=qkv_bias, tp=tp, int8=int8)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn2 = CrossAttention(dim, heads, context_dim, qkv_bias=qkv_bias, tp=tp)
+        self.attn2 = CrossAttention(dim, heads, context_dim, qkv_bias=qkv_bias, tp=tp,
+                                    int8=int8)
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
-        self.ff = GEGLUFeedForward(dim, tp=tp)
+        self.ff = GEGLUFeedForward(dim, tp=tp, int8=int8)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 context_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -352,21 +394,32 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
-                 groups: int, fused: bool = False, qkv_bias: bool = False, tp: int = 1):
+                 groups: int, fused: bool = False, qkv_bias: bool = False, tp: int = 1,
+                 int8: bool = False):
         super().__init__()
         self.depth = depth
         self.fused = fused
+        self.int8 = int8
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         for i in range(depth):
             setattr(self, f'transformer_blocks_{i}',
-                    BasicTransformerBlock(channels, heads, context_dim, fused, qkv_bias, tp))
+                    BasicTransformerBlock(channels, heads, context_dim, fused, qkv_bias, tp,
+                                          int8))
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 context_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        if self.int8:
+            # before the fused route, as in the JAX model (unet.py:564-592)
+            h = int8_dense(h, self.proj_in.weight, self.proj_in.bias)
+            for i in range(self.depth):
+                h = getattr(self, f'transformer_blocks_{i}')(h, context, context_bias)
+            res = x.permute(0, 2, 3, 1).reshape(B, H * W, C)
+            h = int8_dense(h, self.proj_out.weight, self.proj_out.bias, res=res)
+            return h.view(B, H, W, C).permute(0, 3, 1, 2)
         if self.fused:
             # kernel C on the [B, HW, C] view (free for channels_last), and
             # the block input rides proj_out's epilogue (unet.py:568-595)
@@ -408,10 +461,12 @@ class UNet2DCondition(nn.Module):
     FP32_CHILDREN = ('time_embedding_linear_', 'add_embedding_linear_')
 
     def __init__(self, cfg: UNetConfig, remat: bool = False, fused_sublayers: bool = False,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None, int8: Optional[bool] = None):
         super().__init__()
         self.cfg = c = cfg
         self.remat = remat
+        # the w8a8 route; None: HCP_INT8, read here (the JAX model reads it at every call)
+        self.int8 = int8 = resolve_int8(int8)
         # 'flash' or 'full'; None: HCP_REMAT_POLICY (default 'flash')
         self.remat_policy = resolve_remat_policy(remat_policy)
         self.fused_sublayers = fused = fused_sublayers
@@ -431,7 +486,7 @@ class UNet2DCondition(nn.Module):
             return Transformer2D(channels, c.num_heads[level],
                                  c.transformer_layers_per_block[level],
                                  c.cross_attention_dim, c.norm_num_groups, fused, c.qkv_bias,
-                                 c.tp)
+                                 c.tp, int8)
 
         skip_ch = [ch0]
         cur = ch0

@@ -15,7 +15,10 @@ A ('data', 'model') grid of ranks, one card each, scales the denoise step:
   sublayer over the axis.
 
 Every member holds the full weights and slices its share at call time, so
-checkpoints, LoRA merges and the weight bridge stay as they are. Convs,
+checkpoints, LoRA merges and the weight bridge stay as they are. Under
+``HCP_INT8=1`` (read when the UNet is built) each Transformer2D's proj_in
+and proj_out run the int8 kernels K and L, as the JAX model routes them;
+the tensor-parallel sublayers take no int8. Convs,
 norms and the time embedding are replicated compute.
 
 Typical use (``torchrun --nproc_per_node 4``)::

@@ -7,6 +7,7 @@ tiny tokenizer with CLIP's BOS/EOS ids set to its own.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,11 +46,18 @@ def build_sd15(device, seed: int):
     return unet, vae, TextEncoderFrontend(clip_config()[0], clip)
 
 
-def fused_copy(unet: UNet2DCondition, device) -> UNet2DCondition:
-    """A ``fused_sublayers=True`` UNet of ``unet``'s config holding its
-    weights (the parameter names are the same in both configurations)."""
+def unet_copy(unet: UNet2DCondition, device, fused_sublayers: bool = False,
+              int8: Optional[bool] = None) -> UNet2DCondition:
+    """A UNet of ``unet``'s config in the given configuration holding its
+    weights (the parameter names are the same in every configuration);
+    ``int8`` as ``UNet2DCondition`` takes it (None: ``HCP_INT8``)."""
     with device:
-        fused = UNet2DCondition(unet.cfg, fused_sublayers=True)
-    fused = fused.to(torch.bfloat16).to(memory_format=torch.channels_last).eval()
-    fused.load_state_dict(unet.state_dict(), strict=True)
-    return fused
+        copy = UNet2DCondition(unet.cfg, fused_sublayers=fused_sublayers, int8=int8)
+    copy = copy.to(torch.bfloat16).to(memory_format=torch.channels_last).eval()
+    copy.load_state_dict(unet.state_dict(), strict=True)
+    return copy
+
+
+def fused_copy(unet: UNet2DCondition, device, int8: Optional[bool] = None) -> UNet2DCondition:
+    """A ``fused_sublayers=True`` copy of ``unet`` (``unet_copy``)."""
+    return unet_copy(unet, device, True, int8)

@@ -116,6 +116,7 @@ from ..models.text_frontend import TextEncoderFrontend
 from ..models.unet import resolve_remat_policy
 from ..parallel import mesh as pm
 from ..parallel.zero import DataParallel, zero_level
+from ..utils.casting import cast_tree_bf16
 from ..utils.cfg_parse import get_cfg_range
 from .assemble import (FrozenShards, assemble, assemble_te, base_weights, lora_base_weights,
                        make_controlnet_apply, make_te_apply, make_unet_apply)
@@ -594,8 +595,9 @@ class Trainer:
             **self.pack.get(f'lora_{part}', {}), **self.pack.get(f'lora_{part}_neg', {})})
             for _, _, module, _, part in self._models()}
         if str(mcfg.get('frozen_base_dtype', '')).lower() in ('bf16', 'bfloat16'):
-            self.frozen = {k: {n: t.to(torch.bfloat16) for n, t in v.items()}
-                           for k, v in self.frozen.items()}
+            # in bounded groups: the fp32 and bf16 copies of the whole base
+            # are never live together (utils/casting.py)
+            self.frozen = cast_tree_bf16(self.frozen)
             for te in (self.te, self.te2):
                 if te is not None:
                     te.to(torch.bfloat16)

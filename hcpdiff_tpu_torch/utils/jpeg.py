@@ -18,7 +18,7 @@ Pillow's bytes for an 8-bit L or RGB image at a quality (the section
 
 Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files,
 4-component (CMYK) files and other samplings raise ``UnsupportedJPEG``
-(a ``ValueError``) naming ROADMAP.md queue 1 item 6.
+(a ``ValueError``) naming ROADMAP.md queue 1 item 6 (JPEG types).
 
 Huffman decoding runs in Python over a 16-bit lookup table a code table,
 one block at a time; dequantization, the IDCT, upsampling and colour
@@ -31,7 +31,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-ROADMAP = 'ROADMAP.md queue 1 item 6'
+ROADMAP = 'ROADMAP.md queue 1 item 6: JPEG types'
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([

@@ -1051,3 +1051,56 @@ def test_dreamartist_step_doubles_the_unet_launches(gen, tmp_path):
     launched = [k.launches - b for k, b in zip(kernels, before)]
     assert trainer.dream_artist and np.isfinite(trainer.history).all()
     assert launched[:2] == [2 * n for n in plain] and min(launched[2:]) > 0
+
+
+# kernels K and L (ops/int8.py): codes and scales bitwise; outputs within one
+# ulp of the output dtype of the plain version (bitwise expected: the same
+# fp32 operations on an exact int32 product)
+INT8_SHAPES = [(616, 768, 320), (8192, 640, 640), (2048, 5120, 1280), (300, 24, 64),
+               (130, 40, 1282)]
+
+
+def _within_one_ulp(out, ref):
+    torch.cuda.synchronize()
+    out, ref = out.double(), ref.double()
+    bits = 7 if ref.dtype == torch.bfloat16 else 23
+    _, e = torch.frexp(ref.abs().clamp_min(2.0 ** -126))
+    return bool(((out - ref).abs() <= torch.exp2((e - 1 - bits).double())).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('M,K,N', INT8_SHAPES)
+def test_int8_kernels(gen, M, K, N, dtype):
+    from hcpdiff_tpu_torch.ops import int8 as i8
+    x = _rn(gen, M, K, scale=2.0, dtype=dtype)
+    x[3] = 0
+    w, b = _rn(gen, N, K, scale=K ** -0.5, dtype=dtype), _rn(gen, N, dtype=dtype)
+    res = _rn(gen, M, N, dtype=dtype)
+    q, s = i8.quantize_rows(x)
+    pq, ps = i8.quantize_rows_plain(x)
+    assert q.shape == (M, i8.padded_k(K)) and torch.equal(q[:, :K], pq)
+    assert not q[:, K:].any() and torch.equal(s, ps[:, 0])
+    for bias, r in ((None, None), (b, None), (b, res)):
+        out = i8.int8_dense(x, w, bias, r)
+        ref = i8.int8_dense_plain(x, w, bias, r)
+        assert out.dtype == dtype and _within_one_ulp(out, ref)
+    wq, sw = i8.quantize_rows(w)
+    ref = i8.int8_gemm_plain(q, wq, s, sw, dtype, b, res)
+    for minb in i8.INT8_TILES:                  # every tile L is built with
+        out = i8.gemm_launch(q, wq, s, sw, b, res, torch.empty_like(res), minb)
+        assert _within_one_ulp(out, ref)
+
+
+def test_int8_dense_gradient(gen):
+    from hcpdiff_tpu_torch.ops import int8 as i8
+    x = _rn(gen, 2, 300, 320, dtype=torch.float32).requires_grad_(True)
+    w = _rn(gen, 640, 320, scale=0.05, dtype=torch.float32).requires_grad_(True)
+    b = _rn(gen, 640, dtype=torch.float32).requires_grad_(True)
+    g = _rn(gen, 2, 300, 640, dtype=torch.float32)
+    i8.int8_dense(x, w, b).backward(g)          # straight through: the exact product's
+    grads = [t.grad for t in (x, w, b)]
+    torch.cuda.synchronize()
+    assert torch.allclose(grads[0], g @ w.detach(), rtol=1e-5, atol=1e-5)
+    assert torch.allclose(grads[1], g.flatten(0, 1).t() @ x.detach().flatten(0, 1), rtol=1e-4,
+                          atol=1e-3)
+    assert torch.allclose(grads[2], g.sum((0, 1)), rtol=1e-5, atol=1e-4)
