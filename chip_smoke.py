@@ -247,30 +247,37 @@ package is missing. Phases, each fatal on failure:
    A and B at the per-rank shapes of tensor-parallel txt2img at tp=2
    (SD1.5 batch 4, CFG-doubled: 4 of 8 heads; B on half the GEGLU
    columns), labelled tp, against their plain versions;
-4u. int8 (HCP_INT8's w8a8 route, kernels K and L): int8_dense's
-   straight-through gradients on the card (K and L forward) against the CPU
-   route on fp32 inputs; SD1.5 512 px requests (20 DPM++ 2M steps, CFG 7.5)
-   through a bf16 and an int8 copy of the UNet (the same weights), in turns,
-   three pairs at batch 4 and one at batch 1: images finite in [0, 1], PSNR
-   and SSIM of the int8 images against the bf16 ones
-   (tools/int8_quality.py's), every request's launches held to its
-   reckoning (int8_request_launches: K twice and L once a layer, 192 layers
-   a UNet call, B and C zero; A and D as sd15_launches); a fused int8 request
-   at batch 1 (L on proj_in/proj_out and the to_outs, G, I, H, C and J as
-   reckoned); text2img.yaml through main() under HCP_INT8=1 on the 4d
-   directory (launches as an int8 request's); then HCP_NATIVE_IMG's route
-   on the committed JPEGs against the default route (tests/test_native.py's
-   bounds, equal crop info, host seconds an image of each) and the grouped
-   frozen-base cast (utils/casting.py) of the SD1.5 UNet's fp32 weights on
-   the card against the whole-tree comprehension (peak memory above the
-   fp32 tree, twice each in turns: the grouped one must peak lower); after
-   phase 7, K and L against their plain versions at every int8 shape of a
+4u. int8 (HCP_INT8's w8a8 route, kernels K and L): int8_dense's and
+   int8_geglu_dense's straight-through gradients on the card (K and L
+   forward, L recomputing the GEGLU halves) against the CPU route on fp32
+   inputs; SD1.5 512 px requests (20 DPM++ 2M steps, CFG 7.5) through a
+   bf16 and an int8 copy of the UNet (the same weights): the int8 copy's
+   first request (batch 1), whose first UNet call quantizes its 192
+   weights, then three pairs at batch 4 and one at batch 1 in turns, which
+   launch no K on a weight: images finite in [0, 1], PSNR and SSIM of the
+   int8 images against the bf16 ones (tools/int8_quality.py's), every
+   request's launches held to its reckoning (int8_request_launches: L once
+   a layer, the GEGLU L for ff.proj, K once a layer on its activation and
+   once a weight at a UNet's first call, B and C zero; A and D as
+   sd15_launches); a fused int8 request at batch 1 (L on proj_in/proj_out
+   and the to_outs, G, I, H, C and J as reckoned); text2img.yaml through
+   main() under HCP_INT8=1 on the 4d directory (launches as a first int8
+   request's); then HCP_NATIVE_IMG's route on the committed JPEGs against
+   the default route (tests/test_native.py's bounds, equal crop info, host
+   seconds an image of each) and the grouped frozen-base cast
+   (utils/casting.py) of the SD1.5 UNet's fp32 weights on the card against
+   the whole-tree comprehension (peak memory above the fp32 tree, twice
+   each in turns: the grouped one must peak lower); after phase 7, K, L and
+   the GEGLU L against their plain versions at every int8 shape of a
    batch-4 request (int8_shapes: levels 0-2 and the mid block, the
-   cross-attention's k/v at M = 616), K's codes and scales bitwise, L
-   (timed alone on K's codes) and the whole layer within one bf16 ulp
-   (bitwise expected), each beside torch._int_mm (the int32 product alone)
-   and F.linear in bf16 (the layer in bf16), with bounds at 1979 TOPS int8
-   (K: 67 TFLOP/s fp32) and 3.35 TB/s, and once in fp32;
+   cross-attention's k/v at M = 616; the GEGLU L at the four ff.proj
+   shapes), K's codes and scales bitwise, L (timed alone on K's codes)
+   bitwise in bf16 and in fp32, the GEGLU L within one ulp of the output
+   type in both (elements not bitwise equal counted) and the whole layer
+   (K, L) bitwise, each beside torch._int_mm (the int32 product
+   alone) and F.linear in bf16 (the layer in bf16), the GEGLU L also beside
+   the three-step route it replaces (L, F.gelu, the product), with bounds
+   at 1979 TOPS int8 (K: 67 TFLOP/s fp32) and 3.35 TB/s;
 5. train: a run shaped like bench_train.py's sd15 run. SD1.5 at full width
    (UNet frozen in fp32, computing in bf16 with remat; CLIP fp32), LoRA
    rank 8 on bench_train's two layer patterns, Min-SNR gamma 1, AdamW 1e-4
@@ -488,14 +495,14 @@ def counters():
     from hcpdiff_tpu_torch.ops import matmul as mm
     from hcpdiff_tpu_torch.ops.conv import conv3x3
     from hcpdiff_tpu_torch.ops.groupnorm import group_norm_silu
-    from hcpdiff_tpu_torch.ops.int8 import int8_dense, quantize_rows
+    from hcpdiff_tpu_torch.ops.int8 import int8_dense, int8_geglu_dense, quantize_rows
     return {'flash_attention': fa.flash_attention, 'flash_attention_lse': fa.flash_attention_lse,
             'flash_attention_bwd_dq': fa.flash_attention_bwd_dq,
             'flash_attention_bwd_dkv': fa.flash_attention_bwd_dkv,
             'geglu_dense': mm.geglu_dense, 'fused_dense': mm.fused_dense,
             'group_norm_silu': group_norm_silu, 'ln_qkv': mm.ln_qkv, 'ln_geglu': mm.ln_geglu,
             'ln_dense': mm.ln_dense, 'conv3x3': conv3x3, 'quantize_rows': quantize_rows,
-            'int8_dense': int8_dense}
+            'int8_dense': int8_dense, 'int8_geglu_dense': int8_geglu_dense}
 
 
 def zero_counters():
@@ -4208,45 +4215,47 @@ NATIVE_MEAN, NATIVE_MAX = 1.0 / 127.5, 6.0 / 127.5   # tests/test_native.py's bo
 I8 = 'hcpdiff_tpu/ops/int8.py:'
 
 
-def int8_call_launches(cfg, h, w, fused=False):
+def int8_call_launches(cfg, h, w, fused=False, first=False):
     """One SD UNet call's launches under int8=True at an [h, w] latent: A and
-    D as unet_call_launches; a layer is K twice (x, w) and L once: proj_in
-    and proj_out of each Transformer2D, and a block's q, k, v and to_out of
-    both attentions and ff.proj and ff.out (fused: only the to_outs, with G,
-    I and H + C in the block and J in each resblock's two 3x3 convs)."""
+    D as unet_call_launches; a layer is K once on its activation and L once:
+    proj_in and proj_out of each Transformer2D, and a block's q, k, v and
+    to_out of both attentions and ff.out (int8_dense) and ff.proj (the
+    GEGLU L, int8_geglu_dense); fused: only the to_outs, with G, I and H + C
+    in the block and J in each resblock's two 3x3 convs. Each layer's weight
+    is quantized (K) at the UNet's first call (``first``) and kept."""
     base = unet_call_launches(cfg, h, w)
     levels = transformer_levels(cfg)
     depth = sum(d for _, d in levels)
     n, lpb = len(cfg.block_out_channels), cfg.layers_per_block
     n_res = n * lpb + 2 + n * (lpb + 1)
     layers = 2 * len(levels) + (2 if fused else 10) * depth
+    geglu = 0 if fused else depth
     return {'flash_attention': base['flash_attention'],
             'group_norm_silu': base['group_norm_silu'], 'geglu_dense': 0,
             'fused_dense': depth if fused else 0, 'ln_qkv': depth if fused else 0,
             'ln_dense': depth if fused else 0, 'ln_geglu': depth if fused else 0,
-            'conv3x3': 2 * n_res if fused else 0, 'int8_dense': layers,
-            'quantize_rows': 2 * layers}
+            'conv3x3': 2 * n_res if fused else 0, 'int8_dense': layers - geglu,
+            'int8_geglu_dense': geglu, 'quantize_rows': 2 * layers if first else layers}
 
 
-def int8_request_launches(cfg, steps, h, w, fused=False):
+def int8_request_launches(cfg, steps, h, w, fused=False, first=False):
     """A txt2img request of ``steps`` UNet calls at an [h, w] latent under
-    int8, then its VAE decode."""
+    int8, then its VAE decode; ``first``: the UNet's first request, whose
+    first call quantizes its weights."""
     out = {k: v * steps for k, v in int8_call_launches(cfg, h, w, fused).items()}
+    if first:
+        out['quantize_rows'] += int8_call_launches(cfg, h, w, fused)['quantize_rows']
     for k, v in decode_launches(h, w).items():
         out[k] += v
     return out
 
 
 def _int8_ulps(out, ref):
-    """(every element within one ulp of the output dtype, max |diff|, the
-    elements not bitwise equal)."""
+    """time_int8.ulp_diff: (every element within one ulp of the output
+    dtype, max |diff|, the elements not bitwise equal)."""
+    from hcpdiff_tpu_torch.tools.time_int8 import ulp_diff
     torch.cuda.synchronize()
-    bits = 7 if ref.dtype == torch.bfloat16 else 23
-    o, r = out.double(), ref.double()
-    _, e = torch.frexp(r.abs().clamp_min(2.0 ** -126))
-    diff = (o - r).abs()
-    ok = bool((diff <= torch.exp2((e - 1 - bits).double())).all())
-    return ok, float(diff.max()), int((out != ref).sum())
+    return ulp_diff(out, ref)
 
 
 def _within_ulp(out, ref):
@@ -4283,16 +4292,35 @@ def int8_gemm_work(M, K, N, bias, res, itemsize=2):
     return bound(2 * M * N * K, nbytes, PEAK_INT8)
 
 
+def int8_geglu_work(M, K, N, itemsize=2):
+    """The GEGLU L: the padded codes and fp32 scales read once, the bias
+    and the [M, N / 2] output; 2 M N K int8 operations (the gate's fp32
+    arithmetic is not counted)."""
+    from hcpdiff_tpu_torch.ops.int8 import padded_k
+    Kp = padded_k(K)
+    nbytes = (M + N) * Kp + 4 * (M + N) + itemsize * (N + M * N // 2)
+    return bound(2 * M * N * K, nbytes, PEAK_INT8)
+
+
+def _bitwise(out, ref):
+    """(bitwise equal, max |diff|), the elements not bitwise equal logged."""
+    ok, err, unequal = _int8_ulps(out, ref)
+    log(f'  elements not bitwise equal: {unequal} of {ref.numel()}')
+    return unequal == 0, err
+
+
 @torch.inference_mode()
 def int8_kernel_phase(launches):
-    """K and L against their plain versions at every int8 shape of an SD1.5
-    batch-4 request, timed with their yardsticks; returns their records."""
+    """K, L and the GEGLU L against their plain versions at every int8 shape
+    of an SD1.5 batch-4 request (the GEGLU L at the ff.proj ones), timed
+    with their yardsticks, L bitwise and the GEGLU L within one ulp in bf16
+    and in fp32; returns their records."""
     from hcpdiff_tpu_torch.ops import int8 as i8
     from hcpdiff_tpu_torch.tools.time_int8 import int8_shapes
     F = torch.nn.functional
     gen = torch.Generator(device='cuda').manual_seed(SEED + 40)
     rn = _rn_on(gen)
-    k_cases, l_cases, seen = [], [], set()
+    k_cases, l_cases, g_cases, seen, fp32 = [], [], [], set(), {'L': [], 'GEGLU L': []}
     for M, K, N, epi in int8_shapes():
         x, w = rn(M, K, scale=2.0), rn(N, K, scale=K ** -0.5)
         b = rn(N) if epi != 'none' else None
@@ -4303,11 +4331,12 @@ def int8_kernel_phase(launches):
                 k_cases.append((f'x [{rows}, {K}]', [t], quantize_work(rows, K), None))
         xq, sx = i8.quantize_rows(x)
         wq, sw = i8.quantize_rows(w)
-        ok, err, unequal = _int8_ulps(i8.int8_dense(x, w, b, res), i8.int8_dense_plain(x, w, b, res))
-        log(f'  int8_dense x [{M}, {K}] w [{N}, {K}] {epi}: the layer (K twice, L) against '
+        ok, err, unequal = _int8_ulps(i8.int8_dense(x, w, b, res),
+                                      i8.int8_dense_plain(x, w, b, res))
+        log(f'  int8_dense x [{M}, {K}] w [{N}, {K}] {epi}: the layer (K, L) against '
             f'int8_dense_plain: max |diff| {err:.4g}, {unequal} elements not bitwise equal')
-        check(ok, f'int8_dense at [{M}, {K}, {N}] differs from its plain version by more than '
-                  f'one bf16 ulp: {err}')
+        check(ok and unequal == 0, f'int8_dense at [{M}, {K}, {N}] is not bitwise its plain '
+                                   f'version: max |diff| {err}, {unequal} elements')
 
         def kernel(xq, wq, sx, sw, b, res, M=M, N=N):
             return i8.gemm_launch(xq, wq, sx, sw, b, res,
@@ -4317,14 +4346,48 @@ def int8_kernel_phase(launches):
             return i8.int8_gemm_plain(xq, wq, sx, sw, torch.bfloat16, b, res)
         yard = {'int_mm_ms': lambda xq=xq, wq=wq: torch._int_mm(xq, wq.t()),
                 'linear_ms': lambda x=x, w=w, b=b: F.linear(x, w, b)}
-        try:
-            torch._int_mm(xq, wq.t())
-        except (RuntimeError, TypeError, NotImplementedError) as e:
-            log(f'torch._int_mm refused at [{M}, {K}, {N}], int_mm_ms not timed: {e}')
-            del yard['int_mm_ms']
         l_cases.append((f'x [{M}, {K}], w [{N}, {K}], {epi}', [xq, wq, sx, sw, b, res],
                         int8_gemm_work(M, K, N, b is not None, res is not None), None, yard,
                         kernel, plain))
+        # fp32: the same codes, an fp32 epilogue and output
+        b32, r32 = (None if t is None else t.float() for t in (b, res))
+        ok, err = _bitwise(i8.gemm_launch(xq, wq, sx, sw, b32, r32,
+                                          torch.empty(M, N, device='cuda')),
+                           i8.int8_gemm_plain(xq, wq, sx, sw, torch.float32, b32, r32))
+        check(ok, f'L in fp32 at [{M}, {K}, {N}] is not bitwise its plain version: {err}')
+        fp32['L'].append({'shape': f'fp32 [{M}, {K}, {N}] {epi}', 'max_abs_err': err})
+        if epi == 'bias':
+            def geglu(xq, wq, sx, sw, b, M=M, N=N):
+                return i8.gemm_launch(xq, wq, sx, sw, b, None,
+                                      torch.empty(M, N // 2, dtype=torch.bfloat16,
+                                                  device='cuda'), geglu=True)
+
+            def geglu_plain(xq, wq, sx, sw, b):
+                return i8.int8_geglu_gemm_plain(xq, wq, sx, sw, torch.bfloat16, b)
+
+            def three_step(xq=xq, wq=wq, sx=sx, sw=sw, b=b, M=M, N=N):
+                h, gate = i8.gemm_launch(xq, wq, sx, sw, b, None, torch.empty(
+                    M, N, dtype=torch.bfloat16, device='cuda')).chunk(2, dim=-1)
+                return h * F.gelu(gate)
+
+            def linear_geglu(x=x, w=w, b=b):
+                h, gate = F.linear(x, w, b).chunk(2, dim=-1)
+                return h * F.gelu(gate)
+            g_cases.append((f'x [{M}, {K}], w [{N}, {K}], bias', [xq, wq, sx, sw, b],
+                            int8_geglu_work(M, K, N), None,
+                            {'three_step_ms': three_step, 'int_mm_ms': yard['int_mm_ms'],
+                             'linear_geglu_ms': linear_geglu}, geglu, geglu_plain))
+            ok, err, unequal = _int8_ulps(
+                i8.gemm_launch(xq, wq, sx, sw, b32, None,
+                               torch.empty(M, N // 2, device='cuda'), geglu=True),
+                i8.int8_geglu_gemm_plain(xq, wq, sx, sw, torch.float32, b32))
+            log(f'  GEGLU L in fp32 at [{M}, {K}, {N}]: max |diff| {err:.4g}, {unequal} '
+                f'elements not bitwise equal')
+            check(ok, f'the GEGLU L in fp32 at [{M}, {K}, {N}] differs from its plain version '
+                      f'by more than one fp32 ulp: {err}')
+            fp32['GEGLU L'].append({'shape': f'fp32 [{M}, {K}, {N}]', 'max_abs_err': err,
+                                    'not_bitwise': unequal})
+        del x, w, b, res, b32, r32
     k_rec = _record('quantize_rows', CSRC + 'int8_gemm.cu', [I8 + '37', I8 + '45'],
                     launches['quantize_rows'],
                     [_measure(label, i8.quantize_rows, i8.quantize_rows_plain, args, _codes_equal,
@@ -4332,59 +4395,73 @@ def int8_kernel_phase(launches):
                      for label, args, work, lib in k_cases],
                     {'codes': 'bitwise', 'scales': 'bitwise'},
                     note='no pallas_call: the JAX package quantizes with XLA ops (_quant_rows, '
-                         '_quant_cols); library_ms null: no PyTorch call computes it')
+                         '_quant_cols); library_ms null: no PyTorch call computes it; on a '
+                         'weight it launches once per version of its values (weight_codes)')
     l_rec = _record('int8_dense', CSRC + 'int8_gemm.cu', [I8 + '53'], launches['int8_dense'],
-                    [_measure(label, kernel, plain, args, _within_ulp, 'int8_dense', work, lib,
+                    [_measure(label, kernel, plain, args, _bitwise, 'int8_dense', work, lib,
                               yard)
                      for label, args, work, lib, yard, kernel, plain in l_cases],
-                    {'ulps': 1, 'expected': 'bitwise'},
+                    {'expected': 'bitwise'},
                     note='no pallas_call: XLA int8 dot and fusions in the JAX package; timed '
                          'alone on K\'s codes; int_mm_ms: torch._int_mm, the int32 product '
                          'alone; linear_ms: F.linear in bf16, the layer in bf16; no single '
                          'call computes L, so library_ms is null')
-    # fp32: K on an fp32 activation, L with an fp32 epilogue and output
-    x, w = torch.randn(8192, 640, device='cuda', generator=gen), rn(640, 640).float()
-    b, res = torch.randn(640, device='cuda', generator=gen), torch.randn(8192, 640, device='cuda',
-                                                                         generator=gen)
-    k_rec['fp32'] = _measure('fp32 x [8192, 640]', i8.quantize_rows, i8.quantize_rows_plain, [x],
+    g_rec = _record('int8_geglu_dense', CSRC + 'int8_gemm.cu',
+                    [I8 + '53', 'hcpdiff_tpu/models/unet.py:463'], launches['int8_geglu_dense'],
+                    [_measure(label, kernel, plain, args, _within_ulp, 'int8_geglu_dense', work,
+                              lib, yard)
+                     for label, args, work, lib, yard, kernel, plain in g_cases],
+                    {'ulps': 1},
+                    note='no pallas_call: the JAX UNet runs the gate as XLA elementwise ops on '
+                         'the dequantized halves; three_step_ms: L over [Wv; Wg], F.gelu and the '
+                         'product (the route it replaces); linear_geglu_ms: the same in bf16 '
+                         'with F.linear; library_ms null: no single call computes it')
+    k_rec['fp32'] = _measure('fp32 x [8192, 640]', i8.quantize_rows, i8.quantize_rows_plain,
+                             [torch.randn(8192, 640, device='cuda', generator=gen)],
                              _codes_equal, 'quantize_rows', (0.0, 'none'))
-    ok, err, unequal = _int8_ulps(i8.int8_dense(x, w, b, res), i8.int8_dense_plain(x, w, b, res))
-    check(ok, f'int8_dense in fp32 differs from its plain version: {err}')
-    l_rec['fp32'] = {'shape': 'fp32 x [8192, 640], w [640, 640], bias+res', 'max_abs_err': err,
-                     'not_bitwise': unequal}
-    for rec in (k_rec, l_rec):
-        rec.get('fp32', {}).pop('bound_ms', None)
-        rec.get('fp32', {}).pop('bound_by', None)
-        rec.get('fp32', {}).pop('library_ms', None)
-    log(f'int8 fp32: int8_dense max |diff| {err:.4g}, {unequal} not bitwise')
+    for key in ('bound_ms', 'bound_by', 'library_ms'):
+        k_rec['fp32'].pop(key, None)
+    l_rec['fp32'], g_rec['fp32'] = fp32['L'], fp32['GEGLU L']
+    log(f'int8 fp32: L bitwise at {len(fp32["L"])} shapes; GEGLU L not bitwise '
+        f'{[r["not_bitwise"] for r in fp32["GEGLU L"]]} elements')
     torch.cuda.empty_cache()
-    return [k_rec, l_rec]
+    return [k_rec, l_rec, g_rec]
 
 
 @torch.inference_mode(False)
 @torch.enable_grad()
 def int8_gradient_check(device):
-    """int8_dense's straight-through gradients on the card (forward: K and
-    L) against the CPU route (the plain version) on the same fp32 inputs."""
-    from hcpdiff_tpu_torch.ops.int8 import int8_dense
+    """int8_dense's and int8_geglu_dense's straight-through gradients on the
+    card (forward: K and L; the GEGLU backward recomputes its halves with L)
+    against the CPU route (the plain version) on the same fp32 inputs."""
+    from hcpdiff_tpu_torch.ops.int8 import int8_dense, int8_geglu_dense
     gen = torch.Generator().manual_seed(SEED + 41)
     x, w = torch.randn(2, 300, 320, generator=gen), torch.randn(640, 320, generator=gen) * 0.05
     b, g = torch.randn(640, generator=gen), torch.randn(2, 300, 640, generator=gen)
     res = torch.randn(2, 300, 640, generator=gen)
-    out, grads = {}, {}
-    for side, dev in (('card', device), ('cpu', torch.device('cpu'))):
-        ins = [t.to(dev).requires_grad_(True) for t in (x, w, b, res)]
-        y = int8_dense(*ins)
-        y.backward(g.to(dev))
-        out[side] = y.detach().cpu()
-        grads[side] = [t.grad.cpu() for t in ins]
-    ok, err, unequal = _int8_ulps(out['card'], out['cpu'])
-    check(ok, f'int8_dense forward, card against cpu: {err}')
-    errs = [rel_err(c, p) for c, p in zip(grads['card'], grads['cpu'])]
-    log(f'int8 gradient check (x [2, 300, 320], w [640, 320], bias, res; fp32): forward card '
-        f'vs cpu max |diff| {err:.3g} ({unequal} not bitwise); gradients of x, w, b, res card '
-        f'vs cpu rel L2 {[f"{e:.3e}" for e in errs]} (limit {INT8_GRAD_REL})')
-    check(max(errs) <= INT8_GRAD_REL, f'int8_dense gradients differ: {errs}')
+    for name, fn, args, cot in (('int8_dense', int8_dense, (x, w, b, res), g),
+                                ('int8_geglu_dense', int8_geglu_dense, (x, w, b), g[..., :320])):
+        out, grads = {}, {}
+        for side, dev in (('card', device), ('cpu', torch.device('cpu'))):
+            ins = [t.detach().to(dev).requires_grad_(True) for t in args]
+            y = fn(*ins)
+            y.backward(cot.to(dev))
+            out[side] = y.detach().cpu()
+            grads[side] = [t.grad.cpu() for t in ins]
+        # int8_dense: the same fp32 operations on an exact product (bitwise);
+        # the gate's erf is the CPU's vectorized one on one side and CUDA's
+        # erff on the other, an ulp of erf apart, more where 1 + erf cancels:
+        # relative L2
+        _, err, unequal = _int8_ulps(out['card'], out['cpu'])
+        fwd = rel_err(out['card'], out['cpu'])
+        check(unequal == 0 if fn is int8_dense else fwd <= INT8_GRAD_REL,
+              f'{name} forward, card against cpu: max |diff| {err}, rel L2 {fwd}')
+        errs = [rel_err(c, p) for c, p in zip(grads['card'], grads['cpu'])]
+        log(f'int8 gradient check, {name} (x [2, 300, 320], w [640, 320], bias'
+            f'{", res" if len(args) == 4 else ""}; fp32): forward card vs cpu max |diff| '
+            f'{err:.3g} ({unequal} not bitwise, rel L2 {fwd:.3e}); gradients card vs cpu rel L2 '
+            f'{[f"{e:.3e}" for e in errs]} (limit {INT8_GRAD_REL})')
+        check(max(errs) <= INT8_GRAD_REL, f'{name} gradients differ: {errs}')
 
 
 def native_phase():
@@ -4472,13 +4549,27 @@ def int8_phase(device, unet, vae, te, model_dir, tmp):
     from hcpdiff_tpu_torch.tools import int8_quality as q
     from hcpdiff_tpu_torch.tools.random_sd15 import unet_copy
     int8_gradient_check(device)
+    # weights made outside inference mode: an inference tensor has no version
+    # counter, so its codes are not kept (ops/int8.py:weight_codes)
+    with torch.inference_mode(False):
+        int8_unet = unet_copy(unet, device, int8=True)
     pipes = {'bf16': DiffusionPipeline(unet, vae, te),
-             'int8': DiffusionPipeline(unet_copy(unet, device, int8=True), vae, te)}
-    for pipe in pipes.values():
-        warm_up(pipe, (1, 4), SIZE)
+             'int8': DiffusionPipeline(int8_unet, vae, te)}
     lat = SIZE // 8
+    # the int8 copy's first request quantizes its weights at its first UNet
+    # call; it warms the copy up
+    zero_counters()
+    img, s = q.request(pipes['int8'], 1, SIZE, STEPS, SEED)
+    got = read_counters('the int8 copy\'s first request, batch 1', ())
+    _check_launches(got, int8_request_launches(unet.cfg, STEPS, lat, lat, first=True),
+                    'the int8 copy\'s first request (weights quantized at its first call)')
+    check(bool(np.isfinite(img).all()), 'the first int8 images are not finite')
+    log(f'int8 first request (batch 1, weights quantized): {s:.4f} s')
+    warm_up(pipes['int8'], (4,), SIZE)
+    warm_up(pipes['bf16'], (1, 4), SIZE)
     reckoned = {'int8': int8_request_launches(unet.cfg, STEPS, lat, lat),
-                'bf16': {**sd15_launches(STEPS), 'int8_dense': 0, 'quantize_rows': 0}}
+                'bf16': {**sd15_launches(STEPS), 'int8_dense': 0, 'int8_geglu_dense': 0,
+                         'quantize_rows': 0}}
     total = collections.Counter()
     secs = {(m, b): [] for m in pipes for b in set(INT8_PAIRS)}
     for i, batch in enumerate(INT8_PAIRS):
@@ -4487,7 +4578,8 @@ def int8_phase(device, unet, vae, te, model_dir, tmp):
             zero_counters()
             images[mode], s = q.request(pipes[mode], batch, SIZE, STEPS, SEED)
             got = read_counters(f'a {mode} request, batch {batch}', ())
-            _check_launches(got, reckoned[mode], f'the {mode} request (batch {batch})')
+            _check_launches(got, reckoned[mode], f'the {mode} request (batch {batch}; no K on '
+                                                 'a weight)')
             if mode == 'int8':
                 total.update(got)
             secs[(mode, batch)].append(s)
@@ -4502,8 +4594,10 @@ def int8_phase(device, unet, vae, te, model_dir, tmp):
     for (mode, batch), s in sorted(secs.items()):
         log(f'int8 phase {mode} requests at batch {batch}: {[round(v, 4) for v in s]} s, '
             f'median {statistics.median(s):.4f} s ({statistics.median(s) / batch:.4f} s an image)')
-    del pipes['int8']
-    fused = DiffusionPipeline(unet_copy(unet, device, fused_sublayers=True, int8=True), vae, te)
+    del pipes['int8'], int8_unet
+    with torch.inference_mode(False):
+        fused = DiffusionPipeline(unet_copy(unet, device, fused_sublayers=True, int8=True), vae,
+                                  te)
     warm_up(fused, (1,), SIZE)
     zero_counters()
     img, s = q.request(fused, 1, SIZE, STEPS, SEED)
@@ -4518,13 +4612,16 @@ def int8_phase(device, unet, vae, te, model_dir, tmp):
     os.environ['HCP_INT8'] = '1'
     try:
         zero_counters()
-        viser, images, seconds = _cli(model_dir, os.path.join(tmp, 'int8_t2i'), 'text2img.yaml')
+        # as a user runs it: the modules are built outside inference mode
+        with torch.inference_mode(False):
+            viser, images, seconds = _cli(model_dir, os.path.join(tmp, 'int8_t2i'),
+                                          'text2img.yaml')
         got = read_counters('main() text2img.yaml under HCP_INT8=1', ())
     finally:
         del os.environ['HCP_INT8']
     check(viser.pipe.unet.int8, 'main() under HCP_INT8=1 built a UNet without int8')
-    _check_launches(got, int8_request_launches(unet.cfg, STEPS, lat, lat),
-                    'main() text2img.yaml under HCP_INT8=1')
+    _check_launches(got, int8_request_launches(unet.cfg, STEPS, lat, lat, first=True),
+                    'main() text2img.yaml under HCP_INT8=1 (a new UNet: weights quantized)')
     del viser
     torch.cuda.empty_cache()
     native_phase()
@@ -4541,6 +4638,26 @@ def _leaf_kinds(pack):
     return out
 
 
+PHASE_SECONDS = {}
+
+
+def phase(name, fn, *args, **kwargs):
+    """Run one phase of main(), logging its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        log(f'phase {name}: {PHASE_SECONDS[name]:.2f} s')
+
+
+def requests_phase(pipe, batches, what, expected, absent=()):
+    warm_up(pipe, batches)
+    zero_counters()
+    answer_requests(pipe, batches, what)
+    return read_counters(f'the {what}s', expected, absent=absent)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this run needs one GPU', file=sys.stderr)
@@ -4550,85 +4667,87 @@ def main() -> int:
     from hcpdiff_tpu_torch.ops import _build
     from hcpdiff_tpu_torch.tools.random_sd15 import build_sd15, clip_config, fused_copy
 
+    start = time.perf_counter()
     device = torch.device('cuda', 0)
     gpu = gpu_name_and_power_limit()
     log(f'torch {torch.__version__} cuda {torch.version.cuda}; card: {gpu}')
 
     t0 = time.perf_counter()
-    _build.library()
+    phase('build', _build.library)
     log(f'build seconds: {time.perf_counter() - t0:.2f} ({_build.BUILD_DIR}); nvcc seconds '
         f'by source: {build_seconds(_build.BUILD_DIR / "build.log")}')
 
     t0 = time.perf_counter()
-    unet, vae, te = build_sd15(device, SEED)
+    unet, vae, te = phase('sd15 build', build_sd15, device, SEED)
     pipe = DiffusionPipeline(unet, vae, te)
     log(f'model build seconds (SD1.5 full width, bf16, seed {SEED}): '
         f'{time.perf_counter() - t0:.2f}')
-    warm_up(pipe, REQUESTS)
-    zero_counters()
-    answer_requests(pipe, REQUESTS, 'request')
-    launches = read_counters('the requests', TXT2IMG_KERNELS)
+    launches = phase('requests', requests_phase, pipe, REQUESTS, 'request', TXT2IMG_KERNELS)
 
     fused_pipe = DiffusionPipeline(fused_copy(unet, device), vae, te)
-    warm_up(fused_pipe, FUSED_REQUESTS)
-    zero_counters()
-    answer_requests(fused_pipe, FUSED_REQUESTS, 'fused request')
-    fused_launches = read_counters('the fused requests', FUSED_KERNELS, absent=('geglu_dense',))
+    fused_launches = phase('fused requests', requests_phase, fused_pipe, FUSED_REQUESTS,
+                           'fused request', FUSED_KERNELS, absent=('geglu_dense',))
 
-    reference_phase(pipe, fused_pipe.unet, device)
+    phase('reference', reference_phase, pipe, fused_pipe.unet, device)
     del fused_pipe
-    sdxl_launches, sdxl_pipe = sdxl_phase(device)
-    sdxl_reference_phase(sdxl_pipe, device)
+    sdxl_launches, sdxl_pipe = phase('sdxl', sdxl_phase, device)
+    phase('sdxl reference', sdxl_reference_phase, sdxl_pipe, device)
     del sdxl_pipe
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix='hcp_smoke_')
     try:
-        model_dir = write_model_dir(device, tmp)
-        visualizer_launches = visualizer_phase(device, model_dir, tmp)
-        trainer_launches, trainer_shapes = trainer_phase(device, model_dir, tmp)
-        tools_launches = tools_phase(device, model_dir, tmp)
-        server_launches = server_phase(device, model_dir, tmp)
-        sdxl_train_launches, sdxl_step, sdxl_train_shapes = sdxl_trainer_phase(device, tmp)
-        da_launches = dreamartist_phase(device, model_dir, tmp)
-        sd21_launches, sd21_train_launches, sd21_train_shapes = sd21_phase(device, tmp)
-        dc_launches = deepcache_phase(device, model_dir, tmp)
-        sampler_launches = samplers_phase(model_dir, tmp)
-        cn_launches = controlnet_phase(device, model_dir, tmp)
-        anim_launches = interfaces_phase(model_dir, tmp)
-        sdxl_text_launches = sdxl_text_phase(device, tmp)
-        cn_train_launches, plugin = controlnet_train_phase(device, model_dir, tmp)
-        wf_launches = workflow_phase(device, model_dir, plugin, tmp)
-        opt_launches = optimizers_phase(device, model_dir, tmp)
-        preview_launches, logger_launches = preview_logger_phase(device, model_dir, tmp)
-        jpeg_launches = jpeg_phase(device, model_dir, tmp)
-        zero3_launches = zero3_phase(model_dir, tmp)
-        int8_launches = int8_phase(device, unet, vae, te, model_dir, tmp)
+        model_dir = phase('model dir', write_model_dir, device, tmp)
+        visualizer_launches = phase('visualizer', visualizer_phase, device, model_dir, tmp)
+        trainer_launches, trainer_shapes = phase('trainer', trainer_phase, device, model_dir, tmp)
+        tools_launches = phase('tools', tools_phase, device, model_dir, tmp)
+        server_launches = phase('server', server_phase, device, model_dir, tmp)
+        sdxl_train_launches, sdxl_step, sdxl_train_shapes = phase(
+            'sdxl trainer', sdxl_trainer_phase, device, tmp)
+        da_launches = phase('dreamartist', dreamartist_phase, device, model_dir, tmp)
+        sd21_launches, sd21_train_launches, sd21_train_shapes = phase('sd21', sd21_phase,
+                                                                      device, tmp)
+        dc_launches = phase('deepcache', deepcache_phase, device, model_dir, tmp)
+        sampler_launches = phase('samplers', samplers_phase, model_dir, tmp)
+        cn_launches = phase('controlnet', controlnet_phase, device, model_dir, tmp)
+        anim_launches = phase('interfaces', interfaces_phase, model_dir, tmp)
+        sdxl_text_launches = phase('sdxl text', sdxl_text_phase, device, tmp)
+        cn_train_launches, plugin = phase('controlnet train', controlnet_train_phase, device,
+                                          model_dir, tmp)
+        wf_launches = phase('workflow', workflow_phase, device, model_dir, plugin, tmp)
+        opt_launches = phase('optimizers', optimizers_phase, device, model_dir, tmp)
+        preview_launches, logger_launches = phase('preview logger', preview_logger_phase,
+                                                  device, model_dir, tmp)
+        jpeg_launches = phase('jpeg', jpeg_phase, device, model_dir, tmp)
+        zero3_launches = phase('zero3', zero3_phase, model_dir, tmp)
+        int8_launches = phase('int8', int8_phase, device, unet, vae, te, model_dir, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # fp32 products on the card (the B and C backwards, the LoRA merge)
     # run in full fp32, as the JAX package computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    train_launches, training = train_phase(device)
-    gradient_phase(device, training)
+    train_launches, training = phase('train', train_phase, device)
+    phase('gradient', gradient_phase, device, training)
     del training
-    gradient_phase(device, build_training(device, clip_config()[1], fused=True),
-                   'fused gradient check')
+    phase('fused gradient', lambda: gradient_phase(
+        device, build_training(device, clip_config()[1], fused=True), 'fused gradient check'))
     torch.cuda.empty_cache()
-    sdxl_gradient_phase(device)
-    records = kernel_phase({'txt2img': launches, 'train': train_launches,
-                            'fused': fused_launches, 'sdxl': sdxl_launches,
-                            'visualizer': visualizer_launches, 'server': server_launches})
-    records += train_kernel_phase(train_launches)
-    records = add_classic_shapes(records, classic_kernel_phase())
-    records += fused_kernel_phase(fused_launches)
-    records = add_trainer_shapes(records, trainer_kernel_phase(trainer_shapes),
-                                 trainer_launches)
-    records = add_trainer_shapes(records, trainer_kernel_phase(sdxl_train_shapes, 'trainer_sdxl'),
+    phase('sdxl gradient', sdxl_gradient_phase, device)
+    records = phase('kernels', kernel_phase, {
+        'txt2img': launches, 'train': train_launches, 'fused': fused_launches,
+        'sdxl': sdxl_launches, 'visualizer': visualizer_launches, 'server': server_launches})
+    records += phase('train kernels', train_kernel_phase, train_launches)
+    records = add_classic_shapes(records, phase('classic kernels', classic_kernel_phase))
+    records += phase('fused kernels', fused_kernel_phase, fused_launches)
+    records = add_trainer_shapes(records, phase('trainer kernels', trainer_kernel_phase,
+                                                trainer_shapes), trainer_launches)
+    records = add_trainer_shapes(records, phase('sdxl trainer kernels', trainer_kernel_phase,
+                                                sdxl_train_shapes, 'trainer_sdxl'),
                                  sdxl_train_launches, 'trainer_sdxl',
                                  launches_trainer_sdxl_step_1024=sdxl_step,
                                  launches_trainer_da=da_launches)
-    records = add_trainer_shapes(records, sd21_kernel_phase(sd21_train_shapes),
+    records = add_trainer_shapes(records, phase('sd21 kernels', sd21_kernel_phase,
+                                                sd21_train_shapes),
                                  sd21_train_launches, 'sd21',
                                  launches_sd21_requests=sd21_launches,
                                  launches_deepcache=dc_launches,
@@ -4636,16 +4755,20 @@ def main() -> int:
                                  launches_controlnet=cn_launches,
                                  launches_interfaces=anim_launches,
                                  launches_sdxl_text=sdxl_text_launches)
-    records = add_trainer_shapes(records, highres_kernel_phase(), wf_launches, 'workflow',
+    records = add_trainer_shapes(records, phase('highres kernels', highres_kernel_phase),
+                                 wf_launches, 'workflow',
                                  launches_controlnet_train=cn_train_launches,
                                  launches_optimizers=opt_launches,
                                  launches_preview=preview_launches,
                                  launches_logger=logger_launches, launches_jpeg=jpeg_launches)
-    records = add_trainer_shapes(records, tp_kernel_phase(), zero3_launches, 'zero3')
+    records = add_trainer_shapes(records, phase('tp kernels', tp_kernel_phase), zero3_launches,
+                                 'zero3')
     records = add_trainer_shapes(records, {}, tools_launches, 'tools')
-    records += int8_kernel_phase(int8_launches)
-    head_dim_phase()
-    fp32_phase(records, device)
+    records += phase('int8 kernels', int8_kernel_phase, int8_launches)
+    phase('head dims', head_dim_phase)
+    phase('fp32', fp32_phase, records, device)
+    log(f'phase seconds: {json.dumps({k: round(v, 2) for k, v in PHASE_SECONDS.items()})}; '
+        f'total {time.perf_counter() - start:.2f} s')
     log(gpu)
     print(json.dumps({'kernels': records}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

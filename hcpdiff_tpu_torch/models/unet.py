@@ -59,8 +59,8 @@ the transformers' products, with the JAX model's precedence
   q/k/v biases; to_out is int8 in every route but tp > 1, with the block
   residual;
 - ``GEGLUFeedForward``: tp > 1 takes ``_tp_call``, the fused route keeps H
-  and C; otherwise ff.proj is int8, the exact-GELU gate a plain elementwise
-  op on its two halves, and ff.out int8 with the block residual.
+  and C; otherwise ff.proj is int8 with the exact-GELU gate in kernel L's
+  epilogue (``int8_geglu_dense``), and ff.out int8 with the block residual.
 
 So in the default configuration kernels B and C no longer launch. No
 parameter is added: one state dict loads with int8 on and off.
@@ -85,7 +85,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention
 from ..ops.conv import conv3x3
 from ..ops.flash_attention import keep_flash_outputs
-from ..ops.int8 import int8_dense
+from ..ops.int8 import int8_dense, int8_geglu_dense
 from ..ops.matmul import fused_dense, geglu_dense, ln_dense, ln_geglu, ln_qkv
 from ..parallel.tp import tp_all_reduce
 from .layers import GroupNorm, timestep_embedding
@@ -323,7 +323,7 @@ class GEGLUFeedForward(nn.Module):
     """proj's rows are [value | gate]; kernel B (H, with ``norm`` in its
     prologue, in the fused configuration) applies the gate in its epilogue
     and kernel C adds the block residual in its own. Under ``int8`` the
-    unfused route runs both products int8 and the gate between them."""
+    unfused route runs both products int8, the gate in ff.proj's epilogue."""
 
     def __init__(self, dim: int, mult: int = 4, tp: int = 1, int8: bool = False):
         super().__init__()
@@ -343,8 +343,8 @@ class GEGLUFeedForward(nn.Module):
         if norm is not None:
             h = ln_geglu(x, norm.weight, norm.bias, self.proj.weight, self.proj.bias, norm.eps)
         elif self.int8:
-            h, gate = int8_dense(x, self.proj.weight, self.proj.bias).chunk(2, dim=-1)
-            return int8_dense(h * F.gelu(gate), self.out.weight, self.out.bias, res=res)
+            h = int8_geglu_dense(x, self.proj.weight, self.proj.bias)
+            return int8_dense(h, self.out.weight, self.out.bias, res=res)
         else:
             h = geglu_dense(x, self.proj.weight, self.proj.bias)
         return fused_dense(h, self.out.weight, self.out.bias, res=res)

@@ -8,8 +8,9 @@ def kernel_launches() -> dict:
     from . import matmul as mm
     from .conv import conv3x3
     from .groupnorm import group_norm_silu
-    from .int8 import int8_dense, quantize_rows
+    from .int8 import int8_dense, int8_geglu_dense, quantize_rows
     fns = (fa.flash_attention, fa.flash_attention_lse, fa.flash_attention_bwd_dq,
            fa.flash_attention_bwd_dkv, mm.geglu_dense, mm.fused_dense, group_norm_silu,
-           mm.ln_qkv, mm.ln_geglu, mm.ln_dense, conv3x3, quantize_rows, int8_dense)
+           mm.ln_qkv, mm.ln_geglu, mm.ln_dense, conv3x3, quantize_rows, int8_dense,
+           int8_geglu_dense)
     return {fn.__name__: fn.launches for fn in fns}

@@ -66,9 +66,9 @@ _SIGNATURES = {
                        ctypes.c_float, _I, _I, _I, _P],
     # x, codes, scales, M, K, x_f32 (x fp32, not bf16), stream
     'hcp_quantize_rows': [_P, _P, _P, _I, _I, _I, _P],
-    # x codes, w codes, x scales, w scales, bias, res, out, M, N, Kp (the codes' padded
-    # row), minb, out_f32, stream
-    'hcp_int8_gemm': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x codes, w codes, x scales, w scales, bias, res, out, M, N (the weight's rows), Kp
+    # (the codes' padded row), geglu, blocks, out_f32, stream
+    'hcp_int8_gemm': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

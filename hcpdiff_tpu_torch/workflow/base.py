@@ -120,7 +120,10 @@ class WorkflowRunner:
     def _build_actions(self, cfg_list) -> List[Any]:
         return [instantiate(resolve_from_memory(item, self.memory)) for item in (cfg_list or [])]
 
-    @torch.inference_mode()
+    # no_grad, not inference_mode: the models built here keep their version
+    # counters, so the int8 route keeps its weight codes between UNet calls
+    # (ops/int8.py:weight_codes quantizes an inference tensor at every call)
+    @torch.no_grad()
     def run(self, actions: List[Any], states: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         states = dict(states or {})
         for act in actions:

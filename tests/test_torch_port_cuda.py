@@ -1053,19 +1053,17 @@ def test_dreamartist_step_doubles_the_unet_launches(gen, tmp_path):
     assert launched[:2] == [2 * n for n in plain] and min(launched[2:]) > 0
 
 
-# kernels K and L (ops/int8.py): codes and scales bitwise; outputs within one
-# ulp of the output dtype of the plain version (bitwise expected: the same
-# fp32 operations on an exact int32 product)
+# kernels K and L (ops/int8.py): codes, scales and L's outputs bitwise the
+# plain version's (the same fp32 operations on an exact int32 product); the
+# GEGLU L within one ulp of the output dtype (its gate's erf is CUDA's erff)
 INT8_SHAPES = [(616, 768, 320), (8192, 640, 640), (2048, 5120, 1280), (300, 24, 64),
                (130, 40, 1282)]
 
 
 def _within_one_ulp(out, ref):
+    from hcpdiff_tpu_torch.tools.time_int8 import ulp_diff
     torch.cuda.synchronize()
-    out, ref = out.double(), ref.double()
-    bits = 7 if ref.dtype == torch.bfloat16 else 23
-    _, e = torch.frexp(ref.abs().clamp_min(2.0 ** -126))
-    return bool(((out - ref).abs() <= torch.exp2((e - 1 - bits).double())).all())
+    return ulp_diff(out, ref)[0]
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -1083,12 +1081,21 @@ def test_int8_kernels(gen, M, K, N, dtype):
     for bias, r in ((None, None), (b, None), (b, res)):
         out = i8.int8_dense(x, w, bias, r)
         ref = i8.int8_dense_plain(x, w, bias, r)
-        assert out.dtype == dtype and _within_one_ulp(out, ref)
+        assert out.dtype == dtype and torch.equal(out, ref)
     wq, sw = i8.quantize_rows(w)
     ref = i8.int8_gemm_plain(q, wq, s, sw, dtype, b, res)
-    for minb in i8.INT8_TILES:                  # every tile L is built with
-        out = i8.gemm_launch(q, wq, s, sw, b, res, torch.empty_like(res), minb)
-        assert _within_one_ulp(out, ref)
+    # the planned grid, and fewer persistent blocks: each walks many tiles
+    for blocks in (None, 1, 7):
+        out = i8.gemm_launch(q, wq, s, sw, b, res, torch.empty_like(res), _blocks=blocks)
+        assert torch.equal(out, ref)
+    # the GEGLU L: w as [Wv; Wg], N / 2 outputs
+    gref = i8.int8_geglu_gemm_plain(q, wq, s, sw, dtype, b)
+    for blocks in (None, 3):
+        out = i8.gemm_launch(q, wq, s, sw, b, None, torch.empty_like(gref), geglu=True,
+                             _blocks=blocks)
+        assert out.dtype == dtype and _within_one_ulp(out, gref)
+    out = i8.int8_geglu_dense(x, w, b)
+    assert _within_one_ulp(out, i8.int8_geglu_dense_plain(x, w, b))
 
 
 def test_int8_dense_gradient(gen):
@@ -1104,3 +1111,44 @@ def test_int8_dense_gradient(gen):
     assert torch.allclose(grads[1], g.flatten(0, 1).t() @ x.detach().flatten(0, 1), rtol=1e-4,
                           atol=1e-3)
     assert torch.allclose(grads[2], g.sum((0, 1)), rtol=1e-5, atol=1e-4)
+
+
+def test_int8_geglu_dense_gradient(gen):
+    """The GEGLU L's backward (the halves recomputed by L, the gate's
+    gradient by autograd, straight through the product) against the CPU
+    route on the same fp32 inputs."""
+    from hcpdiff_tpu_torch.ops import int8 as i8
+    x = _rn(gen, 2, 300, 320, dtype=torch.float32)
+    w = _rn(gen, 640, 320, scale=0.05, dtype=torch.float32)
+    b, g = _rn(gen, 640, dtype=torch.float32), _rn(gen, 2, 300, 320, dtype=torch.float32)
+    grads = {}
+    for dev in ('cuda', 'cpu'):
+        ins = [t.detach().to(dev).requires_grad_(True) for t in (x, w, b)]
+        i8.int8_geglu_dense(*ins).backward(g.to(dev))
+        grads[dev] = [t.grad.cpu() for t in ins]
+    torch.cuda.synchronize()
+    for card, cpu in zip(grads['cuda'], grads['cpu']):
+        assert torch.allclose(card, cpu, rtol=1e-4, atol=1e-4)
+
+
+def test_int8_weight_codes_kept(gen):
+    """On the card an unchanged weight launches K once over repeated
+    layers; an in-place write and a new tensor launch it again, and the
+    outputs stay the plain version's."""
+    from hcpdiff_tpu_torch.ops import int8 as i8
+    x, w = _rn(gen, 616, 768, scale=2.0), _rn(gen, 640, 768, scale=768 ** -0.5)
+    b = _rn(gen, 640)
+    k0 = i8.quantize_rows.launches
+    for _ in range(3):
+        out = i8.int8_dense(x, w, b)
+    assert i8.quantize_rows.launches - k0 == 4           # x three times, w once
+    i8.int8_geglu_dense(x, w, b)
+    assert i8.quantize_rows.launches - k0 == 5           # x once more
+    w.mul_(0.5)
+    out = i8.int8_dense(x, w, b)
+    assert i8.quantize_rows.launches - k0 == 7
+    assert torch.equal(out, i8.int8_dense_plain(x, w, b))
+    w2 = w.clone()
+    i8.int8_dense(x, w2, b)
+    assert i8.quantize_rows.launches - k0 == 9
+

@@ -28,7 +28,6 @@ tenth of the JAX int8 UNet's distance from its exact one, so that one
 layer routed otherwise would show; the 3-step loop's latents at the
 repo's loop bound, atol 1e-3 (test_unet_parity.py).
 """
-import itertools
 import os
 import subprocess
 import sys
@@ -170,15 +169,16 @@ def unet_case():
 
 class _CodeBridge:
     """JAX's activation codes, recorded in call order under ``jit``
-    (ordered ``jax.debug.callback``), replace the port's own: each
-    ``int8_dense_plain`` quantizes x, then w, and the x codes it computed
-    must be within one step of JAX's (module docstring), their scales
-    within an ulp or two (XLA multiplies by 1/127 under ``jit``)."""
+    (ordered ``jax.debug.callback``), replace the port's own: each int8
+    layer quantizes x with ``quantize_rows_plain`` and takes w's codes
+    from ``weight_codes``, served here uncached by the unpatched quantizer;
+    the x codes the port computed must be within one step of JAX's (module
+    docstring), their scales within an ulp or two (XLA multiplies by 1/127
+    under ``jit``)."""
 
     def __init__(self, monkeypatch):
         self.rec, self.flips, self.codes = [], 0, 0
         jax_quant, port_quant = jint8._quant_rows, tint8.quantize_rows_plain
-        calls = itertools.count()
 
         def recorded(x2):
             q, s = jax_quant(x2)
@@ -188,8 +188,6 @@ class _CodeBridge:
 
         def bridged(x2):
             q, s = port_quant(x2)
-            if next(calls) % 2:                 # the weight: the port's own
-                return q, s
             assert self.rec, 'the port quantized more activations than JAX'
             jq, js = self.rec.pop(0)
             assert jq.shape == tuple(q.shape)
@@ -201,6 +199,7 @@ class _CodeBridge:
             return torch.from_numpy(jq.copy()), torch.from_numpy(js.copy())
         monkeypatch.setattr(jint8, '_quant_rows', recorded)
         monkeypatch.setattr(tint8, 'quantize_rows_plain', bridged)
+        monkeypatch.setattr(tint8, 'weight_codes', port_quant)
 
     def check_all_taken(self):
         assert not self.rec, f'{len(self.rec)} JAX activations the port did not quantize'
@@ -258,7 +257,8 @@ def test_int8_flag_reads_env_and_keeps_the_state_dict(monkeypatch):
     off.load_state_dict(sd_on, strict=True)
 
 
-ROUTED = ('int8_dense', 'fused_dense', 'geglu_dense', 'ln_qkv', 'ln_dense', 'ln_geglu')
+ROUTED = ('int8_dense', 'int8_geglu_dense', 'fused_dense', 'geglu_dense', 'ln_qkv', 'ln_dense',
+          'ln_geglu')
 
 
 def _routes(monkeypatch, unet, *args):
@@ -291,8 +291,8 @@ def _expect(route):
     q = {'default': 'int8_dense', 'fused': None, 'bias': 'linear', 'tp': None}[route]
     attn = {'default': 'int8_dense', 'fused': 'int8_dense', 'bias': 'int8_dense',
             'tp': None}[route]
-    ff = {'default': ['int8_dense', 'int8_dense'], 'fused': ['ln_geglu', 'fused_dense'],
-          'bias': ['int8_dense', 'int8_dense'], 'tp': [None, None]}[route]
+    ff = {'default': ['int8_geglu_dense', 'int8_dense'], 'fused': ['ln_geglu', 'fused_dense'],
+          'bias': ['int8_geglu_dense', 'int8_dense'], 'tp': [None, None]}[route]
     out = {'proj_in': 'int8_dense', 'proj_out': 'int8_dense',
            'transformer_blocks_0.ff.proj': ff[0], 'transformer_blocks_0.ff.out': ff[1]}
     for a in ('attn1', 'attn2'):
@@ -430,24 +430,39 @@ def test_quality_tool_metrics_and_turns():
 
 
 def test_kernel_tiles_match_the_source():
-    """``ops/int8.py``'s INT8_TILES is csrc/int8_gemm.cu's HCP_INT8_TILES
-    table (blocks an SM -> ring stages), the wrapper's tile among them, and
-    ``tools/time_int8.int8_shapes`` is every int8 product of an SD1.5 batch-4
-    request: 4 a level, the mid block's k/v shared with level 2's."""
+    """``ops/int8.py``'s tile (L_BM, L_BN, L_BK, L_STAGES) is
+    csrc/int8_gemm.cu's, whose shared memory (ring, accumulator buffer,
+    staged parameters, mbarriers) fits a block and whose wgmma width has a
+    ``Wgmma8`` instance; ``l_plan`` gives a persistent block an SM, fewer
+    where there are fewer tiles; ``tools/time_int8.int8_shapes`` is every
+    int8 product of an SD1.5 batch-4 request: 4 a level, the mid block's
+    k/v shared with level 2's."""
     import re
 
     from hcpdiff_tpu_torch.tools.time_int8 import int8_shapes
     src = open(os.path.join(ROOT, 'hcpdiff_tpu_torch', 'csrc', 'int8_gemm.cu')).read()
-    table = src.split('#define HCP_INT8_TILES(X)')[1].split('\n\n')[0]
-    tiles = {int(m): int(s) for s, m in re.findall(r'X\((\d+), (\d+)\)', table)}
-    assert tiles == tint8.INT8_TILES
-    tile = re.search(r'BM = (\d+);.*?BN = (\d+);', src, re.S).groups()
-    assert tuple(map(int, tile)) == (tint8.L_BM, tint8.L_BN)
+    wgmma = open(os.path.join(ROOT, 'hcpdiff_tpu_torch', 'csrc', 'wgmma.cuh')).read()
+
+    def const(name):
+        return int(re.search(rf'constexpr int {name} = (\d+);', src).group(1))
+    BM, BN, BK, STAGES = (const(n) for n in ('BM', 'BN', 'BK', 'STAGES'))
+    assert (BM, BN, BK, STAGES) == (tint8.L_BM, tint8.L_BN, tint8.L_BK, tint8.L_STAGES)
+    assert f'struct Wgmma8<{BN}>' in wgmma and BM == 2 * 64 and BK == 128
+    epi = const('EPI_THREADS')
+    assert 256 + epi + 32 == 512 and epi >= BN and epi % 32 == 0
+    stage = (BM + BN) * BK
+    assert stage % 1024 == 0 and BN // 2 * BK % 1024 == 0   # the swizzle's period
+    smem = STAGES * stage + BM * BN * 4 + (BM + 2 * BN) * 4 + (2 * STAGES + 2) * 8 + 1024
+    assert smem <= 232448
     shapes = int8_shapes(4)
     assert len(shapes) == 15 and (616, 768, 1280, 'none') in shapes
     assert (32768, 320, 2560, 'bias') in shapes and (512, 5120, 1280, 'bias+res') in shapes
     assert all(tint8.padded_k(K) % 32 == 0 and N % 2 == 0 for _, K, N, _ in shapes)
-    # two blocks an SM where the grid has a block for every SM
-    picks = {(M, K, N): tint8.l_blocks_per_sm(M, N) for M, K, N, _ in shapes}
-    assert picks[(32768, 320, 2560)] == picks[(512, 1280, 10240)] == 2
-    assert picks[(2048, 5120, 1280)] == picks[(512, 5120, 1280)] == picks[(616, 768, 320)] == 1
+    for M, K, N, epi_kind in shapes:
+        for geglu in ((False, True) if epi_kind == 'bias' else (False,)):
+            cols, nout = (BN // 2, N // 2) if geglu else (BN, N)
+            tiles = -(-M // BM) * -(-nout // cols)
+            assert tint8.l_tiles(M, N, geglu) == tiles
+            assert tint8.l_plan(M, N, geglu) == min(tiles, 132)
+    assert tint8.l_plan(32768, 2560) == tint8.l_plan(32768, 2560, True) == 132
+    assert tint8.l_plan(616, 320) == 10 and tint8.l_plan(512, 1280) == 32

@@ -334,6 +334,24 @@ def test_resize_actions_match_jax(size):
     np.testing.assert_allclose(got, want, atol=ATOL_RESIZE)
 
 
+def test_int8_workflow_quantizes_each_weight_once(world, tmp_path, monkeypatch):
+    """text2img.yaml under HCP_INT8=1 at 1 and at 3 steps (one UNet call a
+    step): each run quantizes its UNet's int8 weights once, at its first
+    call, so both count the same quantizations; the runner builds its
+    models outside inference mode, so their codes are kept."""
+    from hcpdiff_tpu_torch.ops import int8 as tint8
+    monkeypatch.setenv('HCP_INT8', '1')
+    counts = []
+    for steps in (1, 3):
+        q0 = tint8.weight_codes.quantizations
+        states = main(['--cfg', os.path.join(WF, 'text2img.yaml'), 'device=cpu']
+                      + _args(world, 'text2img.yaml', tmp_path / str(steps))
+                      + [f'actions.3.N_steps={steps}'])
+        assert np.isfinite(states['images']).all()
+        counts.append(tint8.weight_codes.quantizations - q0)
+    assert counts[0] > 0 and counts[1] == counts[0]
+
+
 def test_cli_loads_no_jax(world, tmp_path):
     """text2img_controlnet.yaml (its shipped program's hcpdiff_tpu import
     included) through python -m hcpdiff_tpu_torch.infer_workflow in a
