@@ -227,10 +227,16 @@ package is missing. Phases, each fatal on failure:
    loss (the trainer's moving average) and step at steps 1-6; W&B runs
    in WANDB_MODE=disabled where wandb is installed (no network), and
    where it is not, the warning line is printed once;
-4r. jpeg: lora_conventional.yaml, 3 steps, on the baseline JPEGs committed
-   under tests/data/torch_port_jpeg (4:2:0, 4:4:4, 4:2:2 with restart
-   markers; 512x512 and 640x448), decoded by utils/jpeg.py: losses finite,
-   launches as reckoned, decode seconds an image;
+4r. images: every image committed under tests/data/torch_port_jpeg and
+   tests/data/torch_port_formats (baseline and progressive JPEG, CMYK,
+   YCCK, 4:4:0 and 4:1:1; PNG of every bit depth and colour type, Adam7;
+   GIF; BMP with bitfields and RLE) decoded without Pillow
+   (utils/images.py:decode_image over csrc/image_decode.cpp, built in
+   phase 1) and held bitwise to the JAX package's Pillow outputs in
+   tests/data/torch_port_formats/expected.json (load_rgb and load_gray),
+   with each file's decode seconds; then lora_conventional.yaml, 3 steps,
+   on all of them: losses finite, a latent cached for every image,
+   launches as reckoned;
 4s. zero3: cfgs/train/examples/FT_sdxl_zero3.yaml (train.zero: 3,
    gradient_accumulation_steps: 2, every UNet weight an fp32 master under
    AdamW) through the training entry point as a user launches several
@@ -3833,8 +3839,8 @@ def sd21_kernel_phase(train_shapes):
 
 
 # phases 4p-4r: the rest of the trainer (the optimizers, the previewer,
-# the TensorBoard and W&B loggers, JPEG data) through the training entry
-# point on the 4d directory and the 4e images
+# the TensorBoard and W&B loggers, the image formats) through the training
+# entry point on the 4d directory and the 4e images
 OPT_STEPS, OPT_SHORT, OPT_CHECK_STEPS = 6, 3, 5
 OPT_NAMES = ('lion', 'adafactor', 'adamw_8bit', 'dadapt_adamw', 'prodigy')
 OPT_LR = {'lion': 1e-4, 'adafactor': 1e-3, 'adamw_8bit': 1e-3, 'dadapt_adamw': 1.0,
@@ -3845,6 +3851,8 @@ OPT_TOL = {'atol': 1e-6, 'rtol': 1e-5}
 OPT_FULL_SHAPES = ((320, 320), (1280, 320))
 PREVIEW_EVERY, PREVIEW_STEPS, LOGGER_STEPS, JPEG_STEPS = 3, 6, 6, 3
 JPEG_DIR = os.path.join('tests', 'data', 'torch_port_jpeg')
+IMAGE_DIRS = (JPEG_DIR, os.path.join('tests', 'data', 'torch_port_formats'))
+EXPECTED = os.path.join('tests', 'data', 'torch_port_formats', 'expected.json')
 
 
 def _config_run(cfg, model_dir, exp, imgs, steps, what, *extra):
@@ -4057,30 +4065,58 @@ def preview_logger_phase(device, model_dir, tmp):
     return launches, logger_launches
 
 
-def jpeg_phase(device, model_dir, tmp):
+def _digest(arr):
+    """[sha256 of the uint8 bytes, shape], as make_formats.py writes them."""
+    import hashlib
+
+    import numpy as np
+    arr = np.ascontiguousarray(arr, np.uint8)
+    return [hashlib.sha256(arr.tobytes()).hexdigest(), list(arr.shape)]
+
+
+def images_phase(device, model_dir, tmp):
     """4r. Returns the run's launches."""
-    from hcpdiff_tpu_torch.utils.jpeg import read_jpeg
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), JPEG_DIR)
-    files = sorted(f for f in os.listdir(root) if f.endswith('.jpg'))
-    decode = {}
-    for f in files:
-        t0 = time.perf_counter()
-        arr = read_jpeg(os.path.join(root, f))
-        decode[f] = (round(time.perf_counter() - t0, 4), arr.shape)
-        check(arr.dtype.name == 'uint8' and arr.ndim == 3 and float(arr.std()) > 1.0,
-              f'{f} decodes to {arr.dtype} {arr.shape}')
-    what = 'the JPEG run (lora_conventional.yaml)'
+    from hcpdiff_tpu_torch.data.utils import load_gray, load_rgb
+    from hcpdiff_tpu_torch.utils.images import decode_image
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, EXPECTED)) as f:
+        expected = json.load(f)
+    imgs = os.path.join(tmp, 'images')
+    os.makedirs(imgs)
+    captions, decode = {}, {}
+    for folder in IMAGE_DIRS:
+        with open(os.path.join(here, folder, 'captions.json')) as f:
+            captions.update(json.load(f))
+    for rel, want in sorted(expected.items()):
+        path = os.path.join(here, 'tests', 'data', rel)
+        with open(path, 'rb') as f:
+            data = f.read()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = decode_image(data, path)
+            secs.append(time.perf_counter() - t0)
+        got = {'rgb': _digest(load_rgb(path)), 'l': _digest(load_gray(path))}
+        check(got == want, f'{rel}: load_rgb/load_gray give {got}, the JAX package {want}')
+        decode[rel] = {'mode': img.mode, 'shape': list(img.pixels.shape),
+                       'seconds': [round(x, 6) for x in secs]}
+        shutil.copy(path, imgs)
+    with open(os.path.join(imgs, 'captions.json'), 'w') as f:
+        json.dump(captions, f)
+    log(f'images: {len(expected)} files decoded without Pillow, each bitwise the JAX package\'s '
+        f'composite_rgba(Image.open(f)) and convert("L") (expected.json); decode_image seconds '
+        f'(3 calls each, one CPU core): {json.dumps(decode)}')
+    what = 'the images run (lora_conventional.yaml)'
     trainer, launches, seconds, peak = _config_run(
-        'lora_conventional.yaml', model_dir, os.path.join(tmp, 'exp_jpeg'), root, JPEG_STEPS,
+        'lora_conventional.yaml', model_dir, os.path.join(tmp, 'exp_images'), imgs, JPEG_STEPS,
         what)
     ds = trainer.datasets[0]
-    check(len(ds._latent_cache) == len(files), f'{len(ds._latent_cache)} latents cached from '
-          f'{len(files)} JPEGs')
+    check(len(ds._latent_cache) == len(expected), f'{len(ds._latent_cache)} latents cached from '
+          f'{len(expected)} images')
     _check_launches(launches, _reckoned(trainer), what)
-    log(f'jpeg: decode seconds and shapes an image (utils/jpeg.py, one CPU core) {decode}; '
-        f'{what} on {len(files)} JPEGs, {JPEG_STEPS} steps, main() {seconds:.3f} s (latent cache '
-        f'{trainer.seconds["latent cache"]:.3f} s, {len(ds.encodes)} VAE calls {ds.encodes}), '
-        f'{_step_stats(trainer)}, peak {peak:.2f} GiB, losses '
+    log(f'images: {what} on {len(expected)} images, {JPEG_STEPS} steps, main() {seconds:.3f} s '
+        f'(latent cache {trainer.seconds["latent cache"]:.3f} s, {len(ds.encodes)} VAE calls '
+        f'{ds.encodes}), {_step_stats(trainer)}, peak {peak:.2f} GiB, losses '
         f'{[round(x, 5) for x in trainer.history]}; card: {gpu_name_and_power_limit()}')
     del trainer
     torch.cuda.empty_cache()
@@ -4641,6 +4677,25 @@ def _leaf_kinds(pack):
 PHASE_SECONDS = {}
 
 
+def build_all():
+    """The CUDA kernels (one nvcc a source, in parallel) and, beside them in
+    a thread, the host image decoder (g++ builds csrc/image_decode.cpp)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hcpdiff_tpu_torch.ops import _build
+    from hcpdiff_tpu_torch.utils import native
+
+    def decoder():
+        t0 = time.perf_counter()
+        native.decoder()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(decoder)
+        _build.library()
+        log(f'image decoder built and loaded in {job.result():.2f} s (g++, beside nvcc)')
+
+
 def phase(name, fn, *args, **kwargs):
     """Run one phase of main(), logging its seconds on a line of its own."""
     t0 = time.perf_counter()
@@ -4673,7 +4728,7 @@ def main() -> int:
     log(f'torch {torch.__version__} cuda {torch.version.cuda}; card: {gpu}')
 
     t0 = time.perf_counter()
-    phase('build', _build.library)
+    phase('build', build_all)
     log(f'build seconds: {time.perf_counter() - t0:.2f} ({_build.BUILD_DIR}); nvcc seconds '
         f'by source: {build_seconds(_build.BUILD_DIR / "build.log")}')
 
@@ -4717,7 +4772,7 @@ def main() -> int:
         opt_launches = phase('optimizers', optimizers_phase, device, model_dir, tmp)
         preview_launches, logger_launches = phase('preview logger', preview_logger_phase,
                                                   device, model_dir, tmp)
-        jpeg_launches = phase('jpeg', jpeg_phase, device, model_dir, tmp)
+        jpeg_launches = phase('images', images_phase, device, model_dir, tmp)
         zero3_launches = phase('zero3', zero3_phase, model_dir, tmp)
         int8_launches = phase('int8', int8_phase, device, unet, vae, te, model_dir, tmp)
     finally:

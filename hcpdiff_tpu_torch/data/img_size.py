@@ -6,7 +6,7 @@ wasteful (reference hcpdiff/utils/img_size_tool.py:32-247 exists for the
 same reason). This is an independent implementation of the standard header
 layouts: PNG, JPEG, GIF, BMP, WEBP (VP8/VP8L/VP8X), ICO, TIFF.
 A file no probe recognises raises: the port reads no other format (and
-decodes only PNG, ``utils/images.py``).
+decodes PNG, JPEG, GIF and BMP, ``utils/images.py:decode_image``).
 """
 from __future__ import annotations
 
@@ -136,5 +136,5 @@ def get_image_size(path: str) -> Tuple[int, int]:
                 return int(res[0]), int(res[1])
         except Exception:
             continue
-    raise ValueError(f'{path}: not an image whose size the port can read (it reads PNG '
-                     f'files; the header probes know {", ".join(types_support)})')
+    raise ValueError(f'{path}: not an image whose size the port can read (it reads PNG, '
+                     f'JPEG, GIF and BMP files; the header probes know {", ".join(types_support)})')

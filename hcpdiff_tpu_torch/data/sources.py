@@ -2,10 +2,11 @@
 
 A source yields (image_path, caption, per-item metadata); datasets combine
 sources with buckets. Images load as uint8 RGB arrays through
-``data/utils.py:load_rgb`` (PNG only; a JPEG or other file raises, naming
-it), transparent pixels over ``bg_color`` as the JAX package composites
-them. ``Text2ImageCondSource`` adds ControlNet's condition images from a
-folder beside the images.
+``data/utils.py:load_rgb`` (PNG, JPEG, GIF and BMP, as Pillow opens them;
+WebP other than the port's own, TIFF and ICO raise, naming the file),
+transparent pixels over ``bg_color`` as the JAX package composites them.
+``Text2ImageCondSource`` adds ControlNet's condition images from a folder
+beside the images.
 """
 from __future__ import annotations
 
@@ -182,7 +183,7 @@ class Text2ImageCondSource(Text2ImageSource):
 
     def get_cond_image(self, path: str) -> np.ndarray:
         """uint8 RGB, the alpha dropped (Pillow's ``convert('RGB')``, as the
-        JAX package reads it); PNG only."""
+        JAX package reads it)."""
         stem = os.path.splitext(os.path.basename(path))[0]
         for ext in types_support:
             p = os.path.join(self.cond_root, f'{stem}.{ext}')

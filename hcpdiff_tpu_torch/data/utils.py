@@ -1,9 +1,11 @@
 """Image crop/resize utilities (counterpart of ``hcpdiff_tpu/data/utils.py``).
 
 The JAX package works on PIL images; here an image is a uint8 HWC numpy
-array, read by ``utils/images.py`` (8-bit PNG) or ``utils/jpeg.py``
-(baseline JPEG, as Pillow decodes it; other formats raise) and resized by its copy of Pillow's bicubic filter, so crops
-equal the JAX package's bit for bit. The crop geometry (and the seeded
+array, read by ``utils/images.py:decode_image`` (PNG of every type,
+baseline and progressive JPEG, GIF and BMP, as Pillow's ``Image.open``
+gives them; WebP other than the port's own, TIFF and ICO raise, naming the
+file) and resized by its copy of Pillow's bicubic filter, so crops equal
+the JAX package's bit for bit. The crop geometry (and the seeded
 random offsets) is the JAX package's, and its crop info is returned for
 SDXL crop conditioning.
 
@@ -22,8 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..utils.images import PNG_SIGNATURE, UnsupportedPNG, decode_png, resize_bicubic, to_model_input
-from ..utils.jpeg import UnsupportedJPEG, decode_jpeg, is_jpeg
+from ..utils.images import read_decoded, resize_bicubic, to_l, to_model_input, to_rgb, to_rgba
 
 __all__ = ['crop_geometry', 'resize_crop_fix', 'resize_crop_fix_native', 'native_route',
            'pad_crop_fix', 'to_model_input', 'composite_rgba', 'load_rgb', 'load_gray']
@@ -111,46 +112,19 @@ def composite_rgba(arr: np.ndarray, bg_color: Sequence[int] = (255, 255, 255)) -
     return out.astype(np.uint8)
 
 
-def _read(path: str) -> np.ndarray:
-    """An 8-bit L/RGB/RGBA PNG or a baseline JPEG (L or RGB)."""
-    with open(path, 'rb') as f:
-        data = f.read()
-    if is_jpeg(data):
-        try:
-            return decode_jpeg(data, path)
-        except UnsupportedJPEG:
-            raise
-        except ValueError as e:
-            raise ValueError(f'{e}; the PyTorch port reads PNG and baseline JPEG images') from e
-    if not data.startswith(PNG_SIGNATURE):
-        raise ValueError(f'{path}: the PyTorch port reads PNG and baseline JPEG images only '
-                         '(other formats are not decoded; ROADMAP.md queue 1 item 6: JPEG '
-                         'types); '
-                         'convert the file to PNG')
-    try:
-        return decode_png(data, path)
-    except UnsupportedPNG as e:
-        raise ValueError(f'{path}: the PyTorch port reads 8-bit L/RGB/RGBA PNG images only '
-                         f'({e}); convert the file to such a PNG') from e
-
-
 def load_rgb(path: str, bg_color: Optional[Sequence[int]] = (255, 255, 255)) -> np.ndarray:
-    """A PNG or JPEG as uint8 RGB, transparent pixels over ``bg_color`` (the JAX
-    package's ``composite_rgba(Image.open(path), bg_color)``); with
-    ``bg_color`` None the alpha is dropped, as Pillow's ``convert('RGB')``
-    drops it."""
-    arr = _read(path)
-    if bg_color is None:
-        return np.repeat(arr[:, :, None], 3, axis=2) if arr.ndim == 2 else arr[:, :, :3]
-    return composite_rgba(arr, bg_color)
+    """An image as uint8 RGB: the JAX package's ``composite_rgba(Image.open(path),
+    bg_color)``, which composites over ``bg_color`` the modes RGBA, LA and P
+    only (so an RGB PNG with ``tRNS`` keeps its pixels, and a palette PNG or
+    a GIF is composited) and converts the rest; with ``bg_color`` None,
+    Pillow's ``convert('RGB')``, which drops the alpha."""
+    img = read_decoded(path)
+    if bg_color is not None and img.mode in ('RGBA', 'LA', 'P'):
+        return composite_rgba(to_rgba(img), bg_color)
+    return to_rgb(img)
 
 
 def load_gray(path: str) -> np.ndarray:
-    """A PNG or JPEG as uint8 L, as Pillow's ``convert('L')`` gives it
-    (alpha dropped)."""
-    arr = _read(path)
-    if arr.ndim == 2:
-        return arr
-    rgb = arr[:, :, :3].astype(np.uint32)
-    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
-            >> 16).astype(np.uint8)
+    """An image as uint8 L, as Pillow's ``convert('L')`` gives it (alpha
+    dropped)."""
+    return to_l(read_decoded(path))

@@ -1,13 +1,30 @@
-"""Image I/O without Pillow (the port depends on no imaging package): an
-8-bit PNG writer and reader over zlib and ``struct``, a copy of Pillow's
-bicubic resampling for 8-bit images, and ``to_model_input`` (counterpart of
-``hcpdiff_tpu/data/utils.py:to_model_input``).
+"""Image I/O without Pillow (the port depends on no imaging package): a
+reader of the formats the JAX package opens through Pillow, a PNG and WebP
+writer, a copy of Pillow's bicubic resampling for 8-bit images, and
+``to_model_input`` (counterpart of ``hcpdiff_tpu/data/utils.py:to_model_input``).
 
-- ``write_png``/``encode_png`` (to a file, to bytes): 8-bit L, RGB or
-  RGBA, filter 0 on every row;
-- ``read_png``/``decode_png`` (from a file, from bytes): 8-bit L, RGB or
-  RGBA, not interlaced, filters 0-4 (what Pillow and other writers choose
-  row by row);
+- ``decode_image``/``read_image``: one dispatcher for every reader of the
+  port (``data/utils.py:load_rgb``/``load_gray``, ``load_image``/
+  ``load_mask``, ``data/processor.py``). It sniffs the format and returns
+  a ``Decoded``: the pixels as ``np.asarray(Image.open(f))`` gives them,
+  Pillow's mode, and a 'P' image's palette with its transparency.
+  ``to_rgb``, ``to_rgba`` and ``to_l`` are Pillow's ``convert`` to
+  'RGB', 'RGBA' and 'L' from each mode. It reads:
+
+  - PNG (``decode_png``): bit depths 1/2/4/8/16, grey, RGB, palette (with
+    ``tRNS``), grey + alpha and RGBA, Adam7 interlacing, in Pillow's
+    modes ('1', 'L' with 2/4-bit grey scaled up, 'I;16', 'RGB', 'P', 'LA',
+    'RGBA', 16-bit grey + alpha as 'RGBA'); the row filters are undone in
+    C++;
+  - JPEG: baseline, extended and progressive, 1/3/4 components, any
+    sampling, as Pillow decodes it (``utils/jpeg.py``, C++);
+  - GIF (first frame) and BMP (``utils/gif_bmp.py``, LZW and RLE in C++);
+  - WebP: the literal-only VP8L still image ``write_webp`` writes.
+
+  WebP of other kinds, TIFF and ICO raise a ``ValueError`` naming the
+  file, the format and ROADMAP.md queue 1 item 6.
+- ``write_png``/``encode_png``: 8-bit L, RGB or RGBA, filter 0 on every
+  row;
 - ``resize_bicubic``: ``PIL.Image.resize(size, Image.BICUBIC)`` on an
   8-bit L or RGB array, bit for bit: Pillow's separable filter (Keys
   cubic, a = -0.5, its support widened by the scale when shrinking), its
@@ -19,26 +36,33 @@ bicubic resampling for 8-bit images, and ``to_model_input`` (counterpart of
   writes (the RIFF chunks, and each frame's pixels); ``write_webp``/
   ``encode_webp`` and ``read_webp``: one such frame as a still image (the
   simple format: RIFF, WEBP, one VP8L chunk);
-- ``decode_jpeg``/``read_jpeg``: baseline JPEG, as Pillow decodes it
-  (``utils/jpeg.py``);
 - ``load_image``/``load_mask``: what the Visualizer reads for img2img and
-  inpaint. An 8-bit L/RGB/RGBA PNG or a baseline JPEG needs no Pillow;
-  another PNG or format is decoded by Pillow, imported there, and raises
-  an error naming Pillow where it is missing.
+  inpaint.
 """
 from __future__ import annotations
 
 import struct
 import zlib
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from .jpeg import UnsupportedJPEG, decode_jpeg, is_jpeg, read_jpeg  # noqa: F401
+from . import native
+from .gif_bmp import decode_bmp, decode_gif, palette_rgba
+from .jpeg import (ROADMAP, UnsupportedJPEG, decode_jpeg, decode_jpeg_mode, is_jpeg,  # noqa: F401
+                   read_jpeg)
 
 PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _COLOR_TYPES = {1: 0, 3: 2, 4: 6}          # channels -> PNG colour type
-_CHANNELS = {v: k for k, v in _COLOR_TYPES.items()}
+
+
+class Decoded(NamedTuple):
+    """An image as Pillow's ``Image.open`` gives it: ``pixels`` as
+    ``np.asarray`` of it, Pillow's ``mode``, and for mode 'P' the
+    ``palette`` as uint8 [256, 4] RGBA (the transparency in its alpha)."""
+    pixels: np.ndarray
+    mode: str
+    palette: Optional[np.ndarray] = None
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -69,61 +93,49 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(encode_png(image))
 
 
-def _unfilter_row(kind: int, row: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
-    if kind == 0:
-        return row
-    if kind == 2:
-        return row + prev                  # uint8 arithmetic wraps mod 256
-    if kind == 1:
-        out = row.astype(np.int64).reshape(-1, bpp).cumsum(axis=0)
-        return (out & 0xFF).astype(np.uint8).reshape(-1)
-    out = bytearray(row.tobytes())
-    up = prev.tobytes()
-    n = len(out)
-    if kind == 3:
-        for i in range(n):
-            left = out[i - bpp] if i >= bpp else 0
-            out[i] = (out[i] + ((left + up[i]) >> 1)) & 0xFF
-    elif kind == 4:
-        for i in range(n):
-            a = out[i - bpp] if i >= bpp else 0
-            b = up[i]
-            c = up[i - bpp] if i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-            out[i] = (out[i] + pred) & 0xFF
-    else:
-        raise ValueError(f'PNG filter type {kind} does not exist')
-    return np.frombuffer(bytes(out), np.uint8)
+# PngImagePlugin._MODES: (bit depth, colour type) -> Pillow's mode
+_PNG_MODES = {(1, 0): '1', (2, 0): 'L', (4, 0): 'L', (8, 0): 'L', (16, 0): 'I;16',
+              (8, 2): 'RGB', (16, 2): 'RGB', (1, 3): 'P', (2, 3): 'P', (4, 3): 'P', (8, 3): 'P',
+              (8, 4): 'LA', (16, 4): 'RGBA', (8, 6): 'RGBA', (16, 6): 'RGBA'}
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
-class UnsupportedPNG(ValueError):
-    """A valid PNG that ``read_png`` does not decode (its bit depth, colour
-    type or interlacing)."""
+def _png_samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, rowbytes] -> samples [h, width, channels]
+    (uint16 at depth 16)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    if depth == 16:
+        return rows[:, :2 * width * channels].copy().view('>u2').astype(np.uint16).reshape(
+            h, width, channels)
+    per = 8 // depth
+    vals = np.stack([(rows >> (8 - depth * (k + 1))) & ((1 << depth) - 1) for k in range(per)],
+                    axis=-1).reshape(h, -1)
+    return vals[:, :width, None]
 
 
-def read_png(path: str) -> np.ndarray:
-    """A PNG file as uint8 [H, W] (L) or [H, W, 3/4] (RGB/RGBA)."""
-    with open(path, 'rb') as f:
-        return decode_png(f.read(), path)
-
-
-def decode_png(data: bytes, path: str = 'PNG data') -> np.ndarray:
-    """The bytes of a PNG file as ``read_png`` returns it; ``path`` names
-    the data in errors."""
+def png_image(data: bytes, path: str = 'PNG data') -> Decoded:
+    """Any PNG Pillow opens, as it opens it."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f'{path} is not a PNG file')
-    pos, idat, header = len(PNG_SIGNATURE), [], None
-    while pos < len(data):
+    pos, idat, header, plte, trns = len(PNG_SIGNATURE), [], None, None, None
+    while pos + 8 <= len(data):
         (n,) = struct.unpack('>I', data[pos:pos + 4])
         kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack('>I', data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack('>I', crc)[0]:
             raise ValueError(f'{path}: bad CRC in a {kind!r} chunk')
         pos += 12 + n
         if kind == b'IHDR':
             header = struct.unpack('>IIBBBBB', body)
+        elif kind == b'PLTE':
+            plte = body
+        elif kind == b'tRNS':
+            trns = body
         elif kind == b'IDAT':
             idat.append(body)
         elif kind == b'IEND':
@@ -131,19 +143,164 @@ def decode_png(data: bytes, path: str = 'PNG data') -> np.ndarray:
     if header is None:
         raise ValueError(f'{path}: no IHDR chunk')
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
-        raise UnsupportedPNG(f'{path}: only 8-bit, non-interlaced L/RGB/RGBA PNGs are read '
-                             f'(bit depth {depth}, colour type {color}, interlace {interlace})')
-    c = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-    if raw.size != h * (w * c + 1):
-        raise ValueError(f'{path}: {raw.size} bytes of pixel data for a {w}x{h}x{c} image')
-    raw = raw.reshape(h, w * c + 1)
-    out = np.empty((h, w * c), np.uint8)
-    prev = np.zeros(w * c, np.uint8)
-    for y in range(h):
-        prev = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prev, c)
-    return out.reshape(h, w) if c == 1 else out.reshape(h, w, c)
+    mode = _PNG_MODES.get((depth, color))
+    if mode is None:
+        raise ValueError(f'{path}: PNG bit depth {depth} with colour type {color} is not '
+                         'a PNG Pillow reads')
+    if mode == 'P' and plte is None:
+        raise ValueError(f'{path}: a palette PNG without a PLTE chunk')
+    ch = _PNG_CHANNELS[color]
+    try:
+        raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f'{path}: corrupt PNG pixel data ({e})') from e
+    samples = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        rowbytes = (pw * ch * depth + 7) // 8
+        try:
+            rows = native.png_unfilter(raw[off:off + ph * (rowbytes + 1)], ph, rowbytes,
+                                       ch * depth // 8)
+        except ValueError as e:
+            raise ValueError(f'{path}: {e}') from e
+        off += ph * (rowbytes + 1)
+        samples[y0::dy, x0::dx] = _png_samples(rows, pw, ch, depth)
+    palette = None
+    if mode == '1':
+        pixels = samples[:, :, 0] != 0
+    elif mode == 'P':
+        pixels = samples[:, :, 0]
+        palette = palette_rgba(plte)
+        if trns is not None:
+            palette[:min(len(trns), 256), 3] = np.frombuffer(trns[:256], np.uint8)
+    elif mode == 'I;16':
+        pixels = samples[:, :, 0]
+    elif depth == 16:                  # Pillow keeps the high byte ('RGB;16B', 'LA;16B', ...)
+        hi = (samples >> 8).astype(np.uint8)
+        pixels = np.concatenate([np.repeat(hi[:, :, :1], 3, axis=2), hi[:, :, 1:]], axis=2) \
+            if ch == 2 else hi
+    elif ch == 1:
+        pixels = samples[:, :, 0] * np.uint8(255 // ((1 << depth) - 1))   # 'L;2', 'L;4'
+    else:
+        pixels = samples
+    return Decoded(np.ascontiguousarray(pixels), mode, palette)
+
+
+def decode_png(data: bytes, path: str = 'PNG data') -> np.ndarray:
+    """The pixels of any PNG Pillow opens, as ``np.asarray(Image.open(f))``
+    gives them (``png_image`` also gives the mode and palette); ``path``
+    names the data in errors."""
+    return png_image(data, path).pixels
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG file's pixels, as ``decode_png`` gives them."""
+    with open(path, 'rb') as f:
+        return decode_png(f.read(), path)
+
+
+def _refused(path: str, what: str) -> ValueError:
+    return ValueError(f'{path}: {what} images are not decoded by the PyTorch port ({ROADMAP}); '
+                      'convert it to a PNG or a JPEG')
+
+
+def decode_image(data: bytes, path: str = 'image data') -> Decoded:
+    """An image file's bytes, of any format the port reads, as Pillow's
+    ``Image.open`` gives it; ``path`` names the data in errors."""
+    if is_jpeg(data):
+        return Decoded(*decode_jpeg_mode(data, path))
+    readers = {PNG_SIGNATURE: png_image, b'GIF87a': lambda d, p: Decoded(*decode_gif(d, p)),
+               b'GIF89a': lambda d, p: Decoded(*decode_gif(d, p)),
+               b'BM': lambda d, p: Decoded(*decode_bmp(d, p))}
+    for magic, reader in readers.items():
+        if data.startswith(magic):
+            try:
+                return reader(data, path)
+            except (IndexError, struct.error) as e:
+                raise ValueError(f'{path}: corrupt or cut image data ({e})') from e
+    if data[:4] == b'RIFF' and data[8:12] == b'WEBP':
+        try:
+            return Decoded(decode_webp(data, path), 'RGB')
+        except ValueError:
+            kind = {b'VP8 ': 'lossy (VP8) WebP', b'VP8L': 'lossless (VP8L) WebP',
+                    b'VP8X': 'extended (VP8X) WebP'}.get(data[12:16], 'WebP')
+            raise _refused(path, kind) from None
+    if data[:4] in (b'II*\0', b'MM\0*'):
+        raise _refused(path, 'TIFF')
+    if data[:4] == b'\0\0\1\0':
+        raise _refused(path, 'ICO')
+    raise ValueError(f'{path}: not an image format the PyTorch port reads (PNG, JPEG, GIF, '
+                     'BMP)')
+
+
+def read_decoded(path: str) -> Decoded:
+    with open(path, 'rb') as f:
+        return decode_image(f.read(), path)
+
+
+def _luma(arr: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert('L')`` of RGB(A): (R*19595 + G*38470 + B*7471 +
+    0x8000) >> 16 (the alpha dropped); L comes back as it is."""
+    if arr.ndim == 2:
+        return arr
+    rgb = arr[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def _cmyk_rgb(px: np.ndarray) -> np.ndarray:
+    """Pillow's ``cmyk2rgb``: each channel nk - nk * c / 255 (rounded as
+    MULDIV255), nk = 255 - K."""
+    nk = 255 - px[..., 3:4].astype(np.int32)
+    t = px[..., :3].astype(np.int32) * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _grey(img: Decoded) -> np.ndarray:
+    """The grey channel of a '1', 'L', 'LA' or 'I;16' image as 8 bits."""
+    px = img.pixels
+    if img.mode == '1':
+        return np.where(px, 255, 0).astype(np.uint8)
+    if img.mode == 'I;16':                     # I16_RGB / I16_L: saturated at 255
+        return np.minimum(px, 255).astype(np.uint8)
+    return px[..., 0] if img.mode == 'LA' else px
+
+
+def to_rgb(img: Decoded) -> np.ndarray:
+    """Pillow's ``convert('RGB')``: uint8 [H, W, 3]."""
+    if img.mode == 'P':
+        return img.palette[img.pixels, :3]
+    if img.mode == 'CMYK':
+        return _cmyk_rgb(img.pixels)
+    if img.mode in ('RGB', 'RGBA'):
+        return img.pixels[..., :3]
+    return np.repeat(_grey(img)[:, :, None], 3, axis=2)
+
+
+def to_rgba(img: Decoded) -> np.ndarray:
+    """Pillow's ``convert('RGBA')`` of an 'RGBA', 'LA' or 'P' image (the
+    modes the JAX package composites over a background)."""
+    if img.mode == 'P':
+        return img.palette[img.pixels]
+    if img.mode == 'LA':
+        return img.pixels[..., [0, 0, 0, 1]]
+    if img.mode == 'RGBA':
+        return img.pixels
+    raise ValueError(f'to_rgba takes RGBA, LA and P images, not {img.mode}')
+
+
+def to_l(img: Decoded) -> np.ndarray:
+    """Pillow's ``convert('L')``: uint8 [H, W]."""
+    if img.mode == 'P':
+        return _luma(img.palette[None])[0][img.pixels]
+    if img.mode == 'CMYK':                     # through RGB, as Pillow converts it
+        return _luma(_cmyk_rgb(img.pixels))
+    if img.mode in ('RGB', 'RGBA'):
+        return _luma(img.pixels)
+    return _grey(img)
 
 
 # ------------------------------------------------------- Pillow's bicubic
@@ -296,11 +453,9 @@ def read_webp_anim(path: str) -> dict:
     return out
 
 
-def read_webp(path: str) -> np.ndarray:
+def decode_webp(data: bytes, path: str = 'WebP data') -> np.ndarray:
     """The pixels (uint8 [H, W, 3]) of a still WebP ``write_webp`` wrote;
-    raises on a file of another layout."""
-    with open(path, 'rb') as f:
-        data = f.read()
+    raises a ValueError on a file of another layout."""
     if data[:4] != b'RIFF' or data[8:12] != b'WEBP':
         raise ValueError(f'{path}: not a RIFF WEBP file')
     chunks = _riff_chunks(data[12:], path)
@@ -309,6 +464,12 @@ def read_webp(path: str) -> np.ndarray:
     head = int.from_bytes(chunks[0][1][1:5], 'little')
     w, h = (head & 0x3FFF) + 1, ((head >> 14) & 0x3FFF) + 1
     return _decode_vp8l_literals(chunks[0][1], w, h)
+
+
+def read_webp(path: str) -> np.ndarray:
+    """``decode_webp`` of a file."""
+    with open(path, 'rb') as f:
+        return decode_webp(f.read(), path)
 
 
 _PRECISION_BITS = 32 - 8 - 2
@@ -389,45 +550,14 @@ def _rgb(arr: np.ndarray) -> np.ndarray:
     return arr[:, :, :3]
 
 
-def _luma(arr: np.ndarray) -> np.ndarray:
-    """Pillow's ``convert('L')``: L = (R*19595 + G*38470 + B*7471 + 0x8000) >> 16."""
-    if arr.ndim == 2:
-        return arr
-    rgb = arr[:, :, :3].astype(np.uint32)
-    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
-            >> 16).astype(np.uint8)
-
-
 def read_image(path: str, mode: str) -> np.ndarray:
-    """uint8 [H, W, 3] (``mode`` 'RGB') or [H, W] ('L'), as Pillow's
-    ``convert(mode)`` gives them: 8-bit L/RGB/RGBA PNGs by ``read_png``,
-    baseline JPEGs by ``read_jpeg``, other PNGs (palette, grey + alpha,
-    16-bit, interlaced) and other formats by Pillow."""
-    with open(path, 'rb') as f:
-        head = f.read(len(PNG_SIGNATURE))
-    is_png = head == PNG_SIGNATURE
-    if is_jpeg(head):
-        try:
-            arr = read_jpeg(path)
-        except UnsupportedJPEG:
-            pass
-        else:
-            return _rgb(arr) if mode == 'RGB' else _luma(arr)
-    if is_png:
-        try:
-            arr = read_png(path)
-        except UnsupportedPNG:
-            pass
-        else:
-            return _rgb(arr) if mode == 'RGB' else _luma(arr)
-    try:
-        from PIL import Image
-    except ImportError as e:
-        what = 'a PNG read_png does not take' if is_png else 'not a PNG'
-        raise ImportError(f'{path} is {what}: reading it needs Pillow, which is not '
-                          'installed') from e
-    with Image.open(path) as im:
-        return np.asarray(im.convert(mode))
+    """uint8 [H, W, 3] (``mode`` 'RGB') or [H, W] ('L'): any image the port
+    reads (``decode_image``), as Pillow's ``Image.open(path).convert(mode)``
+    gives it."""
+    if mode not in ('RGB', 'L'):
+        raise ValueError(f'read_image reads RGB or L, not {mode}')
+    img = read_decoded(path)
+    return to_rgb(img) if mode == 'RGB' else to_l(img)
 
 
 def load_image(path: str, width: int, height: int) -> np.ndarray:

@@ -125,23 +125,30 @@ def test_rgba_composite_matches_jax(tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(tmp_path):
-    """A baseline JPEG loads as Pillow decodes it; a progressive JPEG and a
-    BMP raise, naming the file."""
+    """A progressive JPEG and a BMP, which the port refused before it had
+    their decoders, load as the JAX package loads them; a TIFF and a file
+    that is no image raise, naming the file."""
     path = str(tmp_path / 'photo.jpg')
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path, progressive=True)
+    rng = np.random.default_rng(3)
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(path, progressive=True)
     assert get_image_size(path) == (8, 8)
-    with pytest.raises(ValueError, match='photo.jpg.*PNG'):
-        tutils.load_rgb(path)
+    np.testing.assert_array_equal(tutils.load_rgb(path),
+                                  np.asarray(jutils.composite_rgba(Image.open(path))))
     Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(path)
     np.testing.assert_array_equal(tutils.load_rgb(path), np.asarray(Image.open(path)))
     bmp = str(tmp_path / 'photo.bmp')
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(bmp)
-    with pytest.raises(ValueError, match='photo.bmp.*PNG'):
-        tutils.load_rgb(bmp)
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(bmp)
+    np.testing.assert_array_equal(tutils.load_rgb(bmp), np.asarray(Image.open(bmp)))
+    tif = str(tmp_path / 'photo.tif')
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tif)
+    with pytest.raises(ValueError, match='photo.tif: TIFF'):
+        tutils.load_rgb(tif)
     junk = tmp_path / 'junk.png'
     junk.write_bytes(b'not an image')
     with pytest.raises(ValueError, match='junk.png'):
         get_image_size(str(junk))
+    with pytest.raises(ValueError, match='junk.png'):
+        tutils.load_rgb(str(junk))
 
 
 # --------------------------------------------------------------- batches

@@ -1,5 +1,6 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package: an AST
-walk over every module of hcpdiff_tpu_torch (and chip_smoke.py, which
+"""The PyTorch port imports no JAX, nothing of the JAX package and no
+Pillow (the card's machine has none; the port decodes images itself): an
+AST walk over every module of hcpdiff_tpu_torch (and chip_smoke.py, which
 drives it on the card). Not even a module of hcpdiff_tpu that imports no
 JAX: the port keeps its own copy of what it needs (the CLIP tokenizer is
 hcpdiff_tpu_torch/utils/clip_tokenizer.py)."""
@@ -27,7 +28,7 @@ def _violations(source: str):
     bad = []
     for name in _absolute_imports(ast.parse(source)):
         top = name.split('.')[0]
-        if top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):
+        if top in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'PIL'):
             bad.append(name)
         elif top == 'hcpdiff_tpu' and not any(name == m or name.startswith(m + '.')
                                               for m in ALLOWED_FROM_JAX_PACKAGE):
@@ -48,3 +49,4 @@ def test_checker_catches_jax_imports():
         'hcpdiff_tpu.utils.clip_tokenizer']
     assert _violations('def f():\n    import jax\n') == ['jax']
     assert _violations('from .ops import attention') == []
+    assert _violations('def f():\n    from PIL import Image\n') == ['PIL.Image']

@@ -2,8 +2,9 @@
 (libjpeg-turbo with its defaults), on files Pillow writes from seeded
 arrays: bitwise, for quality 50/90/100, 4:4:4/4:2:2/4:2:0, greyscale,
 restart intervals, optimized Huffman tables, comment and EXIF segments
-and odd sizes. Progressive files raise naming the file and the ROADMAP
-item. Every port reader takes JPEG through it (``data/utils.py``'s
+and odd sizes. Progressive files decode as Pillow decodes them; an
+arithmetic-coded file raises naming the file and the ROADMAP item. Every
+port reader takes JPEG through it (``data/utils.py``'s
 ``load_rgb``/``load_gray``, ``utils/images.py:read_image``), the files
 committed under tests/data/torch_port_jpeg decode as Pillow decodes them, and
 ``lora_conventional.yaml`` trains 2 steps on a folder of JPEGs."""
@@ -77,11 +78,21 @@ def test_restarts_tables_and_segments_are_bitwise_pillow(kw):
 
 
 def test_progressive_jpeg_raises_naming_the_file(tmp_path):
+    """A progressive JPEG, which the Python decoder refused, now decodes as
+    Pillow decodes it through every reader; an arithmetic-coded one (its
+    SOF byte patched to 0xC9) still raises, naming the file and the item."""
     path = tmp_path / 'prog.jpg'
-    path.write_bytes(_jpeg(_photo(32, 32, 3, seed=1), progressive=True))
-    with pytest.raises(UnsupportedJPEG, match='prog.jpg: progressive.*ROADMAP.md queue 1 item 6'):
+    data = _jpeg(_photo(32, 32, 3, seed=1), progressive=True)
+    path.write_bytes(data)
+    np.testing.assert_array_equal(read_jpeg(str(path)), _pillow(data))
+    np.testing.assert_array_equal(load_rgb(str(path)), _pillow(data))
+    arith = bytearray(data)
+    arith[arith.index(b'\xff\xc2') + 1] = 0xC9
+    path.write_bytes(bytes(arith))
+    with pytest.raises(UnsupportedJPEG, match='prog.jpg: arithmetic-coded.*ROADMAP.md queue 1 '
+                                              'item 6'):
         read_jpeg(str(path))
-    with pytest.raises(ValueError, match='prog.jpg: progressive'):
+    with pytest.raises(ValueError, match='prog.jpg: arithmetic-coded'):
         load_rgb(str(path))
 
 

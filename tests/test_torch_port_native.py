@@ -121,3 +121,20 @@ def test_failed_build_raises_naming_the_log(tmp_path):
     with pytest.raises(RuntimeError, match='image_ops_build.log'):
         native.build(broken)
     assert 'rc ' in native.BUILD_LOG.read_text()
+
+
+def test_decoder_builds_beside_image_ops(tmp_path):
+    """One build helper for both libraries: the decoder's library sits
+    beside image_ops' in _build/ under its own name, both load, and a
+    decoder that does not build raises naming the library and its log."""
+    ops, dec = native.build(), native.build(native.DECODE_SOURCE, 'image_decode')
+    assert ops.parent == dec.parent == native.BUILD_DIR
+    assert ops.name.startswith('libhcp_image_ops_') and dec.name.startswith('libhcp_image_decode_')
+    assert native.library().hcp_image_ops_version() == native.VERSION
+    assert native.decoder().hcp_image_decode_version() == native.DECODE_VERSION
+    broken = tmp_path / 'image_decode.cpp'
+    broken.write_text('this is not C++ either\n')
+    with pytest.raises(RuntimeError, match=r'image_decode \(image_decode.cpp\).*'
+                                           r'image_decode_build.log'):
+        native.build(broken, 'image_decode')
+    assert 'rc ' in (native.BUILD_DIR / 'image_decode_build.log').read_text()

@@ -715,9 +715,9 @@ def test_png_against_pillow(tmp_path, shape):
 
 @pytest.mark.parametrize('mode', ['P', 'LA', 'I;16'])
 def test_other_pngs_read_through_pillow(tmp_path, mode):
-    """Palette, grey + alpha and 16-bit PNGs, which read_png
-    refuses, give load_image and load_mask what the JAX Visualizer's
-    Pillow calls give."""
+    """Palette, grey + alpha and 16-bit PNGs, which read_png refused before
+    the port decoded them itself: read_png gives Image.open's pixels, and
+    load_image and load_mask what the JAX Visualizer's Pillow calls give."""
     rng = np.random.default_rng(len(mode))
     rgb = rng.integers(0, 256, (24, 20, 3), dtype=np.uint8)
     path = str(tmp_path / 'img.png')
@@ -727,8 +727,9 @@ def test_other_pngs_read_through_pillow(tmp_path, mode):
         Image.fromarray(rgb).convert('LA').save(path)
     else:
         Image.fromarray(rng.integers(0, 65536, (24, 20), dtype=np.uint16)).save(path)
-    with pytest.raises(images.UnsupportedPNG):
-        images.read_png(path)
+    with Image.open(path) as im:
+        assert im.mode == mode
+        np.testing.assert_array_equal(images.read_png(path), np.asarray(im))
     init = Image.open(path).convert('RGB').resize((16, 32), Image.BICUBIC)
     np.testing.assert_array_equal(images.load_image(path, 16, 32)[0],
                                   np.asarray(init, np.float32) / 127.5 - 1.0)
