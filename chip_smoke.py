@@ -159,7 +159,7 @@ package is missing. Phases, each fatal on failure:
    exact request's, images not the unmasked ones);
 4j. samplers: text2img.yaml through main() on the 4d directory under each of
    pndm, unipc, lms, deis, heun, dpm2, dpm2_a, dpm++_2s_a and dpm++_sde
-   (512 px, batch 2, 20 steps; the two-stage ones 39 UNet evaluations):
+   (512 px, batch 2, 10 steps; the two-stage ones 19 UNet evaluations):
    launches as an SD1.5 request of the plan's evaluations, images finite,
    a second request at the seed bitwise equal (the stochastic ones too),
    seconds a request (main() and alone);
@@ -227,16 +227,21 @@ package is missing. Phases, each fatal on failure:
    loss (the trainer's moving average) and step at steps 1-6; W&B runs
    in WANDB_MODE=disabled where wandb is installed (no network), and
    where it is not, the warning line is printed once;
-4r. images: every image committed under tests/data/torch_port_jpeg and
-   tests/data/torch_port_formats (baseline and progressive JPEG, CMYK,
-   YCCK, 4:4:0 and 4:1:1; PNG of every bit depth and colour type, Adam7;
-   GIF; BMP with bitfields and RLE) decoded without Pillow
-   (utils/images.py:decode_image over csrc/image_decode.cpp, built in
-   phase 1) and held bitwise to the JAX package's Pillow outputs in
-   tests/data/torch_port_formats/expected.json (load_rgb and load_gray),
-   with each file's decode seconds; then lora_conventional.yaml, 3 steps,
-   on all of them: losses finite, a latent cached for every image,
-   launches as reckoned;
+4r. images: every image committed under tests/data/torch_port_jpeg,
+   tests/data/torch_port_formats and tests/data/torch_port_webp_tiff_ico
+   (baseline and progressive JPEG, CMYK, YCCK, 4:4:0 and 4:1:1; PNG of
+   every bit depth and colour type, Adam7; GIF; BMP with bitfields and
+   RLE; lossy, lossless, alpha and animated WebP; TIFF of each
+   compression and layout; ICO) decoded without Pillow
+   (utils/images.py:decode_image over csrc/image_decode.cpp and
+   csrc/webp_decode.cpp, built in phase 1) and held bitwise to the JAX
+   package's Pillow outputs in tests/data/torch_port_formats/expected.json
+   (load_rgb and load_gray), with each file's decode seconds; every
+   method of the workflow's resize (jax.image.resize's) on the card
+   against the same function on the CPU (the highres latent doubling and
+   an image batch's downscale, fp32, atol RESIZE_TOL); then
+   lora_conventional.yaml, 3 steps, on all of them: losses finite, a
+   latent cached for every image, launches as reckoned;
 4s. zero3: cfgs/train/examples/FT_sdxl_zero3.yaml (train.zero: 3,
    gradient_accumulation_steps: 2, every UNet weight an fp32 master under
    AdamW) through the training entry point as a user launches several
@@ -3223,6 +3228,9 @@ SAMPLER_NAMES = ('pndm', 'unipc', 'lms', 'deis', 'heun', 'dpm2', 'dpm2_a', 'dpm+
                  'dpm++_sde')
 STOCHASTIC = ('dpm2_a', 'dpm++_2s_a', 'dpm++_sde')
 SAMPLER_BATCH = 2
+# half the configs' 20 steps: the phase's depth, cut to keep the script
+# within its time limit on the slower hosts
+SAMPLER_STEPS = 10
 # a ControlNet call at 512 px, by the UNet's down and mid configs: the
 # self-attentions of levels 0 and 1 (S = 4096 and 1024: A), 7 transformer
 # blocks (B, C), 20 resblock and 7 transformer GroupNorms (D); the zero
@@ -3256,16 +3264,17 @@ def eval_plan(name, steps):
 
 def samplers_phase(model_dir, tmp):
     """text2img.yaml through main() under each of the nine samplers (512 px,
-    batch 2, 20 steps): launches as an SD1.5 request of the plan's
+    batch 2, SAMPLER_STEPS steps): launches as an SD1.5 request of the plan's
     evaluations, images finite, and a second request at the seed
     (vis_images, timed alone) bitwise equal. Returns the phase's launches."""
     total, report = dict.fromkeys(TXT2IMG_KERNELS, 0), {}
     for name in SAMPLER_NAMES:
-        evals = eval_plan(name, STEPS)
+        evals = eval_plan(name, SAMPLER_STEPS)
         zero_counters()
         viser, images, seconds = _cli(model_dir, os.path.join(tmp, f'sampler_{name}'),
                                       'text2img.yaml', f'bs={SAMPLER_BATCH}',
-                                      f'infer_args.sampler={name}')
+                                      f'infer_args.sampler={name}',
+                                      f'infer_args.inference_steps={SAMPLER_STEPS}')
         launches = read_counters(f'the {name} request', TXT2IMG_KERNELS, absent=FUSED_ONLY)
         _check_launches(launches, sd15_launches(evals), f'the {name} request ({evals} evals)')
         check(images.shape == (SAMPLER_BATCH, SIZE, SIZE, 3), f'{name} images {images.shape}')
@@ -3279,7 +3288,8 @@ def samplers_phase(model_dir, tmp):
         report[name] = {'evals': evals, 'main_s': round(seconds, 4), 'alone_s': round(alone, 4),
                         'stochastic': name in STOCHASTIC}
         del viser
-    log(f'samplers (512 px, batch {SAMPLER_BATCH}, {STEPS} steps, text2img.yaml through main(); '
+    log(f'samplers (512 px, batch {SAMPLER_BATCH}, {SAMPLER_STEPS} steps, text2img.yaml through '
+        f'main(); '
         f'alone: vis_images on the loaded Visualizer; two requests at one seed bitwise equal, '
         f'stochastic ones {list(STOCHASTIC)} included): {json.dumps(report)}; '
         f'card: {gpu_name_and_power_limit()}')
@@ -3851,7 +3861,9 @@ OPT_TOL = {'atol': 1e-6, 'rtol': 1e-5}
 OPT_FULL_SHAPES = ((320, 320), (1280, 320))
 PREVIEW_EVERY, PREVIEW_STEPS, LOGGER_STEPS, JPEG_STEPS = 3, 6, 6, 3
 JPEG_DIR = os.path.join('tests', 'data', 'torch_port_jpeg')
-IMAGE_DIRS = (JPEG_DIR, os.path.join('tests', 'data', 'torch_port_formats'))
+IMAGE_DIRS = (JPEG_DIR, os.path.join('tests', 'data', 'torch_port_formats'),
+              os.path.join('tests', 'data', 'torch_port_webp_tiff_ico'))
+RESIZE_TOL = 1e-5
 EXPECTED = os.path.join('tests', 'data', 'torch_port_formats', 'expected.json')
 
 
@@ -4105,7 +4117,8 @@ def images_phase(device, model_dir, tmp):
         json.dump(captions, f)
     log(f'images: {len(expected)} files decoded without Pillow, each bitwise the JAX package\'s '
         f'composite_rgba(Image.open(f)) and convert("L") (expected.json); decode_image seconds '
-        f'(3 calls each, one CPU core): {json.dumps(decode)}')
+        f'(3 calls each, one CPU core): {json.dumps(decode)}; card: {gpu_name_and_power_limit()}')
+    resize_check(device)
     what = 'the images run (lora_conventional.yaml)'
     trainer, launches, seconds, peak = _config_run(
         'lora_conventional.yaml', model_dir, os.path.join(tmp, 'exp_images'), imgs, JPEG_STEPS,
@@ -4121,6 +4134,41 @@ def images_phase(device, model_dir, tmp):
     del trainer
     torch.cuda.empty_cache()
     return launches
+
+
+def resize_check(device):
+    """Every method name of the workflow's resize (jax.image.resize's) on
+    the card against the same function on the CPU, fp32 within RESIZE_TOL:
+    the highres fix's latent doubling [2, 64, 64, 4] -> [2, 128, 128, 4]
+    and an image batch's downscale [2, 1024, 1024, 3] -> [2, 384, 640, 3]
+    (a non-integer factor on each axis). No UNet runs."""
+    from hcpdiff_tpu_torch.workflow.actions import RESIZE_METHODS, resize
+    gen = torch.Generator().manual_seed(SEED + 91)
+    cases = {'latent [2,64,64,4]->[2,128,128,4]': (torch.randn(2, 64, 64, 4, generator=gen),
+                                                   128, 128),
+             'images [2,1024,1024,3]->[2,384,640,3]': (torch.rand(2, 1024, 1024, 3,
+                                                                  generator=gen), 384, 640)}
+    report = {}
+    for method in RESIZE_METHODS:
+        for label, (x, h, w) in cases.items():
+            t0 = time.perf_counter()
+            want = resize(x, h, w, method)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            xd = x.to(device)
+            resize(xd, h, w, method)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = resize(xd, h, w, method)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            err = float((got.cpu() - want).abs().max())
+            check(tuple(got.shape) == tuple(want.shape) and got.dtype == torch.float32
+                  and err <= RESIZE_TOL, f'resize {method} {label}: {tuple(got.shape)} '
+                  f'{got.dtype}, max abs error against the CPU {err} > {RESIZE_TOL}')
+            report.setdefault(method, {})[label] = {'max_abs_err': err, 'card_ms': round(card_ms, 4),
+                                                    'cpu_ms': round(cpu_ms, 3)}
+    log(f'resize: every method on the card against the CPU, fp32, atol {RESIZE_TOL}: '
+        f'{json.dumps(report)}; card: {gpu_name_and_power_limit()}')
 
 
 # phase 4s: the zero-3 full fine-tune through torch.distributed.run, and
@@ -4679,21 +4727,24 @@ PHASE_SECONDS = {}
 
 def build_all():
     """The CUDA kernels (one nvcc a source, in parallel) and, beside them in
-    a thread, the host image decoder (g++ builds csrc/image_decode.cpp)."""
+    threads, the host image decoders (g++ builds csrc/image_decode.cpp and
+    csrc/webp_decode.cpp)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hcpdiff_tpu_torch.ops import _build
     from hcpdiff_tpu_torch.utils import native
 
-    def decoder():
+    def timed(load):
         t0 = time.perf_counter()
-        native.decoder()
+        load()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(1) as pool:
-        job = pool.submit(decoder)
+    with ThreadPoolExecutor(2) as pool:
+        jobs = {name: pool.submit(timed, load) for name, load in
+                (('image_decode', native.decoder), ('webp_decode', native.webp_decoder))}
         _build.library()
-        log(f'image decoder built and loaded in {job.result():.2f} s (g++, beside nvcc)')
+        log('image decoders built and loaded (g++, beside nvcc): '
+            + ', '.join(f'{name} {job.result():.2f} s' for name, job in jobs.items()))
 
 
 def phase(name, fn, *args, **kwargs):

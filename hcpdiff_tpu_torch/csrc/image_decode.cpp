@@ -12,6 +12,8 @@
 // - GIF: the LZW decoder of one frame's image data.
 // - BMP: RLE8/RLE4 as Pillow's BmpRleDecoder reads them.
 // - PNG: the five row filters undone.
+// - TIFF: LZW (the code width grows one code early, as libtiff reads it)
+//   and PackBits strips and tiles.
 //
 // Every entry point returns 0 on success; the JPEG ones return 1 for a file
 // this decoder does not take (arithmetic-coded, lossless, hierarchical,
@@ -852,7 +854,7 @@ void set_error(char* err, int errlen, const std::string& msg) {
 
 extern "C" {
 
-int hcp_image_decode_version() { return 1; }
+int hcp_image_decode_version() { return 2; }
 
 // info: width, height, components
 int hcp_jpeg_header(const uint8_t* data, int64_t n, int32_t* info, char* err, int errlen) {
@@ -1044,6 +1046,86 @@ int64_t hcp_png_unfilter(const uint8_t* raw, int64_t height, int64_t rowbytes, i
     }
   }
   return 0;
+}
+
+// A TIFF LZW strip or tile into `out` (`size` bytes; the rest zeros where
+// the codes end early): codes MSB first from 9 bits, 256 clear, 257 end,
+// the width growing when the next free code reaches 2^width - 1. Returns
+// the bytes written, or -1 with a message in `err` for old-style (LSB
+// first) data or a code past the table.
+int64_t hcp_tiff_lzw(const uint8_t* data, int64_t n, uint8_t* out, int64_t size, char* err,
+                     int errlen) {
+  auto fail_with = [&](const char* msg) -> int64_t {
+    if (errlen > 0) snprintf(err, errlen, "%s", msg);
+    return -1;
+  };
+  if (n >= 2 && data[0] == 0 && (data[1] & 1))
+    return fail_with("old-style (LSB first) TIFF LZW, which is not read");
+  std::vector<int32_t> prefix(4096 + 1024), length(4096 + 1024);
+  std::vector<uint8_t> suffix(4096 + 1024), first(4096 + 1024);
+  for (int i = 0; i < 256; ++i) prefix[i] = -1, length[i] = 1, suffix[i] = first[i] = (uint8_t)i;
+  int64_t bitpos = 0, written = 0;
+  const int64_t nbitsdata = n * 8;
+  int nbits = 9, next = 258, old = -1;
+  auto read_code = [&]() -> int {
+    if (bitpos + nbits > nbitsdata) return 257;  // out of data: end
+    int v = 0;
+    for (int k = 0; k < nbits; ++k, ++bitpos)
+      v = (v << 1) | ((data[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
+    return v;
+  };
+  auto emit = [&](int code) {
+    const int len = length[code];
+    int64_t end = written + len;
+    for (int c = code, k = len - 1; c >= 0; c = prefix[c], --k)
+      if (written + k < size) out[written + k] = suffix[c];
+    written = std::min(end, size);
+  };
+  while (written < size) {
+    int code = read_code();
+    if (code == 257) break;
+    if (code == 256) {
+      nbits = 9;
+      next = 258;
+      code = read_code();
+      if (code == 257) break;
+      if (code > 256) return fail_with("corrupt TIFF LZW data (a code after a clear)");
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (old < 0) return fail_with("corrupt TIFF LZW data (no clear code first)");
+    if (code > next || next >= (int)prefix.size())
+      return fail_with("corrupt TIFF LZW data (a code past the table)");
+    prefix[next] = old;
+    length[next] = length[old] + 1;
+    first[next] = first[old];
+    suffix[next] = code < next ? first[code] : first[old];
+    if (++next > (1 << nbits) - 2 && nbits < 12) ++nbits;
+    emit(code);
+    old = code;
+  }
+  if (written < size) std::memset(out + written, 0, static_cast<size_t>(size - written));
+  return written;
+}
+
+// A PackBits strip or tile into `out` (`size` bytes, zeros where the data
+// ends early). Returns the bytes written.
+int64_t hcp_packbits(const uint8_t* data, int64_t n, uint8_t* out, int64_t size) {
+  int64_t i = 0, o = 0;
+  while (i < n && o < size) {
+    const int c = static_cast<int8_t>(data[i++]);
+    if (c >= 0) {
+      for (int k = 0; k <= c && i < n && o < size; ++k) out[o++] = data[i++];
+    } else if (c != -128) {
+      if (i >= n) break;
+      const uint8_t v = data[i++];
+      for (int k = 0; k < 1 - c && o < size; ++k) out[o++] = v;
+    }
+  }
+  const int64_t got = o;
+  if (o < size) std::memset(out + o, 0, static_cast<size_t>(size - o));
+  return got;
 }
 
 }  // extern "C"

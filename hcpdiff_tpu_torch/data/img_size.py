@@ -6,7 +6,9 @@ wasteful (reference hcpdiff/utils/img_size_tool.py:32-247 exists for the
 same reason). This is an independent implementation of the standard header
 layouts: PNG, JPEG, GIF, BMP, WEBP (VP8/VP8L/VP8X), ICO, TIFF.
 A file no probe recognises raises: the port reads no other format (and
-decodes PNG, JPEG, GIF and BMP, ``utils/images.py:decode_image``).
+decodes each of these, ``utils/images.py:decode_image``). An ICO is sized
+by its first directory entry, as the JAX package sizes it, though Pillow
+opens its largest entry.
 """
 from __future__ import annotations
 

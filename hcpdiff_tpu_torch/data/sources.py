@@ -2,8 +2,8 @@
 
 A source yields (image_path, caption, per-item metadata); datasets combine
 sources with buckets. Images load as uint8 RGB arrays through
-``data/utils.py:load_rgb`` (PNG, JPEG, GIF and BMP, as Pillow opens them;
-WebP other than the port's own, TIFF and ICO raise, naming the file),
+``data/utils.py:load_rgb`` (PNG, JPEG, GIF, BMP, WebP, TIFF and ICO, as
+Pillow opens them; the kinds left unread raise, naming the file),
 transparent pixels over ``bg_color`` as the JAX package composites them.
 ``Text2ImageCondSource`` adds ControlNet's condition images from a folder
 beside the images.

@@ -2,9 +2,9 @@
 
 The JAX package works on PIL images; here an image is a uint8 HWC numpy
 array, read by ``utils/images.py:decode_image`` (PNG of every type,
-baseline and progressive JPEG, GIF and BMP, as Pillow's ``Image.open``
-gives them; WebP other than the port's own, TIFF and ICO raise, naming the
-file) and resized by its copy of Pillow's bicubic filter, so crops equal
+baseline and progressive JPEG, GIF, BMP, WebP, TIFF and ICO, as Pillow's
+``Image.open`` gives them; the kinds left unread raise, naming the file)
+and resized by its copy of Pillow's bicubic filter, so crops equal
 the JAX package's bit for bit. The crop geometry (and the seeded
 random offsets) is the JAX package's, and its crop info is returned for
 SDXL crop conditioning.

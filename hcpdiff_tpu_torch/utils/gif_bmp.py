@@ -16,7 +16,15 @@ the transparency in the alpha).
   Pillow's black-white or grey ramp), 16-bit 555 and bitfields 565/555,
   24 and 32 bits (BI_RGB 32-bit is RGB, the alpha byte ignored; a
   BI_BITFIELDS layout Pillow names with an alpha is RGBA), top-down and
-  bottom-up rows, RLE8 and RLE4.
+  bottom-up rows, RLE8 and RLE4. A 4-bit palette that is the grey ramp
+  0..15 is read as Pillow reads a file it opens by its path: 'L' rows of
+  ``width`` packed bytes each, one row a stride (so rows wider than 4
+  pixels overlap the next, and the last reads zeros past the file's end,
+  as Pillow's memory map gives them); an RLE file with a black-white
+  palette raises, as in Pillow.
+- ICO entries' bitmaps (``decode_dib``): the info header without a file
+  header, the rows' height halved (``utils/images.py:decode_ico`` adds the
+  AND mask or the 32-bit alpha).
 """
 from __future__ import annotations
 
@@ -165,15 +173,28 @@ def _unpack(rows: np.ndarray, raw_mode: str, width: int) -> np.ndarray:
 def decode_bmp(data: bytes, path: str) -> Image:
     if data[:2] != b'BM' or len(data) < 26:
         raise ValueError(f'{path} is not a BMP file')
+    return decode_dib(data, 14, path, struct.unpack('<I', data[10:14])[0], mapped=True)[:3]
 
+
+def decode_dib(data: bytes, start: int, path: str, offset: int = 0, halve: bool = False,
+               mapped: bool = False):
+    """The bitmap whose info header is at ``start``: (pixels, mode, palette,
+    the offset of its pixel data). ``offset`` is a BMP file header's pixel
+    offset; 0 (an ICO entry's bitmap) takes the data right after the header,
+    its masks and its palette. ``halve`` reads the top half of the rows'
+    height, an ICO entry's image above its AND mask. ``mapped``: the file
+    was opened by its path, so Pillow memory-maps an 'L' image's rows (one
+    row a stride, each row ``width`` bytes long, zeros past the file's
+    end) where it would otherwise raise."""
     def u32(p):
         return struct.unpack('<I', data[p:p + 4])[0]
 
     def u16(p):
         return struct.unpack('<H', data[p:p + 2])[0]
 
-    offset, hsize = u32(10), u32(14)
-    h0 = 18
+    hsize = u32(start)
+    h0 = start + 4
+    after = start + hsize                       # where the header ends
     direction = -1                              # bottom-up
     compression, colors = 0, 0
     if hsize == 12:
@@ -202,7 +223,8 @@ def decode_bmp(data: bytes, path: str) -> Image:
             masks = [u32(h0 + 36 + 4 * k) for k in range(3)]
             masks.append(u32(h0 + 48) if hsize - 4 >= 52 else 0)
         else:                                   # three masks after a 40-byte header
-            masks = [u32(14 + hsize + 4 * k) for k in range(3)] + [0]
+            masks = [u32(after + 4 * k) for k in range(3)] + [0]
+            after += 12
         key = (bits, tuple(masks) if bits == 32 else tuple(masks[:3]))
         if key not in _MASK_MODES:
             raise ValueError(f'{path}: unsupported BMP bitfields layout {bits}-bit {masks}')
@@ -217,19 +239,20 @@ def decode_bmp(data: bytes, path: str) -> Image:
     if mode == 'P':
         if not 0 < colors <= 65536:
             raise ValueError(f'{path}: unsupported BMP palette size {colors}')
-        start = 14 + hsize
-        pal = data[start:start + pal_step * colors]
+        pal = data[after:after + pal_step * colors]
+        after += pal_step * colors
         ramp = (0, 255) if colors == 2 else range(colors)
         if all(pal[i * pal_step:i * pal_step + 3] == bytes([v]) * 3 for i, v in enumerate(ramp)):
             mode = raw_mode = '1' if colors == 2 else 'L'
-            if bits == 4 and rle is None:
-                raise ValueError(f'{path}: a 4-bit grey-ramp BMP, which Pillow reads as 8-bit '
-                                 'L rows; not decoded')
         else:
             palette = palette_rgba(pal, pal_step, 'BGR')
+    offset = offset or after
+    if halve:
+        height //= 2
     if rle is not None:
-        if mode == '1':
-            raise ValueError(f'{path}: an RLE BMP with a black-white palette; not decoded')
+        if mode == '1':                         # Pillow has no 'P' raw mode into '1'
+            raise ValueError(f'{path}: an RLE BMP with a black-white palette, which Pillow '
+                             'does not read either')
         pixels = native.bmp_rle(data, offset, width, height, rle)
     else:
         stride = ((width * bits + 31) >> 3) & ~3
@@ -237,7 +260,15 @@ def decode_bmp(data: bytes, path: str) -> Image:
         body = np.frombuffer(data[offset:offset + need], np.uint8)
         if body.size < need:
             raise ValueError(f'{path}: BMP data ends early ({body.size} of {need} bytes)')
-        pixels = _unpack(body.reshape(height, stride), raw_mode, width)
+        if mode == 'L' and bits == 4 and stride < width:   # 8-bit rows longer than the stride
+            if not mapped:
+                raise ValueError(f'{path}: a 4-bit grey-ramp bitmap wider than {stride} pixels '
+                                 'in an ICO, which Pillow does not read either')
+            tail = np.zeros(width, np.uint8)
+            raw = np.concatenate([np.frombuffer(data[offset:], np.uint8), tail])
+            pixels = np.stack([raw[r * stride:r * stride + width] for r in range(height)])
+        else:                           # a 4-bit grey ramp: 8-bit L rows, as Pillow reads it
+            pixels = _unpack(body.reshape(height, stride), raw_mode, width)
     if direction == -1:
         pixels = pixels[::-1]
-    return np.ascontiguousarray(pixels), mode, palette
+    return np.ascontiguousarray(pixels), mode, palette, offset

@@ -19,10 +19,15 @@ writer, a copy of Pillow's bicubic resampling for 8-bit images, and
   - JPEG: baseline, extended and progressive, 1/3/4 components, any
     sampling, as Pillow decodes it (``utils/jpeg.py``, C++);
   - GIF (first frame) and BMP (``utils/gif_bmp.py``, LZW and RLE in C++);
-  - WebP: the literal-only VP8L still image ``write_webp`` writes.
+  - WebP: lossy, lossless, with alpha, and an animation's first frame
+    (``utils/webp.py``, C++);
+  - TIFF: the first page (``utils/tiff.py``, LZW and PackBits in C++);
+  - ICO (``decode_ico``): the entry Pillow opens, a PNG or a bitmap.
 
-  WebP of other kinds, TIFF and ICO raise a ``ValueError`` naming the
-  file, the format and ROADMAP.md queue 1 item 6.
+  The kinds left unread (arithmetic-coded and lossless JPEG; JPEG, CCITT,
+  LZMA, ZSTD and WebP compression, float, signed 16-bit and YCbCr samples
+  in TIFF) raise a ``ValueError`` naming the file, the kind and ROADMAP.md
+  queue 1 item 6.
 - ``write_png``/``encode_png``: 8-bit L, RGB or RGBA, filter 0 on every
   row;
 - ``resize_bicubic``: ``PIL.Image.resize(size, Image.BICUBIC)`` on an
@@ -34,8 +39,8 @@ writer, a copy of Pillow's bicubic resampling for 8-bit images, and
   colour cache, every channel a complete code of 256 length-8 literals,
   the distance code one symbol); ``read_webp_anim`` reads back what it
   writes (the RIFF chunks, and each frame's pixels); ``write_webp``/
-  ``encode_webp`` and ``read_webp``: one such frame as a still image (the
-  simple format: RIFF, WEBP, one VP8L chunk);
+  ``encode_webp``: one such frame as a still image (the simple format:
+  RIFF, WEBP, one VP8L chunk), and ``read_webp`` any still WebP's pixels;
 - ``load_image``/``load_mask``: what the Visualizer reads for img2img and
   inpaint.
 """
@@ -47,10 +52,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from . import native
-from .gif_bmp import decode_bmp, decode_gif, palette_rgba
+from . import native, webp
+from .gif_bmp import decode_bmp, decode_dib, decode_gif, palette_rgba
 from .jpeg import (ROADMAP, UnsupportedJPEG, decode_jpeg, decode_jpeg_mode, is_jpeg,  # noqa: F401
                    read_jpeg)
+from .tiff import decode_tiff
+from .webp import decode_webp
 
 PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _COLOR_TYPES = {1: 0, 3: 2, 4: 6}          # channels -> PNG colour type
@@ -202,9 +209,51 @@ def read_png(path: str) -> np.ndarray:
         return decode_png(f.read(), path)
 
 
-def _refused(path: str, what: str) -> ValueError:
-    return ValueError(f'{path}: {what} images are not decoded by the PyTorch port ({ROADMAP}); '
-                      'convert it to a PNG or a JPEG')
+def decode_ico(data: bytes, path: str = 'ICO data') -> Decoded:
+    """The entry Pillow's ``IcoImagePlugin`` opens: the largest (width x
+    height in its directory), the lowest colour depth among equals. A PNG
+    entry is that PNG, at whatever size it holds; a bitmap entry (its
+    height doubled in its header) is read as 'RGBA', the alpha its own
+    (32 bits a pixel) or its AND mask's (a set bit transparent)."""
+    if len(data) < 6 or data[:4] != b'\0\0\1\0':
+        raise ValueError(f'{path} is not an ICO file')
+    entries = []
+    for k in range(struct.unpack('<H', data[4:6])[0]):
+        e = data[6 + 16 * k:22 + 16 * k]
+        if len(e) < 16:
+            raise ValueError(f'{path}: the ICO directory runs past the file')
+        w, h, ncolor = e[0] or 256, e[1] or 256, e[2]
+        bpp, size, offset = struct.unpack('<HII', e[6:16])
+        depth = bpp or (ncolor and int(np.ceil(np.log2(ncolor)))) or 256
+        entries.append((w * h, depth, bpp, size, offset))
+    if not entries:
+        raise ValueError(f'{path}: an ICO file without images')
+    entries.sort(key=lambda e: e[1])
+    entries.sort(key=lambda e: e[0], reverse=True)
+    _, _, bpp, size, at = entries[0]
+    if data[at:at + 8] == PNG_SIGNATURE:
+        return png_image(data[at:], path)
+    pixels, mode, palette, start = decode_dib(data, at, path, halve=True)
+    h, w = pixels.shape[:2]
+    if bpp == 32:                        # its fourth bytes, bottom-up
+        raw = np.frombuffer(data[start:start + 4 * w * h], np.uint8)
+        if raw.size < 4 * w * h:
+            raise ValueError(f'{path}: ICO data ends inside an image')
+        alpha = raw[3::4].reshape(h, w)[::-1]
+    else:                                # the AND mask: rows of 32-bit words, bottom-up
+        wpad = -(-w // 32) * 32
+        total = wpad * h // 8
+        raw = np.frombuffer(data[at + size - total:at + size], np.uint8)
+        if at + size - total < 0 or raw.size < total:
+            raise ValueError(f'{path}: ICO data ends inside a mask')
+        bits = np.unpackbits(raw.reshape(h, wpad // 8), axis=1)[::-1, :w]
+        alpha = np.where(bits == 0, 255, 0).astype(np.uint8)
+    img = Decoded(pixels, mode, palette)
+    rgba = to_rgba(img) if mode in ('P', 'RGBA') else np.concatenate(
+        [to_rgb(img), np.full((h, w, 1), 255, np.uint8)], axis=2)
+    rgba = rgba.copy()
+    rgba[:, :, 3] = alpha
+    return Decoded(rgba, 'RGBA')
 
 
 def decode_image(data: bytes, path: str = 'image data') -> Decoded:
@@ -212,28 +261,20 @@ def decode_image(data: bytes, path: str = 'image data') -> Decoded:
     ``Image.open`` gives it; ``path`` names the data in errors."""
     if is_jpeg(data):
         return Decoded(*decode_jpeg_mode(data, path))
-    readers = {PNG_SIGNATURE: png_image, b'GIF87a': lambda d, p: Decoded(*decode_gif(d, p)),
-               b'GIF89a': lambda d, p: Decoded(*decode_gif(d, p)),
-               b'BM': lambda d, p: Decoded(*decode_bmp(d, p))}
-    for magic, reader in readers.items():
-        if data.startswith(magic):
+    gif = lambda d, p: Decoded(*decode_gif(d, p))       # noqa: E731
+    tiff = lambda d, p: Decoded(*decode_tiff(d, p))     # noqa: E731
+    readers = ((PNG_SIGNATURE, png_image), (b'GIF87a', gif), (b'GIF89a', gif),
+               (b'BM', lambda d, p: Decoded(*decode_bmp(d, p))),
+               (b'RIFF', lambda d, p: Decoded(*decode_webp(d, p))), (b'II*\0', tiff),
+               (b'MM\0*', tiff), (b'II+\0', tiff), (b'MM\0+', tiff), (b'\0\0\1\0', decode_ico))
+    for magic, reader in readers:
+        if data.startswith(magic) and (magic != b'RIFF' or data[8:12] == b'WEBP'):
             try:
                 return reader(data, path)
             except (IndexError, struct.error) as e:
                 raise ValueError(f'{path}: corrupt or cut image data ({e})') from e
-    if data[:4] == b'RIFF' and data[8:12] == b'WEBP':
-        try:
-            return Decoded(decode_webp(data, path), 'RGB')
-        except ValueError:
-            kind = {b'VP8 ': 'lossy (VP8) WebP', b'VP8L': 'lossless (VP8L) WebP',
-                    b'VP8X': 'extended (VP8X) WebP'}.get(data[12:16], 'WebP')
-            raise _refused(path, kind) from None
-    if data[:4] in (b'II*\0', b'MM\0*'):
-        raise _refused(path, 'TIFF')
-    if data[:4] == b'\0\0\1\0':
-        raise _refused(path, 'ICO')
     raise ValueError(f'{path}: not an image format the PyTorch port reads (PNG, JPEG, GIF, '
-                     'BMP)')
+                     'BMP, WebP, TIFF, ICO)')
 
 
 def read_decoded(path: str) -> Decoded:
@@ -264,7 +305,7 @@ def _grey(img: Decoded) -> np.ndarray:
     px = img.pixels
     if img.mode == '1':
         return np.where(px, 255, 0).astype(np.uint8)
-    if img.mode == 'I;16':                     # I16_RGB / I16_L: saturated at 255
+    if img.mode in ('I;16', 'I;16B'):          # I16_RGB / I16_L: saturated at 255
         return np.minimum(px, 255).astype(np.uint8)
     return px[..., 0] if img.mode == 'LA' else px
 
@@ -398,31 +439,6 @@ def write_webp(path: str, image: np.ndarray) -> None:
         f.write(encode_webp(image))
 
 
-def _riff_chunks(data: bytes, where: str):
-    """(fourcc, payload) of each chunk of ``data``, odd sizes padded."""
-    out, pos = [], 0
-    while pos < len(data):
-        if pos + 8 > len(data):
-            raise ValueError(f'{where}: a truncated chunk header at {pos}')
-        kind, size = data[pos:pos + 4], struct.unpack('<I', data[pos + 4:pos + 8])[0]
-        if pos + 8 + size > len(data):
-            raise ValueError(f'{where}: chunk {kind!r} runs past the end')
-        out.append((kind, data[pos + 8:pos + 8 + size]))
-        pos += 8 + size + size % 2
-    return out
-
-
-def _decode_vp8l_literals(data: bytes, w: int, h: int) -> np.ndarray:
-    """The pixels of a VP8L stream ``encode_vp8l`` wrote; raises on any
-    other stream."""
-    head = np.asarray(_vp8l_header_bits(w, h), np.uint8)
-    bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder='little')
-    if len(bits) < len(head) + 32 * w * h or not np.array_equal(bits[:len(head)], head):
-        raise ValueError('not a literal-only VP8L stream of this size')
-    px = np.packbits(bits[len(head):len(head) + 32 * w * h], bitorder='big').reshape(h, w, 4)
-    return np.stack([px[..., 1], px[..., 0], px[..., 2]], axis=-1)
-
-
 def read_webp_anim(path: str) -> dict:
     """What ``write_webp_anim`` wrote: {'canvas': (w, h), 'flags': the VP8X
     flags, 'loop', 'frames': [{'offset': (x, y), 'size': (w, h),
@@ -434,7 +450,7 @@ def read_webp_anim(path: str) -> dict:
         raise ValueError(f'{path}: not a RIFF WEBP file')
     if struct.unpack('<I', data[4:8])[0] != len(data) - 8:
         raise ValueError(f'{path}: the RIFF size is not the file\'s')
-    chunks = _riff_chunks(data[12:], path)
+    chunks = webp.riff_chunks(data[12:], path)
     kinds = [k for k, _ in chunks]
     if kinds[:2] != [b'VP8X', b'ANIM'] or set(kinds[2:]) != {b'ANMF'}:
         raise ValueError(f'{path}: chunks {kinds}')
@@ -443,33 +459,19 @@ def read_webp_anim(path: str) -> dict:
     out = {'flags': vp8x[0], 'canvas': (u24(vp8x[4:7]) + 1, u24(vp8x[7:10]) + 1),
            'loop': struct.unpack('<H', anim[4:6])[0], 'frames': []}
     for _, p in chunks[2:]:
-        (kind, bitstream), = _riff_chunks(p[16:], path)
         w, h = u24(p[6:9]) + 1, u24(p[9:12]) + 1
-        if kind != b'VP8L':
-            raise ValueError(f'{path}: a frame of {kind!r}')
+        image = webp.frame_rgba(webp.riff_chunks(p[16:], path), path, (w, h))
         out['frames'].append({'offset': (2 * u24(p[0:3]), 2 * u24(p[3:6])), 'size': (w, h),
                               'duration': u24(p[12:15]), 'flags': p[15],
-                              'image': _decode_vp8l_literals(bitstream, w, h)})
+                              'image': image[:, :, :3].copy()})
     return out
 
 
-def decode_webp(data: bytes, path: str = 'WebP data') -> np.ndarray:
-    """The pixels (uint8 [H, W, 3]) of a still WebP ``write_webp`` wrote;
-    raises a ValueError on a file of another layout."""
-    if data[:4] != b'RIFF' or data[8:12] != b'WEBP':
-        raise ValueError(f'{path}: not a RIFF WEBP file')
-    chunks = _riff_chunks(data[12:], path)
-    if [k for k, _ in chunks] != [b'VP8L'] or chunks[0][1][:1] != b'\x2f':
-        raise ValueError(f'{path}: not one lossless VP8L image')
-    head = int.from_bytes(chunks[0][1][1:5], 'little')
-    w, h = (head & 0x3FFF) + 1, ((head >> 14) & 0x3FFF) + 1
-    return _decode_vp8l_literals(chunks[0][1], w, h)
-
-
 def read_webp(path: str) -> np.ndarray:
-    """``decode_webp`` of a file."""
+    """A WebP file's pixels as ``np.asarray(Image.open(path))`` gives them
+    (``utils/webp.py:decode_webp``)."""
     with open(path, 'rb') as f:
-        return decode_webp(f.read(), path)
+        return decode_webp(f.read(), path)[0]
 
 
 _PRECISION_BITS = 32 - 8 - 2

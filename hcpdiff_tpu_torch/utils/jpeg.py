@@ -68,7 +68,7 @@ def decode_jpeg_mode(data: bytes, path: str = 'JPEG data') -> Tuple[np.ndarray, 
             raise UnsupportedJPEG(f'{path}: {e} JPEG files are not decoded by the PyTorch port '
                                   f'({ROADMAP}); convert it to a baseline JPEG or a PNG') from None
         raise ValueError(f'{path}: corrupt or cut JPEG data ({e}); the PyTorch port reads PNG, '
-                         'JPEG, GIF and BMP images') from None
+                         'JPEG, GIF, BMP, WebP, TIFF and ICO images') from None
     mode = _MODES[pixels.shape[2]]
     if mode == 'CMYK':
         pixels = 255 - pixels

@@ -1,4 +1,4 @@
-"""ctypes bindings of the port's two native host libraries, built by one
+"""ctypes bindings of the port's three native host libraries, built by one
 helper:
 
 - ``image_ops`` (counterpart of ``hcpdiff_tpu/utils/native.py``):
@@ -10,8 +10,11 @@ helper:
 - ``image_decode``: the serial loops of image decoding, over
   ``csrc/image_decode.cpp``: JPEG (baseline, extended and progressive
   Huffman, as libjpeg decodes them), GIF's LZW, BMP's RLE8/RLE4 and PNG's
-  row filters. Every image the port reads goes through it
-  (``utils/images.py:decode_image``).
+  row filters, TIFF's LZW and PackBits. Every image the port reads goes
+  through it (``utils/images.py:decode_image``).
+- ``webp_decode``: WebP's three codings over ``csrc/webp_decode.cpp``: the
+  lossy VP8 key frame to RGBA as libwebp converts it, the lossless VP8L
+  image, and the ALPH chunk's alpha plane (``utils/webp.py``).
 
 At first use, ``g++`` builds a library with the Makefile's flags into
 ``hcpdiff_tpu_torch/_build/libhcp_<name>_<hash>.so``, the hash of the
@@ -37,20 +40,22 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / 'csrc' / 'image_ops.cpp'
 DECODE_SOURCE = PKG_DIR / 'csrc' / 'image_decode.cpp'
+WEBP_SOURCE = PKG_DIR / 'csrc' / 'webp_decode.cpp'
 BUILD_DIR = PKG_DIR / '_build'
 BUILD_LOG = BUILD_DIR / 'image_ops_build.log'
 # csrc/Makefile's CXXFLAGS, and its link line's -shared ... -lpthread
 CXX_FLAGS = ['-O3', '-march=native', '-ffast-math', '-funroll-loops', '-fPIC', '-std=c++17',
              '-Wall']
 VERSION = 1                      # hcp_image_ops_version()
-DECODE_VERSION = 1               # hcp_image_decode_version()
+DECODE_VERSION = 2               # hcp_image_decode_version()
+WEBP_VERSION = 1                 # hcp_webp_decode_version()
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -110,9 +115,25 @@ def decoder() -> ctypes.CDLL:
     lib.hcp_bmp_rle.argtypes = [_U8P, _I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
     lib.hcp_png_unfilter.argtypes = [_U8P, _I64, _I64, ctypes.c_int, _U8P]
     lib.hcp_png_unfilter.restype = _I64
+    lib.hcp_tiff_lzw.argtypes = [_U8P, _I64, _U8P, _I64, ctypes.c_char_p, ctypes.c_int]
+    lib.hcp_tiff_lzw.restype = _I64
+    lib.hcp_packbits.argtypes = [_U8P, _I64, _U8P, _I64]
+    lib.hcp_packbits.restype = _I64
     if lib.hcp_image_decode_version() != DECODE_VERSION:
         raise RuntimeError(f'{DECODE_SOURCE}: expected hcp_image_decode_version() '
                            f'{DECODE_VERSION}')
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def webp_decoder() -> ctypes.CDLL:
+    """The loaded webp_decode library (built first if needed)."""
+    lib = ctypes.CDLL(str(build(WEBP_SOURCE, 'webp_decode')))
+    for fn in (lib.hcp_vp8_decode, lib.hcp_vp8l_decode, lib.hcp_alpha_decode):
+        fn.argtypes = [_U8P, _I64, ctypes.c_int, ctypes.c_int, _U8P, _I32P, ctypes.c_char_p,
+                       ctypes.c_int]
+    if lib.hcp_webp_decode_version() != WEBP_VERSION:
+        raise RuntimeError(f'{WEBP_SOURCE}: expected hcp_webp_decode_version() {WEBP_VERSION}')
     return lib
 
 
@@ -181,6 +202,59 @@ def png_unfilter(raw: np.ndarray, height: int, rowbytes: int, bpp: int) -> np.nd
     bad = decoder().hcp_png_unfilter(_u8(raw), height, rowbytes, max(int(bpp), 1), _u8(out))
     if bad:
         raise ValueError(f'PNG filter type {raw[(bad - 1) * (rowbytes + 1)]} does not exist')
+    return out
+
+
+def _webp_call(fn, data: bytes, width: int, height: int, channels: int,
+               info: Optional[list] = None) -> np.ndarray:
+    out = np.empty((height, width, channels) if channels > 1 else (height, width), np.uint8)
+    got = np.zeros(6, np.int32)
+    err = ctypes.create_string_buffer(256)
+    if fn(_u8(_bytes(data)), len(data), int(width), int(height), _u8(out),
+          got.ctypes.data_as(_I32P), err, 256):
+        raise ValueError(err.value.decode(errors='replace'))
+    if info is not None:
+        info[:] = got.tolist()
+    return out
+
+
+def vp8_decode(data: bytes, width: int, height: int, info: Optional[list] = None) -> np.ndarray:
+    """A VP8 key frame (a 'VP8 ' chunk's payload) -> uint8 RGBA [height,
+    width, 4] as libwebp outputs it, alpha 255. Raises ValueError. ``info``,
+    a list, receives what the frame used (``csrc/webp_decode.cpp``)."""
+    return _webp_call(webp_decoder().hcp_vp8_decode, data, width, height, 4, info)
+
+
+def vp8l_decode(data: bytes, width: int, height: int, info: Optional[list] = None) -> np.ndarray:
+    """A VP8L bitstream (a 'VP8L' chunk's payload) -> uint8 RGBA [height,
+    width, 4]. Raises ValueError."""
+    return _webp_call(webp_decoder().hcp_vp8l_decode, data, width, height, 4, info)
+
+
+def alpha_decode(data: bytes, width: int, height: int, info: Optional[list] = None) -> np.ndarray:
+    """An 'ALPH' chunk's payload -> uint8 alpha [height, width]. Raises
+    ValueError."""
+    return _webp_call(webp_decoder().hcp_alpha_decode, data, width, height, 1, info)
+
+
+def tiff_lzw(data: bytes, size: int) -> np.ndarray:
+    """A TIFF LZW strip or tile (the code width grows one code early) ->
+    its first ``size`` bytes, zeros where the data ends early. Raises
+    ValueError on old-style (LSB-first) LZW or a code that names no
+    entry."""
+    out = np.zeros(size, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    got = decoder().hcp_tiff_lzw(_u8(_bytes(data)), len(data), _u8(out), size, err, 256)
+    if got < 0:
+        raise ValueError(err.value.decode(errors='replace'))
+    return out
+
+
+def packbits(data: bytes, size: int) -> np.ndarray:
+    """A PackBits strip or tile -> its first ``size`` bytes, zeros where
+    the data ends early."""
+    out = np.zeros(size, np.uint8)
+    decoder().hcp_packbits(_u8(_bytes(data)), len(data), _u8(out), size)
     return out
 
 

@@ -33,7 +33,6 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ckpt.manager import auto_manager
 from ..config.instantiate import instantiate, locate
@@ -459,15 +458,70 @@ class DecodeAction(BasicAction, MemoryMixin):
 
 # --------------------------------------------------------------- utils ----
 
+# jax.image.resize's method names -> its kernels (jax/_src/image/scale.py)
+RESIZE_METHODS = {'nearest': 'nearest', 'linear': 'linear', 'bilinear': 'linear',
+                  'trilinear': 'linear', 'triangle': 'linear', 'cubic': 'cubic',
+                  'bicubic': 'cubic', 'tricubic': 'cubic', 'lanczos3': 'lanczos3',
+                  'lanczos5': 'lanczos5'}
+
+
+def _kernel(kind: str, x: torch.Tensor) -> torch.Tensor:
+    """The resize kernel at distances ``x`` >= 0: the triangle, Keys cubic
+    (a = -0.5) or Lanczos of radius 3 or 5."""
+    if kind == 'linear':
+        return torch.clamp(1 - x, min=0)
+    if kind == 'cubic':
+        out = ((1.5 * x - 2.5) * x) * x + 1
+        out = torch.where(x >= 1, ((-0.5 * x + 2.5) * x - 4) * x + 2, out)
+        return torch.where(x >= 2, torch.zeros_like(x), out)
+    radius = 3.0 if kind == 'lanczos3' else 5.0
+    y = radius * torch.sin(torch.pi * x) * torch.sin(torch.pi * x / radius)
+    out = torch.where(x > 1e-3, y / torch.where(x != 0, torch.pi ** 2 * x ** 2,
+                                                torch.ones_like(x)), torch.ones_like(x))
+    return torch.where(x > radius, torch.zeros_like(x), out)
+
+
+def resize_weights(n_in: int, n_out: int, kind: str, device=None) -> torch.Tensor:
+    """fp32 [n_out, n_in]: ``compute_weight_mat`` of ``jax.image.resize``
+    (transposed). Half-pixel centres; on a shrinking axis the kernel is
+    widened by the factor (antialias); each column is normalised by its
+    sum (zero where the sum is ~0), and an output whose sample lies outside
+    the input gets no weight."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = _kernel(kind, (sample[:, None] - src[None, :]).abs() / kernel_scale)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
 def resize(x: torch.Tensor, height: int, width: int, method: str = 'bilinear') -> torch.Tensor:
-    """NHWC ``x`` to [B, height, width, C] as ``jax.image.resize`` gives it:
-    half-pixel centres, and an antialiasing (triangle) filter widened by
-    the factor on an axis that shrinks ('bilinear', the configs' method)."""
-    if method not in ('bilinear', 'linear'):
-        raise NotImplementedError(f'resize method {method!r}: the port has bilinear')
-    shrink = height < x.shape[1] or width < x.shape[2]
-    return F.interpolate(x.permute(0, 3, 1, 2).float(), size=(height, width), mode='bilinear',
-                         align_corners=False, antialias=shrink).permute(0, 2, 3, 1)
+    """NHWC ``x`` to [B, height, width, C] as ``jax.image.resize(x, shape,
+    method)`` gives it, for each of its methods: 'nearest' picks
+    floor((i + 0.5) * in / out); the others apply one fp32 weight matrix an
+    axis (``resize_weights``) on ``x``'s device, an axis whose size is kept
+    left as it is."""
+    kind = RESIZE_METHODS.get(method)
+    if kind is None:
+        raise ValueError(f'Unknown resize method "{method}"')
+    x = x.float()
+    h_in, w_in = x.shape[1], x.shape[2]
+    if kind == 'nearest':
+        for dim, (n_in, n_out) in ((1, (h_in, height)), (2, (w_in, width))):
+            if n_in != n_out:
+                pos = (torch.arange(n_out, dtype=torch.float32) + 0.5) * n_in / n_out
+                x = x.index_select(dim, pos.floor().long().to(x.device))
+        return x
+    if h_in != height:
+        x = torch.einsum('oh,bhwc->bowc', resize_weights(h_in, height, kind, x.device), x)
+    if w_in != width:
+        x = torch.einsum('ow,bhwc->bhoc', resize_weights(w_in, width, kind, x.device), x)
+    return x
 
 
 class LatentResizeAction(BasicAction):

@@ -125,9 +125,10 @@ def test_rgba_composite_matches_jax(tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(tmp_path):
-    """A progressive JPEG and a BMP, which the port refused before it had
-    their decoders, load as the JAX package loads them; a TIFF and a file
-    that is no image raise, naming the file."""
+    """A progressive JPEG, a BMP and a TIFF, which the port refused before
+    it had their decoders, load as the JAX package loads them; a
+    JPEG-compressed TIFF, a kind still unread, and a file that is no image
+    raise, naming the file."""
     path = str(tmp_path / 'photo.jpg')
     rng = np.random.default_rng(3)
     Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(path, progressive=True)
@@ -140,8 +141,10 @@ def test_non_png_images_raise_naming_the_file(tmp_path):
     Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(bmp)
     np.testing.assert_array_equal(tutils.load_rgb(bmp), np.asarray(Image.open(bmp)))
     tif = str(tmp_path / 'photo.tif')
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tif)
-    with pytest.raises(ValueError, match='photo.tif: TIFF'):
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(tif)
+    np.testing.assert_array_equal(tutils.load_rgb(tif), np.asarray(Image.open(tif)))
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tif, compression='jpeg')
+    with pytest.raises(ValueError, match='photo.tif: JPEG-in-TIFF'):
         tutils.load_rgb(tif)
     junk = tmp_path / 'junk.png'
     junk.write_bytes(b'not an image')

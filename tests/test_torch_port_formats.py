@@ -2,8 +2,10 @@
 ``csrc/image_decode.cpp``) against the JAX package's Pillow calls, bitwise,
 on the CPU:
 
-- every file committed under tests/data/torch_port_formats and
-  tests/data/torch_port_jpeg: ``data/utils.py``'s ``load_rgb`` (default
+- every file committed under tests/data/torch_port_formats,
+  tests/data/torch_port_jpeg and tests/data/torch_port_webp_tiff_ico (WebP,
+  TIFF, ICO: ``test_torch_port_webp.py`` and ``test_torch_port_tiff.py``
+  hold their variants): ``data/utils.py``'s ``load_rgb`` (default
   background, another, and None) and ``load_gray`` against
   ``composite_rgba(Image.open(f), bg)``, ``convert('RGB')`` and
   ``convert('L')``; ``read_image`` 'RGB'/'L'; ``load_image``/``load_mask``
@@ -14,11 +16,13 @@ on the CPU:
 - variants written in ``tmp_path``: PNG at every depth and colour type,
   interlaced or not, with ``tRNS``; GIF with and without interlacing, a
   grey-ramp palette, a frame inside the screen; BMP at 1/4/8/16/24/32 bits,
-  top-down, the 12-byte core header, RLE4 with odd absolute runs; JPEG at
+  top-down, the 12-byte core header, RLE4 with odd absolute runs, a 4-bit
+  grey ramp (Pillow's 8-bit L rows, overlapping past 4 pixels wide), and
+  RLE with a black-white palette, which both refuse; JPEG at
   samplings Pillow cannot write (3:1 replication, a chroma two samples
   wide), Adobe RGB, progressive with restart intervals;
-- arithmetic-coded JPEG, TIFF, lossy WebP and ICO raise a ``ValueError``
-  naming the file and the ROADMAP item.
+- arithmetic-coded and lossless JPEG, JPEG-in-TIFF and CCITT TIFF raise a
+  ``ValueError`` naming the file, the kind and the ROADMAP item.
 """
 import importlib.util
 import io
@@ -105,6 +109,8 @@ def test_expected_json_is_what_pillow_gives():
         assert mk.digest(tutils.load_gray(path)) == want['l'], rel
     sizes = sum(os.path.getsize(os.path.join(FORMATS, n)) for n in os.listdir(FORMATS))
     assert sizes < 400_000
+    sizes = sum(os.path.getsize(os.path.join(mk.MORE, n)) for n in os.listdir(mk.MORE))
+    assert sizes < 300_000
 
 
 # ---------------------------------------------------------------- variants
@@ -185,7 +191,8 @@ def _gif_frame_bytes(indices):
 
 
 BMP_CASES = ['1bit', '1bit_colour', '4bit', '8bit_grey', '16bit_555', '32bit_rgb', '24bit_top_down',
-             'core_header', 'rle4_odd', 'bitfields_32_xbgr']
+             'core_header', 'rle4_odd', 'bitfields_32_xbgr', '4bit_grey_ramp_1', '4bit_grey_ramp_4',
+             '4bit_grey_ramp_5', '4bit_grey_ramp_13']
 
 
 @pytest.mark.parametrize('case', BMP_CASES)
@@ -206,6 +213,15 @@ def test_bmp_variants(tmp_path, case):
             data[off:] = b''.join(rows[::-1])
             data[22:26] = struct.pack('<i', -h)
             open(path, 'wb').write(bytes(data))
+    elif case.startswith('4bit_grey_ramp'):  # read by Pillow as 8-bit L rows of packed bytes
+        w = int(case.split('_')[-1])
+        idx = rng.integers(0, 16, (h, w)).astype(np.uint8)
+        packed = (np.pad(idx, ((0, 0), (0, w % 2)))[:, 0::2] << 4
+                  | np.pad(idx, ((0, 0), (0, w % 2)))[:, 1::2])
+        rows = b''.join(np.pad(r, (0, mk._stride(w, 4) - len(r))).tobytes() for r in packed[::-1])
+        ramp = bytes(np.repeat(np.arange(16, dtype=np.uint8), 4) * np.tile([1, 1, 1, 0], 16)
+                     .astype(np.uint8))
+        open(path, 'wb').write(mk.bmp_bytes(rows, 4, w, h, palette=ramp))
     else:
         if case == '1bit_colour':
             idx = (rgb[:, :, 0] > 128).astype(np.uint8)
@@ -297,32 +313,48 @@ def test_jpeg_variants(tmp_path, case):
     assert_reads_as_jax(str(path))
 
 
+@pytest.mark.parametrize('case', ['rle8_black_white', 'rle4_black_white'])
+def test_bmp_kinds_pillow_refuses_raise_in_both(tmp_path, case):
+    """RLE with a black-white palette (Pillow has no 'P' raw mode into
+    '1'): Pillow raises, and so does the port, naming the file."""
+    h, w = 6, 9
+    idx = np.random.default_rng(3).integers(0, 2, (h, w)).astype(np.uint8)
+    rle4 = case.startswith('rle4')
+    data = mk.bmp_bytes(mk.rle_encode(idx, rle4), 4 if rle4 else 8, w, h, 2 if rle4 else 1,
+                        palette=bytes([0, 0, 0, 0, 255, 255, 255, 0]))
+    path = tmp_path / f'{case}.bmp'
+    path.write_bytes(data)
+    with pytest.raises((OSError, ValueError)):
+        with Image.open(path) as im:
+            im.load()
+    with pytest.raises(ValueError, match=f'{case}.bmp: .*Pillow does not read either'):
+        tutils.load_rgb(str(path))
+
+
 # ------------------------------------------------------------------ refused
 
 def _refused_file(tmp_path, kind):
-    if kind == 'arithmetic':
+    if kind in ('arithmetic', 'lossless'):
         data = bytearray(_jpeg_bytes(mk.photo(16, 16, 3, seed=1)))
-        data[data.index(b'\xff\xc0') + 1] = 0xC9                 # SOF9
-        name = 'arith.jpg'
-    elif kind == 'tiff':
-        buf = io.BytesIO()
-        Image.fromarray(mk.photo(16, 16, 3, seed=1)).save(buf, 'TIFF')
-        data, name = buf.getvalue(), 'photo.tif'
-    elif kind == 'webp':
-        buf = io.BytesIO()
-        Image.fromarray(mk.photo(16, 16, 3, seed=1)).save(buf, 'WEBP', quality=80)
-        data, name = buf.getvalue(), 'photo.webp'
+        data[data.index(b'\xff\xc0') + 1] = 0xC9 if kind == 'arithmetic' else 0xC3  # SOF9, SOF3
+        name = f'{kind}.jpg'
     else:
         buf = io.BytesIO()
-        Image.fromarray(mk.photo(16, 16, 3, seed=1)).save(buf, 'ICO')
-        data, name = buf.getvalue(), 'photo.ico'
+        im = Image.fromarray(mk.photo(16, 16, 3, seed=1))
+        if kind == 'tiff_jpeg':
+            im.save(buf, 'TIFF', compression='jpeg')
+        else:
+            im.convert('1').save(buf, 'TIFF', compression='group4')
+        data, name = buf.getvalue(), f'{kind}.tif'
     path = tmp_path / name
     path.write_bytes(bytes(data))
     return str(path), name
 
 
-@pytest.mark.parametrize('kind,what', [('arithmetic', 'arithmetic-coded'), ('tiff', 'TIFF'),
-                                       ('webp', r'lossy \(VP8\) WebP'), ('ico', 'ICO')])
+@pytest.mark.parametrize('kind,what', [('arithmetic', 'arithmetic-coded'),
+                                       ('lossless', 'lossless'),
+                                       ('tiff_jpeg', 'JPEG-in-TIFF'),
+                                       ('tiff_ccitt', 'CCITT group 4')])
 def test_unread_formats_raise_naming_the_file(tmp_path, kind, what):
     path, name = _refused_file(tmp_path, kind)
     for reader in (tutils.load_rgb, tutils.load_gray, lambda p: images.read_image(p, 'RGB')):
