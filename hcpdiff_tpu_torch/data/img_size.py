@@ -4,11 +4,13 @@
 Bucket building must size thousands of images quickly; decoding them is
 wasteful (reference hcpdiff/utils/img_size_tool.py:32-247 exists for the
 same reason). This is an independent implementation of the standard header
-layouts: PNG, JPEG, GIF, BMP, WEBP (VP8/VP8L/VP8X), ICO, TIFF.
-A file no probe recognises raises: the port reads no other format (and
-decodes each of these, ``utils/images.py:decode_image``). An ICO is sized
-by its first directory entry, as the JAX package sizes it, though Pillow
-opens its largest entry.
+layouts: PNG, JPEG, GIF, BMP, WEBP (VP8/VP8L/VP8X), ICO, TIFF. Where every
+probe misses, the JAX package asks Pillow (``Image.open(path).size``), and
+the port asks its own readers: a TIFF's or BigTIFF's IFD
+(``utils/tiff.py:dimensions``, swapped by Orientation 5-8 as Pillow's size
+is), else the decoded image (``utils/images.py:decode_image``). A size a
+probe gets wrong (an ICO is sized by its first directory entry, though
+Pillow opens its largest) is the JAX package's too, and stays.
 """
 from __future__ import annotations
 
@@ -129,7 +131,9 @@ _PROBES = (_png, _jpeg, _webp, _gif, _bmp, _ico, _tiff)
 
 
 def get_image_size(path: str) -> Tuple[int, int]:
-    """Return (width, height) by header parsing."""
+    """Return (width, height) by header parsing; the port's readers where
+    every probe misses (raising ValueError naming the file where they fail,
+    as Pillow's ``Image.open`` does)."""
     for probe in _PROBES:
         try:
             with open(path, 'rb') as f:
@@ -138,5 +142,10 @@ def get_image_size(path: str) -> Tuple[int, int]:
                 return int(res[0]), int(res[1])
         except Exception:
             continue
-    raise ValueError(f'{path}: not an image whose size the port can read (it reads PNG, '
-                     f'JPEG, GIF and BMP files; the header probes know {", ".join(types_support)})')
+    from ..utils import images, tiff
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:4] in (b'II*\0', b'MM\0*', b'II+\0', b'MM\0+'):
+        return tiff.dimensions(data, path)
+    pixels = images.decode_image(data, path).pixels
+    return int(pixels.shape[1]), int(pixels.shape[0])

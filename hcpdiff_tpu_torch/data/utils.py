@@ -127,4 +127,4 @@ def load_rgb(path: str, bg_color: Optional[Sequence[int]] = (255, 255, 255)) -> 
 def load_gray(path: str) -> np.ndarray:
     """An image as uint8 L, as Pillow's ``convert('L')`` gives it (alpha
     dropped)."""
-    return to_l(read_decoded(path))
+    return to_l(read_decoded(path), path)

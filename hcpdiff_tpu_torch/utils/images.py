@@ -16,18 +16,20 @@ writer, a copy of Pillow's bicubic resampling for 8-bit images, and
     modes ('1', 'L' with 2/4-bit grey scaled up, 'I;16', 'RGB', 'P', 'LA',
     'RGBA', 16-bit grey + alpha as 'RGBA'); the row filters are undone in
     C++;
-  - JPEG: baseline, extended and progressive, 1/3/4 components, any
+  - JPEG: sequential, progressive (smoothed where it stops early) and
+    lossless, Huffman or arithmetic coded, 1/3/4 components, any
     sampling, as Pillow decodes it (``utils/jpeg.py``, C++);
   - GIF (first frame) and BMP (``utils/gif_bmp.py``, LZW and RLE in C++);
   - WebP: lossy, lossless, with alpha, and an animation's first frame
     (``utils/webp.py``, C++);
-  - TIFF: the first page (``utils/tiff.py``, LZW and PackBits in C++);
+  - TIFF and BigTIFF: the first page, every compression and sample
+    layout Pillow's libtiff reads (``utils/tiff.py``; LZW, PackBits, CCITT
+    fax, ThunderScan and ZSTD in C++), CIELab converted to RGB as Pillow's
+    LittleCMS transform converts it (``utils/cielab.py``);
   - ICO (``decode_ico``): the entry Pillow opens, a PNG or a bitmap.
 
-  The kinds left unread (arithmetic-coded and lossless JPEG; JPEG, CCITT,
-  LZMA, ZSTD and WebP compression, float, signed 16-bit and YCbCr samples
-  in TIFF) raise a ``ValueError`` naming the file, the kind and ROADMAP.md
-  queue 1 item 6.
+  What Pillow does not read either raises a ``ValueError`` naming the
+  file and the kind (``utils/jpeg.py`` and ``utils/tiff.py`` list them).
 - ``write_png``/``encode_png``: 8-bit L, RGB or RGBA, filter 0 on every
   row;
 - ``resize_bicubic``: ``PIL.Image.resize(size, Image.BICUBIC)`` on an
@@ -52,9 +54,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from . import native, webp
+from . import cielab, native, webp
 from .gif_bmp import decode_bmp, decode_dib, decode_gif, palette_rgba
-from .jpeg import (ROADMAP, UnsupportedJPEG, decode_jpeg, decode_jpeg_mode, is_jpeg,  # noqa: F401
+from .jpeg import (UnsupportedJPEG, decode_jpeg, decode_jpeg_mode, is_jpeg,  # noqa: F401
                    read_jpeg)
 from .tiff import decode_tiff
 from .webp import decode_webp
@@ -301,12 +303,18 @@ def _cmyk_rgb(px: np.ndarray) -> np.ndarray:
 
 
 def _grey(img: Decoded) -> np.ndarray:
-    """The grey channel of a '1', 'L', 'LA' or 'I;16' image as 8 bits."""
+    """The grey channel of a '1', 'L', 'LA', 'I;16', 'I' or 'F' image as 8
+    bits, as Pillow converts each to 'L' or 'RGB'."""
     px = img.pixels
     if img.mode == '1':
         return np.where(px, 255, 0).astype(np.uint8)
     if img.mode in ('I;16', 'I;16B'):          # I16_RGB / I16_L: saturated at 255
         return np.minimum(px, 255).astype(np.uint8)
+    if img.mode == 'I':                        # i2l / i2rgb: clipped to 0..255
+        return np.clip(px, 0, 255).astype(np.uint8)
+    if img.mode == 'F':                        # f2l (RGB through L): truncated, NaN as 0
+        with np.errstate(invalid='ignore'):
+            return np.where(px >= 255, 255, np.where(px > 0, px, 0)).astype(np.uint8)
     return px[..., 0] if img.mode == 'LA' else px
 
 
@@ -314,6 +322,8 @@ def to_rgb(img: Decoded) -> np.ndarray:
     """Pillow's ``convert('RGB')``: uint8 [H, W, 3]."""
     if img.mode == 'P':
         return img.palette[img.pixels, :3]
+    if img.mode == 'LAB':                      # through LittleCMS in Pillow
+        return cielab.lab_to_rgb(img.pixels)
     if img.mode == 'CMYK':
         return _cmyk_rgb(img.pixels)
     if img.mode in ('RGB', 'RGBA'):
@@ -333,8 +343,12 @@ def to_rgba(img: Decoded) -> np.ndarray:
     raise ValueError(f'to_rgba takes RGBA, LA and P images, not {img.mode}')
 
 
-def to_l(img: Decoded) -> np.ndarray:
-    """Pillow's ``convert('L')``: uint8 [H, W]."""
+def to_l(img: Decoded, path: str = 'image data') -> np.ndarray:
+    """Pillow's ``convert('L')``: uint8 [H, W]. Pillow has none from 'LAB',
+    and this raises a ValueError naming ``path`` there."""
+    if img.mode == 'LAB':
+        raise ValueError(f'{path}: a CIELab image, which Pillow converts to RGB but not to L '
+                         '(its convert(\'L\') fails), and so does the PyTorch port')
     if img.mode == 'P':
         return _luma(img.palette[None])[0][img.pixels]
     if img.mode == 'CMYK':                     # through RGB, as Pillow converts it
@@ -559,7 +573,7 @@ def read_image(path: str, mode: str) -> np.ndarray:
     if mode not in ('RGB', 'L'):
         raise ValueError(f'read_image reads RGB or L, not {mode}')
     img = read_decoded(path)
-    return to_rgb(img) if mode == 'RGB' else to_l(img)
+    return to_rgb(img) if mode == 'RGB' else to_l(img, path)
 
 
 def load_image(path: str, width: int, height: int) -> np.ndarray:

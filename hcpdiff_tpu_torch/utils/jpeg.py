@@ -1,14 +1,24 @@
 """JPEG decoding and encoding for the port, which depends on no imaging
-package, aiming at what Pillow gives over libjpeg(-turbo) with its defaults.
+package, aiming at what Pillow gives over libjpeg-turbo 3 with its
+defaults.
 
 Decoding (``decode_jpeg``/``read_jpeg``, and ``decode_jpeg_mode``, which
 also gives Pillow's mode) runs in C++ (``csrc/image_decode.cpp`` through
 ``utils/native.py``) and takes:
 
-- baseline, extended sequential and progressive Huffman JPEG (SOF0, SOF1,
-  SOF2: DC first and refinement scans, AC first scans with end-of-band
-  runs, AC refinement scans), 8-bit samples, restart intervals, any APPn
-  and COM segments;
+- baseline, extended sequential and progressive JPEG (SOF0, SOF1, SOF2:
+  DC first and refinement scans, AC first scans with end-of-band runs, AC
+  refinement scans), 8-bit samples, restart intervals, any APPn and COM
+  segments;
+- the same coded arithmetically (SOF9, SOF10: ``jdarith.c``'s Q-coder,
+  the conditioning of a DAC segment or its defaults);
+- a progressive file some of whose low coefficient bits never arrive (a
+  file cut after its first scans): libjpeg-turbo's block smoothing
+  (``jdcoefct.c:decompress_smooth_data``, its 5x5 DC neighbourhood);
+- lossless Huffman JPEG (SOF3): predictors 1-7, the point transform,
+  restart intervals, 1, 3 or 4 components, taken for grey, RGB or CMYK as
+  libjpeg-turbo 3 takes them, subsampled components replicated (libjpeg's
+  fancy upsampling wants a DCT size above 1);
 - 1, 3 or 4 components and every set of sampling factors libjpeg takes,
   upsampled as ``jdsample.c`` chooses (fancy h2v1/h2v2 where the
   downsampled width is above 2, fancy h1v2, else replication);
@@ -19,11 +29,12 @@ also gives Pillow's mode) runs in C++ (``csrc/image_decode.cpp`` through
   transform other than 0) with ``jdcolor.c``'s fixed-point conversions to RGB or CMYK. Pillow
   reads four components as ``CMYK;I`` (inverted), and so does this.
 
-Arithmetic-coded, lossless, hierarchical and 12-bit files, and a
-progressive file some of whose coefficient bits never arrive (which
-libjpeg would smooth), raise ``UnsupportedJPEG`` (a ``ValueError``) naming
-the file and ROADMAP.md queue 1 item 6; corrupt or cut data raises a
-``ValueError`` naming the file.
+What Pillow does not read either raises ``UnsupportedJPEG`` (a
+``ValueError``) naming the file: a precision other than 8 bits (Pillow
+refuses it when it opens the file), hierarchical files (SOF5-7, 13-15),
+lossless arithmetic-coded files (SOF11) and lossless YCbCr or YCCK
+(libjpeg-turbo converts no colours in lossless mode). Corrupt or cut data
+raises a ``ValueError`` naming the file.
 
 Encoding (``encode_jpeg``/``write_jpeg``) writes Pillow's bytes for an
 8-bit L or RGB image at a quality (the section "encoding" below).
@@ -36,8 +47,6 @@ from typing import List, Tuple
 import numpy as np
 
 from . import native
-
-ROADMAP = 'ROADMAP.md queue 1 item 6: image formats'
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -65,8 +74,9 @@ def decode_jpeg_mode(data: bytes, path: str = 'JPEG data') -> Tuple[np.ndarray, 
         pixels = native.jpeg_decode(data)
     except native.JPEGError as e:
         if e.unsupported:
-            raise UnsupportedJPEG(f'{path}: {e} JPEG files are not decoded by the PyTorch port '
-                                  f'({ROADMAP}); convert it to a baseline JPEG or a PNG') from None
+            raise UnsupportedJPEG(f'{path}: {e} JPEG files are read neither by Pillow '
+                                  '(libjpeg-turbo\'s 8-bit API) nor by the PyTorch port; convert '
+                                  'it to a baseline JPEG or a PNG') from None
         raise ValueError(f'{path}: corrupt or cut JPEG data ({e}); the PyTorch port reads PNG, '
                          'JPEG, GIF, BMP, WebP, TIFF and ICO images') from None
     mode = _MODES[pixels.shape[2]]

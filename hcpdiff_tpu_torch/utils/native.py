@@ -8,9 +8,10 @@ helper:
   ``csrc/image_ops.cpp`` (a test holds the two byte-identical). The data
   path takes it under ``HCP_NATIVE_IMG=1``.
 - ``image_decode``: the serial loops of image decoding, over
-  ``csrc/image_decode.cpp``: JPEG (baseline, extended and progressive
-  Huffman, as libjpeg decodes them), GIF's LZW, BMP's RLE8/RLE4 and PNG's
-  row filters, TIFF's LZW and PackBits. Every image the port reads goes
+  ``csrc/image_decode.cpp``: JPEG (sequential, progressive and lossless,
+  Huffman or arithmetic coded, as libjpeg-turbo decodes them), GIF's LZW,
+  BMP's RLE8/RLE4 and PNG's row filters, TIFF's LZW, PackBits, CCITT fax,
+  ThunderScan and ZSTD. Every image the port reads goes
   through it (``utils/images.py:decode_image``).
 - ``webp_decode``: WebP's three codings over ``csrc/webp_decode.cpp``: the
   lossy VP8 key frame to RGBA as libwebp converts it, the lossless VP8L
@@ -54,7 +55,7 @@ BUILD_LOG = BUILD_DIR / 'image_ops_build.log'
 CXX_FLAGS = ['-O3', '-march=native', '-ffast-math', '-funroll-loops', '-fPIC', '-std=c++17',
              '-Wall']
 VERSION = 1                      # hcp_image_ops_version()
-DECODE_VERSION = 2               # hcp_image_decode_version()
+DECODE_VERSION = 3               # hcp_image_decode_version()
 WEBP_VERSION = 1                 # hcp_webp_decode_version()
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -109,7 +110,7 @@ def decoder() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(DECODE_SOURCE, 'image_decode')))
     err = [ctypes.c_char_p, ctypes.c_int]
     lib.hcp_jpeg_header.argtypes = [_U8P, _I64, _I32P] + err
-    lib.hcp_jpeg_decode.argtypes = [_U8P, _I64, _U8P, _I64, _I32P] + err
+    lib.hcp_jpeg_decode.argtypes = [_U8P, _I64, _U8P, _I64, _I32P, ctypes.c_int] + err
     lib.hcp_gif_lzw.argtypes = [_U8P, _I64, ctypes.c_int, _U8P, _I64]
     lib.hcp_gif_lzw.restype = _I64
     lib.hcp_bmp_rle.argtypes = [_U8P, _I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8P]
@@ -119,6 +120,10 @@ def decoder() -> ctypes.CDLL:
     lib.hcp_tiff_lzw.restype = _I64
     lib.hcp_packbits.argtypes = [_U8P, _I64, _U8P, _I64]
     lib.hcp_packbits.restype = _I64
+    lib.hcp_fax_decode.argtypes = [_U8P, _I64] + [ctypes.c_int] * 4 + [_U8P] + err
+    lib.hcp_thunderscan.argtypes = [_U8P, _I64, ctypes.c_int, ctypes.c_int, _U8P]
+    lib.hcp_zstd.argtypes = [_U8P, _I64, _U8P, _I64] + err
+    lib.hcp_zstd.restype = _I64
     if lib.hcp_image_decode_version() != DECODE_VERSION:
         raise RuntimeError(f'{DECODE_SOURCE}: expected hcp_image_decode_version() '
                            f'{DECODE_VERSION}')
@@ -154,22 +159,33 @@ class JPEGError(ValueError):
         self.unsupported = unsupported
 
 
-def jpeg_decode(data: bytes) -> np.ndarray:
+def jpeg_decode(data: bytes, colour: Optional[str] = None):
     """A JPEG's bytes -> uint8 [H, W, C] as libjpeg outputs it: C = 1 grey,
-    3 RGB, 4 CMYK. Raises JPEGError."""
+    3 RGB, 4 CMYK. ``colour`` overrides libjpeg's colour-space guess as
+    libtiff's JPEG codecs do: 'none' (the components as stored), 'rgb'
+    (YCbCr to RGB), 'raw' (a list of each component's samples [dh, dw],
+    neither upsampled nor converted). Raises JPEGError."""
     lib = decoder()
     src = _bytes(data)
-    info = np.zeros(3, np.int32)
+    info = np.zeros(11, np.int32)
     err = ctypes.create_string_buffer(256)
     rc = lib.hcp_jpeg_header(_u8(src), len(data), info.ctypes.data_as(_I32P), err, 256)
     if rc == 0:
-        w, h, c = (int(v) for v in info)
-        out = np.empty((h, w, c), np.uint8)
+        w, h, c = (int(v) for v in info[:3])
+        sizes = [(int(info[4 + 2 * k]), int(info[3 + 2 * k])) for k in range(c)]
+        out = np.empty(sum(a * b for a, b in sizes) if colour == 'raw' else h * w * c, np.uint8)
         rc = lib.hcp_jpeg_decode(_u8(src), len(data), _u8(out), out.size,
-                                 info.ctypes.data_as(_I32P), err, 256)
+                                 info.ctypes.data_as(_I32P),
+                                 {None: -1, 'none': 0, 'rgb': 1, 'raw': 2}[colour], err, 256)
     if rc:
         raise JPEGError(err.value.decode(errors='replace'), unsupported=rc == 1)
-    return out
+    if colour != 'raw':
+        return out.reshape(h, w, c)
+    planes, at = [], 0
+    for dh, dw in sizes:
+        planes.append(out[at:at + dh * dw].reshape(dh, dw))
+        at += dh * dw
+    return planes
 
 
 def gif_lzw(data: bytes, min_code_size: int, npix: int) -> np.ndarray:
@@ -238,10 +254,10 @@ def alpha_decode(data: bytes, width: int, height: int, info: Optional[list] = No
 
 
 def tiff_lzw(data: bytes, size: int) -> np.ndarray:
-    """A TIFF LZW strip or tile (the code width grows one code early) ->
-    its first ``size`` bytes, zeros where the data ends early. Raises
-    ValueError on old-style (LSB-first) LZW or a code that names no
-    entry."""
+    """A TIFF LZW strip or tile (the code width grows one code early; or
+    old-style, LSB first, as libtiff tells it) -> its first ``size``
+    bytes, zeros where the data ends early. Raises ValueError on a code
+    that names no entry."""
     out = np.zeros(size, np.uint8)
     err = ctypes.create_string_buffer(256)
     got = decoder().hcp_tiff_lzw(_u8(_bytes(data)), len(data), _u8(out), size, err, 256)
@@ -256,6 +272,40 @@ def packbits(data: bytes, size: int) -> np.ndarray:
     out = np.zeros(size, np.uint8)
     decoder().hcp_packbits(_u8(_bytes(data)), len(data), _u8(out), size)
     return out
+
+
+def fax(data: bytes, compression: int, width: int, rows: int, options: int = 0) -> np.ndarray:
+    """A CCITT strip or tile (compression 2, 3, 4 or 32771; ``options``
+    its T4Options or T6Options) -> ``rows`` rows of ``(width + 7) // 8``
+    bytes, the second colour's runs as 1 bits. Raises ValueError on
+    corrupt or cut data."""
+    out = np.zeros(rows * ((width + 7) // 8), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if decoder().hcp_fax_decode(_u8(_bytes(data)), len(data), int(compression), int(options),
+                                int(width), int(rows), _u8(out), err, 256):
+        raise ValueError(f'corrupt CCITT data ({err.value.decode(errors="replace")})')
+    return out
+
+
+def thunderscan(data: bytes, width: int, rows: int) -> np.ndarray:
+    """A ThunderScan strip or tile -> ``rows`` rows of ``(width + 1) // 2``
+    bytes of 4-bit pixels. Raises ValueError where a row decodes to a wrong
+    count of pixels, as libtiff does."""
+    out = np.zeros(rows * ((width + 1) // 2), np.uint8)
+    if decoder().hcp_thunderscan(_u8(_bytes(data)), len(data), int(width), int(rows), _u8(out)):
+        raise ValueError('corrupt ThunderScan data (a row of the wrong length)')
+    return out
+
+
+def zstd(data: bytes, size: int) -> np.ndarray:
+    """ZSTD frames -> their first ``size`` bytes (fewer where the data
+    holds fewer). Raises ValueError on corrupt or cut data."""
+    out = np.zeros(size, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    got = decoder().hcp_zstd(_u8(_bytes(data)), len(data), _u8(out), size, err, 256)
+    if got < 0:
+        raise ValueError(f'corrupt ZSTD data ({err.value.decode(errors="replace")})')
+    return out[:got]
 
 
 def resize_crop_normalize(img: np.ndarray, resize_wh: Tuple[int, int],

@@ -125,10 +125,10 @@ def test_rgba_composite_matches_jax(tmp_path):
 
 
 def test_non_png_images_raise_naming_the_file(tmp_path):
-    """A progressive JPEG, a BMP and a TIFF, which the port refused before
-    it had their decoders, load as the JAX package loads them; a
-    JPEG-compressed TIFF, a kind still unread, and a file that is no image
-    raise, naming the file."""
+    """A progressive JPEG, a BMP, a TIFF and a JPEG-compressed TIFF, which
+    the port refused before it had their decoders, load as the JAX package
+    loads them; a WebP-compressed TIFF (which Pillow's libtiff cannot read
+    either) and a file that is no image raise, naming the file."""
     path = str(tmp_path / 'photo.jpg')
     rng = np.random.default_rng(3)
     Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(path, progressive=True)
@@ -143,8 +143,14 @@ def test_non_png_images_raise_naming_the_file(tmp_path):
     tif = str(tmp_path / 'photo.tif')
     Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(tif)
     np.testing.assert_array_equal(tutils.load_rgb(tif), np.asarray(Image.open(tif)))
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tif, compression='jpeg')
-    with pytest.raises(ValueError, match='photo.tif: JPEG-in-TIFF'):
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(tif, compression='jpeg')
+    np.testing.assert_array_equal(tutils.load_rgb(tif),
+                                  np.asarray(jutils.composite_rgba(Image.open(tif))))
+    data = bytearray(open(tif, 'rb').read())
+    data[data.index(b'\x03\x01\x03\x00\x01\x00\x00\x00\x07\x00') + 8] = 0x51   # 50001
+    data[data.index(b'\x03\x01\x03\x00\x01\x00\x00\x00\x51\x00') + 9] = 0xC3
+    open(tif, 'wb').write(bytes(data))
+    with pytest.raises(ValueError, match='photo.tif: WebP-compressed TIFF'):
         tutils.load_rgb(tif)
     junk = tmp_path / 'junk.png'
     junk.write_bytes(b'not an image')

@@ -3,9 +3,11 @@
 on the CPU:
 
 - every file committed under tests/data/torch_port_formats,
-  tests/data/torch_port_jpeg and tests/data/torch_port_webp_tiff_ico (WebP,
-  TIFF, ICO: ``test_torch_port_webp.py`` and ``test_torch_port_tiff.py``
-  hold their variants): ``data/utils.py``'s ``load_rgb`` (default
+  tests/data/torch_port_jpeg, tests/data/torch_port_webp_tiff_ico and
+  tests/data/torch_port_rare (WebP, TIFF, ICO and the rarer JPEG kinds:
+  ``test_torch_port_webp.py``, ``test_torch_port_tiff.py`` and
+  ``test_torch_port_jpeg_rare.py`` hold their variants), and the port's
+  ``get_image_size`` against the JAX package's on each: ``data/utils.py``'s ``load_rgb`` (default
   background, another, and None) and ``load_gray`` against
   ``composite_rgba(Image.open(f), bg)``, ``convert('RGB')`` and
   ``convert('L')``; ``read_image`` 'RGB'/'L'; ``load_image``/``load_mask``
@@ -21,8 +23,12 @@ on the CPU:
   RLE with a black-white palette, which both refuse; JPEG at
   samplings Pillow cannot write (3:1 replication, a chroma two samples
   wide), Adobe RGB, progressive with restart intervals;
-- arithmetic-coded and lossless JPEG, JPEG-in-TIFF and CCITT TIFF raise a
-  ``ValueError`` naming the file, the kind and the ROADMAP item.
+- arithmetic-coded and lossless JPEG, JPEG-in-TIFF, CCITT and CIELab TIFF,
+  which the port refused before, read as the JAX package reads them; a
+  hierarchical JPEG and a WebP-compressed TIFF (both refused by Pillow
+  too) raise a ``ValueError`` naming the file and the kind
+  (``test_torch_port_jpeg_rare.py`` and ``test_torch_port_tiff.py`` hold
+  the rarer kinds' variants).
 """
 import importlib.util
 import io
@@ -35,7 +41,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from hcpdiff_tpu.data import img_size as jimg_size
 from hcpdiff_tpu.data import utils as jutils
+from hcpdiff_tpu_torch.data import img_size as timg_size
 from hcpdiff_tpu_torch.data import utils as tutils
 from hcpdiff_tpu_torch.utils import images
 
@@ -60,18 +68,27 @@ def _jax(path, fn):
 
 
 def assert_reads_as_jax(path):
-    """Every port reader against the JAX package's Pillow call on ``path``."""
+    """Every port reader against the JAX package's Pillow call on ``path``
+    (where Pillow's ``convert('L')`` fails, as for CIELab, the port's grey
+    readers raise naming the file)."""
     rgb = _jax(path, lambda im: jutils.composite_rgba(im))
     cases = [
         ('load_rgb', tutils.load_rgb(path), rgb),
         ('load_rgb bg', tutils.load_rgb(path, BG), _jax(path, lambda im: jutils.composite_rgba(
             im, BG))),
         ('load_rgb None', tutils.load_rgb(path, None), _jax(path, lambda im: im.convert('RGB'))),
-        ('load_gray', tutils.load_gray(path), _jax(path, lambda im: im.convert('L'))),
         ('read_image RGB', images.read_image(path, 'RGB'), _jax(path,
                                                                 lambda im: im.convert('RGB'))),
-        ('read_image L', images.read_image(path, 'L'), _jax(path, lambda im: im.convert('L'))),
     ]
+    try:
+        grey = _jax(path, lambda im: im.convert('L'))
+    except ValueError:
+        for reader in (tutils.load_gray, lambda p: images.read_image(p, 'L')):
+            with pytest.raises(ValueError, match=os.path.basename(path)):
+                reader(path)
+    else:
+        cases += [('load_gray', tutils.load_gray(path), grey),
+                  ('read_image L', images.read_image(path, 'L'), grey)]
     with open(path, 'rb') as f:
         dec = images.decode_image(f.read(), path)
     with Image.open(path) as im:
@@ -90,9 +107,47 @@ def test_committed_file_reads_as_the_jax_package_reads_it(rel):
     init = _jax(path, lambda im: jutils.to_model_input(im.convert('RGB').resize(
         (40, 24), Image.BICUBIC)))
     np.testing.assert_array_equal(images.load_image(path, 40, 24)[0], init)
-    mask = _jax(path, lambda im: im.convert('L').resize((12, 20)))
+    try:
+        mask = _jax(path, lambda im: im.convert('L').resize((12, 20)))
+    except ValueError:                        # CIELab: no L in Pillow, nor in the port
+        with pytest.raises(ValueError, match=rel.split('/')[-1]):
+            images.load_mask(path, 12, 20)
+        return
     np.testing.assert_array_equal(images.load_mask(path, 12, 20)[0, :, :, 0],
                                   mask.astype(np.float32) / 255.0)
+
+
+@pytest.mark.parametrize('rel', FILES)
+def test_image_size_matches_the_jax_package_s(rel):
+    """The bucket builder's size probe: the port's ``get_image_size`` is
+    the JAX package's on every committed file, the BigTIFF (which the JAX
+    probe misses and Pillow sizes) included."""
+    path = os.path.join(DATA, rel)
+    assert timg_size.get_image_size(path) == jimg_size.get_image_size(path)
+
+
+@pytest.mark.parametrize('case', ['bigtiff_pillow', 'bigtiff_orientation_6', 'tiff_long_tags',
+                                  'ico_first_entry'])
+def test_image_size_where_the_probes_miss_or_differ(tmp_path, case):
+    """Where every header probe misses (BigTIFF, written by Pillow or with
+    Orientation 6, which Pillow's size swaps), the port asks its own
+    readers what the JAX package asks Pillow; where a probe hits with a
+    size other than the decoded image's (an ICO's first entry), both keep
+    the probe's."""
+    rgb = mk.photo(37, 53, 3, seed=4)
+    path = str(tmp_path / ('v.ico' if case.startswith('ico') else 'v.tif'))
+    if case == 'bigtiff_pillow':
+        Image.fromarray(rgb).save(path, big_tiff=True)
+    elif case == 'bigtiff_orientation_6':
+        open(path, 'wb').write(mk.tiff_bytes(rgb, 8, 2, big=True, orientation=6))
+    elif case == 'tiff_long_tags':
+        open(path, 'wb').write(mk.tiff_bytes(rgb, 8, 2, compression=5))
+    else:
+        Image.fromarray(rgb).save(path, 'ICO', sizes=[(16, 16), (48, 48)])
+    want = jimg_size.get_image_size(path)
+    assert timg_size.get_image_size(path) == want
+    if case == 'bigtiff_orientation_6':
+        assert want == (37, 53)
 
 
 def test_expected_json_is_what_pillow_gives():
@@ -106,11 +161,17 @@ def test_expected_json_is_what_pillow_gives():
     for rel, want in committed.items():
         path = os.path.join(DATA, rel)
         assert mk.digest(tutils.load_rgb(path)) == want['rgb'], rel
-        assert mk.digest(tutils.load_gray(path)) == want['l'], rel
+        if want['l'] is None:
+            with pytest.raises(ValueError, match='CIELab'):
+                tutils.load_gray(path)
+        else:
+            assert mk.digest(tutils.load_gray(path)) == want['l'], rel
     sizes = sum(os.path.getsize(os.path.join(FORMATS, n)) for n in os.listdir(FORMATS))
     assert sizes < 400_000
     sizes = sum(os.path.getsize(os.path.join(mk.MORE, n)) for n in os.listdir(mk.MORE))
     assert sizes < 300_000
+    sizes = [os.path.getsize(os.path.join(mk.RARE, n)) for n in os.listdir(mk.RARE)]
+    assert sum(sizes) < 200_000 and max(sizes) < 30_000
 
 
 # ---------------------------------------------------------------- variants
@@ -334,31 +395,49 @@ def test_bmp_kinds_pillow_refuses_raise_in_both(tmp_path, case):
 # ------------------------------------------------------------------ refused
 
 def _refused_file(tmp_path, kind):
-    if kind in ('arithmetic', 'lossless'):
-        data = bytearray(_jpeg_bytes(mk.photo(16, 16, 3, seed=1)))
-        data[data.index(b'\xff\xc0') + 1] = 0xC9 if kind == 'arithmetic' else 0xC3  # SOF9, SOF3
+    rgb = mk.photo(16, 16, 3, seed=1)
+    if kind in ('arithmetic', 'lossless', 'hierarchical'):
+        if kind == 'arithmetic':
+            data = mk.jpeg_arith(mk.ycc_planes(rgb), [(2, 2), (1, 1), (1, 1)])
+        elif kind == 'lossless':
+            data = mk.jpeg_lossless(rgb.transpose(2, 0, 1), 1, ids=[82, 71, 66])
+        else:
+            data = bytearray(_jpeg_bytes(rgb))
+            data[data.index(b'\xff\xc0') + 1] = 0xC5      # SOF5
         name = f'{kind}.jpg'
     else:
         buf = io.BytesIO()
-        im = Image.fromarray(mk.photo(16, 16, 3, seed=1))
+        im = Image.fromarray(rgb)
         if kind == 'tiff_jpeg':
             im.save(buf, 'TIFF', compression='jpeg')
-        else:
+        elif kind == 'tiff_ccitt':
             im.convert('1').save(buf, 'TIFF', compression='group4')
+        elif kind == 'tiff_lab':
+            im.convert('LAB').save(buf, 'TIFF')
+        else:
+            buf.write(mk.tiff_bytes(rgb, 8, 2, compression=50001))
         data, name = buf.getvalue(), f'{kind}.tif'
     path = tmp_path / name
     path.write_bytes(bytes(data))
     return str(path), name
 
 
-@pytest.mark.parametrize('kind,what', [('arithmetic', 'arithmetic-coded'),
-                                       ('lossless', 'lossless'),
-                                       ('tiff_jpeg', 'JPEG-in-TIFF'),
-                                       ('tiff_ccitt', 'CCITT group 4')])
+# the kinds refused before (now read as the JAX package reads them: what
+# None), and those still refused, with the message
+@pytest.mark.parametrize('kind,what', [('arithmetic', None), ('lossless', None),
+                                       ('tiff_jpeg', None), ('tiff_ccitt', None),
+                                       ('hierarchical', 'hierarchical JPEG files are read '
+                                                        'neither by Pillow'),
+                                       ('tiff_webp', 'WebP-compressed TIFF images are read '
+                                                     'neither by Pillow'),
+                                       ('tiff_lab', None)])
 def test_unread_formats_raise_naming_the_file(tmp_path, kind, what):
     path, name = _refused_file(tmp_path, kind)
+    if what is None:
+        assert_reads_as_jax(path)
+        return
     for reader in (tutils.load_rgb, tutils.load_gray, lambda p: images.read_image(p, 'RGB')):
-        with pytest.raises(ValueError, match=f'{name}: {what}.*ROADMAP.md queue 1 item 6'):
+        with pytest.raises(ValueError, match=f'{name}: {what}'):
             reader(path)
 
 

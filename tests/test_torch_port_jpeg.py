@@ -2,8 +2,9 @@
 (libjpeg-turbo with its defaults), on files Pillow writes from seeded
 arrays: bitwise, for quality 50/90/100, 4:4:4/4:2:2/4:2:0, greyscale,
 restart intervals, optimized Huffman tables, comment and EXIF segments
-and odd sizes. Progressive files decode as Pillow decodes them; an
-arithmetic-coded file raises naming the file and the ROADMAP item. Every
+and odd sizes. Progressive files decode as Pillow decodes them; a
+progressive file patched to sequential arithmetic coding raises naming the
+file (``test_torch_port_jpeg_rare.py`` holds arithmetic coding). Every
 port reader takes JPEG through it (``data/utils.py``'s
 ``load_rgb``/``load_gray``, ``utils/images.py:read_image``), the files
 committed under tests/data/torch_port_jpeg decode as Pillow decodes them, and
@@ -19,7 +20,6 @@ from PIL import Image
 
 from hcpdiff_tpu_torch.data.utils import load_gray, load_rgb
 from hcpdiff_tpu_torch.utils.images import decode_jpeg, read_image, read_jpeg
-from hcpdiff_tpu_torch.utils.jpeg import UnsupportedJPEG
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 COMMITTED = ROOT / 'tests' / 'data' / 'torch_port_jpeg'
@@ -79,8 +79,10 @@ def test_restarts_tables_and_segments_are_bitwise_pillow(kw):
 
 def test_progressive_jpeg_raises_naming_the_file(tmp_path):
     """A progressive JPEG, which the Python decoder refused, now decodes as
-    Pillow decodes it through every reader; an arithmetic-coded one (its
-    SOF byte patched to 0xC9) still raises, naming the file and the item."""
+    Pillow decodes it through every reader; with its SOF byte patched to
+    0xC9 (sequential arithmetic coding, its scans' parameters progressive),
+    libjpeg only warns and follows its buffer mode, and the port raises,
+    naming the file."""
     path = tmp_path / 'prog.jpg'
     data = _jpeg(_photo(32, 32, 3, seed=1), progressive=True)
     path.write_bytes(data)
@@ -89,10 +91,10 @@ def test_progressive_jpeg_raises_naming_the_file(tmp_path):
     arith = bytearray(data)
     arith[arith.index(b'\xff\xc2') + 1] = 0xC9
     path.write_bytes(bytes(arith))
-    with pytest.raises(UnsupportedJPEG, match='prog.jpg: arithmetic-coded.*ROADMAP.md queue 1 '
-                                              'item 6'):
+    with pytest.raises(ValueError, match='prog.jpg: corrupt or cut JPEG data .a sequential scan '
+                                         'with progressive parameters'):
         read_jpeg(str(path))
-    with pytest.raises(ValueError, match='prog.jpg: arithmetic-coded'):
+    with pytest.raises(ValueError, match='prog.jpg: corrupt'):
         load_rgb(str(path))
 
 
